@@ -1,0 +1,349 @@
+// Fused semi-implicit Cahn-Hilliard macro-step on the cas (Hartley) spectrum,
+// hand-written for Hopper (sm_90a), with the optional RL env epilogue.
+//
+// Replaces the TPU kernels of pde_opt_tpu/ops/cas_spectral.py,
+// make_ch_cas_fused_macro: `kernel` (the plain macro, K2) and `kernel_ep`
+// with `_ep_emit` (the macro plus the env epilogue, K1).  It computes what
+// they compute, per env, without their MXU layout (no 128-wide env packing,
+// no block-diagonal matrices, no int32 detour before uint8):
+//
+//   fwd(z) = C_H^T z C_W,   inv(z) = C_H^T z C_W / (H*W)   (C: symmetric cas)
+//   u~ = fwd(u)
+//   n_steps times:  incr = cm * fwd(mu(u)) - cu * u~;  u~ += incr;  u += inv(incr)
+//   cm = dt*lam / (1 + A*dt*kappa*lam^2),  cu = dt*kappa*lam^2 / (1 + A*dt*kappa*lam^2)
+//
+// With bf16 matrices the operand z and the intermediate of each transform
+// are rounded to bf16 (the matrices arrive already rounded); products
+// accumulate in f32.  The epilogue emits [sum(u-c), sum((u-c)^2), n_finite]
+// over finite pixels and the uint8 observation, mean-pooled by `ds` when
+// ds > 1.
+//
+// Bound: per env-substep the four 64x64x64 products are 4*H*W*(H+W) FLOPs,
+// 2.1 MFLOP at 64^2; at 4096 envs x 10 substeps that is ~86 GFLOP against
+// ~150 MB of field traffic, so the kernel is bound by arithmetic, not by
+// device memory.  Design: one block of 256 threads owns one env at a time
+// (grid-stride over envs, so each block loads the four matrices once); the
+// matrices and two transform tiles live in 96 KB of shared memory; u, u~ and
+// the per-pixel multipliers stay in registers for all substeps, so the field
+// touches device memory once in and once out.  Each thread computes a 4x4
+// output tile of every product from float4 shared-memory loads, in plain f32
+// FMA on the CUDA cores.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kLd = 64;          // row stride of every shared tile (max H, W)
+constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kMaxCoeffs = 8;    // mu is a polynomial of degree <= 7
+
+struct MuPoly {
+  float c[kMaxCoeffs];   // c[i] multiplies x^i; zero above the degree
+};
+
+struct Epilogue {
+  float* stats;          // (B, 3) or nullptr for the plain macro
+  unsigned char* obs;    // (B, H/ds, W/ds)
+  int ds;
+  float scale, offset, center;
+};
+
+__device__ __forceinline__ float rnd_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Horner's rule over all kMaxCoeffs coefficients (zero above the degree):
+// constant indices keep the coefficients in registers, not local memory.
+__device__ __forceinline__ float mu_eval(const MuPoly& mu, float x) {
+  float p = 0.f;
+#pragma unroll
+  for (int i = kMaxCoeffs - 1; i >= 0; --i) p = p * x + mu.c[i];
+  return p;
+}
+
+// acc[i][j] = sum_d A[d][r0 + i] * B[d][c0 + j]   (both tiles stored [d][.])
+__device__ __forceinline__ void mm_tn(const float* __restrict__ A,
+                                      const float* __restrict__ B, int depth,
+                                      int r0, int c0, float acc[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < depth; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(A + d * kLd + r0);
+    const float4 b = *reinterpret_cast<const float4*>(B + d * kLd + c0);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// out = Mh^T Z Mw for the (H, W) tile Z that the caller has just written to
+// zs.  The intermediate (Z^T Mh, stored [w][k] in ts) is rounded to bf16
+// when rnd is set.  Every thread must call it: it holds two barriers.
+__device__ __forceinline__ void transform(const float* zs, float* ts,
+                                          const float* mh, const float* mw,
+                                          int H, int W, int ty4, int tx4,
+                                          bool rnd, float out[4][4]) {
+  __syncthreads();                                   // zs complete
+  if (ty4 < W && tx4 < H) {
+    float t[4][4];
+    mm_tn(zs, mh, H, ty4, tx4, t);                   // t[w][k]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4 v;
+      v.x = rnd ? rnd_bf16(t[i][0]) : t[i][0];
+      v.y = rnd ? rnd_bf16(t[i][1]) : t[i][1];
+      v.z = rnd ? rnd_bf16(t[i][2]) : t[i][2];
+      v.w = rnd ? rnd_bf16(t[i][3]) : t[i][3];
+      *reinterpret_cast<float4*>(ts + (ty4 + i) * kLd + tx4) = v;
+    }
+  }
+  __syncthreads();                                   // ts complete
+  if (ty4 < H && tx4 < W) mm_tn(ts, mw, W, ty4, tx4, out);   // out[k][l]
+}
+
+__device__ __forceinline__ void store_tile(float* zs, int ty4, int tx4,
+                                           const float v[4][4], bool rnd) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4 q;
+    q.x = rnd ? rnd_bf16(v[i][0]) : v[i][0];
+    q.y = rnd ? rnd_bf16(v[i][1]) : v[i][1];
+    q.z = rnd ? rnd_bf16(v[i][2]) : v[i][2];
+    q.w = rnd ? rnd_bf16(v[i][3]) : v[i][3];
+    *reinterpret_cast<float4*>(zs + (ty4 + i) * kLd + tx4) = q;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+ch_cas_macro_kernel(const float* __restrict__ u_in,
+                    const float* __restrict__ kappa,
+                    const float* __restrict__ g_ch, const float* __restrict__ g_cw,
+                    const float* __restrict__ g_ich, const float* __restrict__ g_icw,
+                    const float* __restrict__ lam, const float* __restrict__ lam2,
+                    float* __restrict__ u_out, int B, int H, int W, int n_steps,
+                    float dt, float a_dt, MuPoly mu, bool rnd, Epilogue ep) {
+  extern __shared__ float4 smem4[];
+  float* ch = reinterpret_cast<float*>(smem4);
+  float* cw = ch + kLd * kLd;
+  float* ich = cw + kLd * kLd;
+  float* icw = ich + kLd * kLd;
+  float* zs = icw + kLd * kLd;
+  float* ts = zs + kLd * kLd;
+  __shared__ float red[kThreads / 32][3];
+
+  const int tid = threadIdx.x;
+  const int ty4 = (tid / 16) * 4;        // first row (H axis) this thread owns
+  const int tx4 = (tid % 16) * 4;        // first column (W axis)
+  const bool own = ty4 < H && tx4 < W;
+
+  for (int idx = tid; idx < H * H; idx += kThreads) {
+    const int r = idx / H, c = idx % H;
+    ch[r * kLd + c] = g_ch[idx];
+    ich[r * kLd + c] = g_ich[idx];
+  }
+  for (int idx = tid; idx < W * W; idx += kThreads) {
+    const int r = idx / W, c = idx % W;
+    cw[r * kLd + c] = g_cw[idx];
+    icw[r * kLd + c] = g_icw[idx];
+  }
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const float* ue = u_in + static_cast<size_t>(env) * H * W;
+    const float k = kappa[env];
+    float u[4][4], ut[4][4], cm[4][4], cu[4][4], f[4][4];
+    if (own) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = (ty4 + i) * W + tx4;
+        const float4 uv = *reinterpret_cast<const float4*>(ue + o);
+        const float4 lv = *reinterpret_cast<const float4*>(lam + o);
+        const float4 l2 = *reinterpret_cast<const float4*>(lam2 + o);
+        const float us[4] = {uv.x, uv.y, uv.z, uv.w};
+        const float ls[4] = {lv.x, lv.y, lv.z, lv.w};
+        const float l2s[4] = {l2.x, l2.y, l2.z, l2.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float denom = 1.0f / (1.0f + a_dt * (k * l2s[j]));
+          cm[i][j] = (dt * ls[j]) * denom;
+          cu[i][j] = ((dt * k) * l2s[j]) * denom;
+          u[i][j] = us[j];
+        }
+      }
+    }
+    __syncthreads();              // the previous env's epilogue is done with zs
+    if (own) store_tile(zs, ty4, tx4, u, rnd);
+    transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, ut);
+
+    for (int s = 0; s < n_steps; ++s) {
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[i][j] = mu_eval(mu, u[i][j]);
+        store_tile(zs, ty4, tx4, f, rnd);
+      }
+      transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, f);
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float incr = cm[i][j] * f[i][j] - cu[i][j] * ut[i][j];
+            ut[i][j] += incr;
+            f[i][j] = incr;
+          }
+        store_tile(zs, ty4, tx4, f, rnd);
+      }
+      transform(zs, ts, ich, icw, H, W, ty4, tx4, rnd, f);
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) u[i][j] += f[i][j];
+      }
+    }
+
+    float* uo = u_out + static_cast<size_t>(env) * H * W;
+    if (own) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(uo + (ty4 + i) * W + tx4) =
+            make_float4(u[i][0], u[i][1], u[i][2], u[i][3]);
+    }
+    if (ep.stats == nullptr) continue;
+
+    // ---- env epilogue (_ep_emit) on the register-resident final field ----
+    float s1 = 0.f, s2 = 0.f, nf = 0.f;
+    if (own) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool fin = isfinite(u[i][j]);
+          const float uz = fin ? u[i][j] - ep.center : 0.f;
+          s1 += uz;
+          s2 += uz * uz;
+          nf += fin ? 1.f : 0.f;
+          f[i][j] = uz;
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      nf += __shfl_xor_sync(0xffffffffu, nf, off);
+    }
+    if ((tid & 31) == 0) {
+      red[tid / 32][0] = s1;
+      red[tid / 32][1] = s2;
+      red[tid / 32][2] = nf;
+    }
+    if (ep.ds == 1) {
+      if (own) {
+        unsigned char* oe = ep.obs + static_cast<size_t>(env) * H * W;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          unsigned char q[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float x = isfinite(u[i][j]) ? u[i][j] : 0.f;
+            q[j] = static_cast<unsigned char>(
+                fminf(fmaxf(x * ep.scale + ep.offset, 0.f), 255.f));
+          }
+          *reinterpret_cast<uchar4*>(oe + (ty4 + i) * W + tx4) =
+              make_uchar4(q[0], q[1], q[2], q[3]);
+        }
+      }
+    } else if (own) {
+      store_tile(zs, ty4, tx4, f, false);   // centered, NaN-masked field
+    }
+    __syncthreads();                         // red (and zs when pooling) ready
+    if (tid == 0) {
+      float a = 0.f, b = 0.f, c = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        a += red[w][0];
+        b += red[w][1];
+        c += red[w][2];
+      }
+      float* st = ep.stats + static_cast<size_t>(env) * 3;
+      st[0] = a;
+      st[1] = b;
+      st[2] = c;
+    }
+    if (ep.ds > 1) {
+      const int ds = ep.ds, Hd = H / ds, Wd = W / ds;
+      const float inv = 1.0f / static_cast<float>(ds);
+      unsigned char* oe = ep.obs + static_cast<size_t>(env) * Hd * Wd;
+      for (int o = tid; o < Hd * Wd; o += kThreads) {
+        const int hd = o / Wd, wd = o % Wd;
+        float acc = 0.f;
+        for (int w = 0; w < ds; ++w) {
+          float t = 0.f;
+          for (int h = 0; h < ds; ++h)
+            t += zs[(hd * ds + h) * kLd + wd * ds + w] * inv;
+          acc += t * inv;
+        }
+        oe[o] = static_cast<unsigned char>(
+            fminf(fmaxf((acc + ep.center) * ep.scale + ep.offset, 0.f), 255.f));
+      }
+    }
+    // The next env's first barrier orders these reads of zs and red before
+    // either is written again.
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the macro on `stream`.  stats == nullptr runs the plain macro
+// (K2); otherwise stats and obs are written too (K1).  Returns a
+// cudaError_t value, 0 on success.
+int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
+                        const float* cw, const float* ich, const float* icw,
+                        const float* lam, const float* lam2, float* out,
+                        float* stats, unsigned char* obs, int B, int H, int W,
+                        int n_steps, float dt, float a_dt,
+                        const float* mu_coeffs, int n_coeffs, int round_bf16,
+                        int ds, float obs_scale, float obs_offset, float center,
+                        void* stream) {
+  if (B < 1 || H < 8 || W < 8 || H > kLd || W > kLd || H % 8 || W % 8 ||
+      n_steps < 0 || n_coeffs < 1 || n_coeffs > kMaxCoeffs || ds < 1 ||
+      H % ds || W % ds)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MuPoly mu;
+  for (int i = 0; i < kMaxCoeffs; ++i) mu.c[i] = i < n_coeffs ? mu_coeffs[i] : 0.f;
+  Epilogue ep{stats, obs, ds, obs_scale, obs_offset, center};
+
+  const int smem = 6 * kLd * kLd * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      ch_cas_macro_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, ch_cas_macro_kernel, kThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = B < resident ? B : resident;
+  ch_cas_macro_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      u, kappa, ch, cw, ich, icw, lam, lam2, out, B, H, W, n_steps, dt, a_dt, mu,
+      round_bf16 != 0, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* ch_cas_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

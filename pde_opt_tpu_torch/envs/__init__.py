@@ -1,0 +1,12 @@
+"""Vectorized PDE control environments (PyTorch port)."""
+
+from .presets import make_cahn_hilliard_control_env
+from .vector_env import EnvState, VectorPDEEnv, env_state_from_numpy, env_state_to_numpy
+
+__all__ = [
+    "EnvState",
+    "VectorPDEEnv",
+    "env_state_from_numpy",
+    "env_state_to_numpy",
+    "make_cahn_hilliard_control_env",
+]

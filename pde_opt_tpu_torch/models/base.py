@@ -1,0 +1,15 @@
+"""Base equation protocol (PyTorch port of :mod:`pde_opt_tpu.models.base`).
+
+An equation's ``rhs`` is a function of ``(state, t)`` that treats all
+leading axes of ``state`` as batch axes.
+"""
+
+from __future__ import annotations
+
+
+class BaseEquation:
+    """Time-dependent PDE: ``d(state)/dt = rhs(state, t)``."""
+
+    def rhs(self, state, t):
+        """Right-hand side of the equation (batch axes lead, spatial trail)."""
+        raise NotImplementedError("rhs method not implemented")

@@ -1,0 +1,407 @@
+"""Hartley-transform fused semi-implicit CH macro-step (PyTorch port).
+
+Counterpart of :func:`pde_opt_tpu.ops.cas_spectral.make_ch_cas_fused_macro`
+and :func:`~pde_opt_tpu.ops.cas_spectral.make_ch_cas_fused_macro_ep`.  Every
+multiplier of the semi-implicit CH update is even in each frequency axis,
+so the real, symmetric cas transform ``C[x,k] = cos(2πxk/N) + sin(2πxk/N)``
+diagonalises it; the spectrum ``u~`` is carried across substeps:
+
+    u~ = fwd(u)                                     fwd(z) = C_H^T z C_W
+    n_steps times:
+        incr = cm * fwd(mu(u)) - cu * u~            inv(z) = fwd(z) / (H W)
+        u~  += incr
+        u   += inv(incr)
+
+with ``cm = dt lam / (1 + A dt κ lam²)`` and ``cu = dt κ lam² / (1 + A dt κ
+lam²)`` for the FD Laplacian symbol ``lam`` and each env's own κ.  With
+``mats_dtype=torch.bfloat16`` (the default, as in the JAX package) the cas
+matrices, each transform's operand and its intermediate are rounded to bf16
+where the JAX kernel rounds them; products accumulate in f32.
+
+The optional env epilogue emits, from the same pass over the final field,
+per-env ``[sum(u-c), sum((u-c)^2), n_finite]`` over finite pixels and the
+uint8 observation ``clip(u*scale + offset, 0, 255)`` (mean-pooled by
+``obs_downsample``), so the env step never re-reads the field.
+
+Each macro has two implementations of the same function:
+:func:`ch_cas_macro_plain` (plain torch; what CPU tensors run) and
+:func:`ch_cas_macro_cuda` (the hand-written Hopper kernel
+``csrc/ch_cas_macro.cu``; what CUDA tensors run).  There is no fallback
+from one to the other.  Gradients through the CUDA kernel need the
+backward kernel K3, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .fused_spectral import _fd_lap_symbols, ch_sif_macro_reference
+from .kernels import count_launch, load_library
+
+__all__ = [
+    "PolynomialMu",
+    "MAX_MU_DEGREE",
+    "CasConstants",
+    "Epilogue",
+    "cas_constants",
+    "ch_cas_macro_plain",
+    "ch_cas_macro_cuda",
+    "make_ch_cas_fused_macro",
+    "make_ch_cas_fused_macro_ep",
+    "ch_cas_macro_reference",
+]
+
+# Same semantics as the fused DFT kernel -> same oracle.
+ch_cas_macro_reference = ch_sif_macro_reference
+
+MAX_MU_DEGREE = 7
+MAX_GRID = 64        # the CUDA kernel holds one env's 64x64 tiles per block
+
+
+class PolynomialMu:
+    """``mu(c) = sum_i coeffs[i] * c**i``, evaluated by Horner's rule.
+
+    The CUDA kernel cannot trace a Python callable the way the Pallas kernel
+    traces ``mu_fn``; it reads these coefficients instead.  Degree ≤ 7.
+    ``PolynomialMu((0.0, -1.0, 0.0, 1.0))`` is the CH preset's ``c**3 - c``.
+    """
+
+    def __init__(self, coeffs: Sequence[float]):
+        coeffs = tuple(float(c) for c in coeffs)
+        if not 1 <= len(coeffs) <= MAX_MU_DEGREE + 1:
+            raise ValueError(
+                f"PolynomialMu takes 1 to {MAX_MU_DEGREE + 1} coefficients, "
+                f"got {len(coeffs)}"
+            )
+        self.coeffs = coeffs
+
+    def __call__(self, c: torch.Tensor) -> torch.Tensor:
+        p = torch.full_like(c, self.coeffs[-1])
+        for a in reversed(self.coeffs[:-1]):
+            p = p * c + a
+        return p
+
+    def __eq__(self, other):
+        return isinstance(other, PolynomialMu) and self.coeffs == other.coeffs
+
+    def __hash__(self):
+        return hash((PolynomialMu, self.coeffs))
+
+    def __repr__(self):
+        return f"PolynomialMu({self.coeffs})"
+
+
+def _cas_mat(N: int) -> np.ndarray:
+    """Symmetric cas (Hartley) matrix: C @ C = N * I."""
+    x = np.arange(N)
+    ang = 2.0 * np.pi * np.outer(x, x) / N
+    return np.cos(ang) + np.sin(ang)
+
+
+class CasConstants(NamedTuple):
+    """The macro's constant operands, f32 and contiguous on one device.
+
+    ``ch``/``cw`` are the cas matrices and ``ich``/``icw`` the inverse pair
+    ``C/N``, each already rounded to ``mats_dtype``; ``lam``/``lam2`` are the
+    FD Laplacian symbol and its square on the (H, W) grid.
+    """
+
+    ch: torch.Tensor
+    cw: torch.Tensor
+    ich: torch.Tensor
+    icw: torch.Tensor
+    lam: torch.Tensor
+    lam2: torch.Tensor
+
+
+@functools.lru_cache(maxsize=32)
+def cas_constants(H: int, W: int, hx: float, hy: float,
+                  mats_dtype: torch.dtype, device: torch.device) -> CasConstants:
+    """Build (once per configuration and device) the macro's constants."""
+
+    def mat(m):
+        return torch.from_numpy(m).to(mats_dtype).to(device, torch.float32).contiguous()
+
+    lam_h, lam_w = _fd_lap_symbols(H, W, hx, hy)
+    lam = lam_h[:, None] + lam_w[None, :]                          # (H, W) f64
+
+    def f32(a):
+        return torch.from_numpy(a).to(device, torch.float32).contiguous()
+
+    return CasConstants(
+        ch=mat(_cas_mat(H)), cw=mat(_cas_mat(W)),
+        ich=mat(_cas_mat(H) / H), icw=mat(_cas_mat(W) / W),
+        lam=f32(lam), lam2=f32(lam**2),
+    )
+
+
+class Epilogue(NamedTuple):
+    """Env-epilogue configuration (the kernel's ``_ep_parse``)."""
+
+    obs_scale: float = 255.0
+    obs_offset: float = 0.0
+    center: float = 0.0
+    ds: int = 1
+
+    @classmethod
+    def from_dict(cls, cfg: dict, H: int, W: int) -> "Epilogue":
+        ep = cls(float(cfg.get("obs_scale", 255.0)),
+                 float(cfg.get("obs_offset", 0.0)),
+                 float(cfg.get("stats_center", 0.0)),
+                 int(cfg.get("obs_downsample", 1)))
+        if ep.ds < 1 or H % ep.ds or W % ep.ds:
+            raise ValueError(f"obs_downsample={ep.ds} must divide {(H, W)}")
+        return ep
+
+
+def _coeffs(kappa, lam, lam2, A, dt):
+    """Per-env multipliers ``(cm, cu)``, f32, in the JAX kernel's order."""
+    k = kappa.reshape(-1, 1, 1)
+    denom = 1.0 / (1.0 + float(A) * float(dt) * (k * lam2))
+    cm = (float(dt) * lam) * denom
+    cu = (float(dt) * k) * lam2 * denom
+    return cm, cu
+
+
+def ch_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
+                       *, mu_fn: Callable, dt: float, A: float, n_steps: int,
+                       round_bf16: bool, epilogue: Optional[Epilogue] = None):
+    """Plain-torch macro: ``u`` (B, H, W) f32, ``kappa`` (B,) f32.
+
+    Returns ``u1`` or, with ``epilogue``, ``(u1, stats (B, 3), obs uint8)``.
+    Runs on any device; it is what the macro runs on CPU tensors and what
+    the CUDA kernel is held against on the card.
+    """
+    if round_bf16:
+        def rnd(z):
+            return z.to(torch.bfloat16).to(torch.float32)
+    else:
+        def rnd(z):
+            return z
+
+    def transform(z, mh, mw):
+        t = rnd(torch.matmul(rnd(z).transpose(-1, -2), mh))          # [b, w, k]
+        return torch.matmul(t.transpose(-1, -2), mw)                  # [b, k, l]
+
+    cm, cu = _coeffs(kappa, consts.lam, consts.lam2, A, dt)
+    u_t = transform(u, consts.ch, consts.cw)
+    for _ in range(n_steps):
+        incr = cm * transform(mu_fn(u), consts.ch, consts.cw) - cu * u_t
+        u_t = u_t + incr
+        u = u + transform(incr, consts.ich, consts.icw)
+    if epilogue is None:
+        return u
+
+    fin = torch.isfinite(u)
+    uz = torch.where(fin, u - epilogue.center, torch.zeros_like(u))
+    stats = torch.stack(
+        [uz.sum((-2, -1)), (uz * uz).sum((-2, -1)),
+         fin.sum((-2, -1)).to(torch.float32)], dim=-1,
+    )
+    ds = epilogue.ds
+    if ds > 1:
+        B, H, W = u.shape
+        inv = 1.0 / ds
+        pooled = (uz.reshape(B, H // ds, ds, W // ds, ds) * inv).sum(2)
+        pooled = (pooled * inv).sum(-1)                               # (B, Hd, Wd)
+        x = (pooled + epilogue.center) * epilogue.obs_scale + epilogue.obs_offset
+    else:
+        x = torch.where(fin, u, torch.zeros_like(u)) * epilogue.obs_scale + epilogue.obs_offset
+    obs = torch.clamp(x, 0.0, 255.0).to(torch.uint8)
+    return u, stats, obs
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = load_library("ch_cas_macro")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ch_cas_macro_launch.argtypes = [
+        p, p, p, p, p, p, p, p,          # u, kappa, ch, cw, ich, icw, lam, lam2
+        p, p, p,                         # out, stats, obs
+        i, i, i, i, f, f,                # B, H, W, n_steps, dt, A*dt
+        p, i, i,                         # mu coeffs, n_coeffs, round_bf16
+        i, f, f, f,                      # ds, obs_scale, obs_offset, center
+        p,                               # stream
+    ]
+    lib.ch_cas_macro_launch.restype = ctypes.c_int
+    lib.ch_cas_error_string.argtypes = [ctypes.c_int]
+    lib.ch_cas_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_cuda(name, t, shape, dtype, device):
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"ch_cas_macro_cuda needs CUDA tensors; {name} is on {t.device}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(
+            f"{name} must be {dtype} of shape {tuple(shape)}, got "
+            f"{t.dtype} {tuple(t.shape)}"
+        )
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
+                      *, mu_fn: Callable, dt: float, A: float, n_steps: int,
+                      round_bf16: bool, epilogue: Optional[Epilogue] = None):
+    """The Hopper kernel: same contract as :func:`ch_cas_macro_plain`.
+
+    Launches ``csrc/ch_cas_macro.cu`` on the current stream (K1 with an
+    epilogue, K2 without) and counts the launch.  Raises on anything the
+    kernel does not take.
+    """
+    if not isinstance(mu_fn, PolynomialMu):
+        raise ValueError(
+            "the CUDA macro evaluates mu from polynomial coefficients: pass a "
+            f"PolynomialMu, got {mu_fn!r}"
+        )
+    if u.requires_grad or kappa.requires_grad:
+        raise NotImplementedError(
+            "gradients through the CUDA macro need the backward kernel K3 "
+            "(pde_opt_tpu/ops/cas_spectral.py bwd_kernel), not ported yet"
+        )
+    if u.ndim != 3:
+        raise ValueError(f"u must be (B, H, W), got shape {tuple(u.shape)}")
+    B, H, W = u.shape
+    if B < 1 or H % 8 or W % 8 or not (8 <= H <= MAX_GRID and 8 <= W <= MAX_GRID):
+        raise ValueError(
+            f"the CUDA macro takes B >= 1 envs and H, W multiples of 8 up to "
+            f"{MAX_GRID}; got {(B, H, W)}"
+        )
+    dev = u.device
+    _check_cuda("u", u, (B, H, W), torch.float32, dev)
+    _check_cuda("kappa", kappa, (B,), torch.float32, dev)
+    for name, shape in (("ch", (H, H)), ("cw", (W, W)), ("ich", (H, H)),
+                        ("icw", (W, W)), ("lam", (H, W)), ("lam2", (H, W))):
+        _check_cuda(name, getattr(consts, name), shape, torch.float32, dev)
+
+    out = torch.empty_like(u)
+    stats = obs = None
+    if epilogue is not None:
+        ds = epilogue.ds
+        if ds < 1 or H % ds or W % ds:
+            raise ValueError(f"obs_downsample={ds} must divide {(H, W)}")
+        stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        obs = torch.empty((B, H // ds, W // ds), dtype=torch.uint8, device=dev)
+    coeffs = (ctypes.c_float * len(mu_fn.coeffs))(*mu_fn.coeffs)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.ch_cas_macro_launch(
+            u.data_ptr(), kappa.data_ptr(), consts.ch.data_ptr(),
+            consts.cw.data_ptr(), consts.ich.data_ptr(), consts.icw.data_ptr(),
+            consts.lam.data_ptr(), consts.lam2.data_ptr(), out.data_ptr(),
+            stats.data_ptr() if stats is not None else None,
+            obs.data_ptr() if obs is not None else None,
+            B, H, W, int(n_steps), float(dt), float(A) * float(dt),
+            coeffs, len(mu_fn.coeffs), int(bool(round_bf16)),
+            epilogue.ds if epilogue else 1,
+            epilogue.obs_scale if epilogue else 0.0,
+            epilogue.obs_offset if epilogue else 0.0,
+            epilogue.center if epilogue else 0.0,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"ch_cas_macro launch failed: {lib.ch_cas_error_string(rc).decode()}"
+        )
+    if epilogue is None:
+        count_launch("ch_cas_macro")
+        return out
+    count_launch("ch_cas_macro_ep")
+    return out, stats, obs
+
+
+def make_ch_cas_fused_macro(
+    mu_fn: Callable,
+    H: int,
+    W: int,
+    hx: float,
+    hy: float,
+    A: float,
+    dt: float,
+    n_steps: int,
+    *,
+    mats_dtype: torch.dtype = torch.bfloat16,
+    epilogue: Optional[dict] = None,
+):
+    """Build ``macro(u, kappa) -> u1`` advancing ``n_steps`` fused substeps.
+
+    ``u`` has shape (..., H, W) (leading axes are the env batch) and
+    ``kappa`` broadcasts to the batch (scalar, ``(B,)`` or batch-shaped).
+    With ``epilogue`` (keys ``obs_scale``, ``obs_offset``,
+    ``obs_downsample``, ``stats_center``) the macro returns
+    ``(u1, stats, obs)`` as :func:`make_ch_cas_fused_macro_ep` documents.
+    CPU tensors run :func:`ch_cas_macro_plain`; CUDA tensors run the Hopper
+    kernel through :func:`ch_cas_macro_cuda`.  ``mats_dtype`` is bf16 (the
+    JAX default) or f32 (no rounding).
+    """
+    if H % 8 or W % 8:
+        raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")
+    if mats_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"mats_dtype must be bf16 or f32, got {mats_dtype}")
+    ep = Epilogue.from_dict(epilogue, H, W) if epilogue is not None else None
+    round_bf16 = mats_dtype == torch.bfloat16
+
+    def macro(state: torch.Tensor, kappa):
+        *batch, h, w = state.shape
+        if (h, w) != (H, W):
+            raise ValueError(f"state trailing shape {(h, w)} != {(H, W)}")
+        B = math.prod(batch) if batch else 1
+        x = state.reshape(B, H, W).to(torch.float32).contiguous()
+        kap = torch.as_tensor(kappa, dtype=torch.float32, device=state.device)
+        kapf = (torch.broadcast_to(kap, (B,)) if kap.ndim <= 1
+                else kap.reshape(B)).contiguous()
+        consts = cas_constants(H, W, float(hx), float(hy), mats_dtype, state.device)
+        run = ch_cas_macro_plain if state.device.type == "cpu" else ch_cas_macro_cuda
+        res = run(x, kapf, consts, mu_fn=mu_fn, dt=dt, A=A, n_steps=n_steps,
+                  round_bf16=round_bf16, epilogue=ep)
+        if ep is None:
+            return res.to(state.dtype).reshape(*batch, H, W)
+        u1, stats, obs = res
+        return (u1.to(state.dtype).reshape(*batch, H, W),
+                stats.reshape(*batch, 3),
+                obs.reshape(*batch, H // ep.ds, W // ep.ds))
+
+    return macro
+
+
+def make_ch_cas_fused_macro_ep(
+    mu_fn: Callable,
+    H: int,
+    W: int,
+    hx: float,
+    hy: float,
+    A: float,
+    dt: float,
+    n_steps: int,
+    *,
+    obs_scale: float = 255.0,
+    obs_offset: float = 0.0,
+    obs_downsample: int = 1,
+    stats_center: float = 0.0,
+    mats_dtype: torch.dtype = torch.bfloat16,
+):
+    """Fused CH macro WITH the env epilogue: ``macro(u, kappa) -> (u1, stats, obs)``.
+
+    * ``stats``: (..., 3) f32 per env — ``[sum(u-c), sum((u-c)**2),
+      n_finite]`` over the finite pixels, ``c = stats_center``.
+    * ``obs``: (..., H/ds, W/ds) uint8 — ``clip(u*obs_scale + obs_offset,
+      0, 255)`` on the NaN-masked field, mean-pooled first when
+      ``ds = obs_downsample > 1``.
+    """
+    return make_ch_cas_fused_macro(
+        mu_fn, H, W, hx, hy, A, dt, n_steps, mats_dtype=mats_dtype,
+        epilogue={"obs_scale": obs_scale, "obs_offset": obs_offset,
+                  "obs_downsample": obs_downsample,
+                  "stats_center": stats_center},
+    )

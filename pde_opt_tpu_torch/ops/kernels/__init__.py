@@ -1,0 +1,102 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel source in ``pde_opt_tpu_torch/csrc/`` exposes a plain C
+interface.  :func:`load_library` compiles it at first use with ``nvcc`` for
+Hopper (``sm_90a``) into ``build/kernels/`` at the repository root and loads
+it with :mod:`ctypes`; the library's file name carries a hash of the source
+and the flags, so an edited source is rebuilt.  Nothing is downloaded and
+only sources of this package are compiled.  Importing this module compiles
+nothing, so CPU-only machines can import every module of the port.
+
+Every wrapper that launches a kernel adds one to its count with
+:func:`count_launch`, and nowhere else, so a run can show that its main
+path went through the kernels (:func:`launch_counts`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+__all__ = [
+    "NVCC_FLAGS",
+    "load_library",
+    "count_launch",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+_LAUNCHES: Dict[str, int] = {"ch_cas_macro": 0, "ch_cas_macro_ep": 0}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or (
+        "/usr/local/cuda/bin/nvcc"
+        if Path("/usr/local/cuda/bin/nvcc").exists() else None
+    )
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+            "CUDA kernels are built from source at first use"
+        )
+    return found
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; raise if the build fails."""
+    with _LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed to build {src.name}:\n{proc.stderr}"
+                )
+            os.replace(tmp, lib_path)      # atomic: concurrent builds agree
+        _LIBS[name] = ctypes.CDLL(str(lib_path))
+        return _LIBS[name]
+
+
+def count_launch(name: str) -> None:
+    """Record one launch of kernel ``name`` (called by its wrapper only)."""
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel since the last :func:`reset_launch_counts`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
