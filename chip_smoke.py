@@ -3,25 +3,38 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-The main path is the flagship Cahn-Hilliard control fleet at full size:
-4096 envs on a 64x64 periodic grid, 10 semi-implicit substeps per RL step,
-per-env kappa control, reward -var, uint8 observation, auto-reset on.
+Two paths run at full width.  Serving: the flagship Cahn-Hilliard control
+fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit substeps per RL
+step, per-env kappa control, reward -var, uint8 observation, auto-reset on.
+Training: gradients through the same macro at 1024 envs x 64^2 x 10
+substeps (the JAX package's ``train_grad`` bench config) and
+``PDEModel.optimize`` with Adam on the fused stepper.
 Phases (each passes or raises; nothing is caught):
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build the hand-written Hopper kernel from ``pde_opt_tpu_torch/csrc``.
-3. Hold the kernel (K2 without, K1 with the env epilogue, obs_downsample 1
-   and 4) against its plain-torch version on the card at the main-path
-   shapes, with f32 and bf16 matrices, and against the FFT oracle.
-4. Reset the launch counts, then drive the main path: a 120-step
+2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``.
+3. Hold each kernel against its plain-torch version on the card at its
+   path's shapes, with f32 and bf16 matrices: the macro (K2 without, K1
+   with the env epilogue, obs_downsample 1 and 4; also against the FFT
+   oracle) and its backward K3; run the epilogue variant's gradient (stats
+   fold + K3) against the plain autograd Function on the CPU.
+4. Reset the launch counts, then drive the serving path: a 120-step
    random-policy rollout of the fused-epilogue fleet (K1), which crosses
    the episode end and its auto-reset, and 10 steps of the same fleet
    without the fused epilogue (K2).  Check the rewards, the launch counts,
    the per-env mass drift and the epilogue reward against the env's own
    reward function; poison one env with NaN and check it is flagged and
    reset.
-5. Time the kernels against their plain versions with CUDA events, the
-   auto-reset block, and the rollout's env-steps/s.
+5. Reset the launch counts, then drive the training path: value and grad
+   of ``sum(macro(u, kappa)**2)`` with respect to a per-env kappa (K2 +
+   K3), and 5 Adam steps of ``PDEModel.optimize`` on a two-segment
+   checkpointed rollout (each step: K2 twice per segment, the backward's
+   recompute included, and K3 once).  Check finiteness, the launch counts,
+   that kappa moved in every env, and (f32 matrices) the fused kappa
+   gradient against autograd through the FFT oracle.
+6. Time the kernels against their plain versions with CUDA events, the
+   fused and the FFT-stepper value+grad, the auto-reset block, and the
+   rollout's env-steps/s.
 
 The last two lines are a JSON object per kernel and the JSON result line.
 """
@@ -39,7 +52,18 @@ TOL_U = {"f32": 1e-5, "bf16": 1e-3}      # kernel vs plain, field
 TOL_ORACLE = {"f32": 1e-5, "bf16": 5e-3}  # macro vs FFT oracle, field
 SOURCE = "pde_opt_tpu_torch/csrc/ch_cas_macro.cu"
 REPLACES = {"ch_cas_macro_ep": "pde_opt_tpu/ops/cas_spectral.py:630",
-            "ch_cas_macro": "pde_opt_tpu/ops/cas_spectral.py:392"}
+            "ch_cas_macro": "pde_opt_tpu/ops/cas_spectral.py:392",
+            "ch_cas_macro_bwd": "pde_opt_tpu/ops/cas_spectral.py:411"}
+# Training path: bench.py's train_grad config and the optimize run.
+TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
+# K3 vs its plain backward, each error relative to its maximum (du, dkappa),
+# measured plus headroom: f32 is the same arithmetic (du 5.9e-7, dkappa
+# 3.7e-5 measured on an H100); with bf16 matrices and the training loss's
+# cotangent, du 3.5e-7 and dkappa 4.2e-3.  With bf16 matrices and a random
+# cotangent no bound is held: on the training field (0.5 +- 0.01) rounding
+# u_k to bf16 (ulp 2e-3) is ~10% of the fluctuation fwd(u_k) carries, so a
+# flipped rounding between two accumulation orders moves dkappa by ~1e-2.
+TOL_BWD = {"f32": (5e-6, 1e-4), "bf16": (1e-5, 1e-2)}
 
 
 def _card():
@@ -76,9 +100,13 @@ def main():
     from pde_opt_tpu_torch.ops.cas_spectral import (
         Epilogue,
         cas_constants,
+        ch_cas_macro_bwd_cuda,
+        ch_cas_macro_bwd_plain,
         ch_cas_macro_cuda,
         ch_cas_macro_plain,
         ch_cas_macro_reference,
+        make_ch_cas_fused_macro,
+        make_ch_cas_fused_macro_ep,
     )
 
     # ---- 1. the card ----------------------------------------------------
@@ -93,7 +121,7 @@ def main():
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load_library("ch_cas_macro")
-    print(f"build: {SOURCE} in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {SOURCE} (K1, K2, K3) in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. kernel vs plain on the card, main-path shapes ---------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,7 +166,57 @@ def main():
               flush=True)
         _check(err <= TOL_ORACLE[mats], f"kernel vs FFT oracle {err} > {TOL_ORACLE[mats]}")
 
-    # ---- 4. the main path ------------------------------------------------
+    # ---- 3b. K3 vs its plain backward, training shapes --------------------
+    tg = torch.Generator(device=dev).manual_seed(50)
+    u_tg = 0.5 + 0.01 * torch.randn((TG_ENVS, GRID, GRID), generator=tg, device=dev)
+    kap_tg = torch.full((TG_ENVS,), 0.004, device=dev)
+    w_tg = torch.randn((TG_ENVS, GRID, GRID), generator=tg, device=dev)
+    bwd_err = 0.0
+    for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        consts = cas_constants(GRID, GRID, HX, HY, mdt, dev)
+        kw = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=mdt == torch.bfloat16)
+        # The cotangent of the train_grad loss sum(u1**2), and a random one.
+        g_loss = 2.0 * ch_cas_macro_plain(u_tg, kap_tg, consts, **kw)
+        for cot, g in (("loss", g_loss), ("random", w_tg)):
+            du, dk = ch_cas_macro_bwd_cuda(u_tg, kap_tg, g, consts, **kw)
+            pdu, pdk = ch_cas_macro_bwd_plain(u_tg, kap_tg, g, consts, **kw)
+            torch.cuda.synchronize()
+            e_abs = (du - pdu).abs().max().item()
+            e_du = e_abs / pdu.abs().max().item()
+            e_dk = ((dk - pdk).abs().max() / pdk.abs().max()).item()
+            line = (f"check ch_cas_macro_bwd mats={mats} cotangent={cot}: du max_rel_err "
+                    f"{e_du:.3e} (max_abs_err {e_abs:.3e}), dkappa max_rel_err {e_dk:.3e}")
+            tol_u, tol_k = TOL_BWD[mats]
+            _check(bool(torch.isfinite(du).all() and torch.isfinite(dk).all()), f"{line}: non-finite")
+            if mats == "f32" or cot == "loss":
+                _check(e_du <= tol_u and e_dk <= tol_k, f"{line} > {TOL_BWD[mats]}")
+            else:
+                line += " (reported, no bound)"
+            print(line, flush=True)
+            if mats == "bf16" and cot == "loss":
+                bwd_err = e_abs
+
+    # The epilogue variant's gradient (stats fold + K3) against the plain
+    # autograd Function on the CPU, on the first 64 envs.
+    m_ep = make_ch_cas_fused_macro_ep(CH_MU, GRID, GRID, HX, HY, A, DT, SUBSTEPS,
+                                      stats_center=CENTER, mats_dtype=torch.float32)
+
+    def ep_grads(uu, kk, ww):
+        uu, kk = uu.clone().requires_grad_(), kk.clone().requires_grad_()
+        u1, stats, _ = m_ep(uu, kk)
+        ((ww * u1).sum() + stats[:, 0].sum() + stats[:, 1].sum()).backward()
+        return uu.grad, kk.grad
+
+    du, dk = ep_grads(u_tg, kap_tg, w_tg)
+    cdu, cdk = ep_grads(u_tg[:64].cpu(), kap_tg[:64].cpu(), w_tg[:64].cpu())
+    e_du = ((du[:64].cpu() - cdu).abs().max() / cdu.abs().max()).item()
+    e_dk = ((dk[:64].cpu() - cdk).abs().max() / cdk.abs().max()).item()
+    line = (f"check epilogue gradient (K1 + fold + K3) vs the plain Function on the CPU, "
+            f"f32: du max_rel_err {e_du:.3e}, dkappa max_rel_err {e_dk:.3e}")
+    _check(e_du <= TOL_BWD["f32"][0] and e_dk <= TOL_BWD["f32"][1], line)
+    print(line, flush=True)
+
+    # ---- 4. the serving path ----------------------------------------------
     env = make_cahn_hilliard_control_env(
         num_envs=NUM_ENVS, grid_size=GRID, substeps=SUBSTEPS,
         spectral_solve="fused", device=dev)
@@ -226,7 +304,93 @@ def main():
     _check(obs.shape == (NUM_ENVS, 1, GRID, GRID) and obs.dtype == torch.uint8, "obs")
     print("poisoned env 7: flagged diverged, reward 0, reset", flush=True)
 
-    # ---- 5. timings ------------------------------------------------------
+    # ---- 5. the training path ---------------------------------------------
+    from pde_opt_tpu_torch import Domain, PDEModel
+    from pde_opt_tpu_torch.models import CahnHilliard2DPeriodic
+    from pde_opt_tpu_torch.ops.integrate import evolve
+    from pde_opt_tpu_torch.ops.steppers import (
+        FusedSemiImplicitSpectral,
+        SemiImplicitFourierSpectral,
+    )
+    from pde_opt_tpu_torch.utils.compat import prepare_solver_params
+
+    L = 0.01 * GRID
+    domain = Domain((GRID, GRID), ((-L / 2, L / 2), (-L / 2, L / 2)), "dimensionless")
+    macro_tg = make_ch_cas_fused_macro(CH_MU, GRID, GRID, HX, HY, A, DT, SUBSTEPS)
+
+    def value_and_grad(loss):
+        k = kap_tg.clone().requires_grad_()
+        v = loss(k)
+        v.backward()
+        return v.detach(), k.grad
+
+    def fused_loss(k, m=macro_tg):
+        return (m(u_tg, k) ** 2).sum()
+
+    def sif_loss(k):
+        eq = CahnHilliard2DPeriodic(domain, k[:, None, None], CH_MU, torch.ones_like)
+        st = SemiImplicitFourierSpectral(
+            **prepare_solver_params(SemiImplicitFourierSpectral, {"A": A}, eq))
+        return (evolve(st, eq.rhs, u_tg, 0.0, DT, SUBSTEPS) ** 2).sum()
+
+    losses = []
+
+    def objective(sol):
+        v = sol[-1].var(dim=(-2, -1), correction=0).sum()
+        losses.append(v.detach())
+        return v
+
+    model = PDEModel(CahnHilliard2DPeriodic, domain, FusedSemiImplicitSpectral)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    vg = [value_and_grad(fused_loss) for _ in range(TG_CALLS)]
+    torch.cuda.synchronize()
+    tg_counts = kernels.launch_counts()
+    res = model.optimize(
+        objective, y0=u_tg, ts=OPT_TS, opt_parameters={"kappa": kap_tg},
+        other_parameters={"mu": CH_MU, "D": torch.ones_like},
+        solver_parameters={"A": A}, weights={"kappa": None}, lambda_reg=0.0,
+        max_steps=OPT_STEPS, dt0=DT, method="adam", learning_rate=1e-4)
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+
+    n_seg = len(OPT_TS) - 1
+    print(f"training path: {TG_CALLS} value+grad calls and {OPT_STEPS} optimize steps "
+          f"({n_seg} checkpointed segments of {SUBSTEPS} substeps) at {TG_ENVS} envs x "
+          f"{GRID}^2; launches {train_counts}", flush=True)
+    _check(all(bool(torch.isfinite(v)) and bool(torch.isfinite(g).all()) for v, g in vg),
+           "non-finite value or gradient")
+    _check(tg_counts["ch_cas_macro"] == TG_CALLS and tg_counts["ch_cas_macro_bwd"] == TG_CALLS,
+           f"value+grad launches {tg_counts} != {TG_CALLS} each")
+    want_k2 = TG_CALLS + OPT_STEPS * n_seg * 2       # forward + checkpoint recompute
+    want_k3 = TG_CALLS + OPT_STEPS * n_seg
+    _check(train_counts["ch_cas_macro"] == want_k2 and train_counts["ch_cas_macro_bwd"] == want_k3
+           and train_counts["ch_cas_macro_ep"] == 0,
+           f"training launches {train_counts}: expected K2 {want_k2}, K3 {want_k3}")
+    _check(len(losses) == OPT_STEPS and all(bool(torch.isfinite(v)) for v in losses),
+           f"optimize losses {losses}")
+    kap_opt = res["kappa"]
+    moved = (kap_opt - 0.004).abs()
+    _check(kap_opt.shape == (TG_ENVS,) and bool(torch.isfinite(kap_opt).all())
+           and bool((moved > 0).all()),
+           "kappa must be finite and move in every env")
+    print(f"optimize: loss {float(losses[0]):.6e} -> {float(losses[-1]):.6e}; kappa moved in "
+          f"every env, |change| {moved.min().item():.3e} to {moved.max().item():.3e}",
+          flush=True)
+
+    # f32 matrices: the fused kappa gradient against autograd through the
+    # FFT oracle (the same semantics; tests/test_fused_grad.py's tolerance).
+    macro32 = make_ch_cas_fused_macro(CH_MU, GRID, GRID, HX, HY, A, DT, SUBSTEPS,
+                                      mats_dtype=torch.float32)
+    oracle = ch_cas_macro_reference(CH_MU, HX, HY, A, DT, SUBSTEPS)
+    _, g32 = value_and_grad(lambda k: fused_loss(k, macro32))
+    _, g_or = value_and_grad(lambda k: (oracle(u_tg, k) ** 2).sum())
+    rel = ((g32 - g_or).abs() / (1e-6 + 2e-3 * g_or.abs())).max().item()
+    print(f"check fused dkappa (f32) vs FFT-oracle autograd: max |diff| / (1e-6 + 2e-3 |ref|) "
+          f"= {rel:.3e}", flush=True)
+    _check(rel <= 1.0, "fused kappa gradient disagrees with the FFT oracle's")
+
+    # ---- 6. timings ------------------------------------------------------
     consts = cas_constants(GRID, GRID, HX, HY, torch.bfloat16, dev)
     timings = {}
     for name, ep in (("ch_cas_macro_ep", Epilogue(255.0, 0.0, CENTER, 1)),
@@ -246,6 +410,31 @@ def main():
               f"at {NUM_ENVS}x{GRID}^2x{SUBSTEPS} bf16; kernel "
               f"{flops / (timings[name][0] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]", flush=True)
 
+    kw = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=True)
+    g_tg = 2.0 * ch_cas_macro_plain(u_tg, kap_tg, consts, **kw)
+
+    def plain_bwd():
+        ch_cas_macro_bwd_plain(u_tg, kap_tg, g_tg, consts, **kw)
+
+    def kernel_bwd():
+        ch_cas_macro_bwd_cuda(u_tg, kap_tg, g_tg, consts, **kw)
+
+    p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain_bwd, kernel_bwd, kernel_bwd, plain_bwd))
+    timings["ch_cas_macro_bwd"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    flops = 14 * GRID * GRID * (GRID + GRID) * SUBSTEPS * TG_ENVS
+    print(f"time ch_cas_macro_bwd: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
+          f"at {TG_ENVS}x{GRID}^2x{SUBSTEPS} bf16; kernel "
+          f"{flops / (timings['ch_cas_macro_bwd'][0] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]",
+          flush=True)
+    rates = {}
+    for name, loss in (("fused", fused_loss), ("fft", sif_loss)):
+        ms = _time_ms(torch, lambda: value_and_grad(loss), reps=5, warmup=1)
+        rates[name] = TG_ENVS * SUBSTEPS / (ms * 1e-3)
+        print(f"time value+grad {name}: {ms:.4f} ms per call, {rates[name]:.1f} "
+              f"grad-env-substeps/s ({TG_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps) [{card}]",
+              flush=True)
+    print(f"fused vs fft value+grad: {rates['fused'] / rates['fft']:.2f}x [{card}]", flush=True)
+
     y1 = state.y.clone()
     cv1 = state.control_value.clone()
     obs1 = env.state_to_observation_func(y1)
@@ -258,11 +447,13 @@ def main():
     print(f"rollout: {rate:.1f} env-steps/s ({STEPS} steps in {t_a + t_b:.4f} s, "
           f"{NUM_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps) [{card}]", flush=True)
 
+    # Launches: the serving path's and the training path's runs together.
+    max_err["ch_cas_macro_bwd"] = bwd_err
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": counts[name], "max_abs_err": max_err[name],
+         "launches": counts[name] + train_counts[name], "max_abs_err": max_err[name],
          "ms": timings[name][0], "plain_ms": timings[name][1]}
-        for name in ("ch_cas_macro_ep", "ch_cas_macro")
+        for name in ("ch_cas_macro_ep", "ch_cas_macro", "ch_cas_macro_bwd")
     ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 // Fused semi-implicit Cahn-Hilliard macro-step on the cas (Hartley) spectrum,
-// hand-written for Hopper (sm_90a), with the optional RL env epilogue.
+// hand-written for Hopper (sm_90a), with the optional RL env epilogue, and
+// its backward.
 //
 // Replaces the TPU kernels of pde_opt_tpu/ops/cas_spectral.py,
-// make_ch_cas_fused_macro: `kernel` (the plain macro, K2) and `kernel_ep`
-// with `_ep_emit` (the macro plus the env epilogue, K1).  It computes what
-// they compute, per env, without their MXU layout (no 128-wide env packing,
-// no block-diagonal matrices, no int32 detour before uint8):
+// make_ch_cas_fused_macro: `kernel` (the plain macro, K2), `kernel_ep`
+// with `_ep_emit` (the macro plus the env epilogue, K1) and `bwd_kernel`
+// (the macro's VJP, K3; see ch_cas_macro_bwd_kernel below).  It computes
+// what they compute, per env, without their MXU layout (no 128-wide env
+// packing, no block-diagonal matrices, no int32 detour before uint8, no
+// packed kappa accumulator summed outside the kernel):
 //
 //   fwd(z) = C_H^T z C_W,   inv(z) = C_H^T z C_W / (H*W)   (C: symmetric cas)
 //   u~ = fwd(u)
@@ -299,6 +302,277 @@ ch_cas_macro_kernel(const float* __restrict__ u_in,
   }
 }
 
+// ---- K3: the macro's VJP (`bwd_kernel`) -----------------------------------
+//
+// Per env: re-run the forward substeps, stashing each substep's input field
+// in this block's slot of a device-memory scratch (n_steps x H x W f32:
+// 160 KB at 64^2 x 10 substeps, more than shared memory holds beside the
+// matrices; two resident blocks per SM make ~42 MB of slots, which mostly
+// stay in the 50 MB L2), then sweep back with seven transforms per substep,
+// as the JAX kernel does:
+//
+//   ghat  = fwd(gbar)
+//   kacc += ghat/(H*W) * (dcm * fwd(mu(u_k)) - dcu * fwd(u_k))
+//   gbar += mu'(u_k) * inv(cm * ghat) - inv(cu * ghat)
+//
+//   dcm = d cm/d kappa = -A*dt^2*lam^3*denom^2,  dcu = d cu/d kappa = dt*lam^2*denom^2
+//
+// Bound: 7 transforms = 14*H*W*(H+W) FLOPs per env-substep (7.3 MFLOP at
+// 64^2), f32 FMA on the CUDA cores, as in K1/K2.  gbar and kacc stay in
+// registers for the whole sweep; the four multipliers are recomputed from
+// lam/lam2 where they are used (held for 16 pixels each beside gbar, kacc
+// and ghat they would spill).  Each block reduces its env's kacc to one
+// float (shuffles, then shared memory), as the K1 epilogue reduces stats.
+
+struct StepConsts {
+  float dt, a_dt, neg_a_dt2;   // dt, A*dt, -A*dt*dt
+};
+
+struct Mult {
+  float cm, cu, dcm, dcu;
+};
+
+// The multipliers of pixel o, in the JAX kernel's order of operations.
+__device__ __forceinline__ Mult mult_at(const float* __restrict__ lam,
+                                        const float* __restrict__ lam2, int o,
+                                        float k, StepConsts c) {
+  const float l = __ldg(lam + o), l2 = __ldg(lam2 + o);
+  const float denom = 1.0f / (1.0f + c.a_dt * (k * l2));
+  Mult m;
+  m.cm = (c.dt * l) * denom;
+  m.cu = ((c.dt * k) * l2) * denom;
+  m.dcm = ((c.neg_a_dt2 * (l * l2)) * denom) * denom;
+  m.dcu = ((c.dt * l2) * denom) * denom;
+  return m;
+}
+
+__device__ __forceinline__ void load_tile(const float* src, int W, int ty4, int tx4,
+                                          float v[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 q = *reinterpret_cast<const float4*>(src + (ty4 + i) * W + tx4);
+    v[i][0] = q.x;
+    v[i][1] = q.y;
+    v[i][2] = q.z;
+    v[i][3] = q.w;
+  }
+}
+
+__device__ __forceinline__ void save_tile(float* dst, int W, int ty4, int tx4,
+                                          const float v[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(dst + (ty4 + i) * W + tx4) =
+        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
+                        const float* __restrict__ kappa,
+                        const float* __restrict__ g_in,
+                        const float* __restrict__ g_ch, const float* __restrict__ g_cw,
+                        const float* __restrict__ g_ich, const float* __restrict__ g_icw,
+                        const float* __restrict__ lam, const float* __restrict__ lam2,
+                        float* __restrict__ du_out, float* __restrict__ dk_out,
+                        float* __restrict__ scratch, int B, int H, int W, int n_steps,
+                        StepConsts c, MuPoly mu, MuPoly dmu, bool rnd) {
+  extern __shared__ float4 smem4[];
+  float* ch = reinterpret_cast<float*>(smem4);
+  float* cw = ch + kLd * kLd;
+  float* ich = cw + kLd * kLd;
+  float* icw = ich + kLd * kLd;
+  float* zs = icw + kLd * kLd;
+  float* ts = zs + kLd * kLd;
+  __shared__ float red[kThreads / 32];
+
+  const int tid = threadIdx.x;
+  const int ty4 = (tid / 16) * 4;        // first row (H axis) this thread owns
+  const int tx4 = (tid % 16) * 4;        // first column (W axis)
+  const bool own = ty4 < H && tx4 < W;
+  const int hw = H * W;
+  const float inv_hw = 1.0f / static_cast<float>(hw);
+  // This block's trajectory slot; each thread reads back only the pixels
+  // it wrote itself, so the slot needs no barrier.
+  float* traj = scratch + static_cast<size_t>(blockIdx.x) * n_steps * hw;
+
+  for (int idx = tid; idx < H * H; idx += kThreads) {
+    const int r = idx / H, col = idx % H;
+    ch[r * kLd + col] = g_ch[idx];
+    ich[r * kLd + col] = g_ich[idx];
+  }
+  for (int idx = tid; idx < W * W; idx += kThreads) {
+    const int r = idx / W, col = idx % W;
+    cw[r * kLd + col] = g_cw[idx];
+    icw[r * kLd + col] = g_icw[idx];
+  }
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * hw;
+    const float k = kappa[env];
+    float u[4][4], ut[4][4], f[4][4];
+
+    // ---- forward re-run: traj[s] = the input field of substep s ----
+    if (own) {
+      load_tile(u_in + off, W, ty4, tx4, u);
+      store_tile(zs, ty4, tx4, u, rnd);
+    }
+    transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, ut);
+    for (int s = 0; s < n_steps; ++s) {
+      if (own) {
+        save_tile(traj + static_cast<size_t>(s) * hw, W, ty4, tx4, u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[i][j] = mu_eval(mu, u[i][j]);
+        store_tile(zs, ty4, tx4, f, rnd);
+      }
+      transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, f);
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const Mult m = mult_at(lam, lam2, (ty4 + i) * W + tx4 + j, k, c);
+            const float incr = m.cm * f[i][j] - m.cu * ut[i][j];
+            ut[i][j] += incr;
+            f[i][j] = incr;
+          }
+        store_tile(zs, ty4, tx4, f, rnd);
+      }
+      transform(zs, ts, ich, icw, H, W, ty4, tx4, rnd, f);
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) u[i][j] += f[i][j];
+      }
+    }
+
+    // ---- reverse sweep; u, ut and f now hold u_k, ghat and temporaries ----
+    float gb[4][4], kacc[4][4];
+    if (own) {
+      load_tile(g_in + off, W, ty4, tx4, gb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kacc[i][j] = 0.f;
+    }
+    for (int s = n_steps - 1; s >= 0; --s) {
+      const float* uk = traj + static_cast<size_t>(s) * hw;
+      if (own) {
+        load_tile(uk, W, ty4, tx4, u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[i][j] = mu_eval(mu, u[i][j]);
+        store_tile(zs, ty4, tx4, f, rnd);
+      }
+      transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, f);       // fwd(mu(u_k))
+      if (own) store_tile(zs, ty4, tx4, u, rnd);
+      transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, u);       // fwd(u_k)
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const Mult m = mult_at(lam, lam2, (ty4 + i) * W + tx4 + j, k, c);
+            f[i][j] = m.dcm * f[i][j] - m.dcu * u[i][j];
+          }
+        store_tile(zs, ty4, tx4, gb, rnd);
+      }
+      transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, ut);      // ghat = fwd(gbar)
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const Mult m = mult_at(lam, lam2, (ty4 + i) * W + tx4 + j, k, c);
+            kacc[i][j] += (inv_hw * ut[i][j]) * f[i][j];
+            f[i][j] = m.cm * ut[i][j];
+          }
+        store_tile(zs, ty4, tx4, f, rnd);
+      }
+      transform(zs, ts, ich, icw, H, W, ty4, tx4, rnd, f);     // inv(cm * ghat)
+      if (own) {
+        load_tile(uk, W, ty4, tx4, u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const Mult m = mult_at(lam, lam2, (ty4 + i) * W + tx4 + j, k, c);
+            gb[i][j] += mu_eval(dmu, u[i][j]) * f[i][j];
+            f[i][j] = m.cu * ut[i][j];
+          }
+        store_tile(zs, ty4, tx4, f, rnd);
+      }
+      transform(zs, ts, ich, icw, H, W, ty4, tx4, rnd, f);     // inv(cu * ghat)
+      if (own) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) gb[i][j] -= f[i][j];
+      }
+    }
+
+    float part = 0.f;
+    if (own) {
+      save_tile(du_out + off, W, ty4, tx4, gb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part += kacc[i][j];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+    if ((tid & 31) == 0) red[tid / 32] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float a = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) a += red[w];
+      dk_out[env] = a;
+    }
+    // The next env's first transform holds barriers that order this read of
+    // red before the next write.
+  }
+}
+
+constexpr int kSmemBytes = 6 * kLd * kLd * static_cast<int>(sizeof(float));
+
+// Every kernel here needs more than the default 48 KB of shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemBytes);
+}
+
+// Blocks of `kernel` that fit on the current device at once.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int* blocks) {
+  cudaError_t err = allow_smem(kernel);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                           kSmemBytes)) != cudaSuccess)
+    return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+bool bad_shape(int B, int H, int W, int n_steps, int n_coeffs) {
+  return B < 1 || H < 8 || W < 8 || H > kLd || W > kLd || H % 8 || W % 8 ||
+         n_steps < 0 || n_coeffs < 1 || n_coeffs > kMaxCoeffs;
+}
+
+MuPoly make_mu(const float* coeffs, int n) {
+  MuPoly mu;
+  for (int i = 0; i < kMaxCoeffs; ++i) mu.c[i] = i < n ? coeffs[i] : 0.f;
+  return mu;
+}
+
 }  // namespace
 
 extern "C" {
@@ -314,31 +588,48 @@ int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
                         const float* mu_coeffs, int n_coeffs, int round_bf16,
                         int ds, float obs_scale, float obs_offset, float center,
                         void* stream) {
-  if (B < 1 || H < 8 || W < 8 || H > kLd || W > kLd || H % 8 || W % 8 ||
-      n_steps < 0 || n_coeffs < 1 || n_coeffs > kMaxCoeffs || ds < 1 ||
-      H % ds || W % ds)
+  if (bad_shape(B, H, W, n_steps, n_coeffs) || ds < 1 || H % ds || W % ds)
     return static_cast<int>(cudaErrorInvalidValue);
-  MuPoly mu;
-  for (int i = 0; i < kMaxCoeffs; ++i) mu.c[i] = i < n_coeffs ? mu_coeffs[i] : 0.f;
+  const MuPoly mu = make_mu(mu_coeffs, n_coeffs);
   Epilogue ep{stats, obs, ds, obs_scale, obs_offset, center};
-
-  const int smem = 6 * kLd * kLd * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      ch_cas_macro_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int resident = 0;
+  cudaError_t err = resident_blocks(ch_cas_macro_kernel, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, ch_cas_macro_kernel, kThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int resident = sms * (per_sm > 0 ? per_sm : 1);
   const int grid = B < resident ? B : resident;
-  ch_cas_macro_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  ch_cas_macro_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       u, kappa, ch, cw, ich, icw, lam, lam2, out, B, H, W, n_steps, dt, a_dt, mu,
       round_bf16 != 0, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The number of trajectory slots a backward launch needs on the current
+// device: one per block resident at once.
+int ch_cas_macro_bwd_slots(int* slots) {
+  return static_cast<int>(resident_blocks(ch_cas_macro_bwd_kernel, slots));
+}
+
+// Launches the backward (K3) on `stream`: du (B, H, W) and dkappa (B,) from
+// u, kappa and the cotangent g.  `scratch` holds n_slots x max(n_steps, 1)
+// x H x W floats; the grid is min(B, n_slots).  Returns a cudaError_t value.
+int ch_cas_macro_bwd_launch(const float* u, const float* kappa, const float* g,
+                            const float* ch, const float* cw, const float* ich,
+                            const float* icw, const float* lam, const float* lam2,
+                            float* du, float* dkappa, float* scratch, int n_slots,
+                            int B, int H, int W, int n_steps, float dt, float a_dt,
+                            float neg_a_dt2, const float* mu_coeffs, int n_coeffs,
+                            const float* dmu_coeffs, int n_dcoeffs, int round_bf16,
+                            void* stream) {
+  if (bad_shape(B, H, W, n_steps, n_coeffs) || n_dcoeffs < 1 ||
+      n_dcoeffs > kMaxCoeffs || n_slots < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(ch_cas_macro_bwd_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = B < n_slots ? B : n_slots;
+  ch_cas_macro_bwd_kernel<<<grid, kThreads, kSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      u, kappa, g, ch, cw, ich, icw, lam, lam2, du, dkappa, scratch, B, H, W,
+      n_steps, StepConsts{dt, a_dt, neg_a_dt2}, make_mu(mu_coeffs, n_coeffs),
+      make_mu(dmu_coeffs, n_dcoeffs), round_bf16 != 0);
   return static_cast<int>(cudaGetLastError());
 }
 

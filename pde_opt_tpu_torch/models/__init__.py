@@ -2,5 +2,6 @@
 
 from .base import BaseEquation
 from .cahn_hilliard import CahnHilliard2DPeriodic
+from .pde_model import PDEModel
 
-__all__ = ["BaseEquation", "CahnHilliard2DPeriodic"]
+__all__ = ["BaseEquation", "CahnHilliard2DPeriodic", "PDEModel"]

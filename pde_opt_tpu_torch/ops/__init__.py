@@ -6,7 +6,7 @@ from .cas_spectral import (
     make_ch_cas_fused_macro_ep,
 )
 from .fused_spectral import ch_sif_macro_reference
-from .integrate import evolve
+from .integrate import ConstantStepSize, PIDController, evolve, integrate
 from .steppers import FusedSemiImplicitSpectral, SemiImplicitFourierSpectral
 
 __all__ = [
@@ -15,6 +15,9 @@ __all__ = [
     "make_ch_cas_fused_macro_ep",
     "ch_sif_macro_reference",
     "evolve",
+    "integrate",
+    "ConstantStepSize",
+    "PIDController",
     "FusedSemiImplicitSpectral",
     "SemiImplicitFourierSpectral",
 ]

@@ -26,9 +26,12 @@ uint8 observation ``clip(u*scale + offset, 0, 255)`` (mean-pooled by
 Each macro has two implementations of the same function:
 :func:`ch_cas_macro_plain` (plain torch; what CPU tensors run) and
 :func:`ch_cas_macro_cuda` (the hand-written Hopper kernel
-``csrc/ch_cas_macro.cu``; what CUDA tensors run).  There is no fallback
-from one to the other.  Gradients through the CUDA kernel need the
-backward kernel K3, which is not ported yet.
+``csrc/ch_cas_macro.cu``; what CUDA tensors run).  So has its backward:
+:func:`ch_cas_macro_bwd_plain` and :func:`ch_cas_macro_bwd_cuda` (kernel
+K3, in the same source).  The macros are ``torch.autograd.Function``s
+whose backward is the JAX package's custom VJP: re-run the forward, then
+sweep back through the same transforms, rounding where the forward rounds.
+There is no fallback from one implementation to the other.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from .fused_spectral import _fd_lap_symbols, ch_sif_macro_reference
 from .kernels import count_launch, load_library
@@ -52,6 +56,8 @@ __all__ = [
     "cas_constants",
     "ch_cas_macro_plain",
     "ch_cas_macro_cuda",
+    "ch_cas_macro_bwd_plain",
+    "ch_cas_macro_bwd_cuda",
     "make_ch_cas_fused_macro",
     "make_ch_cas_fused_macro_ep",
     "ch_cas_macro_reference",
@@ -86,6 +92,12 @@ class PolynomialMu:
         for a in reversed(self.coeffs[:-1]):
             p = p * c + a
         return p
+
+    def derivative(self) -> "PolynomialMu":
+        """``mu'`` as a polynomial: what the backward kernel evaluates where
+        the JAX kernel takes ``jax.jvp`` of ``mu_fn``."""
+        d = tuple(i * c for i, c in enumerate(self.coeffs) if i)
+        return PolynomialMu(d or (0.0,))
 
     def __eq__(self, other):
         return isinstance(other, PolynomialMu) and self.coeffs == other.coeffs
@@ -161,23 +173,17 @@ class Epilogue(NamedTuple):
 
 
 def _coeffs(kappa, lam, lam2, A, dt):
-    """Per-env multipliers ``(cm, cu)``, f32, in the JAX kernel's order."""
+    """Per-env ``(denom, cm, cu)``, f32, in the JAX kernel's order."""
     k = kappa.reshape(-1, 1, 1)
     denom = 1.0 / (1.0 + float(A) * float(dt) * (k * lam2))
     cm = (float(dt) * lam) * denom
     cu = (float(dt) * k) * lam2 * denom
-    return cm, cu
+    return denom, cm, cu
 
 
-def ch_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
-                       *, mu_fn: Callable, dt: float, A: float, n_steps: int,
-                       round_bf16: bool, epilogue: Optional[Epilogue] = None):
-    """Plain-torch macro: ``u`` (B, H, W) f32, ``kappa`` (B,) f32.
-
-    Returns ``u1`` or, with ``epilogue``, ``(u1, stats (B, 3), obs uint8)``.
-    Runs on any device; it is what the macro runs on CPU tensors and what
-    the CUDA kernel is held against on the card.
-    """
+def _transforms(consts: CasConstants, round_bf16: bool):
+    """``(fwd, inv)`` of the JAX kernel's ``make_transforms``: with bf16
+    matrices each transform rounds its operand and its intermediate."""
     if round_bf16:
         def rnd(z):
             return z.to(torch.bfloat16).to(torch.float32)
@@ -189,12 +195,26 @@ def ch_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstant
         t = rnd(torch.matmul(rnd(z).transpose(-1, -2), mh))          # [b, w, k]
         return torch.matmul(t.transpose(-1, -2), mw)                  # [b, k, l]
 
-    cm, cu = _coeffs(kappa, consts.lam, consts.lam2, A, dt)
-    u_t = transform(u, consts.ch, consts.cw)
+    return (lambda z: transform(z, consts.ch, consts.cw),
+            lambda z: transform(z, consts.ich, consts.icw))
+
+
+def ch_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
+                       *, mu_fn: Callable, dt: float, A: float, n_steps: int,
+                       round_bf16: bool, epilogue: Optional[Epilogue] = None):
+    """Plain-torch macro: ``u`` (B, H, W) f32, ``kappa`` (B,) f32.
+
+    Returns ``u1`` or, with ``epilogue``, ``(u1, stats (B, 3), obs uint8)``.
+    Runs on any device; it is what the macro runs on CPU tensors and what
+    the CUDA kernel is held against on the card.
+    """
+    fwd, inv = _transforms(consts, round_bf16)
+    _, cm, cu = _coeffs(kappa, consts.lam, consts.lam2, A, dt)
+    u_t = fwd(u)
     for _ in range(n_steps):
-        incr = cm * transform(mu_fn(u), consts.ch, consts.cw) - cu * u_t
+        incr = cm * fwd(mu_fn(u)) - cu * u_t
         u_t = u_t + incr
-        u = u + transform(incr, consts.ich, consts.icw)
+        u = u + inv(incr)
     if epilogue is None:
         return u
 
@@ -217,6 +237,49 @@ def ch_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstant
     return u, stats, obs
 
 
+def ch_cas_macro_bwd_plain(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
+                           consts: CasConstants, *, mu_fn: Callable, dt: float,
+                           A: float, n_steps: int, round_bf16: bool):
+    """Plain-torch VJP of the macro (the JAX kernel's ``bwd_kernel``).
+
+    ``u`` (B, H, W) and ``kappa`` (B,) are the macro's inputs and ``g``
+    (B, H, W) the cotangent of ``u1``; returns ``(du (B, H, W), dkappa
+    (B,))``.  The forward substeps are re-run into a list, then swept in
+    reverse; the cas matrices are symmetric and the multipliers diagonal, so
+    each transposed operator is again transform-multiply-transform:
+
+        gbar_k = gbar_{k+1} + mu'(u_k) * inv(cm * ghat) - inv(cu * ghat)
+        kacc  += ghat/(H W) * (dcm * fwd(mu(u_k)) - dcu * fwd(u_k))
+
+    with ``ghat = fwd(gbar_{k+1})``, ``dcm = d cm/d kappa = -A dt² lam³
+    denom²`` and ``dcu = d cu/d kappa = dt lam² denom²``; ``dkappa`` is the
+    per-env sum of ``kacc``.
+    """
+    fwd, inv = _transforms(consts, round_bf16)
+    lam, lam2 = consts.lam, consts.lam2
+    denom, cm, cu = _coeffs(kappa, lam, lam2, A, dt)
+    dcm = -(float(A) * float(dt) * float(dt)) * (lam * lam2) * denom * denom
+    dcu = float(dt) * lam2 * denom * denom
+
+    traj = []
+    u_t = fwd(u)
+    for _ in range(n_steps):
+        traj.append(u)
+        incr = cm * fwd(mu_fn(u)) - cu * u_t
+        u_t = u_t + incr
+        u = u + inv(incr)
+
+    inv_hw = 1.0 / float(u.shape[-2] * u.shape[-1])
+    gbar = g
+    kacc = torch.zeros_like(g)
+    for u_k in reversed(traj):
+        ghat = fwd(gbar)
+        mu_p = torch.func.jvp(mu_fn, (u_k,), (torch.ones_like(u_k),))[1]
+        kacc = kacc + (inv_hw * ghat) * (dcm * fwd(mu_fn(u_k)) - dcu * fwd(u_k))
+        gbar = gbar + mu_p * inv(cm * ghat) - inv(cu * ghat)
+    return gbar, kacc.sum((-2, -1))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = load_library("ch_cas_macro")
@@ -230,15 +293,33 @@ def _library():
         p,                               # stream
     ]
     lib.ch_cas_macro_launch.restype = ctypes.c_int
+    lib.ch_cas_macro_bwd_slots.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.ch_cas_macro_bwd_slots.restype = ctypes.c_int
+    lib.ch_cas_macro_bwd_launch.argtypes = [
+        p, p, p,                         # u, kappa, g
+        p, p, p, p, p, p,                # ch, cw, ich, icw, lam, lam2
+        p, p, p, i,                      # du, dkappa, scratch, n_slots
+        i, i, i, i, f, f, f,             # B, H, W, n_steps, dt, A*dt, -A*dt*dt
+        p, i, p, i, i,                   # mu, n, mu', n, round_bf16
+        p,                               # stream
+    ]
+    lib.ch_cas_macro_bwd_launch.restype = ctypes.c_int
     lib.ch_cas_error_string.argtypes = [ctypes.c_int]
     lib.ch_cas_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _raise_if(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} failed: {_library().ch_cas_error_string(rc).decode()}"
+        )
+
+
 def _check_cuda(name, t, shape, dtype, device):
     if t.device.type != "cuda":
         raise ValueError(
-            f"ch_cas_macro_cuda needs CUDA tensors; {name} is on {t.device}"
+            f"the CUDA macro needs CUDA tensors; {name} is on {t.device}"
         )
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -251,24 +332,12 @@ def _check_cuda(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
-                      *, mu_fn: Callable, dt: float, A: float, n_steps: int,
-                      round_bf16: bool, epilogue: Optional[Epilogue] = None):
-    """The Hopper kernel: same contract as :func:`ch_cas_macro_plain`.
-
-    Launches ``csrc/ch_cas_macro.cu`` on the current stream (K1 with an
-    epilogue, K2 without) and counts the launch.  Raises on anything the
-    kernel does not take.
-    """
+def _check_macro_args(u, kappa, consts, mu_fn):
+    """Raise on what the CUDA kernels do not take; return ``(B, H, W)``."""
     if not isinstance(mu_fn, PolynomialMu):
         raise ValueError(
             "the CUDA macro evaluates mu from polynomial coefficients: pass a "
             f"PolynomialMu, got {mu_fn!r}"
-        )
-    if u.requires_grad or kappa.requires_grad:
-        raise NotImplementedError(
-            "gradients through the CUDA macro need the backward kernel K3 "
-            "(pde_opt_tpu/ops/cas_spectral.py bwd_kernel), not ported yet"
         )
     if u.ndim != 3:
         raise ValueError(f"u must be (B, H, W), got shape {tuple(u.shape)}")
@@ -284,7 +353,24 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     for name, shape in (("ch", (H, H)), ("cw", (W, W)), ("ich", (H, H)),
                         ("icw", (W, W)), ("lam", (H, W)), ("lam2", (H, W))):
         _check_cuda(name, getattr(consts, name), shape, torch.float32, dev)
+    return B, H, W
 
+
+def _c_coeffs(mu: PolynomialMu):
+    return (ctypes.c_float * len(mu.coeffs))(*mu.coeffs), len(mu.coeffs)
+
+
+def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
+                      *, mu_fn: Callable, dt: float, A: float, n_steps: int,
+                      round_bf16: bool, epilogue: Optional[Epilogue] = None):
+    """The Hopper kernel: same contract as :func:`ch_cas_macro_plain`.
+
+    Launches ``csrc/ch_cas_macro.cu`` on the current stream (K1 with an
+    epilogue, K2 without) and counts the launch.  Raises on anything the
+    kernel does not take.
+    """
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
+    dev = u.device
     out = torch.empty_like(u)
     stats = obs = None
     if epilogue is not None:
@@ -293,32 +379,141 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
             raise ValueError(f"obs_downsample={ds} must divide {(H, W)}")
         stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
         obs = torch.empty((B, H // ds, W // ds), dtype=torch.uint8, device=dev)
-    coeffs = (ctypes.c_float * len(mu_fn.coeffs))(*mu_fn.coeffs)
-    lib = _library()
+    coeffs, n_coeffs = _c_coeffs(mu_fn)
     with torch.cuda.device(dev):
-        rc = lib.ch_cas_macro_launch(
+        rc = _library().ch_cas_macro_launch(
             u.data_ptr(), kappa.data_ptr(), consts.ch.data_ptr(),
             consts.cw.data_ptr(), consts.ich.data_ptr(), consts.icw.data_ptr(),
             consts.lam.data_ptr(), consts.lam2.data_ptr(), out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             obs.data_ptr() if obs is not None else None,
             B, H, W, int(n_steps), float(dt), float(A) * float(dt),
-            coeffs, len(mu_fn.coeffs), int(bool(round_bf16)),
+            coeffs, n_coeffs, int(bool(round_bf16)),
             epilogue.ds if epilogue else 1,
             epilogue.obs_scale if epilogue else 0.0,
             epilogue.obs_offset if epilogue else 0.0,
             epilogue.center if epilogue else 0.0,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"ch_cas_macro launch failed: {lib.ch_cas_error_string(rc).decode()}"
-        )
+    _raise_if(rc, "ch_cas_macro launch")
     if epilogue is None:
         count_launch("ch_cas_macro")
         return out
     count_launch("ch_cas_macro_ep")
     return out, stats, obs
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_slots(device_index: int) -> int:
+    """Blocks of the backward kernel resident at once on one device: the
+    number of trajectory scratch slots a launch needs."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _library().ch_cas_macro_bwd_slots(ctypes.byref(n))
+    _raise_if(rc, "ch_cas_macro_bwd_slots")
+    return n.value
+
+
+def ch_cas_macro_bwd_cuda(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
+                          consts: CasConstants, *, mu_fn: Callable, dt: float,
+                          A: float, n_steps: int, round_bf16: bool):
+    """The Hopper backward kernel K3: same contract as
+    :func:`ch_cas_macro_bwd_plain`.
+
+    ``mu'`` reaches the kernel as :meth:`PolynomialMu.derivative`.  Each
+    resident block re-runs its envs' forward into its own slot of a
+    device-memory scratch of ``slots x n_steps x H x W`` f32 (43 MB at
+    64², 10 substeps on an H100: 264 slots), allocated here.  Launches on the
+    current stream and counts the launch; raises on anything the kernel
+    does not take.
+    """
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
+    dev = u.device
+    _check_cuda("g", g, (B, H, W), torch.float32, dev)
+    n_steps = int(n_steps)
+    du = torch.empty_like(u)
+    dkappa = torch.empty((B,), dtype=torch.float32, device=dev)
+    slots = min(B, _bwd_slots(dev.index))
+    scratch = torch.empty((slots, max(n_steps, 1), H, W), dtype=torch.float32,
+                          device=dev)
+    coeffs, n_coeffs = _c_coeffs(mu_fn)
+    dcoeffs, n_dcoeffs = _c_coeffs(mu_fn.derivative())
+    with torch.cuda.device(dev):
+        rc = _library().ch_cas_macro_bwd_launch(
+            u.data_ptr(), kappa.data_ptr(), g.data_ptr(),
+            consts.ch.data_ptr(), consts.cw.data_ptr(), consts.ich.data_ptr(),
+            consts.icw.data_ptr(), consts.lam.data_ptr(), consts.lam2.data_ptr(),
+            du.data_ptr(), dkappa.data_ptr(), scratch.data_ptr(), slots,
+            B, H, W, n_steps, float(dt), float(A) * float(dt),
+            -(float(A) * float(dt) * float(dt)),
+            coeffs, n_coeffs, dcoeffs, n_dcoeffs, int(bool(round_bf16)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_if(rc, "ch_cas_macro_bwd launch")
+    count_launch("ch_cas_macro_bwd")
+    return du, dkappa
+
+
+def _ep_fold_stats_cotangent(u1, gu, gstats, center):
+    """Fold the stats cotangent into the field cotangent at the final field
+    (``s1 = sum(uz)``, ``s2 = sum(uz²)`` over the NaN-masked centered field
+    ``uz``; the finite count has zero gradient almost everywhere)."""
+    fin = torch.isfinite(u1)
+    uz = torch.where(fin, u1 - center, torch.zeros_like(u1))
+    return gu + torch.where(
+        fin, gstats[..., 0, None, None] + 2.0 * uz * gstats[..., 1, None, None],
+        torch.zeros_like(u1),
+    )
+
+
+def _run_fwd(x, kapf, consts, kw, epilogue):
+    run = ch_cas_macro_plain if x.device.type == "cpu" else ch_cas_macro_cuda
+    return run(x, kapf, consts, epilogue=epilogue, **kw)
+
+
+def _run_bwd(x, kapf, g, consts, kw):
+    run = ch_cas_macro_bwd_plain if x.device.type == "cpu" else ch_cas_macro_bwd_cuda
+    return run(x, kapf, g.contiguous(), consts, **kw)
+
+
+class _CasMacro(torch.autograd.Function):
+    """The JAX macro's ``_core``: ``x`` (B, H, W), ``kapf`` (B,) f32 ->
+    ``u1``, with the backward kernel as its VJP (``_core_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, kapf, consts, kw):
+        ctx.consts, ctx.kw = consts, kw
+        ctx.save_for_backward(x, kapf)
+        return _run_fwd(x, kapf, consts, kw, None)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, kapf = ctx.saved_tensors
+        du, dkappa = _run_bwd(x, kapf, g, ctx.consts, ctx.kw)
+        return du, dkappa, None, None
+
+
+class _CasMacroEp(torch.autograd.Function):
+    """The JAX macro's ``_core_ep``: ``(u1, stats, obs)``.  ``obs`` is not
+    differentiable; the stats cotangent folds into the field cotangent at
+    ``u1`` before the backward kernel runs (``_core_ep_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, kapf, consts, kw, epilogue):
+        u1, stats, obs = _run_fwd(x, kapf, consts, kw, epilogue)
+        ctx.mark_non_differentiable(obs)
+        ctx.consts, ctx.kw, ctx.center = consts, kw, epilogue.center
+        ctx.save_for_backward(x, kapf, u1)
+        return u1, stats, obs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gu, gstats, _gobs):
+        x, kapf, u1 = ctx.saved_tensors
+        g = _ep_fold_stats_cotangent(u1, gu, gstats, ctx.center)
+        du, dkappa = _run_bwd(x, kapf, g, ctx.consts, ctx.kw)
+        return du, dkappa, None, None, None
 
 
 def make_ch_cas_fused_macro(
@@ -342,15 +537,18 @@ def make_ch_cas_fused_macro(
     ``obs_downsample``, ``stats_center``) the macro returns
     ``(u1, stats, obs)`` as :func:`make_ch_cas_fused_macro_ep` documents.
     CPU tensors run :func:`ch_cas_macro_plain`; CUDA tensors run the Hopper
-    kernel through :func:`ch_cas_macro_cuda`.  ``mats_dtype`` is bf16 (the
-    JAX default) or f32 (no rounding).
+    kernel through :func:`ch_cas_macro_cuda`.  Gradients with respect to
+    ``u`` and ``kappa`` run the backward of the same kind (plain on CPU,
+    kernel K3 on CUDA); ``kappa``'s comes back in the caller's shape.
+    ``mats_dtype`` is bf16 (the JAX default) or f32 (no rounding).
     """
     if H % 8 or W % 8:
         raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")
     if mats_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mats_dtype must be bf16 or f32, got {mats_dtype}")
     ep = Epilogue.from_dict(epilogue, H, W) if epilogue is not None else None
-    round_bf16 = mats_dtype == torch.bfloat16
+    kw = dict(mu_fn=mu_fn, dt=dt, A=A, n_steps=n_steps,
+              round_bf16=mats_dtype == torch.bfloat16)
 
     def macro(state: torch.Tensor, kappa):
         *batch, h, w = state.shape
@@ -358,16 +556,16 @@ def make_ch_cas_fused_macro(
             raise ValueError(f"state trailing shape {(h, w)} != {(H, W)}")
         B = math.prod(batch) if batch else 1
         x = state.reshape(B, H, W).to(torch.float32).contiguous()
+        # The broadcast to a flat (B,) vector is plain torch, so scalar,
+        # (B,) and batch-shaped kappa get their cotangents from autograd.
         kap = torch.as_tensor(kappa, dtype=torch.float32, device=state.device)
         kapf = (torch.broadcast_to(kap, (B,)) if kap.ndim <= 1
                 else kap.reshape(B)).contiguous()
         consts = cas_constants(H, W, float(hx), float(hy), mats_dtype, state.device)
-        run = ch_cas_macro_plain if state.device.type == "cpu" else ch_cas_macro_cuda
-        res = run(x, kapf, consts, mu_fn=mu_fn, dt=dt, A=A, n_steps=n_steps,
-                  round_bf16=round_bf16, epilogue=ep)
         if ep is None:
-            return res.to(state.dtype).reshape(*batch, H, W)
-        u1, stats, obs = res
+            u1 = _CasMacro.apply(x, kapf, consts, kw)
+            return u1.to(state.dtype).reshape(*batch, H, W)
+        u1, stats, obs = _CasMacroEp.apply(x, kapf, consts, kw, ep)
         return (u1.to(state.dtype).reshape(*batch, H, W),
                 stats.reshape(*batch, 3),
                 obs.reshape(*batch, H // ep.ds, W // ep.ds))

@@ -41,7 +41,9 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-_LAUNCHES: Dict[str, int] = {"ch_cas_macro": 0, "ch_cas_macro_ep": 0}
+_LAUNCHES: Dict[str, int] = {
+    "ch_cas_macro": 0, "ch_cas_macro_ep": 0, "ch_cas_macro_bwd": 0,
+}
 
 
 def _nvcc() -> str:

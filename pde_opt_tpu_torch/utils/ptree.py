@@ -1,0 +1,97 @@
+"""Parameter-tree partition/combine utilities (PyTorch port of
+:mod:`pde_opt_tpu.utils.ptree`).
+
+A parameter tree is a nest of dicts, lists and tuples whose leaves mix
+tensors, numpy arrays, python numbers and callables.  Optimizers see only
+the inexact-array leaves; everything else is carried through statically.
+``None`` is a leaf that stands for "absent", as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+__all__ = [
+    "tree_map",
+    "tree_leaves",
+    "is_inexact_array_like",
+    "partition",
+    "combine",
+    "as_arrays",
+    "from_numpy",
+]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(out) if isinstance(tree, list) else tuple(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in order, ``None`` leaves dropped."""
+    out: List[Any] = []
+    tree_map(lambda x: out.append(x) if x is not None else None, tree)
+    return out
+
+
+def is_inexact_array_like(x: Any) -> bool:
+    """True for floating/complex tensors and arrays and python floats/complex.
+
+    The filter that splits trainable leaves from static structure
+    (``eqx.is_inexact_array_like`` in the reference).
+    """
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point() or x.is_complex()
+    if isinstance(x, (np.ndarray, np.generic)):
+        return np.issubdtype(x.dtype, np.inexact)
+    return isinstance(x, (float, complex))
+
+
+def partition(tree: Any, filter_fn: Callable[[Any], bool] = is_inexact_array_like):
+    """Split ``tree`` into (dynamic, static) trees of the same structure.
+
+    Leaves passing ``filter_fn`` stay in the dynamic tree (static side gets
+    ``None``); all other leaves go to the static tree (dynamic side
+    ``None``).  ``combine(dynamic, static)`` inverts this.
+    """
+    dynamic = tree_map(lambda x: x if filter_fn(x) else None, tree)
+    static = tree_map(lambda x: None if filter_fn(x) else x, tree)
+    return dynamic, static
+
+
+def combine(dynamic: Any, static: Any) -> Any:
+    """Inverse of :func:`partition`: take the non-None leaf at each position."""
+    return tree_map(lambda d, s: s if d is None else d, dynamic, static)
+
+
+def as_arrays(tree: Any) -> Any:
+    """Convert every non-None leaf to a tensor (python floats take torch's
+    default dtype; tensors keep theirs)."""
+    return tree_map(lambda x: None if x is None else torch.as_tensor(x), tree)
+
+
+def from_numpy(tree: Any, device=None) -> Any:
+    """Carry a JAX parameter tree into the port.
+
+    Array leaves (numpy arrays and scalars, or any other object with
+    ``__array__``, such as a JAX array) become tensors of the same dtype on
+    ``device``; tensors move to ``device``; python numbers, callables and
+    ``None`` are kept as they are.
+    """
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device) if device is not None else x
+        if isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__"):
+            return torch.as_tensor(np.array(x), device=device)
+        return x
+
+    return tree_map(leaf, tree)

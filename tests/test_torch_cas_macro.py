@@ -195,10 +195,13 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         ch_cas_macro_cuda(u, kap, consts, **kw)
     with pytest.raises(ValueError, match="PolynomialMu"):
         ch_cas_macro_cuda(u, kap, consts, **{**kw, "mu_fn": MU_J})
-    with pytest.raises(NotImplementedError, match="K3"):
-        ch_cas_macro_cuda(u.requires_grad_(), kap, consts, **kw)
     with pytest.raises(ValueError, match="up to 64"):
         ch_cas_macro_cuda(torch.zeros(2, 128, 128), kap, consts, **kw)
+    # A gradient through the macro on CPU tensors runs the plain backward:
+    # it launches no kernel, K3 included.
+    ut, kt = u.clone().requires_grad_(), kap.clone().requires_grad_()
+    tmake(MU_T, 16, 16, HX, HY, A, DT, 2, mats_dtype=torch.float32)(ut, kt).sum().backward()
+    assert ut.grad is not None and kt.grad is not None
     assert kernels.launch_counts() == before
 
 
