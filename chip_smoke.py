@@ -1,42 +1,56 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Two paths run at full width.  Serving: the flagship Cahn-Hilliard control
-fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit substeps per RL
-step, per-env kappa control, reward -var, uint8 observation, auto-reset on.
-Training: gradients through the same macro at 1024 envs x 64^2 x 10
-substeps (the JAX package's ``train_grad`` bench config) and
-``PDEModel.optimize`` with Adam on the fused stepper.
-Phases (each passes or raises; nothing is caught):
+Four paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
+substeps per RL step, per-env kappa control, reward -var, uint8
+observation, auto-reset on.  Training: gradients through the same macro at
+1024 envs x 64^2 x 10 substeps (the JAX package's ``train_grad`` bench
+config) and ``PDEModel.optimize`` with Adam on the fused stepper.  The
+Allen-Cahn (AC) fleet at 4096 x 64^2 x 10 and the Gross-Pitaevskii (GPE)
+Strang fleet at 1024 x 64^2 x 10 (the JAX package's ``ac64``/``gpe64``
+bench configs).  Phases (each passes or raises; nothing is caught):
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``.
+2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``,
+   one ``nvcc`` per source, in parallel; print ``ptxas -v``'s lines.
 3. Hold each kernel against its plain-torch version on the card at its
-   path's shapes, with f32 and bf16 matrices: the macro (K2 without, K1
+   path's shapes, with f32 and bf16 matrices: the CH macro (K2 without, K1
    with the env epilogue, obs_downsample 1 and 4; also against the FFT
-   oracle) and its backward K3; run the epilogue variant's gradient (stats
-   fold + K3) against the plain autograd Function on the CPU.
-4. Reset the launch counts, then drive the serving path: a 120-step
+   oracle) and its backward K3; the epilogue variant's gradient (stats fold
+   + K3) against the plain autograd Function on the CPU; the AC macro (K4,
+   epilogue on and off, the R == 1 path and a polynomial R; also against the
+   FFT oracle); the GPE macro (K5, epilogue on and off, phase polynomials on
+   and off; also against the FFT oracle).  K4 and K5 with bf16 matrices are
+   also held after one substep, where a misplaced rounding shows: the RMS
+   of kernel - plain must sit below a bound that the unrounded plain
+   version (the control) exceeds.
+4. Reset the launch counts, then drive the CH serving path: a 120-step
    random-policy rollout of the fused-epilogue fleet (K1), which crosses
    the episode end and its auto-reset, and 10 steps of the same fleet
    without the fused epilogue (K2).  Check the rewards, the launch counts,
    the per-env mass drift and the epilogue reward against the env's own
    reward function; poison one env with NaN and check it is flagged and
    reset.
-5. Reset the launch counts, then drive the training path: value and grad
+5. The same for the AC fleet (K4: 120 steps with the epilogue, 10 without)
+   and for the GPE fleet (K5: likewise; the per-env norm must stay 1), each
+   with its launch counts reset just before and read just after.
+6. Reset the launch counts, then drive the training path: value and grad
    of ``sum(macro(u, kappa)**2)`` with respect to a per-env kappa (K2 +
    K3), and 5 Adam steps of ``PDEModel.optimize`` on a two-segment
    checkpointed rollout (each step: K2 twice per segment, the backward's
    recompute included, and K3 once).  Check finiteness, the launch counts,
    that kappa moved in every env, and (f32 matrices) the fused kappa
    gradient against autograd through the FFT oracle.
-6. Time the kernels against their plain versions with CUDA events, the
-   fused and the FFT-stepper value+grad, the auto-reset block, and the
-   rollout's env-steps/s.
+7. Time the kernels against their plain versions with CUDA events, the
+   fused and the FFT-stepper value+grad, the auto-reset block, the
+   rollouts' env-steps/s and the GPE fleet's fused against its FFT path.
 
-The last two lines are a JSON object per kernel and the JSON result line.
+Every rollout runs under ``torch.cuda.set_sync_debug_mode("error")``: a
+step that waits for the device fails the run.  The last two lines are a
+JSON object per kernel and the JSON result line.
 """
 
 import json
@@ -50,10 +64,19 @@ DT, A = 0.01 / SUBSTEPS, 1.0   # the preset's substep and splitting constant
 CENTER = 0.5                   # the preset's stats_center
 TOL_U = {"f32": 1e-5, "bf16": 1e-3}      # kernel vs plain, field
 TOL_ORACLE = {"f32": 1e-5, "bf16": 5e-3}  # macro vs FFT oracle, field
-SOURCE = "pde_opt_tpu_torch/csrc/ch_cas_macro.cu"
-REPLACES = {"ch_cas_macro_ep": "pde_opt_tpu/ops/cas_spectral.py:630",
-            "ch_cas_macro": "pde_opt_tpu/ops/cas_spectral.py:392",
-            "ch_cas_macro_bwd": "pde_opt_tpu/ops/cas_spectral.py:411"}
+SOURCES = {"ch_cas_macro": "pde_opt_tpu_torch/csrc/ch_cas_macro.cu",
+           "ac_cas_macro": "pde_opt_tpu_torch/csrc/ac_cas_macro.cu",
+           "gpe_strang_macro": "pde_opt_tpu_torch/csrc/gpe_strang_macro.cu"}
+# kernel (launch-count name) -> (library, the TPU kernel it replaces)
+KERNELS = {
+    "ch_cas_macro_ep": ("ch_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:630"),
+    "ch_cas_macro": ("ch_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:392"),
+    "ch_cas_macro_bwd": ("ch_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:411"),
+    "ac_cas_macro_ep": ("ac_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:1014"),
+    "ac_cas_macro": ("ac_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:981"),
+    "gpe_strang_macro_ep": ("gpe_strang_macro", "pde_opt_tpu/ops/gpe_cas.py:393"),
+    "gpe_strang_macro": ("gpe_strang_macro", "pde_opt_tpu/ops/gpe_cas.py:371"),
+}
 # Training path: bench.py's train_grad config and the optimize run.
 TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
 # K3 vs its plain backward, each error relative to its maximum (du, dkappa),
@@ -64,6 +87,32 @@ TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
 # u_k to bf16 (ulp 2e-3) is ~10% of the fluctuation fwd(u_k) carries, so a
 # flipped rounding between two accumulation orders moves dkappa by ~1e-2.
 TOL_BWD = {"f32": (5e-6, 1e-4), "bf16": (1e-5, 1e-2)}
+# AC fleet (the preset: L = 0.01 * grid, step_dt 0.01, A = 1, kappa in
+# [1e-4, 1e-3]); K4 is held at the CH macro's bounds, bf16 tighter (5e-4:
+# R == 1 reads 1.3e-4, R = 1 + 0.5 u^2 2.5e-4 on an H100).  A polynomial
+# non-identity mobility R = 1 + 0.5 u^2 drives the 4-transform path.
+AC_ENVS = 4096
+AC_R_GENERAL = (1.0, 0.0, 0.5)
+TOL_AC = {"f32": 1e-5, "bf16": 5e-4}
+# GPE fleet (the preset: box 16, step_dt 0.02, g = 100, intensity in
+# [0, 50]).  K5 against its plain version: f32 to 5e-6; with bf16 matrices
+# two correct macros drift apart to the macro's own bf16 noise (a 1e-7
+# relative input perturbation moves the bf16 output by 6.7e-3 at 64^2 x 10
+# substeps; the kinetic propagator is unitary and damps none of it), so the
+# 10-substep bf16 bounds are that noise level, against plain and against
+# the oracle: they catch a broken kernel, not a misplaced rounding.
+GPE_ENVS, GPE_BOX, GPE_G = 1024, 16.0, 100.0
+TOL_GPE = {"f32": 5e-6, "bf16": 2e-2}
+TOL_GPE_ORACLE = {"f32": 5e-6, "bf16": 3e-2}
+# Rounding sites, bf16 matrices.  After 10 substeps a kernel that rounds in
+# the wrong places, or not at all, sits about as far from the plain version
+# as a correct one (GPE: the same max, RMS and share of pixels above 1e-3;
+# AC: within 2x), so K4 and K5 are also held after ONE substep, by the RMS of
+# kernel - plain over the fleet.  The bound must lie below the same RMS of
+# the control, the plain version with the rounding off (what a kernel that
+# ignores it computes), which every run measures.
+TOL_SITE = {"ac_r1": 2e-6, "ac_general": 6e-6, "gpe": 5e-5}
+FLEET_STEPS_NO_EP = 10          # steps of each fleet without the epilogue
 
 
 def _card():
@@ -92,10 +141,243 @@ def _check(cond, what):
         raise AssertionError(what)
 
 
+def _end_step(torch, env):
+    """The step at which the f32 episode clock first reaches end_time."""
+    t, n = torch.zeros((), dtype=torch.float32), 0
+    while not bool(t >= env.end_time - 1e-9):
+        t, n = t + env.step_dt, n + 1
+    return n
+
+
+def _stats_err(got, want, n_px):
+    """Epilogue stats of the field epilogue (K1/K4): n_finite must agree;
+    returns (relative error of s2, error of s1 over its natural scale
+    sqrt(n_px * s2))."""
+    _check(bool((got[:, 2] == want[:, 2]).all()), "stats n_finite differs")
+    e2 = ((got[:, 1] - want[:, 1]).abs() / want[:, 1].abs()).max().item()
+    e1 = ((got[:, 0] - want[:, 0]).abs() / (n_px * want[:, 1]).sqrt()).max().item()
+    return e2, e1
+
+
+def _rms(d):
+    return d.double().pow(2).mean().sqrt().item()
+
+
+def _check_sites(name, got, want, control, bound):
+    """One substep, bf16 matrices: the kernel within ``bound`` (RMS over the
+    fleet) of the plain version, the unrounded control beyond it."""
+    rms, ctl = _rms(got - want), _rms(control - want)
+    line = (f"check {name}, 1 substep: rms(kernel - plain) {rms:.3e} <= {bound:.0e} < "
+            f"rms(unrounded - plain) {ctl:.3e}")
+    _check(rms <= bound, f"{line}: the kernel is above the bound")
+    _check(ctl > bound, f"{line}: the bound does not separate the control")
+    print(line, flush=True)
+    return rms, ctl
+
+
+def _check_ac(torch, dev, gen):
+    """K4 against its plain version and the FFT oracle at the AC fleet's
+    shapes; returns the inputs and the main path's (R == 1, bf16) errors."""
+    from pde_opt_tpu_torch.envs.presets import AC_MU, AC_R
+    from pde_opt_tpu_torch.ops.cas_spectral import (
+        Epilogue,
+        PolynomialMu,
+        ac_cas_macro_cuda,
+        ac_cas_macro_plain,
+        cas_constants,
+        r_is_identity,
+    )
+    from pde_opt_tpu_torch.ops.fused_spectral import ac_sif_macro_reference
+
+    u = 0.1 * torch.randn((AC_ENVS, GRID, GRID), generator=gen, device=dev)
+    kap = 1e-4 + 9e-4 * torch.rand((AC_ENVS,), generator=gen, device=dev)
+    max_err = {"ac_cas_macro": 0.0, "ac_cas_macro_ep": 0.0}
+    for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        consts = cas_constants(GRID, GRID, HX, HY, mdt, dev)
+        for rname, R in (("1", AC_R), ("1+0.5u^2", PolynomialMu(AC_R_GENERAL))):
+            kw = dict(mu_fn=AC_MU, R_fn=R, r_identity=r_is_identity(R), dt=DT, A=A,
+                      n_steps=SUBSTEPS, round_bf16=mdt == torch.bfloat16)
+            for ep in (None, Epilogue(127.5, 127.5, 0.0, 1)):
+                got = ac_cas_macro_cuda(u, kap, consts, epilogue=ep, **kw)
+                want = ac_cas_macro_plain(u, kap, consts, epilogue=ep, **kw)
+                torch.cuda.synchronize()
+                if ep is None:
+                    got, want = (got,), (want,)
+                err = (got[0] - want[0]).abs().max().item()
+                name = "ac_cas_macro_ep" if ep else "ac_cas_macro"
+                line = f"check {name} mats={mats} R={rname}: u1 max_abs_err {err:.3e}"
+                _check(err <= TOL_AC[mats], f"{line} > {TOL_AC[mats]}")
+                if ep is not None:
+                    e2, e1 = _stats_err(got[1], want[1], GRID * GRID)
+                    lsb = (got[2].int() - want[2].int()).abs().max().item()
+                    line += (f", stats s2 max_rel_err {e2:.3e}, s1 err/sqrt(n s2) {e1:.3e}, "
+                             f"obs max_lsb {lsb}")
+                    _check(e2 <= 1e-3 and e1 <= 1e-3, f"{line}: stats bound 1e-3")
+                    _check(lsb <= 1, f"{line}: obs > 1 LSB")
+                print(line, flush=True)
+                if mats == "bf16" and R is AC_R:
+                    max_err[name] = err
+            if mdt == torch.bfloat16:
+                one = {**kw, "n_steps": 1}
+                _check_sites(f"ac_cas_macro mats=bf16 R={rname}",
+                             ac_cas_macro_cuda(u, kap, consts, **one),
+                             ac_cas_macro_plain(u, kap, consts, **one),
+                             ac_cas_macro_plain(u, kap, consts, **{**one, "round_bf16": False}),
+                             TOL_SITE["ac_r1" if R is AC_R else "ac_general"])
+            oracle = ac_sif_macro_reference(AC_MU, R, HX, HY, A, DT, SUBSTEPS)(u, kap)
+            err = (ac_cas_macro_cuda(u, kap, consts, **kw) - oracle).abs().max().item()
+            print(f"check ac_cas_macro mats={mats} R={rname} vs FFT oracle: max_abs_err {err:.3e}",
+                  flush=True)
+            _check(err <= TOL_ORACLE[mats], f"K4 vs FFT oracle {err} > {TOL_ORACLE[mats]}")
+    return u, kap, max_err
+
+
+def _check_gpe(torch, dev, gen, env):
+    """K5 against its plain version and the FFT oracle at the GPE fleet's
+    shapes (the preset's reset state, trap, spot and an intensity per env in
+    its control range); returns the inputs and the main path's (bf16, phase
+    polynomials) errors."""
+    from pde_opt_tpu_torch.ops.gpe_cas import (
+        GpeEpilogue,
+        gpe_constants,
+        gpe_strang_fast_reference,
+        gpe_strang_macro_cuda,
+        gpe_strang_macro_plain,
+    )
+
+    y = env.reset(gen)[0].y.clone()
+    X, Y = (torch.from_numpy(m).to(dev) for m in env.domain.mesh())
+    V = (0.5 * (X**2 + Y**2)).contiguous()
+    spot = env.fused_epilogue["weight"]
+    ctrl = ((50.0 * torch.rand((GPE_ENVS,), generator=gen, device=dev))[:, None, None]
+            * spot).contiguous()
+    dx, dt = float(env.domain.dx[0]), env.dt_sub
+    max_err = {"gpe_strang_macro": 0.0, "gpe_strang_macro_ep": 0.0}
+    for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        consts = gpe_constants(GRID, GRID, dx, dt, mdt, dev)
+        for poly in (True, False):
+            for ep in (None, GpeEpilogue(2550.0, spot)):
+                kw = dict(g=GPE_G, dt=dt, dx=dx, n_steps=SUBSTEPS,
+                          round_bf16=mdt == torch.bfloat16, phase_poly=poly, epilogue=ep)
+                got = gpe_strang_macro_cuda(y, ctrl, V, consts, **kw)
+                want = gpe_strang_macro_plain(y, ctrl, V, consts, **kw)
+                torch.cuda.synchronize()
+                if ep is None:
+                    got, want = (got,), (want,)
+                err = (got[0] - want[0]).abs().max().item()
+                rho = got[0][..., 0] ** 2 + got[0][..., 1] ** 2
+                norm_err = (rho.sum((-2, -1)) * dx * dx - 1.0).abs().max().item()
+                name = "gpe_strang_macro_ep" if ep else "gpe_strang_macro"
+                line = (f"check {name} mats={mats} phase_poly={poly}: y1 max_abs_err {err:.3e}, "
+                        f"max |norm - 1| {norm_err:.3e}")
+                _check(err <= TOL_GPE[mats], f"{line} > {TOL_GPE[mats]}")
+                _check(norm_err <= 1e-5, f"{line}: norm off by more than 1e-5")
+                if ep is not None:
+                    # The epilogue against the kernel's own final state.
+                    own = torch.stack([(rho * spot).sum((-2, -1)), rho.sum((-2, -1))], -1)
+                    e_st = ((got[1][:, :2] - own).abs() / own.abs()).max().item()
+                    lsb = (got[2].int() - torch.clamp(rho * 2550.0, 0, 255).to(
+                        torch.uint8).int()).abs().max().item()
+                    line += f", stats max_rel_err {e_st:.3e}, obs max_lsb {lsb} (own field)"
+                    _check(e_st <= 1e-5 and lsb <= 1, f"{line}: epilogue")
+                    _check(bool((got[1][:, 2] == GRID * GRID).all()), f"{line}: n_finite")
+                    _check(got[2].shape == (GPE_ENVS, GRID, GRID) and got[2].dtype == torch.uint8,
+                           f"{line}: obs shape/dtype")
+                print(line, flush=True)
+                if mats == "bf16" and poly:
+                    max_err[name] = err
+            if mdt == torch.bfloat16:
+                one = dict(g=GPE_G, dt=dt, dx=dx, n_steps=1, phase_poly=poly)
+                _check_sites(f"gpe_strang_macro mats=bf16 phase_poly={poly}",
+                             gpe_strang_macro_cuda(y, ctrl, V, consts, round_bf16=True, **one),
+                             gpe_strang_macro_plain(y, ctrl, V, consts, round_bf16=True, **one),
+                             gpe_strang_macro_plain(y, ctrl, V, consts, round_bf16=False, **one),
+                             TOL_SITE["gpe"])
+        oracle = gpe_strang_fast_reference(V, GPE_G, dx, dt, SUBSTEPS, remat=False)(y, ctrl)
+        got = gpe_strang_macro_cuda(y, ctrl, V, consts, g=GPE_G, dt=dt, dx=dx, n_steps=SUBSTEPS,
+                                    round_bf16=mdt == torch.bfloat16, phase_poly=True)
+        err = (got - oracle).abs().max().item()
+        print(f"check gpe_strang_macro mats={mats} vs FFT oracle: max_abs_err {err:.3e}",
+              flush=True)
+        _check(err <= TOL_GPE_ORACLE[mats], f"K5 vs FFT oracle {err} > {TOL_GPE_ORACLE[mats]}")
+    return y, ctrl, V, spot, max_err
+
+
+def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol):
+    """One fleet's serving path: with the launch counts reset just before, a
+    STEPS-step random-policy rollout of ``env`` (fused epilogue) that crosses
+    the episode end and its auto-reset, then FLEET_STEPS_NO_EP steps of
+    ``env0`` (no epilogue), all under sync debug mode "error"; the counts
+    are read just after.  Checks the launches, the rewards, the resets, the
+    epilogue reward against the env's own reward function, and a poisoned
+    env.  Returns (final state, launch counts, env-steps/s)."""
+
+    def policy(obs, g):
+        return env.sample_actions(g)
+
+    B = env.num_envs
+    for e in (env, env0):          # warm the env glue and the cached constants
+        st, _ = e.reset(gen)
+        e.make_rollout(policy, 2)(st, gen)
+    end_step = _end_step(torch, env)
+    _check(end_step < STEPS, "the rollout must cross the episode end")
+    state, _ = env.reset(gen)
+    state0, _ = env0.reset(gen)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    state, rewards, terms = env.make_rollout(policy, STEPS)(state, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_roll = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("error")
+    state0, rew0, _ = env0.make_rollout(policy, FLEET_STEPS_NO_EP)(state0, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+
+    print(f"{name} path: {STEPS}-step rollout of {B} envs x {GRID}^2 x {SUBSTEPS} substeps "
+          f"(+{FLEET_STEPS_NO_EP} without the epilogue); episode end at step {end_step}; "
+          f"launches {counts}", flush=True)
+    _check(rewards.shape == (STEPS, B), "rewards shape")
+    _check(bool(torch.isfinite(rewards).all()), "non-finite rewards")
+    _check(bool(torch.isfinite(rew0).all()), "non-finite rewards without the epilogue")
+    _check(bool(terms[end_step - 1].all()), "every env must end its episode at the end step")
+    _check(int(state.step_count.max()) == STEPS - end_step, "step counts after the reset")
+    _check(bool(torch.isfinite(state.y).all()), "final field")
+    # The epilogue's reward equals the env's own reward function on the field
+    # it emitted (the last step reset no env, so state.y is that field).
+    _check(not bool(terms[-1].any()), "the last step must not reset")
+    plain = env.reward_function(state.y)
+    rel = ((rewards[-1] - plain).abs() / plain.abs()).max().item()
+    print(f"{name}: epilogue reward vs the reward function on the emitted field: "
+          f"max_rel_err {rel:.3e}", flush=True)
+    _check(rel < reward_rtol, f"{name}: epilogue reward disagrees")
+
+    state.y[7] = float("nan")
+    state, obs, reward, terminated, _, info = env.step(state, env.sample_actions(gen))
+    torch.cuda.synchronize()
+    _check(bool(info["diverged"][7]) and int(info["diverged"].sum()) == 1, "NaN env not flagged")
+    _check(bool(terminated[7]) and float(reward[7]) == 0.0, "NaN env not terminated")
+    _check(bool(torch.isfinite(state.y).all()) and int(state.step_count[7]) == 0,
+           "NaN env not reset")
+    _check(obs.shape == (B, 1, GRID, GRID) and obs.dtype == torch.uint8, "obs")
+    print(f"{name}: poisoned env 7 flagged diverged, reward 0, reset", flush=True)
+    return state, counts, B * STEPS / t_roll
+
+
 def main():
     import torch
 
-    from pde_opt_tpu_torch.envs.presets import CH_MU, make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.envs.presets import (
+        AC_MU,
+        AC_R,
+        CH_MU,
+        make_allen_cahn_control_env,
+        make_cahn_hilliard_control_env,
+        make_gpe_control_env,
+    )
     from pde_opt_tpu_torch.ops import kernels
     from pde_opt_tpu_torch.ops.cas_spectral import (
         Epilogue,
@@ -120,8 +402,13 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    kernels.load_library("ch_cas_macro")
-    print(f"build: {SOURCE} (K1, K2, K3) in {time.perf_counter() - t0:.2f} s", flush=True)
+    kernels.load_libraries(*SOURCES)
+    print(f"build: {', '.join(SOURCES.values())} (K1-K5), in parallel, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in SOURCES:
+        for line in kernels.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                print(f"build: {lib}: {line.strip()}", flush=True)
 
     # ---- 3. kernel vs plain on the card, main-path shapes ---------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -216,6 +503,14 @@ def main():
     _check(e_du <= TOL_BWD["f32"][0] and e_dk <= TOL_BWD["f32"][1], line)
     print(line, flush=True)
 
+    # ---- 3c/3d. K4 and K5 vs their plain versions and oracles ----------------
+    u_ac, kap_ac, err_ac = _check_ac(torch, dev, gen)
+    max_err.update(err_ac)
+    gpe_env = make_gpe_control_env(num_envs=GPE_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                   box_size=GPE_BOX, k_interaction=GPE_G, device=dev)
+    y_gpe, ctrl_gpe, v_gpe, spot, err_gpe = _check_gpe(torch, dev, gen, gpe_env)
+    max_err.update(err_gpe)
+
     # ---- 4. the serving path ----------------------------------------------
     env = make_cahn_hilliard_control_env(
         num_envs=NUM_ENVS, grid_size=GRID, substeps=SUBSTEPS,
@@ -304,7 +599,28 @@ def main():
     _check(obs.shape == (NUM_ENVS, 1, GRID, GRID) and obs.dtype == torch.uint8, "obs")
     print("poisoned env 7: flagged diverged, reward 0, reset", flush=True)
 
-    # ---- 5. the training path ---------------------------------------------
+    # ---- 5. the AC and GPE serving paths ------------------------------------
+    ac_env = make_allen_cahn_control_env(num_envs=AC_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                         device=dev)
+    ac_env0 = make_allen_cahn_control_env(num_envs=AC_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                          fused_epilogue=False, device=dev)
+    _, ac_counts, ac_rate = _drive_fleet(torch, kernels, ac_env, ac_env0, gen, "AC", 1e-3)
+    _check(ac_counts["ac_cas_macro_ep"] == STEPS and ac_counts["ac_cas_macro"] == FLEET_STEPS_NO_EP,
+           f"AC launches {ac_counts}")
+    gpe_env0 = make_gpe_control_env(num_envs=GPE_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                    box_size=GPE_BOX, k_interaction=GPE_G, fused_epilogue=False,
+                                    device=dev)
+    gpe_state, gpe_counts, gpe_rate = _drive_fleet(torch, kernels, gpe_env, gpe_env0, gen,
+                                                   "GPE", 1e-4)
+    _check(gpe_counts["gpe_strang_macro_ep"] == STEPS
+           and gpe_counts["gpe_strang_macro"] == FLEET_STEPS_NO_EP, f"GPE launches {gpe_counts}")
+    dx_gpe = float(gpe_env.domain.dx[0])
+    norms = (gpe_state.y ** 2).sum((-3, -2, -1)) * dx_gpe * dx_gpe
+    norm_err = (norms - 1.0).abs().max().item()
+    print(f"GPE: per-env norm after the rollout: max |norm - 1| {norm_err:.3e}", flush=True)
+    _check(norm_err <= 1e-4, "GPE per-env norm must stay 1 to rtol 1e-4")
+
+    # ---- 6. the training path ---------------------------------------------
     from pde_opt_tpu_torch import Domain, PDEModel
     from pde_opt_tpu_torch.models import CahnHilliard2DPeriodic
     from pde_opt_tpu_torch.ops.integrate import evolve
@@ -390,7 +706,7 @@ def main():
           f"= {rel:.3e}", flush=True)
     _check(rel <= 1.0, "fused kappa gradient disagrees with the FFT oracle's")
 
-    # ---- 6. timings ------------------------------------------------------
+    # ---- 7. timings ------------------------------------------------------
     consts = cas_constants(GRID, GRID, HX, HY, torch.bfloat16, dev)
     timings = {}
     for name, ep in (("ch_cas_macro_ep", Epilogue(255.0, 0.0, CENTER, 1)),
@@ -426,6 +742,64 @@ def main():
           f"at {TG_ENVS}x{GRID}^2x{SUBSTEPS} bf16; kernel "
           f"{flops / (timings['ch_cas_macro_bwd'][0] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]",
           flush=True)
+    from pde_opt_tpu_torch.ops.cas_spectral import ac_cas_macro_cuda, ac_cas_macro_plain
+    from pde_opt_tpu_torch.ops.gpe_cas import (
+        GpeEpilogue,
+        gpe_constants,
+        gpe_strang_macro_cuda,
+        gpe_strang_macro_plain,
+    )
+
+    for name, ep in (("ac_cas_macro_ep", Epilogue(127.5, 127.5, 0.0, 1)), ("ac_cas_macro", None)):
+        kw = dict(mu_fn=AC_MU, R_fn=AC_R, r_identity=True, dt=DT, A=A, n_steps=SUBSTEPS,
+                  round_bf16=True, epilogue=ep)
+        p1, k1, k2, p2 = (_time_ms(torch, f) for f in (
+            lambda: ac_cas_macro_plain(u_ac, kap_ac, consts, **kw),
+            lambda: ac_cas_macro_cuda(u_ac, kap_ac, consts, **kw),
+            lambda: ac_cas_macro_cuda(u_ac, kap_ac, consts, **kw),
+            lambda: ac_cas_macro_plain(u_ac, kap_ac, consts, **kw)))
+        timings[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        flops = 6 * GRID * GRID * (GRID + GRID) * SUBSTEPS * AC_ENVS
+        print(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
+              f"at {AC_ENVS}x{GRID}^2x{SUBSTEPS} bf16, R == 1; kernel "
+              f"{flops / (timings[name][0] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]", flush=True)
+    gconsts = gpe_constants(GRID, GRID, dx_gpe, gpe_env.dt_sub, torch.bfloat16, dev)
+    for name, ep in (("gpe_strang_macro_ep", GpeEpilogue(2550.0, spot)), ("gpe_strang_macro", None)):
+        kw = dict(g=GPE_G, dt=gpe_env.dt_sub, dx=dx_gpe, n_steps=SUBSTEPS, round_bf16=True,
+                  phase_poly=True, epilogue=ep)
+        p1, k1, k2, p2 = (_time_ms(torch, f) for f in (
+            lambda: gpe_strang_macro_plain(y_gpe, ctrl_gpe, v_gpe, gconsts, **kw),
+            lambda: gpe_strang_macro_cuda(y_gpe, ctrl_gpe, v_gpe, gconsts, **kw),
+            lambda: gpe_strang_macro_cuda(y_gpe, ctrl_gpe, v_gpe, gconsts, **kw),
+            lambda: gpe_strang_macro_plain(y_gpe, ctrl_gpe, v_gpe, gconsts, **kw)))
+        timings[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        flops = (SUBSTEPS + 1) * 8 * GRID * GRID * (GRID + GRID) * GPE_ENVS
+        print(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
+              f"at {GPE_ENVS}x{GRID}^2x{SUBSTEPS} bf16, phase polynomials; kernel "
+              f"{flops / (timings[name][0] * 1e-3) / 1e12:.2f} TFLOP/s [{card}]", flush=True)
+
+    # The GPE fleet on its fused path (K5) against its FFT path
+    # (StrangSplitting(fast_evolve=True)), as bench.py's gpe64 compares them:
+    # 30-step random-policy rollouts, in turns.
+    gpe_fft = make_gpe_control_env(num_envs=GPE_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                   box_size=GPE_BOX, k_interaction=GPE_G, spectral_solve="fft",
+                                   device=dev)
+
+    def fleet_rate(e, n=30):
+        st, _ = e.reset(gen)
+        e.make_rollout(lambda o, g: e.sample_actions(g), 2)(st, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.make_rollout(lambda o, g: e.sample_actions(g), n)(st, gen)
+        torch.cuda.synchronize()
+        return e.num_envs * n / (time.perf_counter() - t0)
+
+    r_f1, r_x1, r_x2, r_f2 = (fleet_rate(e) for e in (gpe_env, gpe_fft, gpe_fft, gpe_env))
+    gpe_fused_rate, gpe_fft_rate = (r_f1 + r_f2) / 2, (r_x1 + r_x2) / 2
+    print(f"GPE fleet fused vs fft: {r_f1:.1f} / {r_f2:.1f} vs {r_x1:.1f} / {r_x2:.1f} "
+          f"env-steps/s, {gpe_fused_rate / gpe_fft_rate:.2f}x ({GPE_ENVS} envs x {GRID}^2 x "
+          f"{SUBSTEPS} substeps, 30 steps) [{card}]", flush=True)
+
     rates = {}
     for name, loss in (("fused", fused_loss), ("fft", sif_loss)):
         ms = _time_ms(torch, lambda: value_and_grad(loss), reps=5, warmup=1)
@@ -446,14 +820,20 @@ def main():
           f"{reset_ms / step_ms:.3%} of a {step_ms:.4f} ms env step [{card}]", flush=True)
     print(f"rollout: {rate:.1f} env-steps/s ({STEPS} steps in {t_a + t_b:.4f} s, "
           f"{NUM_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps) [{card}]", flush=True)
+    print(f"AC rollout: {ac_rate:.1f} env-steps/s ({STEPS} steps, {AC_ENVS} envs x {GRID}^2 x "
+          f"{SUBSTEPS} substeps, fused epilogue) [{card}]", flush=True)
+    print(f"GPE rollout: {gpe_rate:.1f} env-steps/s ({STEPS} steps, {GPE_ENVS} envs x {GRID}^2 "
+          f"x {SUBSTEPS} substeps, fused epilogue) [{card}]", flush=True)
 
-    # Launches: the serving path's and the training path's runs together.
+    # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
+    launches = {n: counts[n] + train_counts[n] + ac_counts[n] + gpe_counts[n] for n in KERNELS}
+    _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     kernels_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": counts[name] + train_counts[name], "max_abs_err": max_err[name],
+        {"name": name, "route": "cuda", "source": SOURCES[lib], "replaces": replaces,
+         "launches": launches[name], "max_abs_err": max_err[name],
          "ms": timings[name][0], "plain_ms": timings[name][1]}
-        for name in ("ch_cas_macro_ep", "ch_cas_macro", "ch_cas_macro_bwd")
+        for name, (lib, replaces) in KERNELS.items()
     ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

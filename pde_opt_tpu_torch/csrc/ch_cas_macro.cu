@@ -30,99 +30,12 @@
 // the per-pixel multipliers stay in registers for all substeps, so the field
 // touches device memory once in and once out.  Each thread computes a 4x4
 // output tile of every product from float4 shared-memory loads, in plain f32
-// FMA on the CUDA cores.
+// FMA on the CUDA cores.  The transform, the tile helpers and the epilogue
+// are shared with K4 and K5 (cas_common.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "cas_common.cuh"
 
 namespace {
-
-constexpr int kLd = 64;          // row stride of every shared tile (max H, W)
-constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kMaxCoeffs = 8;    // mu is a polynomial of degree <= 7
-
-struct MuPoly {
-  float c[kMaxCoeffs];   // c[i] multiplies x^i; zero above the degree
-};
-
-struct Epilogue {
-  float* stats;          // (B, 3) or nullptr for the plain macro
-  unsigned char* obs;    // (B, H/ds, W/ds)
-  int ds;
-  float scale, offset, center;
-};
-
-__device__ __forceinline__ float rnd_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Horner's rule over all kMaxCoeffs coefficients (zero above the degree):
-// constant indices keep the coefficients in registers, not local memory.
-__device__ __forceinline__ float mu_eval(const MuPoly& mu, float x) {
-  float p = 0.f;
-#pragma unroll
-  for (int i = kMaxCoeffs - 1; i >= 0; --i) p = p * x + mu.c[i];
-  return p;
-}
-
-// acc[i][j] = sum_d A[d][r0 + i] * B[d][c0 + j]   (both tiles stored [d][.])
-__device__ __forceinline__ void mm_tn(const float* __restrict__ A,
-                                      const float* __restrict__ B, int depth,
-                                      int r0, int c0, float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < depth; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(A + d * kLd + r0);
-    const float4 b = *reinterpret_cast<const float4*>(B + d * kLd + c0);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out = Mh^T Z Mw for the (H, W) tile Z that the caller has just written to
-// zs.  The intermediate (Z^T Mh, stored [w][k] in ts) is rounded to bf16
-// when rnd is set.  Every thread must call it: it holds two barriers.
-__device__ __forceinline__ void transform(const float* zs, float* ts,
-                                          const float* mh, const float* mw,
-                                          int H, int W, int ty4, int tx4,
-                                          bool rnd, float out[4][4]) {
-  __syncthreads();                                   // zs complete
-  if (ty4 < W && tx4 < H) {
-    float t[4][4];
-    mm_tn(zs, mh, H, ty4, tx4, t);                   // t[w][k]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4 v;
-      v.x = rnd ? rnd_bf16(t[i][0]) : t[i][0];
-      v.y = rnd ? rnd_bf16(t[i][1]) : t[i][1];
-      v.z = rnd ? rnd_bf16(t[i][2]) : t[i][2];
-      v.w = rnd ? rnd_bf16(t[i][3]) : t[i][3];
-      *reinterpret_cast<float4*>(ts + (ty4 + i) * kLd + tx4) = v;
-    }
-  }
-  __syncthreads();                                   // ts complete
-  if (ty4 < H && tx4 < W) mm_tn(ts, mw, W, ty4, tx4, out);   // out[k][l]
-}
-
-__device__ __forceinline__ void store_tile(float* zs, int ty4, int tx4,
-                                           const float v[4][4], bool rnd) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4 q;
-    q.x = rnd ? rnd_bf16(v[i][0]) : v[i][0];
-    q.y = rnd ? rnd_bf16(v[i][1]) : v[i][1];
-    q.z = rnd ? rnd_bf16(v[i][2]) : v[i][2];
-    q.w = rnd ? rnd_bf16(v[i][3]) : v[i][3];
-    *reinterpret_cast<float4*>(zs + (ty4 + i) * kLd + tx4) = q;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 ch_cas_macro_kernel(const float* __restrict__ u_in,
@@ -133,29 +46,16 @@ ch_cas_macro_kernel(const float* __restrict__ u_in,
                     float* __restrict__ u_out, int B, int H, int W, int n_steps,
                     float dt, float a_dt, MuPoly mu, bool rnd, Epilogue ep) {
   extern __shared__ float4 smem4[];
-  float* ch = reinterpret_cast<float*>(smem4);
-  float* cw = ch + kLd * kLd;
-  float* ich = cw + kLd * kLd;
-  float* icw = ich + kLd * kLd;
-  float* zs = icw + kLd * kLd;
-  float* ts = zs + kLd * kLd;
-  __shared__ float red[kThreads / 32][3];
+  const Tiles sm = carve_tiles(reinterpret_cast<float*>(smem4));
+  const float *ch = sm.ch, *cw = sm.cw, *ich = sm.ich, *icw = sm.icw;
+  float *zs = sm.zs, *ts = sm.ts;
+  __shared__ float red[kWarps][3];
 
   const int tid = threadIdx.x;
   const int ty4 = (tid / 16) * 4;        // first row (H axis) this thread owns
   const int tx4 = (tid % 16) * 4;        // first column (W axis)
   const bool own = ty4 < H && tx4 < W;
-
-  for (int idx = tid; idx < H * H; idx += kThreads) {
-    const int r = idx / H, c = idx % H;
-    ch[r * kLd + c] = g_ch[idx];
-    ich[r * kLd + c] = g_ich[idx];
-  }
-  for (int idx = tid; idx < W * W; idx += kThreads) {
-    const int r = idx / W, c = idx % W;
-    cw[r * kLd + c] = g_cw[idx];
-    icw[r * kLd + c] = g_icw[idx];
-  }
+  load_mats(sm, g_ch, g_cw, g_ich, g_icw, H, W, tid);
 
   for (int env = blockIdx.x; env < B; env += gridDim.x) {
     const float* ue = u_in + static_cast<size_t>(env) * H * W;
@@ -223,82 +123,7 @@ ch_cas_macro_kernel(const float* __restrict__ u_in,
     if (ep.stats == nullptr) continue;
 
     // ---- env epilogue (_ep_emit) on the register-resident final field ----
-    float s1 = 0.f, s2 = 0.f, nf = 0.f;
-    if (own) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool fin = isfinite(u[i][j]);
-          const float uz = fin ? u[i][j] - ep.center : 0.f;
-          s1 += uz;
-          s2 += uz * uz;
-          nf += fin ? 1.f : 0.f;
-          f[i][j] = uz;
-        }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      nf += __shfl_xor_sync(0xffffffffu, nf, off);
-    }
-    if ((tid & 31) == 0) {
-      red[tid / 32][0] = s1;
-      red[tid / 32][1] = s2;
-      red[tid / 32][2] = nf;
-    }
-    if (ep.ds == 1) {
-      if (own) {
-        unsigned char* oe = ep.obs + static_cast<size_t>(env) * H * W;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          unsigned char q[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float x = isfinite(u[i][j]) ? u[i][j] : 0.f;
-            q[j] = static_cast<unsigned char>(
-                fminf(fmaxf(x * ep.scale + ep.offset, 0.f), 255.f));
-          }
-          *reinterpret_cast<uchar4*>(oe + (ty4 + i) * W + tx4) =
-              make_uchar4(q[0], q[1], q[2], q[3]);
-        }
-      }
-    } else if (own) {
-      store_tile(zs, ty4, tx4, f, false);   // centered, NaN-masked field
-    }
-    __syncthreads();                         // red (and zs when pooling) ready
-    if (tid == 0) {
-      float a = 0.f, b = 0.f, c = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) {
-        a += red[w][0];
-        b += red[w][1];
-        c += red[w][2];
-      }
-      float* st = ep.stats + static_cast<size_t>(env) * 3;
-      st[0] = a;
-      st[1] = b;
-      st[2] = c;
-    }
-    if (ep.ds > 1) {
-      const int ds = ep.ds, Hd = H / ds, Wd = W / ds;
-      const float inv = 1.0f / static_cast<float>(ds);
-      unsigned char* oe = ep.obs + static_cast<size_t>(env) * Hd * Wd;
-      for (int o = tid; o < Hd * Wd; o += kThreads) {
-        const int hd = o / Wd, wd = o % Wd;
-        float acc = 0.f;
-        for (int w = 0; w < ds; ++w) {
-          float t = 0.f;
-          for (int h = 0; h < ds; ++h)
-            t += zs[(hd * ds + h) * kLd + wd * ds + w] * inv;
-          acc += t * inv;
-        }
-        oe[o] = static_cast<unsigned char>(
-            fminf(fmaxf((acc + ep.center) * ep.scale + ep.offset, 0.f), 255.f));
-      }
-    }
-    // The next env's first barrier orders these reads of zs and red before
-    // either is written again.
+    emit_field_epilogue(u, f, zs, red, ep, env, H, W, tid, ty4, tx4, own);
   }
 }
 
@@ -346,26 +171,6 @@ __device__ __forceinline__ Mult mult_at(const float* __restrict__ lam,
   return m;
 }
 
-__device__ __forceinline__ void load_tile(const float* src, int W, int ty4, int tx4,
-                                          float v[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 q = *reinterpret_cast<const float4*>(src + (ty4 + i) * W + tx4);
-    v[i][0] = q.x;
-    v[i][1] = q.y;
-    v[i][2] = q.z;
-    v[i][3] = q.w;
-  }
-}
-
-__device__ __forceinline__ void save_tile(float* dst, int W, int ty4, int tx4,
-                                          const float v[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(dst + (ty4 + i) * W + tx4) =
-        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
-}
-
 __global__ void __launch_bounds__(kThreads)
 ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
                         const float* __restrict__ kappa,
@@ -377,13 +182,10 @@ ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
                         float* __restrict__ scratch, int B, int H, int W, int n_steps,
                         StepConsts c, MuPoly mu, MuPoly dmu, bool rnd) {
   extern __shared__ float4 smem4[];
-  float* ch = reinterpret_cast<float*>(smem4);
-  float* cw = ch + kLd * kLd;
-  float* ich = cw + kLd * kLd;
-  float* icw = ich + kLd * kLd;
-  float* zs = icw + kLd * kLd;
-  float* ts = zs + kLd * kLd;
-  __shared__ float red[kThreads / 32];
+  const Tiles sm = carve_tiles(reinterpret_cast<float*>(smem4));
+  const float *ch = sm.ch, *cw = sm.cw, *ich = sm.ich, *icw = sm.icw;
+  float *zs = sm.zs, *ts = sm.ts;
+  __shared__ float red[kWarps];
 
   const int tid = threadIdx.x;
   const int ty4 = (tid / 16) * 4;        // first row (H axis) this thread owns
@@ -395,16 +197,7 @@ ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
   // it wrote itself, so the slot needs no barrier.
   float* traj = scratch + static_cast<size_t>(blockIdx.x) * n_steps * hw;
 
-  for (int idx = tid; idx < H * H; idx += kThreads) {
-    const int r = idx / H, col = idx % H;
-    ch[r * kLd + col] = g_ch[idx];
-    ich[r * kLd + col] = g_ich[idx];
-  }
-  for (int idx = tid; idx < W * W; idx += kThreads) {
-    const int r = idx / W, col = idx % W;
-    cw[r * kLd + col] = g_cw[idx];
-    icw[r * kLd + col] = g_icw[idx];
-  }
+  load_mats(sm, g_ch, g_cw, g_ich, g_icw, H, W, tid);
 
   for (int env = blockIdx.x; env < B; env += gridDim.x) {
     const size_t off = static_cast<size_t>(env) * hw;
@@ -528,7 +321,7 @@ ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
     __syncthreads();
     if (tid == 0) {
       float a = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) a += red[w];
+      for (int w = 0; w < kWarps; ++w) a += red[w];
       dk_out[env] = a;
     }
     // The next env's first transform holds barriers that order this read of
@@ -536,41 +329,8 @@ ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
   }
 }
 
-constexpr int kSmemBytes = 6 * kLd * kLd * static_cast<int>(sizeof(float));
-
-// Every kernel here needs more than the default 48 KB of shared memory.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmemBytes);
-}
-
-// Blocks of `kernel` that fit on the current device at once.
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int* blocks) {
-  cudaError_t err = allow_smem(kernel);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                           kSmemBytes)) != cudaSuccess)
-    return err;
-  *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return cudaSuccess;
-}
-
 bool bad_shape(int B, int H, int W, int n_steps, int n_coeffs) {
-  return B < 1 || H < 8 || W < 8 || H > kLd || W > kLd || H % 8 || W % 8 ||
-         n_steps < 0 || n_coeffs < 1 || n_coeffs > kMaxCoeffs;
-}
-
-MuPoly make_mu(const float* coeffs, int n) {
-  MuPoly mu;
-  for (int i = 0; i < kMaxCoeffs; ++i) mu.c[i] = i < n ? coeffs[i] : 0.f;
-  return mu;
+  return bad_grid(B, H, W, n_steps) || bad_poly(n_coeffs);
 }
 
 }  // namespace

@@ -1,6 +1,10 @@
 """Vectorized PDE control environments (PyTorch port)."""
 
-from .presets import make_cahn_hilliard_control_env
+from .presets import (
+    make_allen_cahn_control_env,
+    make_cahn_hilliard_control_env,
+    make_gpe_control_env,
+)
 from .vector_env import EnvState, VectorPDEEnv, env_state_from_numpy, env_state_to_numpy
 
 __all__ = [
@@ -9,4 +13,6 @@ __all__ = [
     "env_state_from_numpy",
     "env_state_to_numpy",
     "make_cahn_hilliard_control_env",
+    "make_allen_cahn_control_env",
+    "make_gpe_control_env",
 ]

@@ -1,5 +1,5 @@
-"""Preset environment configurations (PyTorch port of the Cahn-Hilliard
-preset of :mod:`pde_opt_tpu.envs.presets`)."""
+"""Preset environment configurations (PyTorch port of the Cahn-Hilliard,
+Allen-Cahn and Gross-Pitaevskii presets of :mod:`pde_opt_tpu.envs.presets`)."""
 
 from __future__ import annotations
 
@@ -8,13 +8,31 @@ import torch
 from .. import grid as gridmod
 from ..models.cahn_hilliard import CahnHilliard2DPeriodic
 from ..ops.cas_spectral import PolynomialMu
-from ..ops.steppers import FusedSemiImplicitSpectral, SemiImplicitFourierSpectral
+from ..models.allen_cahn import AllenCahn2DPeriodic
+from ..models.gross_pitaevskii import GPE2DTSControl
+from ..ops.steppers import (
+    FusedAllenCahnSpectral,
+    FusedSemiImplicitSpectral,
+    FusedStrangControl,
+    SemiImplicitFourierSpectral,
+    StrangSplitting,
+)
 from .vector_env import VectorPDEEnv
 
-__all__ = ["make_cahn_hilliard_control_env", "CH_MU"]
+__all__ = [
+    "make_cahn_hilliard_control_env",
+    "make_allen_cahn_control_env",
+    "make_gpe_control_env",
+    "CH_MU",
+    "AC_MU",
+    "AC_R",
+]
 
 # mu(c) = c**3 - c, in the coefficient form the CUDA macro reads.
 CH_MU = PolynomialMu((0.0, -1.0, 0.0, 1.0))
+# The Allen-Cahn preset's mu(c) = c**3 - c and unit mobility R(c) = 1.
+AC_MU = PolynomialMu((0.0, -1.0, 0.0, 1.0))
+AC_R = PolynomialMu((1.0,))
 
 
 def make_cahn_hilliard_control_env(
@@ -127,6 +145,207 @@ def make_cahn_hilliard_control_env(
         num_envs=num_envs,
         auto_reset=auto_reset,
         vectorized_control=vectorized_control,
+        fused_epilogue=ep_cfg,
+        device=device,
+    )
+
+
+def make_allen_cahn_control_env(
+    num_envs: int = 4096,
+    grid_size: int = 64,
+    substeps: int = 10,
+    end_time: float = 1.0,
+    step_dt: float = 0.01,
+    dtype: torch.dtype = torch.float32,
+    auto_reset: bool = True,
+    vectorized_control: bool = True,
+    spectral_solve: str = "fused",
+    fused_epilogue: bool | None = None,
+    device="cpu",
+) -> VectorPDEEnv:
+    """Allen-Cahn control fleet: the agent drives κ (interface energy).
+
+    The CH flagship's control protocol on the nonconserved dynamics.
+    ``spectral_solve="fused"`` runs the AC cas macro (on CUDA, kernel K4)
+    with the env epilogue fused in by default; ``"fft"`` runs
+    :class:`SemiImplicitFourierSpectral`.  Observation ``(y+1)·127.5`` as
+    uint8; reward ``-var``.
+    """
+    device = torch.device(device)
+    L = 0.01 * grid_size
+    domain = gridmod.Domain(
+        (grid_size, grid_size), ((-L / 2, L / 2), (-L / 2, L / 2)),
+        "dimensionless", dtype=dtype,
+    )
+    if spectral_solve == "fused":
+        solver_type = FusedAllenCahnSpectral
+    elif spectral_solve == "fft":
+        solver_type = SemiImplicitFourierSpectral
+    else:
+        raise ValueError(f"unknown spectral_solve: {spectral_solve!r}")
+    # Fused env epilogue (as the CH flagship's): obs is the affine
+    # (y+1)*127.5 uint8 map and the reward -var, both from the macro's
+    # centered-moment stats (AC fields sit around 0).
+    if fused_epilogue is None:
+        fused_epilogue = spectral_solve == "fused" and vectorized_control
+    ep_cfg = None
+    if fused_epilogue:
+        ep_cfg = {
+            "obs_scale": 127.5,
+            "obs_offset": 127.5,
+            "obs_downsample": 1,
+            "stats_center": 0.0,
+            "reward_from_stats": lambda s1, s2, cnt, n: -(s2 / n - (s1 / n) ** 2),
+            "obs_transform": lambda o: o[..., None, :, :],
+        }
+
+    def reset_func(domain, generator, n):
+        return 0.1 * torch.randn((n, *domain.points), generator=generator,
+                                 dtype=dtype, device=generator.device)
+
+    return VectorPDEEnv(
+        equation_type=AllenCahn2DPeriodic,
+        domain=domain,
+        solver_type=solver_type,
+        end_time=end_time,
+        step_dt=step_dt,
+        numeric_dt=step_dt / substeps,
+        state_to_observation_func=lambda y: torch.clamp(
+            (y + 1.0) * 127.5, 0, 255).to(torch.uint8)[..., None, :, :],
+        # AC coarsens to ±1 phases; the agent is rewarded for keeping the
+        # variance down.
+        reward_function=lambda y: -y.var(dim=(-2, -1), correction=0),
+        reset_func=reset_func,
+        reset_control_value=4e-4,
+        update_control_value=lambda off, old: torch.clamp(
+            old + 5e-5 * off[..., 0], 1e-4, 1e-3
+        ),
+        update_control_parameter=lambda old, new: new[..., None, None],
+        action_space_config={"type": "continuous", "shape": (1,)},
+        static_equation_parameters={"mu": AC_MU, "R": AC_R},
+        control_equation_parameter_name="kappa",
+        solver_parameters={"A": 1.0},
+        num_envs=num_envs,
+        auto_reset=auto_reset,
+        vectorized_control=vectorized_control,
+        fused_epilogue=ep_cfg,
+        device=device,
+    )
+
+
+def make_gpe_control_env(
+    num_envs: int = 1024,
+    grid_size: int = 64,
+    substeps: int = 10,
+    end_time: float = 2.0,
+    step_dt: float = 0.02,
+    dtype: torch.dtype = torch.float32,
+    auto_reset: bool = True,
+    k_interaction: float = 100.0,
+    spot_width: float = 1.0,
+    box_size: float = 16.0,
+    spectral_solve: str = "fused",
+    fused_epilogue: bool | None = None,
+    device="cpu",
+) -> VectorPDEEnv:
+    """Gross-Pitaevskii control fleet: the agent drives an optical spot.
+
+    The control value is each env's intensity of a Gaussian light spot at the
+    trap center, entering the Hamiltonian through the ``lights`` potential.
+    State is the real-stacked ``(B, H, W, 2)`` wavefunction; one RL step is
+    ``substeps`` midpoint Strang substeps with per-substep L²
+    renormalisation.  Reward: minus the condensate density inside the spot.
+    ``spectral_solve="fused"`` runs the Strang cas macro (on CUDA, kernel
+    K5) with the env epilogue fused in by default; ``"fft"`` runs
+    ``StrangSplitting(fast_evolve=True)``.
+    """
+    device = torch.device(device)
+    L = box_size
+    domain = gridmod.Domain(
+        (grid_size, grid_size), ((-L / 2, L / 2), (-L / 2, L / 2)),
+        "dimensionless", dtype=dtype,
+    )
+    X, Y = (torch.from_numpy(m).to(device) for m in domain.mesh())
+    spot = torch.exp(-(X**2 + Y**2) / (spot_width**2))            # (H, W)
+    psi0 = torch.exp(-(X**2 + Y**2) / 4.0)
+    dx = float(domain.dx[0])
+
+    def reset_func(domain_, generator, n):
+        noise = 0.02 * torch.randn((n, *domain_.points), generator=generator,
+                                   dtype=dtype, device=generator.device)
+        psi = psi0 * (1.0 + noise)
+        psi = psi / torch.sqrt((psi**2).sum((-2, -1), keepdim=True) * dx * dx)
+        return torch.stack([psi, torch.zeros_like(psi)], dim=-1)
+
+    def make_lights(intensity):
+        # intensity (B,) -> lights(t, x, y) giving (B, 1, 1) * (H, W).
+        def lights(t, x, y):
+            return intensity[..., None, None] * spot
+
+        return lights
+
+    def density_in_spot(y):
+        rho = y[..., 0] ** 2 + y[..., 1] ** 2
+        return (rho * spot).sum((-2, -1)) * dx * dx
+
+    if spectral_solve == "fused":
+        solver_type = FusedStrangControl
+        solver_parameters = {}
+    elif spectral_solve == "fft":
+        if fused_epilogue:
+            raise ValueError("fused_epilogue=True requires spectral_solve='fused'")
+        fused_epilogue = False
+        # Midpoint Strang: 2 FFT pairs per substep instead of 4.
+        solver_type = StrangSplitting
+        solver_parameters = {"time_scale": 1.0, "fast_evolve": True}
+    else:
+        raise ValueError(f"unknown spectral_solve: {spectral_solve!r}")
+    # Fused env epilogue: density obs and the spot-weighted reward from the
+    # macro itself.  n_px is the grid's pixel count: the env's default reads
+    # the last two axes, (W, 2) for this state.
+    if fused_epilogue is None:
+        fused_epilogue = spectral_solve == "fused"
+    ep_cfg = None
+    if fused_epilogue:
+        cell = dx * dx
+        ep_cfg = {
+            "obs_scale": 2550.0,
+            "weight": spot,
+            "n_px": grid_size * grid_size,
+            # s1 = sum(spot * rho): reward = -density_in_spot
+            "reward_from_stats": lambda s1, s2, cnt, n: -(s1 * cell),
+            "obs_transform": lambda o: o[..., None, :, :],
+        }
+    return VectorPDEEnv(
+        equation_type=GPE2DTSControl,
+        domain=domain,
+        solver_type=solver_type,
+        end_time=end_time,
+        step_dt=step_dt,
+        numeric_dt=step_dt / substeps,
+        state_to_observation_func=lambda y: torch.clamp(
+            (y[..., 0] ** 2 + y[..., 1] ** 2) * 2550.0, 0, 255
+        ).to(torch.uint8)[..., None, :, :],
+        reward_function=lambda y: -density_in_spot(y),
+        reset_func=reset_func,
+        reset_control_value=0.0,
+        update_control_value=lambda off, old: torch.clamp(
+            old + 2.0 * off[..., 0], 0.0, 50.0
+        ),
+        update_control_parameter=lambda old, new: make_lights(new),
+        action_space_config={"type": "continuous", "shape": (1,)},
+        static_equation_parameters={
+            "k": k_interaction,
+            "e": 0.0,
+            "trap_factor": 1.0,
+            "kinetic": True,
+            "device": device,
+        },
+        control_equation_parameter_name="lights",
+        solver_parameters=solver_parameters,
+        num_envs=num_envs,
+        auto_reset=auto_reset,
+        vectorized_control=True,
         fused_epilogue=ep_cfg,
         device=device,
     )

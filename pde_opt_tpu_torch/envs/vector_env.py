@@ -18,7 +18,8 @@ Differences from the JAX env, each forced by eager PyTorch:
   the generator and draws the auto-reset fields from it; ``EnvState`` holds
   no keys.
 * ``step`` updates the state's tensors in place (the JAX step donates its
-  state buffers) and returns the same ``EnvState``.
+  state buffers) and returns the same ``EnvState``; a step that autograd
+  records returns a new one.
 * Auto-reset is branch-free: every step draws a fleet-wide reset field and
   selects it with ``torch.where`` for the envs that terminated.  The JAX
   ``lax.cond(terminated.any())`` would need a device-to-host sync per step
@@ -259,8 +260,8 @@ class VectorPDEEnv:
         """Advance all envs one RL step.
 
         Writes the next state into ``state``'s tensors (the JAX step donates
-        them) and returns ``(state, obs, reward, terminated, truncated,
-        info)``; ``info`` has ``diverged`` and, under auto-reset,
+        them; a step that autograd records makes new ones) and returns
+        ``(state, obs, reward, terminated, truncated, info)``; ``info`` has ``diverged`` and, under auto-reset,
         ``final_observation``.
         """
         actions = torch.as_tensor(actions, device=self.device)
@@ -306,8 +307,15 @@ class VectorPDEEnv:
             y_next, cv_next, t_next, steps_next, done = y1, cv1, t1, steps1, terminated
 
         # In place, keeping each field's dtype (the JAX step's dtype pin).
-        for dst, src in zip(state, (y_next, t_next, cv_next, steps_next, done)):
-            dst.copy_(src)
+        # A step that autograd records gets new tensors instead: writing
+        # into the state would overwrite what the macro saved for its
+        # backward (the state it read).
+        nxt = (y_next, t_next, cv_next, steps_next, done)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in nxt):
+            state = EnvState(*(src.to(dst.dtype) for dst, src in zip(state, nxt)))
+        else:
+            for dst, src in zip(state, nxt):
+                dst.copy_(src)
         truncated = torch.zeros_like(terminated)
         return state, obs, reward, terminated, truncated, info
 

@@ -1,4 +1,4 @@
-"""Hartley-transform fused semi-implicit CH macro-step (PyTorch port).
+"""Hartley-transform fused semi-implicit CH and AC macro-steps (PyTorch port).
 
 Counterpart of :func:`pde_opt_tpu.ops.cas_spectral.make_ch_cas_fused_macro`
 and :func:`~pde_opt_tpu.ops.cas_spectral.make_ch_cas_fused_macro_ep`.  Every
@@ -32,6 +32,10 @@ K3, in the same source).  The macros are ``torch.autograd.Function``s
 whose backward is the JAX package's custom VJP: re-run the forward, then
 sweep back through the same transforms, rounding where the forward rounds.
 There is no fallback from one implementation to the other.
+
+The Allen-Cahn macro (:func:`make_ac_cas_fused_macro`, kernel K4 in
+``csrc/ac_cas_macro.cu``) runs on the same transforms and epilogue; its
+backward is the VJP of the checkpointed FFT oracle, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .fused_spectral import _fd_lap_symbols, ch_sif_macro_reference
+from .fused_spectral import _fd_lap_symbols, ac_sif_macro_reference, ch_sif_macro_reference
 from .kernels import count_launch, load_library
 
 __all__ = [
@@ -61,6 +65,10 @@ __all__ = [
     "make_ch_cas_fused_macro",
     "make_ch_cas_fused_macro_ep",
     "ch_cas_macro_reference",
+    "r_is_identity",
+    "ac_cas_macro_plain",
+    "ac_cas_macro_cuda",
+    "make_ac_cas_fused_macro",
 ]
 
 # Same semantics as the fused DFT kernel -> same oracle.
@@ -217,7 +225,12 @@ def ch_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstant
         u = u + inv(incr)
     if epilogue is None:
         return u
+    return (u, *_epilogue_plain(u, epilogue))
 
+
+def _epilogue_plain(u: torch.Tensor, epilogue: Epilogue):
+    """The field epilogue of the CH and AC macros on the final field ``u``
+    (B, H, W): ``(stats (B, 3), obs uint8)``."""
     fin = torch.isfinite(u)
     uz = torch.where(fin, u - epilogue.center, torch.zeros_like(u))
     stats = torch.stack(
@@ -233,8 +246,7 @@ def ch_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstant
         x = (pooled + epilogue.center) * epilogue.obs_scale + epilogue.obs_offset
     else:
         x = torch.where(fin, u, torch.zeros_like(u)) * epilogue.obs_scale + epilogue.obs_offset
-    obs = torch.clamp(x, 0.0, 255.0).to(torch.uint8)
-    return u, stats, obs
+    return stats, torch.clamp(x, 0.0, 255.0).to(torch.uint8)
 
 
 def ch_cas_macro_bwd_plain(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
@@ -476,6 +488,22 @@ def _run_bwd(x, kapf, g, consts, kw):
     return run(x, kapf, g.contiguous(), consts, **kw)
 
 
+def _flatten_batch(state: torch.Tensor, kappa, H: int, W: int):
+    """``(batch, x (B, H, W) f32, kapf (B,) f32)`` from a ``(*batch, H, W)``
+    state and a scalar, ``(B,)`` or batch-shaped κ.  The broadcast to a flat
+    ``(B,)`` vector is plain torch, so every κ shape gets its cotangent from
+    autograd."""
+    *batch, h, w = state.shape
+    if (h, w) != (H, W):
+        raise ValueError(f"state trailing shape {(h, w)} != {(H, W)}")
+    B = math.prod(batch) if batch else 1
+    x = state.reshape(B, H, W).to(torch.float32).contiguous()
+    kap = torch.as_tensor(kappa, dtype=torch.float32, device=state.device)
+    kapf = (torch.broadcast_to(kap, (B,)) if kap.ndim <= 1
+            else kap.reshape(B)).contiguous()
+    return batch, x, kapf
+
+
 class _CasMacro(torch.autograd.Function):
     """The JAX macro's ``_core``: ``x`` (B, H, W), ``kapf`` (B,) f32 ->
     ``u1``, with the backward kernel as its VJP (``_core_bwd``)."""
@@ -551,16 +579,7 @@ def make_ch_cas_fused_macro(
               round_bf16=mats_dtype == torch.bfloat16)
 
     def macro(state: torch.Tensor, kappa):
-        *batch, h, w = state.shape
-        if (h, w) != (H, W):
-            raise ValueError(f"state trailing shape {(h, w)} != {(H, W)}")
-        B = math.prod(batch) if batch else 1
-        x = state.reshape(B, H, W).to(torch.float32).contiguous()
-        # The broadcast to a flat (B,) vector is plain torch, so scalar,
-        # (B,) and batch-shaped kappa get their cotangents from autograd.
-        kap = torch.as_tensor(kappa, dtype=torch.float32, device=state.device)
-        kapf = (torch.broadcast_to(kap, (B,)) if kap.ndim <= 1
-                else kap.reshape(B)).contiguous()
+        batch, x, kapf = _flatten_batch(state, kappa, H, W)
         consts = cas_constants(H, W, float(hx), float(hy), mats_dtype, state.device)
         if ep is None:
             u1 = _CasMacro.apply(x, kapf, consts, kw)
@@ -603,3 +622,250 @@ def make_ch_cas_fused_macro_ep(
                   "obs_downsample": obs_downsample,
                   "stats_center": stats_center},
     )
+
+
+# ---- Allen-Cahn: kernel K4 -------------------------------------------------
+
+# The JAX macro's identity-R probe points: dense on the physical [-2, 2]
+# band, geometric out to +-64.
+_R_PROBE = np.concatenate([
+    np.linspace(-2.0, 2.0, 257),
+    np.geomspace(2.0, 64.0, 32),
+    -np.geomspace(2.0, 64.0, 32),
+])
+
+
+def _probe_r_identity(R_fn) -> bool:
+    if R_fn is None:
+        return True
+    try:
+        out = R_fn(torch.as_tensor(_R_PROBE, dtype=torch.float32))
+        out = out.detach().cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
+        return bool(np.array_equal(out, np.ones_like(_R_PROBE)))
+    except Exception:
+        return False
+
+
+_probe_r_identity_cached = functools.lru_cache(maxsize=64)(_probe_r_identity)
+
+
+def r_is_identity(R_fn) -> bool:
+    """The JAX AC macro's verdict on ``R ≡ 1`` (``R_fn=None`` counts as 1).
+
+    Same probe points and exact equality as the JAX package, evaluated in
+    float32 on the CPU (the JAX package's default precision): an R that is
+    1 at every probe point is treated as identity, and the macro takes the
+    3-transform path.  The verdict is cached per ``R_fn``, so rebuilding the
+    macro every env step runs the probe once.
+    """
+    try:
+        return _probe_r_identity_cached(R_fn)
+    except TypeError:                      # an unhashable callable
+        return _probe_r_identity(R_fn)
+
+
+def ac_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
+                       *, mu_fn: Callable, R_fn: Optional[Callable], r_identity: bool,
+                       dt: float, A: float, n_steps: int, round_bf16: bool,
+                       epilogue: Optional[Epilogue] = None):
+    """Plain-torch AC macro: ``u`` (B, H, W) f32, ``kappa`` (B,) f32.
+
+    Returns ``u1`` or, with ``epilogue``, ``(u1, stats (B, 3), obs uint8)``
+    (the CH macro's epilogue).  Per substep, with ``dd = dt/(1 + A dt κ
+    (-lam))``: ``u += inv(dd (κ lam fwd(u) - fwd(mu(u))))`` when
+    ``r_identity``, else ``lap = inv(lam fwd(u))``, ``g = -R(u) (mu(u) - κ
+    lap)``, ``u += inv(dd fwd(g))``.  What CPU tensors run and what kernel K4
+    is held against on the card.
+    """
+    fwd, inv = _transforms(consts, round_bf16)
+    lam = consts.lam
+    k = kappa.reshape(-1, 1, 1)
+    denom_dt = float(dt) / (1.0 + float(A) * float(dt) * (k * (-lam)))
+    for _ in range(n_steps):
+        if r_identity:
+            u = u + inv(denom_dt * (k * lam * fwd(u) - fwd(mu_fn(u))))
+        else:
+            lap = inv(lam * fwd(u))
+            g = -R_fn(u) * (mu_fn(u) - k * lap)
+            u = u + inv(denom_dt * fwd(g))
+    if epilogue is None:
+        return u
+    return (u, *_epilogue_plain(u, epilogue))
+
+
+@functools.lru_cache(maxsize=None)
+def _ac_library():
+    lib = load_library("ac_cas_macro")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ac_cas_macro_launch.argtypes = [
+        p, p, p, p, p, p, p,             # u, kappa, ch, cw, ich, icw, lam
+        p, p, p,                         # out, stats, obs
+        i, i, i, i, f, f,                # B, H, W, n_steps, dt, A*dt
+        p, i, p, i,                      # mu coeffs, n, R coeffs, n (0: R == 1)
+        i, i, f, f, f,                   # round_bf16, ds, obs_scale, obs_offset, center
+        p,                               # stream
+    ]
+    lib.ac_cas_macro_launch.restype = ctypes.c_int
+    lib.ac_cas_error_string.argtypes = [ctypes.c_int]
+    lib.ac_cas_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ac_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
+                      *, mu_fn: Callable, R_fn: Optional[Callable], r_identity: bool,
+                      dt: float, A: float, n_steps: int, round_bf16: bool,
+                      epilogue: Optional[Epilogue] = None):
+    """Kernel K4: same contract as :func:`ac_cas_macro_plain`.
+
+    Launches ``csrc/ac_cas_macro.cu`` on the current stream and counts the
+    launch (``ac_cas_macro_ep`` with an epilogue, ``ac_cas_macro``
+    without).  ``mu`` must be a :class:`PolynomialMu`, and so must ``R``
+    unless ``r_identity``; raises on anything the kernel does not take.
+    """
+    if not r_identity and not isinstance(R_fn, PolynomialMu):
+        raise ValueError(
+            "the CUDA AC macro evaluates a non-identity R from polynomial "
+            f"coefficients: pass a PolynomialMu, got {R_fn!r}"
+        )
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
+    dev = u.device
+    out = torch.empty_like(u)
+    stats = obs = None
+    if epilogue is not None:
+        ds = epilogue.ds
+        if ds < 1 or H % ds or W % ds:
+            raise ValueError(f"obs_downsample={ds} must divide {(H, W)}")
+        stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        obs = torch.empty((B, H // ds, W // ds), dtype=torch.uint8, device=dev)
+    mu_c, n_mu = _c_coeffs(mu_fn)
+    r_c, n_r = (None, 0) if r_identity else _c_coeffs(R_fn)
+    lib = _ac_library()
+    with torch.cuda.device(dev):
+        rc = lib.ac_cas_macro_launch(
+            u.data_ptr(), kappa.data_ptr(), consts.ch.data_ptr(),
+            consts.cw.data_ptr(), consts.ich.data_ptr(), consts.icw.data_ptr(),
+            consts.lam.data_ptr(), out.data_ptr(),
+            stats.data_ptr() if stats is not None else None,
+            obs.data_ptr() if obs is not None else None,
+            B, H, W, int(n_steps), float(dt), float(A) * float(dt),
+            mu_c, n_mu, r_c, n_r, int(bool(round_bf16)),
+            epilogue.ds if epilogue else 1,
+            epilogue.obs_scale if epilogue else 0.0,
+            epilogue.obs_offset if epilogue else 0.0,
+            epilogue.center if epilogue else 0.0,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"ac_cas_macro launch failed: {lib.ac_cas_error_string(rc).decode()}"
+        )
+    if epilogue is None:
+        count_launch("ac_cas_macro")
+        return out
+    count_launch("ac_cas_macro_ep")
+    return out, stats, obs
+
+
+def _oracle_vjp(oracle: Callable, g, *inputs):
+    """Cotangents of ``inputs`` under ``oracle(*inputs)`` for the output
+    cotangent ``g``: reverse mode through the (checkpointed) FFT oracle,
+    re-run here from the saved inputs."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in inputs]
+        out = oracle(*xs)
+        return torch.autograd.grad(out, xs, g)
+
+
+class _OracleMacro(torch.autograd.Function):
+    """A macro whose VJP is the checkpointed FFT oracle's (the JAX package's
+    ``_attach_oracle_vjp``): the AC and GPE macros, epilogue on or off.
+
+    ``run(x, c)`` is the forward (the kernel or its plain version) and
+    returns ``out``, or ``(out, stats, obs)`` when ``fold`` is given;
+    ``obs`` is not differentiable, and ``fold(out, g_out, g_stats)`` folds
+    the stats cotangent into the output cotangent before the oracle VJP."""
+
+    @staticmethod
+    def forward(ctx, x, c, run, oracle, fold):
+        ctx.oracle, ctx.fold = oracle, fold
+        res = run(x, c)
+        if fold is None:
+            ctx.save_for_backward(x, c)
+            return res
+        out, stats, obs = res
+        ctx.mark_non_differentiable(obs)
+        ctx.save_for_backward(x, c, out)
+        return out, stats, obs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, *g_ep):
+        x, c, *out = ctx.saved_tensors
+        if ctx.fold is not None:
+            g = ctx.fold(out[0], g, g_ep[0])
+        dx, dc = _oracle_vjp(ctx.oracle, g, x, c)
+        return dx, dc, None, None, None
+
+
+def make_ac_cas_fused_macro(
+    mu_fn: Callable,
+    R_fn: Optional[Callable],
+    H: int,
+    W: int,
+    hx: float,
+    hy: float,
+    A: float,
+    dt: float,
+    n_steps: int,
+    *,
+    mats_dtype: torch.dtype = torch.bfloat16,
+    epilogue: Optional[dict] = None,
+):
+    """Build ``macro(u, kappa) -> u1``: the fused Allen-Cahn semi-implicit
+    macro (``∂u/∂t = -R(u) (mu(u) - κ ∇²u)``, FD Laplacian symbol, each env's
+    own κ in the implicit denominator ``1/(1 + A dt κ (-lam))``).
+
+    ``R_fn=None``, or an R the JAX package's probe finds equal to 1
+    (:func:`r_is_identity`), takes the 3-transform path; any other R the
+    4-transform path.  ``u`` is ``(..., H, W)`` and ``kappa`` broadcasts to
+    the batch.  With ``epilogue`` (keys ``obs_scale``, ``obs_offset``,
+    ``obs_downsample``, ``stats_center``) the macro returns ``(u1, stats,
+    obs)`` as :func:`make_ch_cas_fused_macro_ep` documents.  CPU tensors run
+    :func:`ac_cas_macro_plain`, CUDA tensors kernel K4; on CUDA ``mu`` (and a
+    non-identity ``R``) must be :class:`PolynomialMu`.  Gradients with
+    respect to ``u`` and ``kappa`` come from the checkpointed FFT oracle
+    (:func:`~pde_opt_tpu_torch.ops.fused_spectral.ac_sif_macro_reference`)
+    through the true ``mu_fn`` and ``R_fn``, as in the JAX package.  The JAX
+    macro's ``block_envs``/``interpret`` (TPU tiling) have no counterpart.
+    """
+    if H % 8 or W % 8:
+        raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")
+    if mats_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"mats_dtype must be bf16 or f32, got {mats_dtype}")
+    ep = Epilogue.from_dict(epilogue, H, W) if epilogue is not None else None
+    kw = dict(mu_fn=mu_fn, R_fn=R_fn, r_identity=r_is_identity(R_fn), dt=dt, A=A,
+              n_steps=n_steps, round_bf16=mats_dtype == torch.bfloat16)
+    oracle = ac_sif_macro_reference(
+        mu_fn, torch.ones_like if R_fn is None else R_fn, hx, hy, A, dt, n_steps,
+        remat=True)
+
+    fold = (None if ep is None
+            else functools.partial(_ep_fold_stats_cotangent, center=ep.center))
+
+    def macro(state: torch.Tensor, kappa):
+        batch, x, kapf = _flatten_batch(state, kappa, H, W)
+        consts = cas_constants(H, W, float(hx), float(hy), mats_dtype, state.device)
+        impl = ac_cas_macro_plain if state.device.type == "cpu" else ac_cas_macro_cuda
+
+        def run(u, k):
+            return impl(u, k, consts, epilogue=ep, **kw)
+
+        if ep is None:
+            u1 = _OracleMacro.apply(x, kapf, run, oracle, None)
+            return u1.to(state.dtype).reshape(*batch, H, W)
+        u1, stats, obs = _OracleMacro.apply(x, kapf, run, oracle, fold)
+        return (u1.to(state.dtype).reshape(*batch, H, W),
+                stats.reshape(*batch, 3),
+                obs.reshape(*batch, H // ep.ds, W // ep.ds))
+
+    return macro

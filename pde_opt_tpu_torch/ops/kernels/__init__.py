@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel source in ``pde_opt_tpu_torch/csrc/`` exposes a plain C
-interface.  :func:`load_library` compiles it at first use with ``nvcc`` for
+interface; the ``*.cuh`` headers there hold device code they share.
+:func:`load_library` compiles a source at first use with ``nvcc`` for
 Hopper (``sm_90a``) into ``build/kernels/`` at the repository root and loads
-it with :mod:`ctypes`; the library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt.  Nothing is downloaded and
+it with :mod:`ctypes`; the library's file name carries a hash of the source,
+the headers and the flags, so an edited source is rebuilt.  Nothing is downloaded and
 only sources of this package are compiled.  Importing this module compiles
 nothing, so CPU-only machines can import every module of the port.
 
@@ -22,11 +23,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 __all__ = [
     "NVCC_FLAGS",
     "load_library",
+    "load_libraries",
+    "build_log",
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
@@ -36,13 +39,16 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILD_LOGS: Dict[str, str] = {}
 _LOCK = threading.Lock()
 _LAUNCHES: Dict[str, int] = {
     "ch_cas_macro": 0, "ch_cas_macro_ep": 0, "ch_cas_macro_bwd": 0,
+    "ac_cas_macro": 0, "ac_cas_macro_ep": 0,
+    "gpe_strang_macro": 0, "gpe_strang_macro_ep": 0,
 }
 
 
@@ -62,31 +68,57 @@ def _nvcc() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; raise if the build fails."""
+def load_libraries(*names: str) -> List[ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for each name; raise if
+    a build fails.  Missing libraries are compiled in parallel, one ``nvcc``
+    per source, all started together."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
-        if not lib_path.exists():
+        builds = []
+        for name in names:
+            if name in _LIBS:
+                continue
+            src = CSRC / f"{name}.cu"
+            # The shared headers are part of every kernel's source.
+            headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+            digest = hashlib.sha256(
+                src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+            ).hexdigest()[:16]
+            lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+            if lib_path.exists():
+                _LIBS[name] = ctypes.CDLL(str(lib_path))
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
+            builds.append((name, src, tmp, lib_path, proc))
+        failed = []
+        for name, src, tmp, lib_path, proc in builds:
+            _, err = proc.communicate()
+            _BUILD_LOGS[name] = err
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed to build {src.name}:\n{proc.stderr}"
-                )
+                failed.append(f"nvcc failed to build {src.name}:\n{err}")
+                continue
             os.replace(tmp, lib_path)      # atomic: concurrent builds agree
-        _LIBS[name] = ctypes.CDLL(str(lib_path))
-        return _LIBS[name]
+            _LIBS[name] = ctypes.CDLL(str(lib_path))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return [_LIBS[name] for name in names]
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; raise if the build fails."""
+    return load_libraries(name)[0]
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` (with ``ptxas -v``: registers, shared memory, spills)
+    printed when this process built ``csrc/<name>.cu``; empty if it loaded
+    a library built before."""
+    return _BUILD_LOGS.get(name, "")
 
 
 def count_launch(name: str) -> None:

@@ -1,4 +1,5 @@
-"""Time steppers (PyTorch port of the CH subset of :mod:`pde_opt_tpu.ops.steppers`).
+"""Time steppers (PyTorch port of the CH, AC and GPE subset of
+:mod:`pde_opt_tpu.ops.steppers`).
 
 Each stepper exposes ``step(rhs, y, t, dt) -> (y1, y_err)``; the fused
 stepper also overrides the whole substep loop with ``evolve`` (the hook
@@ -15,12 +16,16 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .cas_spectral import make_ch_cas_fused_macro
+from .cas_spectral import make_ac_cas_fused_macro, make_ch_cas_fused_macro
+from .gpe_cas import make_gpe_strang_cas_macro
 
 __all__ = [
     "AbstractStepper",
     "SemiImplicitFourierSpectral",
     "FusedSemiImplicitSpectral",
+    "FusedAllenCahnSpectral",
+    "StrangSplitting",
+    "FusedStrangControl",
 ]
 
 
@@ -138,13 +143,216 @@ class FusedSemiImplicitSpectral(AbstractStepper):
         del rhs, t0
         kappa = _normalize_per_env_control(self.kappa, y0.shape[:-2], "kappa",
                                            device=y0.device)
-        epilogue = {
-            "obs_scale": float(ep_cfg.get("obs_scale", 255.0)),
-            "obs_offset": float(ep_cfg.get("obs_offset", 0.0)),
-            "obs_downsample": int(ep_cfg.get("obs_downsample", 1)),
-            "stats_center": float(ep_cfg.get("stats_center", 0.0)),
-        }
-        return self._macro(dt, n_steps, epilogue)(y0, kappa)
+        return self._macro(dt, n_steps, _epilogue_cfg(ep_cfg))(y0, kappa)
+
+    def step(self, rhs, y, t, dt):
+        return self.evolve(rhs, y, t, dt, 1), None
+
+
+def _epilogue_cfg(ep_cfg) -> dict:
+    """The macro's epilogue keys from the env's ``fused_epilogue`` config."""
+    return {
+        "obs_scale": float(ep_cfg.get("obs_scale", 255.0)),
+        "obs_offset": float(ep_cfg.get("obs_offset", 0.0)),
+        "obs_downsample": int(ep_cfg.get("obs_downsample", 1)),
+        "stats_center": float(ep_cfg.get("stats_center", 0.0)),
+    }
+
+
+class FusedAllenCahnSpectral(AbstractStepper):
+    """Whole-macro-step fused semi-implicit stepper for Allen-Cahn.
+
+    The Allen-Cahn counterpart of :class:`FusedSemiImplicitSpectral`: all
+    substeps of an ``evolve`` call run in one cas macro
+    (:func:`pde_opt_tpu_torch.ops.cas_spectral.make_ac_cas_fused_macro`), on
+    CUDA tensors one launch of kernel K4, with each env's own κ.  ``mu`` and
+    ``R`` must be elementwise; on CUDA ``mu`` must be a
+    :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`, and so must
+    ``R`` unless the identity probe finds ``R ≡ 1``.  ``rhs`` is ignored.
+    Differentiable through the checkpointed FFT oracle.
+
+    The JAX stepper's ``block_envs``/``interpret`` (TPU tiling) have no
+    counterpart, and its ``algo="dft"`` kernel (K9) is not ported.
+    """
+
+    required_equation_attrs = ("kappa", "mu", "R", "domain")
+    order = 1
+
+    def __init__(self, kappa, mu, R, domain, A: float = 1.0,
+                 mats_dtype: Optional[torch.dtype] = None, algo: str = "cas"):
+        if algo == "dft":
+            raise NotImplementedError(
+                "algo='dft' needs the packed-DFT kernel K9 "
+                "(pde_opt_tpu/ops/fused_spectral.py), which is not ported yet; "
+                "see ROADMAP.md"
+            )
+        if algo != "cas":
+            raise ValueError(f"algo must be 'cas' or 'dft', got {algo!r}")
+        self.kappa = kappa
+        self.mu = mu
+        self.R = R
+        self.domain = domain
+        self.A = float(A)
+        self.mats_dtype = torch.bfloat16 if mats_dtype is None else mats_dtype
+
+    def _macro(self, dt, n_steps, epilogue=None):
+        H, W = self.domain.points
+        hx, hy = self.domain.dx
+        return make_ac_cas_fused_macro(
+            self.mu, self.R, H, W, float(hx), float(hy), self.A, float(dt),
+            int(n_steps), mats_dtype=self.mats_dtype, epilogue=epilogue,
+        )
+
+    def evolve(self, rhs, y0, t0, dt, n_steps):
+        del rhs, t0
+        kappa = _normalize_per_env_control(self.kappa, y0.shape[:-2], "kappa",
+                                           device=y0.device)
+        return self._macro(dt, n_steps)(y0, kappa)
+
+    def evolve_with_epilogue(self, rhs, y0, t0, dt, n_steps, ep_cfg):
+        """Advance AND emit ``(y1, stats, obs)`` from the same macro (the
+        contract of :meth:`FusedSemiImplicitSpectral.evolve_with_epilogue`)."""
+        del rhs, t0
+        kappa = _normalize_per_env_control(self.kappa, y0.shape[:-2], "kappa",
+                                           device=y0.device)
+        return self._macro(dt, n_steps, _epilogue_cfg(ep_cfg))(y0, kappa)
+
+    def step(self, rhs, y, t, dt):
+        return self.evolve(rhs, y, t, dt, 1), None
+
+
+class StrangSplitting(AbstractStepper):
+    """Strang split-step Fourier method for time-splitting equations (GPE).
+
+    Half-step of the Fourier-diagonal ``A`` operator, full step of the
+    pointwise ``B`` operator (``rhs``), per-step L² renormalisation over the
+    spatial axes, half-step of ``A`` again.  State is a real ``(..., 2)``
+    stack of (Re, Im).  ``time_scale = -1j`` selects imaginary-time
+    propagation (ground-state search).
+
+    ``fast_evolve`` merges the trailing and leading ``A`` half-steps of
+    consecutive substeps in :meth:`evolve` (the midpoint Strang scheme: 2 FFT
+    pairs per substep instead of 4); it is not bit-identical to per-step
+    semantics, which :meth:`step` keeps.
+    """
+
+    required_equation_attrs = ("A_term", "dx", "fft", "ifft")
+    order = 1
+
+    def __init__(self, A_term, dx, fft, ifft, time_scale=1.0,
+                 fast_evolve: bool = False):
+        self.A_term = A_term
+        self.dx = dx
+        self.fft = fft
+        self.ifft = ifft
+        self.time_scale = time_scale
+        self.fast_evolve = fast_evolve
+
+    def _renorm(self, psi, axes):
+        return psi / torch.sqrt(
+            (psi.real**2 + psi.imag**2).sum(axes, keepdim=True) * self.dx**2)
+
+    def step(self, rhs, y, t, dt):
+        dt = dt * self.time_scale
+        yc = torch.complex(y[..., 0], y[..., 1])
+        axes = tuple(range(-self.A_term.ndim, 0))
+        exp_A = torch.exp(self.A_term * 0.5 * dt)
+        tmp = self.ifft(self.fft(yc) * exp_A)
+        b = rhs(y, t)                    # B_terms, stacked (..., 2)
+        tmp = tmp * torch.exp(torch.complex(b[..., 0], b[..., 1]) * dt)
+        tmp = self._renorm(tmp, axes)
+        y1c = self.ifft(self.fft(tmp) * exp_A)
+        return torch.stack([y1c.real, y1c.imag], dim=-1), None
+
+    def evolve(self, rhs, y0, t0, dt, n_steps):
+        """Advance ``n_steps`` split steps (merged midpoint steps with
+        ``fast_evolve``)."""
+        if not self.fast_evolve:
+            y = y0
+            for i in range(n_steps):
+                y = self.step(rhs, y, t0 + i * dt, dt)[0].to(y.dtype)
+            return y
+
+        dtc = dt * self.time_scale
+        axes = tuple(range(-self.A_term.ndim, 0))
+        # The complex working dtype follows the state's precision.
+        cdtype = torch.promote_types(y0.dtype, torch.complex64)
+        expA_half = torch.exp(self.A_term * 0.5 * dtc).to(cdtype)
+        expA_full = expA_half * expA_half
+        yc = torch.complex(y0[..., 0], y0[..., 1]).to(cdtype)
+
+        def apply_B_renorm(psi, t):
+            b = rhs(torch.stack([psi.real, psi.imag], dim=-1), t)
+            psi = psi * torch.exp(torch.complex(b[..., 0], b[..., 1]) * dtc)
+            return self._renorm(psi, axes).to(cdtype)
+
+        psi = self.ifft(self.fft(yc) * expA_half)
+        for i in range(n_steps - 1):
+            psi = apply_B_renorm(psi, t0 + i * dt)
+            psi = self.ifft(self.fft(psi) * expA_full).to(cdtype)
+        psi = apply_B_renorm(psi, t0 + (n_steps - 1) * dt)
+        psi = self.ifft(self.fft(psi) * expA_half)
+        return torch.stack([psi.real, psi.imag], dim=-1).to(y0.dtype)
+
+
+class FusedStrangControl(AbstractStepper):
+    """Whole-macro-step fused Strang stepper for the GPE control env.
+
+    All substeps of an ``evolve`` call run in one macro
+    (:func:`pde_opt_tpu_torch.ops.gpe_cas.make_gpe_strang_cas_macro`), on
+    CUDA tensors one launch of kernel K5.  Semantics: the midpoint
+    ``StrangSplitting(fast_evolve=True)`` scheme at real time with the
+    control held for the macro-step.  Differentiable with respect to the
+    state and the control field through the checkpointed FFT oracle.  The
+    trap potential and the meshes ``lights(t, x, y)`` reads come from the
+    equation, which caches them per configuration and device, so a step
+    copies nothing from the host.  The JAX stepper's
+    ``block_envs``/``interpret`` (TPU tiling) have no counterpart.
+    """
+
+    required_equation_attrs = ("domain", "k", "lights", "kinetic", "xmesh", "ymesh",
+                               "V_trap")
+    order = 1
+
+    def __init__(self, domain, k, lights, xmesh, ymesh, V_trap, kinetic=True,
+                 mats_dtype: Optional[torch.dtype] = None):
+        if not kinetic:
+            raise ValueError(
+                "FusedStrangControl integrates the full dispersion; "
+                "construct the equation with kinetic=True (the zeroed-A "
+                "Thomas-Fermi mode has no kinetic propagator to fuse: use "
+                "StrangSplitting there)."
+            )
+        self.domain = domain
+        self.g = float(k)
+        self.lights = lights
+        self.xmesh, self.ymesh, self.V_trap = xmesh, ymesh, V_trap
+        self.mats_dtype = torch.bfloat16 if mats_dtype is None else mats_dtype
+
+    def _macro_and_ctrl(self, y0, t0, dt, n_steps, epilogue=None):
+        H, W = self.domain.points
+        macro = make_gpe_strang_cas_macro(
+            self.V_trap, self.g, H, W, float(self.domain.dx[0]), float(dt), int(n_steps),
+            mats_dtype=self.mats_dtype, epilogue=epilogue,
+        )
+        ctrl = torch.broadcast_to(self.lights(t0, self.xmesh, self.ymesh), y0.shape[:-1])
+        return macro, ctrl
+
+    def evolve(self, rhs, y0, t0, dt, n_steps):
+        del rhs
+        macro, ctrl = self._macro_and_ctrl(y0, t0, dt, n_steps)
+        return macro(y0, ctrl)
+
+    def evolve_with_epilogue(self, rhs, y0, t0, dt, n_steps, ep_cfg):
+        """Advance AND emit ``(y1, stats, obs)`` from the same macro: stats
+        rows ``[sum(w rho), sum(rho), n_finite]`` with ``rho`` the
+        NaN-masked final density and ``w = ep_cfg['weight']``; obs
+        ``clip(rho obs_scale, 0, 255)`` uint8."""
+        del rhs
+        epilogue = {"obs_scale": float(ep_cfg.get("obs_scale", 2550.0)),
+                    "weight": ep_cfg.get("weight")}
+        macro, ctrl = self._macro_and_ctrl(y0, t0, dt, n_steps, epilogue)
+        return macro(y0, ctrl)
 
     def step(self, rhs, y, t, dt):
         return self.evolve(rhs, y, t, dt, 1), None

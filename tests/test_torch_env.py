@@ -236,3 +236,21 @@ def test_pooled_obs_and_unported_options():
         TEnv(**{**_env_kwargs(env), "action_space_config": {"type": "discrete"}})
     with pytest.raises(ValueError, match="must divide"):
         tpreset(num_envs=4, grid_size=16, obs_downsample=3)
+
+
+def test_env_step_gradient_reaches_the_action():
+    """A pathwise gradient through a fused-epilogue env step with respect to
+    the action: a step that autograd records returns a new state and leaves
+    the one it read (which the macro saved for its backward) as it was."""
+    env = tpreset(num_envs=4, grid_size=16, substeps=2, spectral_solve="fused")
+    state, _ = env.reset(torch.Generator().manual_seed(9))
+    y0 = state.y.clone()
+    scale = torch.tensor(0.5, requires_grad=True)
+    state1, _, reward, *_ = env.step(state, scale * torch.ones(4, 1))
+    assert state1.y is not state.y and torch.equal(state.y, y0)
+    assert state1.y.dtype == y0.dtype and state1.step_count.dtype == torch.int32
+    reward.sum().backward()
+    assert bool(torch.isfinite(scale.grad)) and float(scale.grad.abs()) > 0.0
+    # Without a gradient the step writes in place, as before.
+    state2, *_ = env.step(state, torch.zeros(4, 1))
+    assert state2.y is state.y
