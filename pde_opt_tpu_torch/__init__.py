@@ -5,11 +5,14 @@ reference the port is held against.  Ported so far: the flagship
 Cahn-Hilliard control fleet (``envs.presets.make_cahn_hilliard_control_env``)
 down to its fused cas macro, the training path through the same macro
 (``PDEModel.optimize``/``train`` on ``FusedSemiImplicitSpectral`` through a
-checkpointed ``integrate``), and the Allen-Cahn and Gross-Pitaevskii control
-fleets (``make_allen_cahn_control_env``, ``make_gpe_control_env``) down to
-their fused macros.  On CUDA tensors the macros and the CH backward run
-hand-written Hopper kernels (``csrc/*.cu``).  The package imports torch and
-numpy, never jax.
+checkpointed ``integrate``), the Allen-Cahn and Gross-Pitaevskii control
+fleets (``make_allen_cahn_control_env``, ``make_gpe_control_env``) and the
+Butler-Volmer and smoothed-boundary Butler-Volmer charging fleets
+(``make_butler_volmer_control_env``, ``make_sbm_butler_volmer_control_env``)
+down to their fused macros.  On CUDA tensors the macros and the CH backward
+run hand-written Hopper kernels (``csrc/*.cu``).  The entry points build on
+the card unless the caller passes ``device="cpu"``.  The package imports
+torch and numpy, never jax.
 """
 
 from . import envs, models, ops, optim, utils
@@ -17,8 +20,10 @@ from .envs import (
     EnvState,
     VectorPDEEnv,
     make_allen_cahn_control_env,
+    make_butler_volmer_control_env,
     make_cahn_hilliard_control_env,
     make_gpe_control_env,
+    make_sbm_butler_volmer_control_env,
 )
 from .grid import Domain, Grid
 from .models import PDEModel
@@ -29,4 +34,5 @@ __all__ = [
     "Domain", "Grid", "PDEModel", "integrate",
     "EnvState", "VectorPDEEnv", "make_cahn_hilliard_control_env",
     "make_allen_cahn_control_env", "make_gpe_control_env",
+    "make_butler_volmer_control_env", "make_sbm_butler_volmer_control_env",
 ]

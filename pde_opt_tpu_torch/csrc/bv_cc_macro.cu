@@ -1,0 +1,154 @@
+// Fused galvanostatic Butler-Volmer RK4 macro-step on the cas (Hartley)
+// transform, hand-written for Hopper (sm_90a), with the optional RL env
+// epilogue: K6.
+//
+// Replaces the TPU kernel of pde_opt_tpu/ops/bv_cas.py,
+// make_bv_cc_fused_macro (`kernel`, launched at :265, and `kernel_ep` at
+// :280, both over `_evolve_packed`, :143).  Per env with its own C-rate C,
+// n_steps classical RK4 substeps; per stage, on the stage input z:
+//
+//   lap = inv(lam * fwd(z))                  fwd(z) = C_H^T z C_W, inv = fwd/(H W)
+//   m   = mu(z) - kappa*lap,  j = j0(z),  em = exp(m/2)
+//   I+  = sum(j*em)*cell,  I- = sum(j/em)*cell           (one block reduction)
+//   y   = (-C + sqrt(C^2 + 4 I+ I-)) / (2 I+)             (alpha = 1/2)
+//   k   = j*(1/(em*y) - em*y)
+//
+// mu and j0 are the presets' LogRatioMu and SqrtJ0 (bv_common.cuh).  With
+// bf16 matrices each transform's operand and intermediate are rounded to
+// bf16, as in the JAX kernel; products accumulate in f32.  The epilogue is
+// K1's (cas_common.cuh) at obs_downsample 1.
+//
+// Bound: 4 transforms = 16 products of 2*64^3 FLOPs per env-substep at 64^2
+// (8.4 MFLOP), 172 GFLOP per macro at 2048 envs x 10 substeps, run as f32
+// FMA on the CUDA cores (67 TFLOP/s; the tensor cores' bf16 rate would bound
+// it at 0.17 ms), plus the closure's ~40 operations a pixel-stage with a
+// logf, an expf, a sqrtf and three divisions.  Field traffic is 32 KB per env
+// and macro: arithmetic-bound.  Design as K4: one block of 256 threads owns
+// one env at a time (grid-stride), the four matrices and two transform tiles
+// in 96 KB of shared memory, each thread a 4 x 4 tile.  RK4 keeps u, the
+// accumulator, the stage input and one work tile live in registers (64 a
+// thread); lam is read through the read-only cache at each use rather than
+// held, to stay within 128 registers (two blocks an SM).  The two per-env
+// integrals are one block reduction (block_sum3) per stage.
+
+#include "bv_common.cuh"
+#include "cas_common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+bv_cc_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ crate,
+                   const float* __restrict__ g_ch, const float* __restrict__ g_cw,
+                   const float* __restrict__ g_ich, const float* __restrict__ g_icw,
+                   const float* __restrict__ lam, float* __restrict__ u_out, int B, int H,
+                   int W, int n_steps, Rk4 rk, float kappa, float cell, BvCoeffs bv,
+                   bool rnd, Epilogue ep) {
+  extern __shared__ float4 smem4[];
+  const Tiles sm = carve_tiles(reinterpret_cast<float*>(smem4));
+  const float *ch = sm.ch, *cw = sm.cw, *ich = sm.ich, *icw = sm.icw;
+  float *zs = sm.zs, *ts = sm.ts;
+  __shared__ float red[kWarps][3];
+
+  const int tid = threadIdx.x;
+  const int ty4 = (tid / 16) * 4;        // first row (H axis) this thread owns
+  const int tx4 = (tid % 16) * 4;        // first column (W axis)
+  const bool own = ty4 < H && tx4 < W;
+  load_mats(sm, g_ch, g_cw, g_ich, g_icw, H, W, tid);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * H * W;
+    const float C = crate[env];
+    // u: the field; acc: the RK sum; z: the stage input, then j0(z); a: the
+    // transform output, then exp(m/2), then the stage's k.
+    float u[4][4], acc[4][4], z[4][4], a[4][4] = {};
+    if (own) load_tile(u_in + off, W, ty4, tx4, u);
+
+    for (int s = 0; s < n_steps; ++s) {
+      for (int stage = 0; stage < 4; ++stage) {
+        // The previous transform's barriers have finished every read of zs.
+        if (own) {
+          rk4_stage_input(z, u, a, stage, rk);
+          store_tile(zs, ty4, tx4, z, rnd);
+        }
+        transform(zs, ts, ch, cw, H, W, ty4, tx4, rnd, a);          // fwd(z)
+        if (own) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 l = __ldg(reinterpret_cast<const float4*>(lam + (ty4 + i) * W + tx4));
+            a[i][0] *= l.x;
+            a[i][1] *= l.y;
+            a[i][2] *= l.z;
+            a[i][3] *= l.w;
+          }
+          store_tile(zs, ty4, tx4, a, rnd);
+        }
+        transform(zs, ts, ich, icw, H, W, ty4, tx4, rnd, a);        // lap
+        float ip = 0.f, im = 0.f, unused = 0.f;
+        if (own) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float m = __fsub_rn(bv_mu(bv, z[i][j]), __fmul_rn(kappa, a[i][j]));
+              const float jj = bv_j0(bv, z[i][j]);
+              const float em = expf(0.5f * m);
+              ip += __fmul_rn(jj, em);
+              im += __fmul_rn(jj, __fdiv_rn(1.0f, em));
+              z[i][j] = jj;
+              a[i][j] = em;
+            }
+        }
+        block_sum3(ip, im, unused, red, tid);
+        const float y = bv_root(C, __fmul_rn(ip, cell), __fmul_rn(im, cell));
+        if (own) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) a[i][j] = bv_reaction(z[i][j], a[i][j], y);
+          rk4_accumulate(acc, a, stage);
+        }
+      }
+      if (own) rk4_finish(u, acc, rk);
+    }
+
+    if (own) save_tile(u_out + off, W, ty4, tx4, u);
+    // Every thread has read the last reduction's totals before the epilogue
+    // (or the next env) writes red again.
+    __syncthreads();
+    if (ep.stats != nullptr) emit_field_epilogue(u, a, zs, red, ep, env, H, W, tid, ty4, tx4, own);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K6 on `stream`.  stats == nullptr runs the plain macro; otherwise
+// stats and obs are written too.  dt_half, dt, dt_sixth are the RK4 stage
+// constants rounded to f32.  Returns a cudaError_t value, 0 on success.
+int bv_cc_macro_launch(const float* u, const float* crate, const float* ch, const float* cw,
+                       const float* ich, const float* icw, const float* lam, float* out,
+                       float* stats, unsigned char* obs, int B, int H, int W, int n_steps,
+                       float dt_half, float dt, float dt_sixth, float kappa, float cell,
+                       float omega, float clip_lo, float clip_hi, float j0_floor,
+                       int round_bf16, float obs_scale, float obs_offset, float center,
+                       void* stream) {
+  if (bad_grid(B, H, W, n_steps)) return static_cast<int>(cudaErrorInvalidValue);
+  const Epilogue ep{stats, obs, 1, obs_scale, obs_offset, center};
+  const Rk4 rk{dt_half, dt, dt_sixth};
+  const BvCoeffs bv{omega, clip_lo, clip_hi, j0_floor};
+  int resident = 0;
+  cudaError_t err = resident_blocks(bv_cc_macro_kernel, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = B < resident ? B : resident;
+  bv_cc_macro_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      u, crate, ch, cw, ich, icw, lam, out, B, H, W, n_steps, rk, kappa, cell, bv,
+      round_bf16 != 0, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* bv_cc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

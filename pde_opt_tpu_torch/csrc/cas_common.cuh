@@ -1,5 +1,7 @@
-// Device code shared by the port's cas-transform macro kernels
-// (ch_cas_macro.cu: K1-K3, ac_cas_macro.cu: K4, gpe_strang_macro.cu: K5).
+// Device code shared by the port's macro kernels (ch_cas_macro.cu: K1-K3,
+// ac_cas_macro.cu: K4, gpe_strang_macro.cu: K5, bv_cc_macro.cu: K6 use the
+// cas transforms; sbm_bv_macro.cu: K7 the tiles, block sum and launch
+// helpers).
 //
 // Layout common to all of them: one block of kThreads = 256 threads owns one
 // env at a time (grid-stride over envs); the four cas matrices C_H, C_W and
@@ -264,15 +266,15 @@ __device__ __forceinline__ void emit_field_epilogue(const float u[4][4], float f
 
 // Every kernel here needs more than the default 48 KB of shared memory.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel) {
+cudaError_t allow_smem(Kernel kernel, int smem_bytes = kSmemBytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmemBytes);
+                              smem_bytes);
 }
 
 // Blocks of `kernel` that fit on the current device at once.
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int* blocks) {
-  cudaError_t err = allow_smem(kernel);
+cudaError_t resident_blocks(Kernel kernel, int* blocks, int smem_bytes = kSmemBytes) {
+  cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -280,7 +282,7 @@ cudaError_t resident_blocks(Kernel kernel, int* blocks) {
       cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                           kSmemBytes)) != cudaSuccess)
+                                                           smem_bytes)) != cudaSuccess)
     return err;
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
   return cudaSuccess;

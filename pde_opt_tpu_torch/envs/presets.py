@@ -1,31 +1,49 @@
 """Preset environment configurations (PyTorch port of the Cahn-Hilliard,
-Allen-Cahn and Gross-Pitaevskii presets of :mod:`pde_opt_tpu.envs.presets`)."""
+Allen-Cahn, Gross-Pitaevskii and Butler-Volmer presets of
+:mod:`pde_opt_tpu.envs.presets`).
+
+Every preset builds its fleet on the card unless ``device`` names another
+device; without CUDA, ``device="cpu"`` must be passed."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import grid as gridmod
+from ..models.allen_cahn import (
+    AllenCahn2DPeriodic,
+    AllenCahn2DPeriodicButlerVolmerConstantCurrent,
+    AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
+)
 from ..models.cahn_hilliard import CahnHilliard2DPeriodic
-from ..ops.cas_spectral import PolynomialMu
-from ..models.allen_cahn import AllenCahn2DPeriodic
 from ..models.gross_pitaevskii import GPE2DTSControl
+from ..ops.bv_cas import LogRatioMu, SqrtJ0
+from ..ops.cas_spectral import PolynomialMu
 from ..ops.steppers import (
+    RK4,
     FusedAllenCahnSpectral,
+    FusedButlerVolmer,
+    FusedSBMButlerVolmer,
     FusedSemiImplicitSpectral,
     FusedStrangControl,
     SemiImplicitFourierSpectral,
     StrangSplitting,
 )
+from ..utils.device import resolve_device
 from .vector_env import VectorPDEEnv
 
 __all__ = [
     "make_cahn_hilliard_control_env",
     "make_allen_cahn_control_env",
     "make_gpe_control_env",
+    "make_butler_volmer_control_env",
+    "make_sbm_butler_volmer_control_env",
     "CH_MU",
     "AC_MU",
     "AC_R",
+    "BV_MU",
+    "BV_J0",
 ]
 
 # mu(c) = c**3 - c, in the coefficient form the CUDA macro reads.
@@ -33,6 +51,11 @@ CH_MU = PolynomialMu((0.0, -1.0, 0.0, 1.0))
 # The Allen-Cahn preset's mu(c) = c**3 - c and unit mobility R(c) = 1.
 AC_MU = PolynomialMu((0.0, -1.0, 0.0, 1.0))
 AC_R = PolynomialMu((1.0,))
+# The Butler-Volmer presets' mu(c) = log(x/(1-x)) + 3(1-2c), x = clip(c,
+# 1e-4, 1-1e-4), and j0(c) = sqrt(max(c(1-c), 1e-6)), in the form the CUDA
+# kernels read.
+BV_MU = LogRatioMu(omega=3.0, clip=1e-4)
+BV_J0 = SqrtJ0(floor=1e-6)
 
 
 def make_cahn_hilliard_control_env(
@@ -48,7 +71,7 @@ def make_cahn_hilliard_control_env(
     spectral_solve: str = "fft",
     obs_downsample: int = 1,
     fused_epilogue: bool | None = None,
-    device="cpu",
+    device="cuda",
 ) -> VectorPDEEnv:
     """64×64 Cahn-Hilliard control fleet: the agent drives κ (interface width).
 
@@ -63,7 +86,7 @@ def make_cahn_hilliard_control_env(
         raise ValueError(
             f"obs_downsample={obs_downsample} must divide grid_size={grid_size}"
         )
-    device = torch.device(device)
+    device = resolve_device(device)
     L = 0.01 * grid_size
     domain = gridmod.Domain(
         (grid_size, grid_size), ((-L / 2, L / 2), (-L / 2, L / 2)),
@@ -139,6 +162,7 @@ def make_cahn_hilliard_control_env(
             "mu": CH_MU,
             "D": lambda c: torch.ones_like(c),
             "derivs": derivs,
+            "device": device,
         },
         control_equation_parameter_name="kappa",
         solver_parameters=solver_parameters,
@@ -161,7 +185,7 @@ def make_allen_cahn_control_env(
     vectorized_control: bool = True,
     spectral_solve: str = "fused",
     fused_epilogue: bool | None = None,
-    device="cpu",
+    device="cuda",
 ) -> VectorPDEEnv:
     """Allen-Cahn control fleet: the agent drives κ (interface energy).
 
@@ -171,7 +195,7 @@ def make_allen_cahn_control_env(
     :class:`SemiImplicitFourierSpectral`.  Observation ``(y+1)·127.5`` as
     uint8; reward ``-var``.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     L = 0.01 * grid_size
     domain = gridmod.Domain(
         (grid_size, grid_size), ((-L / 2, L / 2), (-L / 2, L / 2)),
@@ -222,7 +246,7 @@ def make_allen_cahn_control_env(
         ),
         update_control_parameter=lambda old, new: new[..., None, None],
         action_space_config={"type": "continuous", "shape": (1,)},
-        static_equation_parameters={"mu": AC_MU, "R": AC_R},
+        static_equation_parameters={"mu": AC_MU, "R": AC_R, "device": device},
         control_equation_parameter_name="kappa",
         solver_parameters={"A": 1.0},
         num_envs=num_envs,
@@ -246,7 +270,7 @@ def make_gpe_control_env(
     box_size: float = 16.0,
     spectral_solve: str = "fused",
     fused_epilogue: bool | None = None,
-    device="cpu",
+    device="cuda",
 ) -> VectorPDEEnv:
     """Gross-Pitaevskii control fleet: the agent drives an optical spot.
 
@@ -259,7 +283,7 @@ def make_gpe_control_env(
     K5) with the env epilogue fused in by default; ``"fft"`` runs
     ``StrangSplitting(fast_evolve=True)``.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     L = box_size
     domain = gridmod.Domain(
         (grid_size, grid_size), ((-L / 2, L / 2), (-L / 2, L / 2)),
@@ -348,4 +372,211 @@ def make_gpe_control_env(
         vectorized_control=True,
         fused_epilogue=ep_cfg,
         device=device,
+    )
+
+
+def _bv_solver(method: str, fused):
+    if method == "fused":
+        return fused
+    if method == "rk4":
+        return RK4
+    raise ValueError(f"unknown method: {method!r}")
+
+
+def _bv_reset_func(dtype):
+    """Each env a lightly filled particle: clip(0.05 + 0.005 N(0, 1), 0.01, 0.99)."""
+
+    def reset_func(domain_, generator, n):
+        noise = torch.randn((n, *domain_.points), generator=generator, dtype=dtype,
+                            device=generator.device)
+        return torch.clamp(0.05 + 0.005 * noise, 0.01, 0.99)
+
+    return reset_func
+
+
+def _bv_control():
+    """The BV presets' C-rate control: reset to 1, nudged by 0.2 per unit
+    action within [0.2, 3], entering the equation as ``(B, 1, 1)``."""
+    return dict(
+        reset_control_value=1.0,
+        update_control_value=lambda off, old: torch.clamp(old + 0.2 * off[..., 0], 0.2, 3.0),
+        update_control_parameter=lambda old, new: new[..., None, None],
+        action_space_config={"type": "continuous", "shape": (1,)},
+        control_equation_parameter_name="Crate",
+        solver_parameters={},
+    )
+
+
+def make_butler_volmer_control_env(
+    num_envs: int = 1024,
+    grid_size: int = 64,
+    substeps: int = 10,
+    end_time: float = 0.2,
+    step_dt: float = 5e-3,
+    dtype: torch.dtype = torch.float32,
+    auto_reset: bool = True,
+    kappa: float = 5e-4,
+    method: str = "fused",
+    fused_epilogue: bool | None = None,
+    device="cuda",
+) -> VectorPDEEnv:
+    """Galvanostatic Butler-Volmer charging fleet: the agent drives the C-rate.
+
+    Each env is a phase-separating electrode particle lithiating under the
+    constant-current closure (per-env integrals stay per env); the action
+    nudges the applied C-rate.  Reward: filling progress minus ten times the
+    variance (charge fast, stay uniform).  One RL step is ``substeps`` RK4
+    substeps.  ``method="fused"`` runs the fused macro (on CUDA, kernel K6)
+    with the env epilogue fused in by default; ``"rk4"`` steps
+    :class:`~pde_opt_tpu_torch.ops.steppers.RK4` through the equation.
+    """
+    device = resolve_device(device)
+    solver_type = _bv_solver(method, FusedButlerVolmer)
+    domain = gridmod.Domain((grid_size, grid_size), ((-0.5, 0.5), (-0.5, 0.5)),
+                            "dimensionless", dtype=dtype)
+    # Fused env epilogue: obs clip(y*255) and the charging reward
+    # mean - 10*var, both from the kernel's centered-moment stats.
+    if fused_epilogue is None:
+        fused_epilogue = method == "fused"
+    ep_cfg = None
+    if fused_epilogue:
+        ep_cfg = {
+            "obs_scale": 255.0,
+            "obs_offset": 0.0,
+            "stats_center": 0.5,
+            "reward_from_stats": lambda s1, s2, cnt, n: (
+                (s1 / n + 0.5) - 10.0 * (s2 / n - (s1 / n) ** 2)
+            ),
+            "obs_transform": lambda o: o[..., None, :, :],
+        }
+    return VectorPDEEnv(
+        equation_type=AllenCahn2DPeriodicButlerVolmerConstantCurrent,
+        domain=domain,
+        solver_type=solver_type,
+        end_time=end_time,
+        step_dt=step_dt,
+        numeric_dt=step_dt / substeps,
+        state_to_observation_func=lambda y: torch.clamp(
+            y * 255.0, 0, 255).to(torch.uint8)[..., None, :, :],
+        reward_function=lambda y: (y.mean(dim=(-2, -1))
+                                   - 10.0 * y.var(dim=(-2, -1), correction=0)),
+        reset_func=_bv_reset_func(dtype),
+        static_equation_parameters={"kappa": kappa, "mu": BV_MU, "j0": BV_J0, "alpha": 0.5},
+        num_envs=num_envs,
+        auto_reset=auto_reset,
+        vectorized_control=True,
+        fused_epilogue=ep_cfg,
+        device=device,
+        **_bv_control(),
+    )
+
+
+def sbm_disk_psi(domain: gridmod.Domain, particle_radius: float = 0.35,
+                 interface_width: float = 0.04) -> np.ndarray:
+    """The SBM preset's analytic level set of a disk particle, in numpy in
+    the domain's dtype: ``0.5 (1 + tanh((R - r)/w))``, raised to 0.001
+    outside and set to 1 above 0.99."""
+    X, Y = domain.mesh()
+    r = np.sqrt(X**2 + Y**2)
+    psi = 0.5 * (1.0 + np.tanh((particle_radius - r) / interface_width))
+    psi = np.where(psi < 0.001, 0.001, psi)
+    return np.where(psi > 0.99, 1.0, psi).astype(X.dtype)
+
+
+def make_sbm_butler_volmer_control_env(
+    num_envs: int = 1024,
+    grid_size: int = 64,
+    substeps: int = 10,
+    end_time: float = 0.2,
+    step_dt: float = 5e-3,
+    dtype: torch.dtype = torch.float32,
+    auto_reset: bool = True,
+    kappa: float = 5e-4,
+    particle_radius: float = 0.35,
+    interface_width: float = 0.04,
+    smooth_geometry: bool = False,
+    method: str = "fused",
+    fused_epilogue: bool | None = None,
+    device="cuda",
+) -> VectorPDEEnv:
+    """Smoothed-boundary galvanostatic charging fleet (a disk particle).
+
+    Each env is a disk-shaped electrode particle embedded in the periodic
+    box by the level set ψ: the SBM chemical potential uses ψ-weighted
+    fluxes and the closure integrates over ψ, so the charge balance holds
+    on the particle.  The agent drives the C-rate; reward: ψ-weighted
+    filling progress minus ten times the ψ-weighted variance.  One RL step
+    is ``substeps`` RK4 substeps.  ``method="fused"`` runs the fused macro
+    (on CUDA, kernel K7) with the ψ-weighted epilogue fused in by default;
+    ``"rk4"`` steps :class:`~pde_opt_tpu_torch.ops.steppers.RK4`.
+    ψ is the analytic tanh profile (:func:`sbm_disk_psi`);
+    ``smooth_geometry=True`` (ψ from the ``Shape`` smoothing flow) is not
+    ported.
+    """
+    if smooth_geometry:
+        raise NotImplementedError(
+            "smooth_geometry=True derives psi with geometry.Shape, which is not "
+            "ported yet; see ROADMAP.md"
+        )
+    device = resolve_device(device)
+    solver_type = _bv_solver(method, FusedSBMButlerVolmer)
+    domain = gridmod.Domain((grid_size, grid_size), ((-0.5, 0.5), (-0.5, 0.5)),
+                            "dimensionless", dtype=dtype)
+    psi_np = sbm_disk_psi(domain, particle_radius, interface_width)
+    psi = torch.from_numpy(psi_np).to(device)
+    psi_sum = float(psi_np.sum())
+
+    def psi_mean(y):
+        return (psi * y).sum((-2, -1)) / psi_sum
+
+    def psi_var(y):
+        m = psi_mean(y)[..., None, None]
+        return (psi * (y - m) ** 2).sum((-2, -1)) / psi_sum
+
+    # Fused env epilogue: the kernel's stats are psi*cell-weighted centered
+    # moments; dividing by sum(psi*cell) gives the psi-mean/var reward.  The
+    # obs is the psi-masked uint8 concentration.
+    if fused_epilogue is None:
+        fused_epilogue = method == "fused"
+    ep_cfg = None
+    if fused_epilogue:
+        wsum = psi_sum * float(domain.dx[0]) * float(domain.dx[1])
+
+        def _sbm_reward(s1, s2, cnt, n):
+            m = s1 / wsum + 0.5
+            var = s2 / wsum - (s1 / wsum) ** 2
+            return m - 10.0 * var
+
+        ep_cfg = {
+            "obs_scale": 255.0,
+            "stats_center": 0.5,
+            "reward_from_stats": _sbm_reward,
+            "obs_transform": lambda o: o[..., None, :, :],
+        }
+    return VectorPDEEnv(
+        equation_type=AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
+        domain=domain,
+        solver_type=solver_type,
+        end_time=end_time,
+        step_dt=step_dt,
+        numeric_dt=step_dt / substeps,
+        # Observe the particle only: psi-masked concentration.
+        state_to_observation_func=lambda y: torch.clamp(
+            y * psi * 255.0, 0, 255).to(torch.uint8)[..., None, :, :],
+        reward_function=lambda y: psi_mean(y) - 10.0 * psi_var(y),
+        reset_func=_bv_reset_func(dtype),
+        static_equation_parameters={
+            "kappa": kappa,
+            "f": lambda c: 3.0 * c * (1.0 - c),
+            "mu": BV_MU,
+            "j0": BV_J0,
+            "alpha": 0.5,
+            "psi": psi,
+        },
+        num_envs=num_envs,
+        auto_reset=auto_reset,
+        vectorized_control=True,
+        fused_epilogue=ep_cfg,
+        device=device,
+        **_bv_control(),
     )

@@ -36,6 +36,7 @@ import torch
 from .. import grid as domains
 from ..ops.integrate import evolve
 from ..utils.compat import check_equation_solver_compatibility, prepare_solver_params
+from ..utils.device import resolve_device
 
 __all__ = ["EnvState", "VectorPDEEnv", "env_state_from_numpy", "env_state_to_numpy"]
 
@@ -50,7 +51,7 @@ class EnvState(NamedTuple):
     done: torch.Tensor           # (B,) bool — episode ended at previous step
 
 
-def env_state_from_numpy(state, device="cpu") -> EnvState:
+def env_state_from_numpy(state, device="cuda") -> EnvState:
     """An :class:`EnvState` from arrays: a mapping or any object with the
     fields ``y, t, control_value, step_count, done`` (e.g. the JAX package's
     ``EnvState``).  The JAX state's PRNG keys are not carried: the two
@@ -58,6 +59,7 @@ def env_state_from_numpy(state, device="cpu") -> EnvState:
     def get(name):
         return state[name] if isinstance(state, dict) else getattr(state, name)
 
+    device = resolve_device(device)
     return EnvState(*(torch.from_numpy(np.array(get(f))).to(device)
                       for f in EnvState._fields))
 
@@ -121,7 +123,7 @@ class VectorPDEEnv:
         auto_reset: bool = True,
         vectorized_control: bool = True,
         fused_epilogue: Optional[Dict[str, Any]] = None,
-        device="cpu",
+        device="cuda",
     ):
         if not vectorized_control:
             raise NotImplementedError(
@@ -153,7 +155,7 @@ class VectorPDEEnv:
         self.auto_reset = auto_reset
         self.vectorized_control = vectorized_control
         self.fused_epilogue = fused_epilogue
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # Built once: a host-to-device copy inside step() would make the
         # host wait for the device every step.
         self._reset_cv = torch.as_tensor(reset_control_value, dtype=torch.float32,

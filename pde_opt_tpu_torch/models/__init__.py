@@ -1,6 +1,11 @@
 """Equations (PyTorch port)."""
 
-from .allen_cahn import AllenCahn2DPeriodic
+from .allen_cahn import (
+    AllenCahn2DPeriodic,
+    AllenCahn2DPeriodicButlerVolmer,
+    AllenCahn2DPeriodicButlerVolmerConstantCurrent,
+    AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
+)
 from .base import BaseEquation, TimeSplittingEquation
 from .cahn_hilliard import CahnHilliard2DPeriodic
 from .gross_pitaevskii import GPE2DTSControl
@@ -11,6 +16,9 @@ __all__ = [
     "TimeSplittingEquation",
     "CahnHilliard2DPeriodic",
     "AllenCahn2DPeriodic",
+    "AllenCahn2DPeriodicButlerVolmer",
+    "AllenCahn2DPeriodicButlerVolmerConstantCurrent",
+    "AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent",
     "GPE2DTSControl",
     "PDEModel",
 ]

@@ -18,6 +18,7 @@ import torch
 from ..grid import Domain
 from ..ops import stencils as st
 from ..ops.spectral import make_fft_pair, make_rfft_pair
+from ..utils.device import resolve_device
 from .base import BaseEquation
 
 __all__ = ["CahnHilliard2DPeriodic"]
@@ -46,7 +47,7 @@ class CahnHilliard2DPeriodic(BaseEquation):
     ``derivs="fd"`` uses the conservative face-flux form (2nd order);
     ``derivs="fourier"`` the pseudo-spectral form.  Exposes
     ``fourier_symbol = κ(2πik)⁴`` for the semi-implicit spectral stepper.
-    ``device`` places the spectral symbols (default: κ's device, else CPU).
+    ``device`` places the spectral symbols (default: κ's device, else CUDA).
     """
 
     fft = None
@@ -62,14 +63,14 @@ class CahnHilliard2DPeriodic(BaseEquation):
                  derivs: str = "fd", use_rfft: bool = True,
                  device: Optional[torch.device] = None):
         if device is None:
-            device = kappa.device if torch.is_tensor(kappa) else "cpu"
+            device = kappa.device if torch.is_tensor(kappa) else "cuda"
         self.domain = domain
         self.kappa = kappa
         self.mu = mu
         self.D = D
         self.derivs = derivs
         self.use_rfft = use_rfft
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._fourier_symbol = None
 
         (self.two_pi_i_kx, self.two_pi_i_ky, self.two_pi_i_k_2,

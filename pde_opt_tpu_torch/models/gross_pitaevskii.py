@@ -16,6 +16,7 @@ import torch
 
 from ..grid import Domain
 from ..ops.spectral import make_fft_pair
+from ..utils.device import resolve_device
 from .base import TimeSplittingEquation
 
 __all__ = ["GPE2DTSControl", "hbar", "mass_Na23", "a0"]
@@ -49,7 +50,7 @@ class GPE2DTSControl(TimeSplittingEquation):
         V(r,t) = ½·trap_factor·[(1+e)x² + (1−e)y²] + V_control(r,t)
 
     ``lights(t, x, y)`` is the control field; the meshes it receives are
-    tensors on ``device`` (default CPU).  As in the JAX package the kinetic
+    tensors on ``device`` (default CUDA).  As in the JAX package the kinetic
     term is off unless ``kinetic=True`` (the reference's Thomas-Fermi
     default).
     """
@@ -79,7 +80,7 @@ class GPE2DTSControl(TimeSplittingEquation):
         self.lights = lights
         self.trap_factor = trap_factor
         self.kinetic = kinetic
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device("cuda" if device is None else device)
 
         self.dx = domain.dx[0]
         self.fft, self.ifft = make_fft_pair(2)

@@ -1,5 +1,6 @@
 """Stencils, transforms, steppers and the fused macro (PyTorch port)."""
 
+from .bv_cas import LogRatioMu, SqrtJ0, bv_cc_reference, make_bv_cc_fused_macro
 from .cas_spectral import (
     PolynomialMu,
     make_ac_cas_fused_macro,
@@ -9,20 +10,32 @@ from .cas_spectral import (
 from .fused_spectral import ac_sif_macro_reference, ch_sif_macro_reference
 from .gpe_cas import gpe_strang_fast_reference, make_gpe_strang_cas_macro
 from .integrate import ConstantStepSize, PIDController, evolve, integrate
+from .sbm_bv import make_sbm_bv_fused_macro, sbm_bv_reference
 from .steppers import (
+    RK4,
+    Euler,
     FusedAllenCahnSpectral,
+    FusedButlerVolmer,
+    FusedSBMButlerVolmer,
     FusedSemiImplicitSpectral,
     FusedStrangControl,
     SemiImplicitFourierSpectral,
+    Heun,
     StrangSplitting,
 )
 
 __all__ = [
     "PolynomialMu",
+    "LogRatioMu",
+    "SqrtJ0",
     "make_ch_cas_fused_macro",
     "make_ch_cas_fused_macro_ep",
     "make_ac_cas_fused_macro",
     "make_gpe_strang_cas_macro",
+    "make_bv_cc_fused_macro",
+    "make_sbm_bv_fused_macro",
+    "bv_cc_reference",
+    "sbm_bv_reference",
     "ch_sif_macro_reference",
     "ac_sif_macro_reference",
     "gpe_strang_fast_reference",
@@ -35,4 +48,9 @@ __all__ = [
     "FusedStrangControl",
     "SemiImplicitFourierSpectral",
     "StrangSplitting",
+    "Euler",
+    "Heun",
+    "RK4",
+    "FusedButlerVolmer",
+    "FusedSBMButlerVolmer",
 ]

@@ -344,6 +344,22 @@ def _check_cuda(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _check_grid(u, ndim: int = 3):
+    """Raise on a state the CUDA kernels do not take: ``(B, H, W)`` (with
+    ``ndim=4`` ``(B, H, W, 2)``), B >= 1, H and W multiples of 8 up to
+    :data:`MAX_GRID`.  Returns ``(B, H, W)``."""
+    if u.ndim != ndim or (ndim == 4 and u.shape[-1] != 2):
+        want = "(B, H, W)" if ndim == 3 else "(B, H, W, 2)"
+        raise ValueError(f"the state must be {want}, got shape {tuple(u.shape)}")
+    B, H, W = u.shape[:3]
+    if B < 1 or H % 8 or W % 8 or not (8 <= H <= MAX_GRID and 8 <= W <= MAX_GRID):
+        raise ValueError(
+            f"the CUDA macro takes B >= 1 envs and H, W multiples of 8 up to "
+            f"{MAX_GRID}; got {(B, H, W)}"
+        )
+    return B, H, W
+
+
 def _check_macro_args(u, kappa, consts, mu_fn):
     """Raise on what the CUDA kernels do not take; return ``(B, H, W)``."""
     if not isinstance(mu_fn, PolynomialMu):
@@ -351,14 +367,7 @@ def _check_macro_args(u, kappa, consts, mu_fn):
             "the CUDA macro evaluates mu from polynomial coefficients: pass a "
             f"PolynomialMu, got {mu_fn!r}"
         )
-    if u.ndim != 3:
-        raise ValueError(f"u must be (B, H, W), got shape {tuple(u.shape)}")
-    B, H, W = u.shape
-    if B < 1 or H % 8 or W % 8 or not (8 <= H <= MAX_GRID and 8 <= W <= MAX_GRID):
-        raise ValueError(
-            f"the CUDA macro takes B >= 1 envs and H, W multiples of 8 up to "
-            f"{MAX_GRID}; got {(B, H, W)}"
-        )
+    B, H, W = _check_grid(u)
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("kappa", kappa, (B,), torch.float32, dev)

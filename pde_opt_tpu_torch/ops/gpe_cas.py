@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .cas_spectral import MAX_GRID, _cas_mat, _check_cuda, _OracleMacro, _transforms
+from .cas_spectral import _cas_mat, _check_cuda, _check_grid, _OracleMacro, _transforms
 from .kernels import count_launch, load_library
 
 __all__ = [
@@ -229,14 +229,7 @@ def gpe_strang_macro_cuda(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
     ``gpe_strang_macro`` without); raises on anything the kernel does not
     take.
     """
-    if y.ndim != 4 or y.shape[-1] != 2:
-        raise ValueError(f"y must be (B, H, W, 2), got shape {tuple(y.shape)}")
-    B, H, W, _ = y.shape
-    if B < 1 or H % 8 or W % 8 or not (8 <= H <= MAX_GRID and 8 <= W <= MAX_GRID):
-        raise ValueError(
-            f"the CUDA macro takes B >= 1 envs and H, W multiples of 8 up to "
-            f"{MAX_GRID}; got {(B, H, W)}"
-        )
+    B, H, W = _check_grid(y, ndim=4)
     dev = y.device
     _check_cuda("y", y, (B, H, W, 2), torch.float32, dev)
     _check_cuda("ctrl", ctrl, (B, H, W), torch.float32, dev)

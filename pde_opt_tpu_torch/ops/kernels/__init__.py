@@ -49,6 +49,8 @@ _LAUNCHES: Dict[str, int] = {
     "ch_cas_macro": 0, "ch_cas_macro_ep": 0, "ch_cas_macro_bwd": 0,
     "ac_cas_macro": 0, "ac_cas_macro_ep": 0,
     "gpe_strang_macro": 0, "gpe_strang_macro_ep": 0,
+    "bv_cc_macro": 0, "bv_cc_macro_ep": 0,
+    "sbm_bv_macro": 0, "sbm_bv_macro_ep": 0,
 }
 
 

@@ -1,15 +1,16 @@
 """Periodic finite-difference stencils on trailing axes (PyTorch port).
 
-Counterpart of the Cahn-Hilliard subset of :mod:`pde_opt_tpu.ops.stencils`:
-spatial axes are the trailing axes, any leading axes are batch, and every
-stencil is a :func:`torch.roll` expression.
+Counterpart of the Cahn-Hilliard and Allen-Cahn subset of
+:mod:`pde_opt_tpu.ops.stencils`: spatial axes are the trailing axes, any
+leading axes are batch, and every stencil is a :func:`torch.roll`
+expression.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["grad_c2f", "avg_c2f", "div_f2c", "grad2_c", "lap_2nd_2d"]
+__all__ = ["grad_c2f", "avg_c2f", "div_f2c", "grad_c", "grad2_c", "lap_2nd_2d"]
 
 
 def grad_c2f(a: torch.Tensor, h: float, axis: int) -> torch.Tensor:
@@ -25,6 +26,11 @@ def avg_c2f(a: torch.Tensor, axis: int) -> torch.Tensor:
 def div_f2c(F: torch.Tensor, h: float, axis: int) -> torch.Tensor:
     """Face→center backward difference (adjoint of :func:`grad_c2f`)."""
     return (F - torch.roll(F, 1, axis)) / h
+
+
+def grad_c(a: torch.Tensor, h: float, axis: int) -> torch.Tensor:
+    """Centered first derivative at cell centers."""
+    return 0.5 * (torch.roll(a, -1, axis) - torch.roll(a, 1, axis)) / h
 
 
 def grad2_c(a: torch.Tensor, h: float, axis: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Time steppers (PyTorch port of the CH, AC and GPE subset of
-:mod:`pde_opt_tpu.ops.steppers`).
+"""Time steppers (PyTorch port of the explicit, CH, AC, Butler-Volmer and
+GPE subset of :mod:`pde_opt_tpu.ops.steppers`).
 
 Each stepper exposes ``step(rhs, y, t, dt) -> (y1, y_err)``; the fused
 stepper also overrides the whole substep loop with ``evolve`` (the hook
@@ -16,16 +16,23 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .bv_cas import make_bv_cc_fused_macro
 from .cas_spectral import make_ac_cas_fused_macro, make_ch_cas_fused_macro
 from .gpe_cas import make_gpe_strang_cas_macro
+from .sbm_bv import make_sbm_bv_fused_macro
 
 __all__ = [
     "AbstractStepper",
+    "Euler",
+    "Heun",
+    "RK4",
     "SemiImplicitFourierSpectral",
     "FusedSemiImplicitSpectral",
     "FusedAllenCahnSpectral",
     "StrangSplitting",
     "FusedStrangControl",
+    "FusedButlerVolmer",
+    "FusedSBMButlerVolmer",
 ]
 
 
@@ -58,6 +65,41 @@ class AbstractStepper:
 
     def step(self, rhs: Callable, y, t, dt) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         raise NotImplementedError
+
+
+class Euler(AbstractStepper):
+    """Explicit (forward) Euler, 1st order."""
+
+    order = 1
+
+    def step(self, rhs, y, t, dt):
+        return y + dt * rhs(y, t), None
+
+
+class Heun(AbstractStepper):
+    """Heun's method (explicit trapezoidal), 2nd order with embedded Euler error."""
+
+    order = 2
+
+    def step(self, rhs, y, t, dt):
+        k1 = rhs(y, t)
+        y_euler = y + dt * k1
+        k2 = rhs(y_euler, t + dt)
+        y1 = y + 0.5 * dt * (k1 + k2)
+        return y1, y1 - y_euler
+
+
+class RK4(AbstractStepper):
+    """Classic 4th-order Runge-Kutta (no error estimate)."""
+
+    order = 4
+
+    def step(self, rhs, y, t, dt):
+        k1 = rhs(y, t)
+        k2 = rhs(y + 0.5 * dt * k1, t + 0.5 * dt)
+        k3 = rhs(y + 0.5 * dt * k2, t + 0.5 * dt)
+        k4 = rhs(y + dt * k3, t + dt)
+        return y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4), None
 
 
 class SemiImplicitFourierSpectral(AbstractStepper):
@@ -353,6 +395,125 @@ class FusedStrangControl(AbstractStepper):
                     "weight": ep_cfg.get("weight")}
         macro, ctrl = self._macro_and_ctrl(y0, t0, dt, n_steps, epilogue)
         return macro(y0, ctrl)
+
+    def step(self, rhs, y, t, dt):
+        return self.evolve(rhs, y, t, dt, 1), None
+
+
+def _check_half_alpha(name: str, alpha) -> None:
+    if float(alpha) != 0.5:
+        raise ValueError(
+            f"{name} implements the alpha=1/2 closed-form galvanostatic closure "
+            f"(as the reference does); got alpha={alpha}"
+        )
+
+
+class FusedButlerVolmer(AbstractStepper):
+    """Whole-macro-step fused RK4 stepper for the galvanostatic
+    Butler-Volmer charging env.
+
+    All substeps of an ``evolve`` call run in one macro
+    (:func:`pde_opt_tpu_torch.ops.bv_cas.make_bv_cc_fused_macro`), on CUDA
+    tensors one launch of kernel K6: FD Laplacians by cas transforms, the
+    constant-current closure (per-env integrals, closed-form overpotential,
+    alpha = 1/2) in the same kernel.  The per-env C-rate is the control.
+    On CUDA ``mu`` must be a ``LogRatioMu`` and ``j0`` a ``SqrtJ0``.
+    Differentiable with respect to the state and the C-rate through the
+    checkpointed roll-stencil oracle.  ``mats_dtype`` defaults to bf16, as
+    in JAX; the JAX stepper's ``block_envs``/``interpret`` (TPU tiling) have
+    no counterpart.
+    """
+
+    required_equation_attrs = ("kappa", "mu", "j0", "alpha", "Crate", "domain")
+    order = 4
+
+    def __init__(self, kappa, mu, j0, alpha, Crate, domain,
+                 mats_dtype: Optional[torch.dtype] = None):
+        _check_half_alpha("FusedButlerVolmer", alpha)
+        self.kappa = kappa
+        self.mu = mu
+        self.j0 = j0
+        self.alpha = alpha
+        self.Crate = Crate
+        self.domain = domain
+        self.mats_dtype = torch.bfloat16 if mats_dtype is None else mats_dtype
+
+    def _run(self, y0, dt, n_steps, epilogue=None):
+        H, W = self.domain.points
+        hx, hy = self.domain.dx
+        macro = make_bv_cc_fused_macro(
+            self.mu, self.j0, float(self.kappa), H, W, float(hx), float(hy), float(dt),
+            int(n_steps), mats_dtype=self.mats_dtype, epilogue=epilogue,
+        )
+        crate = _normalize_per_env_control(self.Crate, y0.shape[:-2], "Crate",
+                                           device=y0.device)
+        return macro(y0, crate)
+
+    def evolve(self, rhs, y0, t0, dt, n_steps):
+        del rhs, t0
+        return self._run(y0, dt, n_steps)
+
+    def evolve_with_epilogue(self, rhs, y0, t0, dt, n_steps, ep_cfg):
+        """Advance AND emit ``(y1, stats, obs)`` from the same macro (the
+        contract of :meth:`FusedSemiImplicitSpectral.evolve_with_epilogue`,
+        ``obs_downsample`` 1)."""
+        del rhs, t0
+        return self._run(y0, dt, n_steps, _epilogue_cfg(ep_cfg))
+
+    def step(self, rhs, y, t, dt):
+        return self.evolve(rhs, y, t, dt, 1), None
+
+
+class FusedSBMButlerVolmer(AbstractStepper):
+    """Whole-macro-step fused RK4 stepper for the smoothed-boundary
+    galvanostatic Butler-Volmer env.
+
+    The SBM flux divergence ``div(ψ_face grad c)/ψ`` is a
+    variable-coefficient stencil, not a circular convolution, so the macro
+    (:func:`pde_opt_tpu_torch.ops.sbm_bv.make_sbm_bv_fused_macro`, on CUDA
+    tensors one launch of kernel K7) runs stencils, the ψ-weighted
+    integrals and the alpha = 1/2 closed-form overpotential, in f32.  On
+    CUDA ``mu`` must be a ``LogRatioMu`` and ``j0`` a ``SqrtJ0``.
+    Differentiable with respect to the state and the C-rate through the
+    checkpointed roll-stencil oracle.
+    """
+
+    required_equation_attrs = ("kappa", "mu", "j0", "alpha", "Crate", "domain", "psi")
+    order = 4
+
+    def __init__(self, kappa, mu, j0, alpha, Crate, domain, psi):
+        _check_half_alpha("FusedSBMButlerVolmer", alpha)
+        self.kappa = kappa
+        self.mu = mu
+        self.j0 = j0
+        self.alpha = alpha
+        self.Crate = Crate
+        self.domain = domain
+        self.psi = psi
+
+    def _run(self, y0, dt, n_steps, epilogue=None):
+        hx, hy = self.domain.dx
+        macro = make_sbm_bv_fused_macro(
+            self.mu, self.j0, float(self.kappa), self.psi, float(hx), float(hy), float(dt),
+            int(n_steps), epilogue=epilogue,
+        )
+        crate = _normalize_per_env_control(self.Crate, y0.shape[:-2], "Crate",
+                                           device=y0.device)
+        return macro(y0, crate)
+
+    def evolve(self, rhs, y0, t0, dt, n_steps):
+        del rhs, t0
+        return self._run(y0, dt, n_steps)
+
+    def evolve_with_epilogue(self, rhs, y0, t0, dt, n_steps, ep_cfg):
+        """Advance AND emit ``(y1, stats, obs)``: ψ-weighted stats
+        ``[sum(ψ cell (u-c)), sum(ψ cell (u-c)^2), n_finite]`` and the
+        ψ-masked uint8 obs, from the same macro."""
+        del rhs, t0
+        return self._run(y0, dt, n_steps, {
+            "obs_scale": float(ep_cfg.get("obs_scale", 255.0)),
+            "stats_center": float(ep_cfg.get("stats_center", 0.0)),
+        })
 
     def step(self, rhs, y, t, dt):
         return self.evolve(rhs, y, t, dt, 1), None

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from .device import resolve_device
+
 __all__ = [
     "initialize_Psi",
     "add_vortex_to_wavefunction",
@@ -19,10 +21,10 @@ __all__ = [
 ]
 
 
-def initialize_Psi(N: int, width: float = 100, vortexnumber: int = 0, device="cpu"):
+def initialize_Psi(N: int, width: float = 100, vortexnumber: int = 0, device="cuda"):
     """Gaussian blob wavefunction (complex64), optionally with a central
     phase winding."""
-    idx = torch.arange(N, device=device)
+    idx = torch.arange(N, device=resolve_device(device))
     i, j = torch.meshgrid(idx, idx, indexing="ij")
     di = (i - N // 2).to(torch.float32)
     dj = (j - N // 2).to(torch.float32)
@@ -57,8 +59,9 @@ def random_uniform_field(generator: torch.Generator, shape, mean=0.5,
     return field
 
 
-def step_interface(shape, axis: int = 0, low=-1.0, high=1.0, device="cpu"):
+def step_interface(shape, axis: int = 0, low=-1.0, high=1.0, device="cuda"):
     """Half-domain step initial condition (the 1D interface test fixture)."""
+    device = resolve_device(device)
     n = shape[axis]
     mask = torch.arange(n, device=device) < n // 2
     bshape = [1] * len(shape)

@@ -309,14 +309,14 @@ def test_env_step_matches_jax(solve, atol):
 
     B, H = 8, 16
     kw = dict(num_envs=B, grid_size=H, substeps=5, spectral_solve=solve)
-    jenv, tenv = jpreset(**kw), tpreset(**kw)
+    jenv, tenv = jpreset(**kw), tpreset(device="cpu", **kw)
     assert (jenv.fused_epilogue is None) == (tenv.fused_epilogue is None)
     arrs = _np_state(B, H, 0)
     js = JState(y=jnp.asarray(arrs["y"]), t=jnp.asarray(arrs["t"]),
                 control_value=jnp.asarray(arrs["control_value"]),
                 key=jax.random.split(jax.random.PRNGKey(0), B),
                 step_count=jnp.asarray(arrs["step_count"]), done=jnp.asarray(arrs["done"]))
-    ts = env_state_from_numpy(arrs)
+    ts = env_state_from_numpy(arrs, "cpu")
     tenv.reset(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     for _ in range(3):
@@ -341,7 +341,7 @@ def test_env_state_round_trip():
     from pde_opt_tpu.envs.presets import make_allen_cahn_control_env as jpreset
 
     js, _ = jpreset(num_envs=6, grid_size=16, substeps=2).reset(jax.random.PRNGKey(5))
-    ts = env_state_from_numpy(js)
+    ts = env_state_from_numpy(js, "cpu")
     assert ts.y.shape == (6, 16, 16) and ts.control_value.shape == (6,)
     back = env_state_to_numpy(ts)
     for f in ("y", "t", "control_value", "step_count", "done"):
@@ -351,7 +351,7 @@ def test_env_state_round_trip():
 
 
 def test_env_step_finite_and_moves():
-    env = tpreset(num_envs=4, grid_size=16, substeps=2)
+    env = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=2)
     state, obs = env.reset(torch.Generator().manual_seed(0))
     assert obs.shape == (4, 1, 16, 16) and obs.dtype == torch.uint8
     y0 = state.y.clone()
@@ -365,13 +365,13 @@ def test_env_step_finite_and_moves():
 
 
 def test_env_fft_solver_variant():
-    env = tpreset(num_envs=4, grid_size=16, substeps=2, spectral_solve="fft")
+    env = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=2, spectral_solve="fft")
     assert env.fused_epilogue is None
     state, _ = env.reset(torch.Generator().manual_seed(1))
     state2, *_ = env.step(state, torch.zeros(4, 1))
     assert bool(torch.isfinite(state2.y).all())
     with pytest.raises(ValueError, match="unknown spectral_solve"):
-        tpreset(num_envs=4, grid_size=16, spectral_solve="dense")
+        tpreset(device="cpu", num_envs=4, grid_size=16, spectral_solve="dense")
 
 
 def test_env_step_parity_epilogue_vs_plain():
@@ -379,8 +379,8 @@ def test_env_step_parity_epilogue_vs_plain():
     bitwise, obs within 1 LSB (``u*127.5 + 127.5`` and ``(u+1)*127.5``
     round differently), terminated exact, reward to f32 rounding."""
     kw = dict(num_envs=16, grid_size=16, substeps=5, spectral_solve="fused")
-    env_e = tpreset(**kw, fused_epilogue=True)
-    env_0 = tpreset(**kw, fused_epilogue=False)
+    env_e = tpreset(device="cpu", **kw, fused_epilogue=True)
+    env_0 = tpreset(device="cpu", **kw, fused_epilogue=False)
     se, oe = env_e.reset(torch.Generator().manual_seed(11))
     s0, o0 = env_0.reset(torch.Generator().manual_seed(11))
     assert torch.equal(oe, o0)
@@ -420,7 +420,7 @@ def test_epilogue_gradients_match_plain():
 
 
 def test_env_step_gradient_reaches_the_action():
-    env = tpreset(num_envs=4, grid_size=16, substeps=2)
+    env = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=2)
     state, _ = env.reset(torch.Generator().manual_seed(9))
     scale = torch.tensor(0.5, requires_grad=True)
     _, _, reward, *_ = env.step(state, scale * torch.ones(4, 1))
@@ -429,7 +429,7 @@ def test_env_step_gradient_reaches_the_action():
 
 
 def test_poisoned_env_is_flagged_and_reset():
-    env = tpreset(num_envs=8, grid_size=16, substeps=5)
+    env = tpreset(device="cpu", num_envs=8, grid_size=16, substeps=5)
     gen = torch.Generator().manual_seed(6)
     state, _ = env.reset(gen)
     state.y[3] = float("nan")

@@ -74,14 +74,14 @@ def test_env_step_matches_jax(solve, mats, dtype, resync, atol):
     jdt, tdt, ndt = {"f32": (jnp.float32, torch.float32, np.float32),
                      "f64": (jnp.float64, torch.float64, np.float64)}[dtype]
     kw = dict(num_envs=B, grid_size=H, substeps=10, spectral_solve=solve)
-    jenv, tenv = jpreset(**kw, dtype=jdt), tpreset(**kw, dtype=tdt)
+    jenv, tenv = jpreset(**kw, dtype=jdt), tpreset(device="cpu", **kw, dtype=tdt)
     assert (jenv.fused_epilogue is None) == (tenv.fused_epilogue is None)
     if mats == "f32":
         jenv.solver_parameters = {"A": 1.0, "mats_dtype": jnp.float32}
         tenv.solver_parameters = {"A": 1.0, "mats_dtype": torch.float32}
     arrs = _np_state(0, ndt)
     js = _jax_state(arrs)
-    ts = env_state_from_numpy(arrs)
+    ts = env_state_from_numpy(arrs, "cpu")
     tenv.reset(torch.Generator().manual_seed(0))      # seeds auto-reset draws
     rng = np.random.default_rng(1)
     for _ in range(5):
@@ -138,7 +138,7 @@ def _direct_envs(reset_field, end_time):
         update_control_parameter=lambda old, new: new[..., None, None],
         solver_parameters={"A": 1.0, "mats_dtype": torch.float32},
         static_equation_parameters={"mu": CH_MU, "D": torch.ones_like, "derivs": "fd"},
-        **common)
+        device="cpu", **common)
     return jenv, tenv
 
 
@@ -163,7 +163,7 @@ def test_rollout_across_auto_reset_matches_jax():
 
 
 def test_random_reset_statistics():
-    env = tpreset(num_envs=64, grid_size=H, spectral_solve="fused")
+    env = tpreset(device="cpu", num_envs=64, grid_size=H, spectral_solve="fused")
     state, obs = env.reset(torch.Generator().manual_seed(4))
     y = state.y
     assert y.shape == (64, H, H) and y.dtype == torch.float32
@@ -177,7 +177,7 @@ def test_random_reset_statistics():
 def test_env_state_carried_across():
     jenv = jpreset(num_envs=B, grid_size=16, spectral_solve="fused")
     js, _ = jenv.reset(jax.random.PRNGKey(5))
-    ts = env_state_from_numpy(js)
+    ts = env_state_from_numpy(js, "cpu")
     back = env_state_to_numpy(ts)
     for f in ("y", "t", "control_value", "step_count", "done"):
         a = np.asarray(getattr(js, f))
@@ -187,7 +187,7 @@ def test_env_state_carried_across():
 
 
 def test_poisoned_env_is_flagged_and_reset():
-    env = tpreset(num_envs=8, grid_size=16, substeps=5, spectral_solve="fused")
+    env = tpreset(device="cpu", num_envs=8, grid_size=16, substeps=5, spectral_solve="fused")
     gen = torch.Generator().manual_seed(6)
     state, _ = env.reset(gen)
     state.y[3] = float("nan")
@@ -200,7 +200,7 @@ def test_poisoned_env_is_flagged_and_reset():
 
 
 def test_poisoned_env_without_auto_reset_is_scrubbed():
-    env = tpreset(num_envs=8, grid_size=16, substeps=5, spectral_solve="fused",
+    env = tpreset(device="cpu", num_envs=8, grid_size=16, substeps=5, spectral_solve="fused",
                   auto_reset=False)
     gen = torch.Generator().manual_seed(7)
     state, _ = env.reset(gen)
@@ -217,32 +217,32 @@ def _env_kwargs(env):
              "reset_func", "reset_control_value", "update_control_value",
              "update_control_parameter", "action_space_config",
              "static_equation_parameters", "control_equation_parameter_name",
-             "solver_parameters", "num_envs", "auto_reset", "fused_epilogue")
+             "solver_parameters", "num_envs", "auto_reset", "fused_epilogue", "device")
     return {n: getattr(env, n) for n in names}
 
 
 def test_pooled_obs_and_unported_options():
-    env = tpreset(num_envs=4, grid_size=16, substeps=5, spectral_solve="fused",
+    env = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=5, spectral_solve="fused",
                   obs_downsample=4)
     gen = torch.Generator().manual_seed(8)
     state, obs0 = env.reset(gen)
     _, obs, *_ = env.step(state, env.sample_actions(gen))
     assert obs0.shape == obs.shape == (4, 1, 4, 4)
     with pytest.raises(NotImplementedError, match="dense"):
-        tpreset(num_envs=4, grid_size=16, spectral_solve="dense")
+        tpreset(device="cpu", num_envs=4, grid_size=16, spectral_solve="dense")
     with pytest.raises(NotImplementedError, match="vmapped"):
-        tpreset(num_envs=4, grid_size=16, vectorized_control=False)
+        tpreset(device="cpu", num_envs=4, grid_size=16, vectorized_control=False)
     with pytest.raises(NotImplementedError, match="discrete"):
         TEnv(**{**_env_kwargs(env), "action_space_config": {"type": "discrete"}})
     with pytest.raises(ValueError, match="must divide"):
-        tpreset(num_envs=4, grid_size=16, obs_downsample=3)
+        tpreset(device="cpu", num_envs=4, grid_size=16, obs_downsample=3)
 
 
 def test_env_step_gradient_reaches_the_action():
     """A pathwise gradient through a fused-epilogue env step with respect to
     the action: a step that autograd records returns a new state and leaves
     the one it read (which the macro saved for its backward) as it was."""
-    env = tpreset(num_envs=4, grid_size=16, substeps=2, spectral_solve="fused")
+    env = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=2, spectral_solve="fused")
     state, _ = env.reset(torch.Generator().manual_seed(9))
     y0 = state.y.clone()
     scale = torch.tensor(0.5, requires_grad=True)
@@ -254,3 +254,48 @@ def test_env_step_gradient_reaches_the_action():
     # Without a gradient the step writes in place, as before.
     state2, *_ = env.step(state, torch.zeros(4, 1))
     assert state2.y is state.y
+
+
+def test_default_device_is_cuda():
+    """The entry points build on the card unless the caller asks for the
+    CPU; without CUDA, a call that names no device raises rather than
+    building on the CPU."""
+    from pde_opt_tpu_torch.utils import initialization as tinit
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default builds there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpreset(num_envs=4, grid_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        env_state_from_numpy({f: np.zeros(2, np.float32) for f in
+                              ("y", "t", "control_value", "step_count", "done")})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tinit.initialize_Psi(8, 2.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tinit.step_interface((4, 4))
+    env = tpreset(num_envs=4, grid_size=16, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TEnv(**{**_env_kwargs(env), "device": "cuda"})
+    # The equation constructors: a float κ (or a numpy ψ) names no device,
+    # so they build on the card; a tensor κ or ψ keeps its own device.
+    from pde_opt_tpu_torch.envs.presets import AC_MU, AC_R
+    from pde_opt_tpu_torch.models import (
+        AllenCahn2DPeriodic,
+        AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent as SBM,
+        GPE2DTSControl,
+    )
+
+    td = tgrid.Domain((16, 16), ((0.0, 1.0), (0.0, 1.0)))
+    builds = {
+        "ch": lambda **d: TCH(td, 0.004, CH_MU, torch.ones_like, **d),
+        "ac": lambda **d: AllenCahn2DPeriodic(td, 4e-4, AC_MU, AC_R, **d),
+        "gpe": lambda **d: GPE2DTSControl(td, k=1.0, e=0.0,
+                                          lights=lambda t, x, y: 0.0 * x, **d),
+        "sbm": lambda **d: SBM(td, 5e-4, None, CH_MU, torch.ones_like, 0.5, 1.0,
+                               psi=np.ones((16, 16), np.float32), **d),
+    }
+    for build in builds.values():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        assert build(device="cpu").device.type == "cpu"
+    assert TCH(td, torch.tensor(0.004), CH_MU, torch.ones_like).device.type == "cpu"

@@ -226,7 +226,7 @@ def _gpe_eq(N=32, L=16.0, dtype=torch.float32):
 
     domain = tgrid.Domain((N, N), ((-L / 2, L / 2), (-L / 2, L / 2)), dtype=dtype)
     return GPE2DTSControl(domain, k=50.0, e=0.0, lights=lambda t, x, y: 0.0 * x,
-                          kinetic=True)
+                          kinetic=True, device="cpu")
 
 
 def test_strang_fast_evolve_matches_per_step_physics():
@@ -271,7 +271,8 @@ def test_strang_and_model_match_jax(fast):
     jeq = JGPE(JDomain((32, 32), box), k=100.0, e=0.1, kinetic=True,
                lights=lambda t, x, y: jnp.asarray(inten)[:, None, None] * jw)
     teq = GPE2DTSControl(tgrid.Domain((32, 32), box), k=100.0, e=0.1, kinetic=True,
-                         lights=lambda t, x, y: torch.from_numpy(inten)[:, None, None] * tw)
+                         lights=lambda t, x, y: torch.from_numpy(inten)[:, None, None] * tw,
+                         device="cpu")
     np.testing.assert_allclose(teq.rhs(torch.from_numpy(y0), 0.0).numpy(),
                                np.asarray(jeq.rhs(jnp.asarray(y0), 0.0)), rtol=0, atol=2e-4)
     np.testing.assert_allclose(teq.A_term.numpy(), np.asarray(jeq.A_term), rtol=1e-6)
@@ -285,7 +286,7 @@ def test_strang_and_model_match_jax(fast):
 
 
 def test_env_norm_preserved_and_control_matters():
-    env = tpreset(num_envs=4, grid_size=32, substeps=3)
+    env = tpreset(device="cpu", num_envs=4, grid_size=32, substeps=3)
     gen = torch.Generator().manual_seed(2)
     state, obs = env.reset(gen)
     assert state.y.shape == (4, 32, 32, 2) and obs.shape == (4, 1, 32, 32)
@@ -303,7 +304,7 @@ def test_env_norm_preserved_and_control_matters():
 
 
 def test_env_rollout_and_reward_signal():
-    env = tpreset(num_envs=4, grid_size=32, substeps=2)
+    env = tpreset(device="cpu", num_envs=4, grid_size=32, substeps=2)
     gen = torch.Generator().manual_seed(3)
     state, _ = env.reset(gen)
     state, rewards, terms = env.rollout(state, lambda obs, g: env.sample_actions(g), 10, gen)
@@ -315,7 +316,8 @@ def test_env_rollout_and_reward_signal():
 
 def test_fused_env_matches_fft_env():
     kw = dict(num_envs=4, grid_size=32, substeps=3)
-    env_f, env_x = tpreset(spectral_solve="fused", **kw), tpreset(spectral_solve="fft", **kw)
+    env_f = tpreset(device="cpu", spectral_solve="fused", **kw)
+    env_x = tpreset(device="cpu", spectral_solve="fft", **kw)
     assert env_x.fused_epilogue is None
     sf, _ = env_f.reset(torch.Generator().manual_seed(9))
     sx, _ = env_x.reset(torch.Generator().manual_seed(9))
@@ -326,12 +328,13 @@ def test_fused_env_matches_fft_env():
     # bf16 transform operands: the JAX package's budget for this comparison.
     assert float((sf2.y - sx2.y).abs().max()) < 2e-2 * float(sx2.y.abs().max())
     with pytest.raises(ValueError, match="requires spectral_solve='fused'"):
-        tpreset(spectral_solve="fft", fused_epilogue=True, **kw)
+        tpreset(device="cpu", spectral_solve="fft", fused_epilogue=True, **kw)
 
 
 def test_env_step_parity_epilogue_vs_plain():
     kw = dict(num_envs=8, grid_size=16, substeps=4, spectral_solve="fused")
-    env_e, env_0 = tpreset(**kw, fused_epilogue=True), tpreset(**kw, fused_epilogue=False)
+    env_e = tpreset(device="cpu", **kw, fused_epilogue=True)
+    env_0 = tpreset(device="cpu", **kw, fused_epilogue=False)
     assert env_e.fused_epilogue["n_px"] == 16 * 16
     se, oe = env_e.reset(torch.Generator().manual_seed(21))
     s0, o0 = env_0.reset(torch.Generator().manual_seed(21))
@@ -351,7 +354,7 @@ def test_env_step_parity_epilogue_vs_plain():
 def test_epilogue_grad_flows_to_the_action():
     """Pathwise gradient through the epilogue env step with respect to the
     action (the JAX test's contract)."""
-    env = tpreset(num_envs=4, grid_size=16, substeps=2, fused_epilogue=True)
+    env = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=2, fused_epilogue=True)
     state, _ = env.reset(torch.Generator().manual_seed(22))
     scale = torch.tensor(0.5, requires_grad=True)
     _, _, reward, *_ = env.step(state, scale * torch.ones(4, 1))
@@ -409,7 +412,7 @@ def test_env_step_matches_jax(solve, atol):
 
     B, H = 4, 32
     kw = dict(num_envs=B, grid_size=H, substeps=3, spectral_solve=solve)
-    jenv, tenv = jpreset(**kw), tpreset(**kw)
+    jenv, tenv = jpreset(**kw), tpreset(device="cpu", **kw)
     if solve == "fused":
         jenv.solver_parameters = {"mats_dtype": jnp.float32}
         tenv.solver_parameters = {"mats_dtype": torch.float32}
@@ -418,7 +421,7 @@ def test_env_step_matches_jax(solve, atol):
                 control_value=jnp.asarray(arrs["control_value"]),
                 key=jax.random.split(jax.random.PRNGKey(0), B),
                 step_count=jnp.asarray(arrs["step_count"]), done=jnp.asarray(arrs["done"]))
-    ts = env_state_from_numpy(arrs)
+    ts = env_state_from_numpy(arrs, "cpu")
     assert ts.y.shape == (B, H, H, 2) and ts.control_value.shape == (B,)
     tenv.reset(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(6)
@@ -441,7 +444,7 @@ def test_env_state_round_trip():
     from pde_opt_tpu.envs.presets import make_gpe_control_env as jpreset
 
     js, _ = jpreset(num_envs=3, grid_size=16, substeps=2).reset(jax.random.PRNGKey(5))
-    ts = env_state_from_numpy(js)
+    ts = env_state_from_numpy(js, "cpu")
     back = env_state_to_numpy(ts)
     for f in ("y", "t", "control_value", "step_count", "done"):
         a = np.asarray(getattr(js, f))
@@ -450,7 +453,7 @@ def test_env_state_round_trip():
 
 
 def test_poisoned_env_is_flagged_and_reset():
-    env = tpreset(num_envs=4, grid_size=16, substeps=2)
+    env = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=2)
     gen = torch.Generator().manual_seed(6)
     state, _ = env.reset(gen)
     state.y[1] = float("nan")
@@ -469,15 +472,15 @@ def test_initialization_matches_jax():
     from pde_opt_tpu_torch.utils import initialization as tinit
 
     for vn in (0, 2):
-        np.testing.assert_allclose(tinit.initialize_Psi(16, 4.0, vn).numpy(),
+        np.testing.assert_allclose(tinit.initialize_Psi(16, 4.0, vn, device="cpu").numpy(),
                                    np.asarray(jinit.initialize_Psi(16, 4.0, vn)), atol=1e-6)
-    psi = tinit.initialize_Psi(16, 4.0)
+    psi = tinit.initialize_Psi(16, 4.0, device="cpu")
     np.testing.assert_allclose(
         tinit.add_vortex_to_wavefunction(psi, (5, 9), 1, 2.0).numpy(),
         np.asarray(jinit.add_vortex_to_wavefunction(jnp.asarray(psi.numpy()), (5, 9), 1, 2.0)),
         atol=1e-6)
     for axis in (0, 1):
-        np.testing.assert_array_equal(tinit.step_interface((6, 8), axis).numpy(),
+        np.testing.assert_array_equal(tinit.step_interface((6, 8), axis, device="cpu").numpy(),
                                       np.asarray(jinit.step_interface((6, 8), axis)))
     f = tinit.random_uniform_field(torch.Generator().manual_seed(0), (64, 64))
     j = np.asarray(jinit.random_uniform_field(jax.random.PRNGKey(0), (64, 64)))

@@ -144,7 +144,7 @@ def test_ch2d_sif_trajectory_matches_golden(fname, derivs):
     domain = tgrid.Domain((N, N), ((-L / 2, L / 2), (-L / 2, L / 2)),
                           dtype=torch.float64)
     eq = TCH(domain, float(z["kappa"]), _mu_t, lambda c: 1.0 + 0.1 * c**2,
-             derivs=derivs, use_rfft=False)
+             derivs=derivs, use_rfft=False, device="cpu")
     solver = TSIF(**tprep(TSIF, {"A": A}, eq))
     u = torch.from_numpy(np.asarray(z["u0"], np.float64))
     traj = [u.numpy()]
@@ -171,9 +171,9 @@ def test_solver_compat_contract():
 def test_pallas_derivs_not_ported():
     td = tgrid.Domain((16, 16), ((0, 1), (0, 1)))
     with pytest.raises(NotImplementedError, match="K8"):
-        TCH(td, 0.004, _mu_t, torch.ones_like, derivs="pallas")
+        TCH(td, 0.004, _mu_t, torch.ones_like, derivs="pallas", device="cpu")
     with pytest.raises(ValueError, match="Invalid"):
-        TCH(td, 0.004, _mu_t, torch.ones_like, derivs="nope")
+        TCH(td, 0.004, _mu_t, torch.ones_like, derivs="nope", device="cpu")
 
 
 def test_fused_stepper_requires_unit_mobility():

@@ -63,7 +63,8 @@ def _jmodel(jp, jnp, n=N):
 
 
 def _sif(kappa, n=16):
-    eq = CahnHilliard2DPeriodic(_domain(n), kappa, MU_T, torch.ones_like, derivs="fd")
+    eq = CahnHilliard2DPeriodic(_domain(n), kappa, MU_T, torch.ones_like, derivs="fd",
+                                device="cpu")
     st = SemiImplicitFourierSpectral(
         **prepare_solver_params(SemiImplicitFourierSpectral, {"A": 0.5}, eq))
     return st, eq.rhs
@@ -250,7 +251,8 @@ def test_train_mse_lbfgs_recovers_kappa():
     y0, ts, sol = _jax_data()
     model = _model()
     mine = model.solve({"kappa": KAPPA_TRUE, "mu": MU_T, "D": torch.ones_like,
-                        "derivs": "fd"}, torch.from_numpy(y0), ts, {"A": 0.5}, dt0=DT0)
+                        "derivs": "fd", "device": "cpu"}, torch.from_numpy(y0), ts,
+                       {"A": 0.5}, dt0=DT0)
     np.testing.assert_allclose(mine.numpy(), sol, rtol=0, atol=1e-10)
     data = {"ys": list(sol), "ts": list(ts)}
     res = model.train(
@@ -309,7 +311,7 @@ def test_optimize_objective_control():
     y0 = torch.from_numpy(_y0())
     ts = np.linspace(0.0, 0.002, 4)
     target = 0.0025
-    base = {"mu": MU_T, "D": torch.ones_like, "derivs": "fd"}
+    base = {"mu": MU_T, "D": torch.ones_like, "derivs": "fd", "device": "cpu"}
     ref_sol = model.solve({"kappa": target, **base}, y0, ts, {"A": 0.5}, dt0=DT0)
     res = model.optimize(
         lambda sol: ((sol[-1] - ref_sol[-1]) ** 2).sum(), y0, ts,
