@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Six paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Eight paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -14,7 +14,12 @@ Strang fleet at 1024 x 64^2 x 10 (the JAX package's ``ac64``/``gpe64``
 bench configs).  The Butler-Volmer (BV) charging fleet at 2048 x 64^2 x 10
 RK4 substeps and the smoothed-boundary BV (SBM) fleet at 1024 x 64^2 x 10
 (the JAX package's ``_bv_rate``/``run_sbm_bv`` bench configs), per-env
-C-rate control.  Phases (each passes or raises; nothing is caught):
+C-rate control.  The 3D general-mobility Cahn-Hilliard path at the JAX
+bench's ``ch3d_mobility_32cubed_256batch``: 256 envs x 32^3, Legendre mu and
+D, 50 substeps a call through ``FusedMobilitySpectral`` (one launch of the
+fused FD rhs K8 a substep), and its unit-mobility twin.  The flagship CH
+fleet with ``derivs="pallas"`` (K8 2D, once a substep of the fft stepper).
+Phases (each passes or raises; nothing is caught):
 
 1. Require a CUDA device; print the card's name and power limit.
 2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``,
@@ -32,7 +37,12 @@ C-rate control.  Phases (each passes or raises; nothing is caught):
    epilogue also against the kernel's own final field.  K4, K5 and K6 with
    bf16 matrices are also held after one substep, where a misplaced
    rounding shows: the RMS of kernel - plain must sit below a bound that
-   the unrounded plain version (the control) exceeds.
+   the unrounded plain version (the control) exceeds.  K8 against its plain
+   version, 2D at 4096 x 64^2 (the fleet's c^3 - c and D == 1, c^3 - c and
+   1 + 0.5 c^2, the Legendre pair) and 3D at 256 x 32^3 (the Legendre
+   pair), on the paths' fields and on fields far outside [0, 1]; the 3D
+   mobility macro (f32 matrices, 16 envs) against its FFT oracle and with
+   K8 against the roll chain.
 4. Reset the launch counts, then drive the CH serving path: a 120-step
    random-policy rollout of the fused-epilogue fleet (K1), which crosses
    the episode end and its auto-reset, and 10 steps of the same fleet
@@ -49,6 +59,16 @@ C-rate control.  Phases (each passes or raises; nothing is caught):
    (psi = 1 for BV).  Value and gradient of sum(macro(u, crate)^2) with
    respect to crate, kernel forward and oracle backward on the card, must
    agree with the same call on the CPU.
+   The 3D mobility path: 10 calls of ``PDEModel.solve`` under sync debug
+   mode "error", launch counts reset just before and read just after:
+   finite, per-env mass held, exactly 50 K8 launches a call; its rate
+   against the FFT path (``SemiImplicitFourierSpectral`` on the
+   equation's ``rhs_fd``), one call's time split (K8, transforms, the
+   rest) and the unit-mobility macro's rate against its FFT path.  The CH
+   fleet with ``derivs="pallas"``: 30 fft steps (10 K8 launches a step)
+   and 5 fused steps (K1, no K8), each with its own counts.  Value and
+   gradient of the 3D macro with respect to kappa on the card against the
+   CPU.
 6. Reset the launch counts, then drive the training path: value and grad
    of ``sum(macro(u, kappa)**2)`` with respect to a per-env kappa (K2 +
    K3), and 5 Adam steps of ``PDEModel.optimize`` on a two-segment
@@ -85,7 +105,8 @@ SOURCES = {"ch_cas_macro": "pde_opt_tpu_torch/csrc/ch_cas_macro.cu",
            "ac_cas_macro": "pde_opt_tpu_torch/csrc/ac_cas_macro.cu",
            "gpe_strang_macro": "pde_opt_tpu_torch/csrc/gpe_strang_macro.cu",
            "bv_cc_macro": "pde_opt_tpu_torch/csrc/bv_cc_macro.cu",
-           "sbm_bv_macro": "pde_opt_tpu_torch/csrc/sbm_bv_macro.cu"}
+           "sbm_bv_macro": "pde_opt_tpu_torch/csrc/sbm_bv_macro.cu",
+           "ch_rhs_fd": "pde_opt_tpu_torch/csrc/ch_rhs_fd.cu"}
 # kernel (launch-count name) -> (library, the TPU kernel it replaces)
 KERNELS = {
     "ch_cas_macro_ep": ("ch_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:630"),
@@ -99,6 +120,8 @@ KERNELS = {
     "bv_cc_macro": ("bv_cc_macro", "pde_opt_tpu/ops/bv_cas.py:193"),
     "sbm_bv_macro_ep": ("sbm_bv_macro", "pde_opt_tpu/ops/sbm_bv.py:244"),
     "sbm_bv_macro": ("sbm_bv_macro", "pde_opt_tpu/ops/sbm_bv.py:228"),
+    "ch_rhs_fd": ("ch_rhs_fd", "pde_opt_tpu/ops/fused.py:154"),
+    "ch3d_rhs_fd": ("ch_rhs_fd", "pde_opt_tpu/ops/fused.py:264"),
 }
 # Training path: bench.py's train_grad config and the optimize run.
 TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
@@ -153,6 +176,29 @@ TOL_CHARGE = 0.05
 # the same oracle backward; they differ by the forward's output (the bf16
 # kernel vs its plain version, 4e-6) and the sums' order.
 GRAD_ENVS, GRAD_STEPS, TOL_GRAD = 64, 2, (1e-5, 1e-3)
+# The 3D general-mobility path: bench.py's ch3d_mobility_32cubed_256batch,
+# uncut (256 envs x 32^3, L = 0.32, Legendre mu [0, 1, 0.5] and D [0.3, 0.2],
+# kappa 0.002, A 1, stab_scale 2, dt 2.5e-4, 50 substeps a call, bf16
+# matrices): 10 calls through FusedMobilitySpectral, 50 K8 launches each.
+# Its unit-mobility twin is ch3d_32cubed_256batch_substeps (c^3 - c, dt 5e-7).
+M3_ENVS, M3_N, M3_SUBSTEPS, M3_CALLS = 256, 32, 50, 10
+M3_DT, M3_KAPPA, M3_A, M3_STAB, U3_DT = 2.5e-4, 0.002, 1.0, 2.0, 5e-7
+M3_MU, M3_D = (0.0, 1.0, 0.5), (0.3, 0.2)
+# K8 against its plain version, relative to max|plain| (the JAX test's
+# bound, tests/test_cas_mobility.py:227-228); the 3D macro (f32 matrices, 16
+# envs) against its FFT oracle and "pallas" against "xla" (the JAX tests'
+# 1e-6 and 2e-5 bounds, here over 50 substeps of the bench's dt).
+TOL_K8, M3_CHECK_ENVS, TOL_M3_ORACLE, TOL_M3_IMPL = 1e-5, 16, 1e-5, 2e-5
+# Per-env mass drift over the main path's 10 calls.  The flux form
+# telescopes; with bf16 matrices the k = 0 mode carries rounding noise, in
+# the JAX macro too: 6.3e-4 (JAX) and 5.8e-4 (the port) over 10 calls of 4
+# envs of the configuration on the CPU, all of it in the first call (the
+# Legendre mu is convex, so the field relaxes to uniform within it and the
+# rhs vanishes).  Bounds: 5e-3 with bf16 matrices, 1e-5 with f32.
+TOL_DRIFT_BF16, TOL_DRIFT_F32 = 5e-3, 1e-5
+# The 2D fleet with derivs="pallas": 30 steps of the fft stepper (10 K8
+# launches a step) and 5 of the fused stepper (K1, no K8).
+PALLAS_FFT_STEPS, PALLAS_FUSED_STEPS = 30, 5
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -307,6 +353,18 @@ def _bounds():
                                   field(SBM_ENVS) + SBM_ENVS * (4 + ep) + sbm_b),
         "sbm_bv_macro": _bound(0, H, W, SBM_ENVS, "f32", sbm_ew * SBM_ENVS,
                                field(SBM_ENVS) + SBM_ENVS * 4 + sbm_b),
+        # K8: no products.  A pixel's operations, each face flux counted
+        # once: the Laplacian 4 an axis + 1 a sum, mu_tot 2, the face flux 5
+        # an axis, the divergence 2 an axis + 1 a sum, and mu and D as the
+        # path evaluates them: 2D c^3 - c by Horner 6 and D == 1 0 (the
+        # fleet); 3D Legendre mu 11 (2c - 1, then the degree-2 recurrence)
+        # and exp-Legendre D 5.  Bytes: u read once, the rhs written once,
+        # kappa and the coefficients.
+        "ch_rhs_fd": _bound(0, H, W, NUM_ENVS, "f32", (9 + 2 + 6 + 10 + 5) * px * NUM_ENVS,
+                            field(NUM_ENVS) + NUM_ENVS * 4 + 5 * 4),
+        "ch3d_rhs_fd": _bound(0, H, W, M3_ENVS, "f32",
+                              (14 + 2 + 11 + 5 + 15 + 8) * M3_N**3 * M3_ENVS,
+                              M3_ENVS * M3_N**3 * 4 * 2 + M3_ENVS * 4 + 5 * 4),
     }
     return out
 
@@ -756,6 +814,312 @@ def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=
     return state, counts, B * STEPS / t_roll
 
 
+def _m3_coeffs(torch, dev):
+    """The 3D path's Legendre mu and D on the card, fixed (no gradient)."""
+    from pde_opt_tpu_torch.models.functions import (
+        ChemicalPotentialLegendrePolynomials,
+        DiffusionLegendrePolynomials,
+    )
+
+    return (ChemicalPotentialLegendrePolynomials(list(M3_MU)).to(dev).requires_grad_(False),
+            DiffusionLegendrePolynomials(list(M3_D)).to(dev).requires_grad_(False))
+
+
+def _m3_field(torch, dev, gen, B):
+    """The bench's field: clip(0.5 + 0.01 N(0, 1), 0, 1)."""
+    return torch.clamp(0.5 + 0.01 * torch.randn((B, M3_N, M3_N, M3_N), generator=gen, device=dev),
+                       0.0, 1.0)
+
+
+def _check_k8(torch, dev, gen):
+    """K8 against its plain version at the main paths' shapes: 2D at 4096 x
+    64^2 with the fleet's mu/D (c^3 - c, 1), with c^3 - c and 1 + 0.5 c^2 and
+    with the Legendre pair; 3D at 256 x 32^3 with the Legendre pair; each on
+    the fields the paths run and on fields far outside [0, 1], where
+    exp-Legendre D grows.  Returns the main paths' inputs and errors."""
+    from pde_opt_tpu_torch.envs.presets import CH_D, CH_MU
+    from pde_opt_tpu_torch.ops.cas_spectral import PolynomialMu
+    from pde_opt_tpu_torch.ops.fused import (
+        ch3d_rhs_fd_cuda,
+        ch3d_rhs_fd_plain,
+        ch_rhs_fd_cuda,
+        ch_rhs_fd_plain,
+    )
+
+    mu3, d3 = _m3_coeffs(torch, dev)
+    pairs2 = {"fleet c^3-c, 1": (CH_MU, CH_D),
+              "c^3-c, 1+0.5c^2": (CH_MU, PolynomialMu((1.0, 0.0, 0.5))),
+              "Legendre": (mu3, d3)}
+    u2 = torch.clamp(0.5 + 0.01 * torch.randn((NUM_ENVS, GRID, GRID), generator=gen, device=dev),
+                     0.0, 1.0)
+    k2 = 2e-3 + 8e-3 * torch.rand((NUM_ENVS,), generator=gen, device=dev)
+    u3 = _m3_field(torch, dev, gen, M3_ENVS)
+    k3 = torch.full((M3_ENVS,), M3_KAPPA, device=dev)
+    cases = []
+    for name, (mu, D) in pairs2.items():
+        wide = 0.5 + 1.5 * torch.randn(u2.shape, generator=gen, device=dev)
+        for field, u in (("path", u2), ("wide", wide)):
+            cases.append(("ch_rhs_fd", f"2D {NUM_ENVS}x{GRID}^2 {name} {field}", ch_rhs_fd_cuda,
+                          ch_rhs_fd_plain, u, k2, dict(mu_fn=mu, D_fn=D, hx=HX, hy=HY)))
+    wide = 0.5 + 1.5 * torch.randn(u3.shape, generator=gen, device=dev)
+    for field, u in (("path", u3), ("wide", wide)):
+        h = 0.01
+        cases.append(("ch3d_rhs_fd", f"3D {M3_ENVS}x{M3_N}^3 Legendre {field}", ch3d_rhs_fd_cuda,
+                      ch3d_rhs_fd_plain, u, k3, dict(mu_fn=mu3, D_fn=d3, h1=h, h2=h, h3=h)))
+    max_err = {}
+    for name, what, cuda, plain, u, k, kw in cases:
+        got, want = cuda(u, k, **kw), plain(u, k, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        line = (f"check {name} {what}: max_abs_err {err:.3e}, max|plain| {scale:.3e}, "
+                f"ratio {err / scale:.3e} <= {TOL_K8}")
+        _check(bool(torch.isfinite(got).all()) and err <= TOL_K8 * scale, line)
+        print(line, flush=True)
+        if what.endswith("path") and (name == "ch3d_rhs_fd" or "fleet" in what):
+            max_err[name] = err
+    return (u2, k2, pairs2["fleet c^3-c, 1"]), (u3, k3, (mu3, d3)), max_err
+
+
+def _check_mobility_macro(torch, dev, gen):
+    """The 3D mobility macro with f32 matrices on 16 envs of the main path's
+    configuration: against its FFT oracle, "pallas" (K8) against "xla" (the
+    roll chain), and its per-env mass."""
+    from pde_opt_tpu_torch.ops.cas_mobility import (
+        ch3d_mobility_macro_reference,
+        make_ch3d_mobility_cas_macro,
+    )
+
+    mu, D = _m3_coeffs(torch, dev)
+    h = 0.01
+    u = _m3_field(torch, dev, gen, M3_CHECK_ENVS)
+    kap = torch.full((M3_CHECK_ENVS,), M3_KAPPA, device=dev)
+    args = (mu, D, M3_N, M3_N, M3_N, h, h, h, M3_A, M3_DT, M3_SUBSTEPS)
+    out = {impl: make_ch3d_mobility_cas_macro(*args, stab_scale=M3_STAB, mats_dtype=torch.float32,
+                                              rhs_impl=impl)(u, kap)
+           for impl in ("pallas", "xla")}
+    oracle = ch3d_mobility_macro_reference(mu, D, h, h, h, M3_A, M3_DT, M3_SUBSTEPS,
+                                           stab_scale=M3_STAB)(u, kap)
+    e_or = (out["pallas"] - oracle).abs().max().item()
+    e_impl = (out["pallas"] - out["xla"]).abs().max().item()
+    drift = (out["pallas"].mean((-3, -2, -1)) - u.mean((-3, -2, -1))).abs().max().item()
+    moved = (out["pallas"] - u).abs().max().item()
+    line = (f"check 3D mobility macro, f32 matrices, {M3_CHECK_ENVS} envs x {M3_N}^3 x "
+            f"{M3_SUBSTEPS} substeps: vs FFT oracle {e_or:.3e} <= {TOL_M3_ORACLE}, pallas (K8) vs "
+            f"xla {e_impl:.3e} <= {TOL_M3_IMPL}, mass drift {drift:.3e} <= {TOL_DRIFT_F32}, "
+            f"max |u1 - u0| {moved:.3e}")
+    _check(e_or <= TOL_M3_ORACLE and e_impl <= TOL_M3_IMPL and drift <= TOL_DRIFT_F32
+           and moved > 1e-3, line)
+    print(line, flush=True)
+
+
+def _drive_mobility(torch, kernels, dev, gen, card):
+    """The main 3D path: with the launch counts reset just before, M3_CALLS
+    calls of the full configuration (PDEModel.solve on FusedMobilitySpectral,
+    one save a call, per-env kappa on the card) under sync debug mode
+    "error"; the counts are read just after.  Then the FFT counterpart
+    (CahnHilliard3DPeriodic(derivs="fd") + SemiImplicitFourierSpectral, 3
+    calls) as bench.py's run_ch3d_mobility times it, the time split of one
+    call (K8, transforms, the rest), and the unit-mobility macro
+    (FusedSemiImplicitSpectral3D) against its FFT path.  Returns (launch
+    counts, K8 3D launches per call)."""
+    from pde_opt_tpu_torch import Domain, PDEModel
+    from pde_opt_tpu_torch.envs.presets import CH_D, CH_MU
+    from pde_opt_tpu_torch.models import CahnHilliard3DPeriodic
+    from pde_opt_tpu_torch.ops.cas3d import cas_nd_constants, cas_nd_transform
+    from pde_opt_tpu_torch.ops.fused import ch3d_rhs_fd_cuda
+    from pde_opt_tpu_torch.ops.integrate import evolve
+    from pde_opt_tpu_torch.ops.steppers import (
+        FusedMobilitySpectral,
+        FusedSemiImplicitSpectral3D,
+        SemiImplicitFourierSpectral,
+    )
+    from pde_opt_tpu_torch.utils.compat import prepare_solver_params
+
+    mu, D = _m3_coeffs(torch, dev)
+    N, B, h = M3_N, M3_ENVS, 0.01
+    L = h * N
+    domain = Domain((N, N, N), ((-L / 2, L / 2),) * 3, "dimensionless")
+    kappa = torch.full((B, 1, 1, 1), M3_KAPPA, device=dev)
+    params = {"kappa": kappa, "mu": mu, "D": D, "derivs": "fd"}
+    solver_params = {"A": M3_A, "stab_scale": M3_STAB}
+    model = PDEModel(CahnHilliard3DPeriodic, domain, FusedMobilitySpectral)
+    ts = [i * M3_SUBSTEPS * M3_DT for i in range(M3_CALLS + 1)]
+    y0 = _m3_field(torch, dev, gen, B)
+    model.solve(params, y0, ts[:2], solver_params, dt0=M3_DT)        # warm the caches
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    sol = model.solve(params, y0, ts, solver_params, dt0=M3_DT)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_cas = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    per_call = counts["ch3d_rhs_fd"] / M3_CALLS
+    drift = (sol[-1].mean((-3, -2, -1)) - sol[0].mean((-3, -2, -1))).abs().max().item()
+    moved = (sol[-1] - sol[0]).abs().max().item()
+    print(f"3D mobility path: {M3_CALLS} calls of PDEModel.solve on FusedMobilitySpectral, "
+          f"{B} envs x {N}^3 x {M3_SUBSTEPS} substeps, Legendre mu/D, bf16 matrices; "
+          f"launches {counts}", flush=True)
+    _check(sol.shape == (M3_CALLS + 1, B, N, N, N) and bool(torch.isfinite(sol).all()),
+           "3D path: non-finite or misshapen solution")
+    _check(counts["ch3d_rhs_fd"] == M3_CALLS * M3_SUBSTEPS,
+           f"3D path: {counts['ch3d_rhs_fd']} K8 launches, expected {M3_CALLS * M3_SUBSTEPS}")
+    line = (f"3D path: per-env mass drift over {M3_CALLS} calls {drift:.3e} <= {TOL_DRIFT_BF16}, "
+            f"max |u - u0| {moved:.3e}")
+    _check(drift <= TOL_DRIFT_BF16 and moved > 1e-3, line)
+    print(line, flush=True)
+    cas_rate = B * M3_SUBSTEPS * M3_CALLS / t_cas
+
+    # The FFT counterpart, as bench.py times it: 3 calls of 50 substeps.
+    eq = CahnHilliard3DPeriodic(domain, kappa, mu, D, derivs="fd")
+    sif = SemiImplicitFourierSpectral(
+        **prepare_solver_params(SemiImplicitFourierSpectral, {"A": M3_A}, eq))
+    y = evolve(sif, eq.rhs, y0, 0.0, M3_DT, M3_SUBSTEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        y = evolve(sif, eq.rhs, y, 0.0, M3_DT, M3_SUBSTEPS)
+    torch.cuda.synchronize()
+    fft_rate = B * M3_SUBSTEPS * 3 / (time.perf_counter() - t0)
+    _check(bool(torch.isfinite(y).all()), "3D FFT path: non-finite field")
+    print(f"3D mobility path: cas {cas_rate:.1f} field-substeps/s, fft {fft_rate:.1f} "
+          f"field-substeps/s, cas/fft {cas_rate / fft_rate:.2f}x ({B} envs x {N}^3 x "
+          f"{M3_SUBSTEPS} substeps) [{card}]", flush=True)
+
+    # One call's time split: the whole macro, K8 alone, the two transforms
+    # alone (50 each), and the rest (the implicit multiplier, the update).
+    c = cas_nd_constants((N, N, N), (h, h, h), torch.bfloat16, dev)
+    kf = kappa.reshape(B)
+    stepper = FusedMobilitySpectral(**prepare_solver_params(
+        FusedMobilitySpectral, solver_params, CahnHilliard3DPeriodic(domain, kappa, mu, D)))
+    z = sol[-1].contiguous()
+    r = ch3d_rhs_fd_cuda(z, kf, mu_fn=mu, D_fn=D, h1=h, h2=h, h3=h)
+
+    def transforms():
+        for _ in range(M3_SUBSTEPS):
+            cas_nd_transform(cas_nd_transform(r, c.fwd, torch.bfloat16), c.inv, torch.bfloat16)
+
+    def k8():
+        for _ in range(M3_SUBSTEPS):
+            ch3d_rhs_fd_cuda(z, kf, mu_fn=mu, D_fn=D, h1=h, h2=h, h3=h)
+
+    t_call = _time_ms(torch, lambda: stepper.evolve(None, z, 0.0, M3_DT, M3_SUBSTEPS), reps=3,
+                      warmup=1)
+    t_k8 = _time_ms(torch, k8, reps=3, warmup=1)
+    t_tr = _time_ms(torch, transforms, reps=3, warmup=1)
+    print(f"3D mobility call split ({B} envs x {N}^3 x {M3_SUBSTEPS} substeps, bf16): call "
+          f"{t_call:.4f} ms = K8 {t_k8:.4f} ms ({t_k8 / t_call:.1%}) + transforms {t_tr:.4f} ms "
+          f"({t_tr / t_call:.1%}) + rest {t_call - t_k8 - t_tr:.4f} ms "
+          f"({(t_call - t_k8 - t_tr) / t_call:.1%}) [{card}]", flush=True)
+
+    # The unit-mobility 3D macro against its FFT path (bench.py's run_ch3d).
+    eq1 = CahnHilliard3DPeriodic(domain, kappa, CH_MU, CH_D, derivs="fourier")
+    st1 = FusedSemiImplicitSpectral3D(**prepare_solver_params(
+        FusedSemiImplicitSpectral3D, {"A": 1.0}, eq1))
+    sif1 = SemiImplicitFourierSpectral(
+        **prepare_solver_params(SemiImplicitFourierSpectral, {"A": 0.5}, eq1))
+    y1 = (0.5 + 0.05 * torch.randn((B, N, N, N), generator=gen, device=dev))
+    rates = {}
+    for name, stp, runs in (("cas", st1, 10), ("fft", sif1, 3)):
+        y = evolve(stp, eq1.rhs, y1, 0.0, U3_DT, M3_SUBSTEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            y = evolve(stp, eq1.rhs, y, 0.0, U3_DT, M3_SUBSTEPS)
+        torch.cuda.synchronize()
+        rates[name] = B * M3_SUBSTEPS * runs / (time.perf_counter() - t0)
+        _check(bool(torch.isfinite(y).all()), f"3D unit-mobility {name}: non-finite field")
+    print(f"3D unit-mobility macro: cas {rates['cas']:.1f} field-substeps/s, fft "
+          f"{rates['fft']:.1f}, cas/fft {rates['cas'] / rates['fft']:.2f}x ({B} envs x {N}^3 x "
+          f"{M3_SUBSTEPS} substeps, bf16) [{card}]", flush=True)
+    return counts, per_call
+
+
+def _check_m3_card_grad(torch, dev, gen):
+    """Value and gradient of sum(w * macro(u, kappa)) (w random) with respect
+    to kappa of the 3D mobility macro on the card (K8 forward, roll-chain
+    backward) against the same call on the CPU (roll chain both ways), f32
+    matrices, 4 envs x 32^3 x 2 substeps, u = 0.5 + 0.05 N(0, 1).  The
+    kappa gradient is poorly conditioned in f32 (w is zero-mean, so the
+    entries are sums that cancel): against the f64 FFT oracle on the CPU it
+    is off by 4e-4 to 6e-4 of its largest entry on draws of this size (by
+    5.8 % for sum(u1^2)), and the card rounds differently from the CPU
+    (cuBLAS sums, expf), so the bound is 5e-3."""
+    from pde_opt_tpu_torch.ops.cas_mobility import make_ch3d_mobility_cas_macro
+
+    u = torch.clamp(0.5 + 0.05 * torch.randn((4, M3_N, M3_N, M3_N), generator=gen, device=dev),
+                    0.0, 1.0)
+    w = torch.randn(u.shape, generator=gen, device=dev)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        mu, D = _m3_coeffs(torch, d)
+        macro = make_ch3d_mobility_cas_macro(mu, D, M3_N, M3_N, M3_N, 0.01, 0.01, 0.01, M3_A,
+                                             M3_DT, 2, stab_scale=M3_STAB, mats_dtype=torch.float32)
+        k = torch.full((4,), M3_KAPPA, device=d, requires_grad=True)
+        v = (w.to(d) * macro(u.to(d), k)).sum()
+        v.backward()
+        res.append((v.item(), k.grad.cpu()))
+    (v_card, g_card), (v_cpu, g_cpu) = res
+    e_v = abs(v_card - v_cpu) / abs(v_cpu)
+    e_g = ((g_card - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    line = (f"check 3D mobility macro value+grad wrt kappa on the card (K8 forward) vs the CPU "
+            f"(4 envs x {M3_N}^3 x 2 substeps, f32): value rel_err {e_v:.3e}, grad max_err / "
+            f"max|grad| {e_g:.3e}")
+    _check(e_v <= 1e-5 and e_g <= 5e-3, f"{line} > (1e-5, 5e-3)")
+    print(line, flush=True)
+
+
+def _drive_pallas_fleet(torch, kernels, dev, gen, card):
+    """The flagship CH fleet with derivs="pallas": PALLAS_FFT_STEPS steps of
+    the fft stepper (K8 once a substep) and PALLAS_FUSED_STEPS of the fused
+    stepper (K1, no K8), each with the launch counts reset just before and
+    read just after, under sync debug mode "error".  Returns the fft run's
+    counts and env-steps/s."""
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+
+    out = {}
+    for solve, derivs, steps in (("fft", "pallas", PALLAS_FFT_STEPS),
+                                 ("fft", "fd", PALLAS_FFT_STEPS),
+                                 ("fused", "pallas", PALLAS_FUSED_STEPS)):
+        env = make_cahn_hilliard_control_env(num_envs=NUM_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                             spectral_solve=solve, derivs=derivs, device=dev)
+
+        def policy(obs, g, env=env):
+            return env.sample_actions(g)
+
+        state, _ = env.reset(gen)
+        env.make_rollout(policy, 2)(state, gen)                        # warm the env glue
+        state, _ = env.reset(gen)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        state, rewards, _ = env.make_rollout(policy, steps)(state, gen)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        rate = NUM_ENVS * steps / (time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        print(f"CH fleet derivs={derivs} spectral_solve={solve}: {steps} steps of {NUM_ENVS} envs "
+              f"x {GRID}^2 x {SUBSTEPS} substeps, {rate:.1f} env-steps/s; launches {counts} "
+              f"[{card}]", flush=True)
+        _check(bool(torch.isfinite(rewards).all()) and bool(torch.isfinite(state.y).all()),
+               f"derivs={derivs} {solve}: non-finite rewards or field")
+        if derivs == "fd":                  # the same stepper on the roll chain: no kernel
+            _check(sum(counts.values()) == 0, f"derivs=fd fft: launches {counts}")
+            print(f"CH fleet fft stepper, derivs=pallas vs fd: {out[1] / rate:.2f}x [{card}]",
+                  flush=True)
+        elif solve == "fft":
+            _check(counts["ch_rhs_fd"] == steps * SUBSTEPS and counts["ch_cas_macro_ep"] == 0,
+                   f"derivs=pallas fft: launches {counts}")
+            out = (counts, rate)
+        else:
+            _check(counts["ch_cas_macro_ep"] == steps and counts["ch_rhs_fd"] == 0,
+                   f"derivs=pallas fused: launches {counts}")
+    return out
+
+
 def main():
     import torch
 
@@ -796,7 +1160,7 @@ def main():
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load_libraries(*SOURCES)
-    print(f"build: {', '.join(SOURCES.values())} (K1-K7), in parallel, in "
+    print(f"build: {', '.join(SOURCES.values())} (K1-K8), in parallel, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for lib in SOURCES:
         for line in kernels.build_log(lib).splitlines():
@@ -912,6 +1276,11 @@ def main():
     sbm_env = make_sbm_butler_volmer_control_env(**sbm_kw)
     u_sbm, cr_sbm, sbm_consts, err_sbm = _check_sbm(torch, dev, gen, sbm_env)
     max_err.update(err_sbm)
+
+    # ---- 3g/3h. K8 vs its plain version; the 3D mobility macro vs its oracle --
+    k8_2d, k8_3d, err_k8 = _check_k8(torch, dev, gen)
+    max_err.update(err_k8)
+    _check_mobility_macro(torch, dev, gen)
 
     # ---- 4. the serving path ----------------------------------------------
     env = make_cahn_hilliard_control_env(
@@ -1072,6 +1441,11 @@ def main():
                                                      sbm_env.static_equation_parameters["psi"],
                                                      h_bv, h_bv, BV_DT, GRAD_STEPS))
 
+    # ---- 5c/5d. the 3D mobility path (K8 3D) and the derivs="pallas" fleet (K8 2D)
+    m3_counts, m3_per_call = _drive_mobility(torch, kernels, dev, gen, card)
+    pallas_counts, pallas_rate = _drive_pallas_fleet(torch, kernels, dev, gen, card)
+    _check_m3_card_grad(torch, dev, gen)
+
     # ---- 6. the training path ---------------------------------------------
     from pde_opt_tpu_torch import Domain, PDEModel
     from pde_opt_tpu_torch.models import CahnHilliard2DPeriodic
@@ -1212,6 +1586,22 @@ def main():
                    lambda: sbm_bv_macro_cuda(u_sbm, cr_sbm, sbm_consts, **kw),
                    f"{SBM_ENVS}x{GRID}^2x{SUBSTEPS} f32", card)
 
+    from pde_opt_tpu_torch.ops.fused import (
+        ch3d_rhs_fd_cuda,
+        ch3d_rhs_fd_plain,
+        ch_rhs_fd_cuda,
+        ch_rhs_fd_plain,
+    )
+
+    for name, (uu, kk, (mu, D)), cuda, plain, kw, what in (
+            ("ch_rhs_fd", k8_2d, ch_rhs_fd_cuda, ch_rhs_fd_plain, dict(hx=HX, hy=HY),
+             f"{NUM_ENVS}x{GRID}^2, c^3 - c and D == 1"),
+            ("ch3d_rhs_fd", k8_3d, ch3d_rhs_fd_cuda, ch3d_rhs_fd_plain,
+             dict(h1=0.01, h2=0.01, h3=0.01), f"{M3_ENVS}x{M3_N}^3, Legendre mu and D")):
+        kw = dict(kw, mu_fn=mu, D_fn=D)
+        _time_pair(torch, timings, name, lambda: plain(uu, kk, **kw), lambda: cuda(uu, kk, **kw),
+                   what, card)
+
     # The GPE fleet on its fused path (K5) against its FFT path
     # (StrangSplitting(fast_evolve=True)), as bench.py's gpe64 compares them:
     # 30-step random-policy rollouts, in turns.
@@ -1271,15 +1661,19 @@ def main():
           f"x {SUBSTEPS} substeps, fused epilogue) [{card}]", flush=True)
     print(f"SBM rollout: {sbm_rate:.1f} env-steps/s ({STEPS} steps, {SBM_ENVS} envs x "
           f"{GRID}^2 x {SUBSTEPS} substeps, fused epilogue) [{card}]", flush=True)
+    print(f"CH derivs=pallas fft rollout: {pallas_rate:.1f} env-steps/s ({PALLAS_FFT_STEPS} "
+          f"steps, {NUM_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps, K8 {SUBSTEPS} a step); "
+          f"3D mobility path: {m3_per_call:.0f} K8 launches a call [{card}]", flush=True)
 
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
-                                      sbm_counts)) for n in KERNELS}
+                                      sbm_counts, m3_counts, pallas_counts)) for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()
     # library_ms is null for every kernel: no single PyTorch call computes a
-    # whole macro (transforms, closure and epilogue over all substeps).
+    # whole macro (transforms, closure and epilogue over all substeps), nor
+    # the flux rhs of K8 (mu, D, two stencils and a face flux).
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[lib], "replaces": replaces,
          "launches": launches[name], "max_abs_err": max_err[name],

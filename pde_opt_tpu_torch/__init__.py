@@ -9,8 +9,12 @@ checkpointed ``integrate``), the Allen-Cahn and Gross-Pitaevskii control
 fleets (``make_allen_cahn_control_env``, ``make_gpe_control_env``) and the
 Butler-Volmer and smoothed-boundary Butler-Volmer charging fleets
 (``make_butler_volmer_control_env``, ``make_sbm_butler_volmer_control_env``)
-down to their fused macros.  On CUDA tensors the macros and the CH backward
-run hand-written Hopper kernels (``csrc/*.cu``).  The entry points build on
+down to their fused macros, and the 3D and general-mobility Cahn-Hilliard
+path (``CahnHilliard3DPeriodic``, ``FusedSemiImplicitSpectral3D``,
+``FusedMobilitySpectral`` with the Legendre coefficient modules) down to the
+fused FD rhs, which also serves ``derivs="pallas"``.  On CUDA tensors the
+macros, the fused rhs and the CH backward run hand-written Hopper kernels
+(``csrc/*.cu``).  The entry points build on
 the card unless the caller passes ``device="cpu"``.  The package imports
 torch and numpy, never jax.
 """
@@ -26,12 +30,13 @@ from .envs import (
     make_sbm_butler_volmer_control_env,
 )
 from .grid import Domain, Grid
-from .models import PDEModel
-from .ops import integrate
+from .models import CahnHilliard3DPeriodic, PDEModel
+from .ops import FusedMobilitySpectral, FusedSemiImplicitSpectral3D, integrate
 
 __all__ = [
     "envs", "models", "ops", "optim", "utils",
     "Domain", "Grid", "PDEModel", "integrate",
+    "CahnHilliard3DPeriodic", "FusedSemiImplicitSpectral3D", "FusedMobilitySpectral",
     "EnvState", "VectorPDEEnv", "make_cahn_hilliard_control_env",
     "make_allen_cahn_control_env", "make_gpe_control_env",
     "make_butler_volmer_control_env", "make_sbm_butler_volmer_control_env",

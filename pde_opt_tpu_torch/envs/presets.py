@@ -40,14 +40,18 @@ __all__ = [
     "make_butler_volmer_control_env",
     "make_sbm_butler_volmer_control_env",
     "CH_MU",
+    "CH_D",
     "AC_MU",
     "AC_R",
     "BV_MU",
     "BV_J0",
 ]
 
-# mu(c) = c**3 - c, in the coefficient form the CUDA macro reads.
+# mu(c) = c**3 - c and unit mobility D(c) = 1, in the coefficient form the
+# CUDA kernels read (the fused macro reads mu; the fused FD rhs of
+# derivs="pallas" reads both).
 CH_MU = PolynomialMu((0.0, -1.0, 0.0, 1.0))
+CH_D = PolynomialMu((1.0,))
 # The Allen-Cahn preset's mu(c) = c**3 - c and unit mobility R(c) = 1.
 AC_MU = PolynomialMu((0.0, -1.0, 0.0, 1.0))
 AC_R = PolynomialMu((1.0,))
@@ -81,6 +85,9 @@ def make_cahn_hilliard_control_env(
     ``spectral_solve="fused"`` runs the cas macro (on CUDA, the Hopper
     kernel) with the env epilogue fused in by default; ``"fft"`` runs
     :class:`SemiImplicitFourierSpectral`.  ``"dense"`` is not ported yet.
+    ``derivs="pallas"`` makes the equation's rhs the fused FD rhs (on CUDA,
+    kernel K8): the ``"fft"`` stepper calls it once a substep, the fused
+    stepper not at all.
     """
     if grid_size % obs_downsample:
         raise ValueError(
@@ -160,7 +167,7 @@ def make_cahn_hilliard_control_env(
         action_space_config={"type": "continuous", "shape": (1,)},
         static_equation_parameters={
             "mu": CH_MU,
-            "D": lambda c: torch.ones_like(c),
+            "D": CH_D,
             "derivs": derivs,
             "device": device,
         },

@@ -7,7 +7,15 @@ from .allen_cahn import (
     AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
 )
 from .base import BaseEquation, TimeSplittingEquation
-from .cahn_hilliard import CahnHilliard2DPeriodic
+from . import functions
+from .cahn_hilliard import CahnHilliard2DPeriodic, CahnHilliard3DPeriodic
+from .functions import (
+    ChemicalPotentialLegendrePolynomials,
+    DiffusionLegendrePolynomials,
+    LegendrePolynomialExpansion,
+    LegendrePolynomials,
+    legendre_from_numpy,
+)
 from .gross_pitaevskii import GPE2DTSControl
 from .pde_model import PDEModel
 
@@ -15,6 +23,13 @@ __all__ = [
     "BaseEquation",
     "TimeSplittingEquation",
     "CahnHilliard2DPeriodic",
+    "CahnHilliard3DPeriodic",
+    "functions",
+    "LegendrePolynomialExpansion",
+    "DiffusionLegendrePolynomials",
+    "ChemicalPotentialLegendrePolynomials",
+    "LegendrePolynomials",
+    "legendre_from_numpy",
     "AllenCahn2DPeriodic",
     "AllenCahn2DPeriodicButlerVolmer",
     "AllenCahn2DPeriodicButlerVolmerConstantCurrent",

@@ -1,12 +1,20 @@
 """Stencils, transforms, steppers and the fused macro (PyTorch port)."""
 
 from .bv_cas import LogRatioMu, SqrtJ0, bv_cc_reference, make_bv_cc_fused_macro
+from .cas3d import ch3d_sif_macro_reference, make_ch3d_cas_macro
+from .cas_mobility import (
+    ch3d_mobility_macro_reference,
+    ch_mobility_macro_reference,
+    make_ch3d_mobility_cas_macro,
+    make_ch_mobility_cas_macro,
+)
 from .cas_spectral import (
     PolynomialMu,
     make_ac_cas_fused_macro,
     make_ch_cas_fused_macro,
     make_ch_cas_fused_macro_ep,
 )
+from .fused import make_ch3d_rhs_fd_fused, make_ch_rhs_fd_fused
 from .fused_spectral import ac_sif_macro_reference, ch_sif_macro_reference
 from .gpe_cas import gpe_strang_fast_reference, make_gpe_strang_cas_macro
 from .integrate import ConstantStepSize, PIDController, evolve, integrate
@@ -17,7 +25,9 @@ from .steppers import (
     FusedAllenCahnSpectral,
     FusedButlerVolmer,
     FusedSBMButlerVolmer,
+    FusedMobilitySpectral,
     FusedSemiImplicitSpectral,
+    FusedSemiImplicitSpectral3D,
     FusedStrangControl,
     SemiImplicitFourierSpectral,
     Heun,
@@ -34,6 +44,14 @@ __all__ = [
     "make_gpe_strang_cas_macro",
     "make_bv_cc_fused_macro",
     "make_sbm_bv_fused_macro",
+    "make_ch_rhs_fd_fused",
+    "make_ch3d_rhs_fd_fused",
+    "make_ch3d_cas_macro",
+    "make_ch_mobility_cas_macro",
+    "make_ch3d_mobility_cas_macro",
+    "ch3d_sif_macro_reference",
+    "ch_mobility_macro_reference",
+    "ch3d_mobility_macro_reference",
     "bv_cc_reference",
     "sbm_bv_reference",
     "ch_sif_macro_reference",
@@ -44,6 +62,8 @@ __all__ = [
     "ConstantStepSize",
     "PIDController",
     "FusedSemiImplicitSpectral",
+    "FusedSemiImplicitSpectral3D",
+    "FusedMobilitySpectral",
     "FusedAllenCahnSpectral",
     "FusedStrangControl",
     "SemiImplicitFourierSpectral",

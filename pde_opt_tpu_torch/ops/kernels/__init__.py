@@ -51,6 +51,7 @@ _LAUNCHES: Dict[str, int] = {
     "gpe_strang_macro": 0, "gpe_strang_macro_ep": 0,
     "bv_cc_macro": 0, "bv_cc_macro_ep": 0,
     "sbm_bv_macro": 0, "sbm_bv_macro_ep": 0,
+    "ch_rhs_fd": 0, "ch3d_rhs_fd": 0,
 }
 
 

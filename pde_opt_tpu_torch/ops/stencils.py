@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["grad_c2f", "avg_c2f", "div_f2c", "grad_c", "grad2_c", "lap_2nd_2d"]
+__all__ = ["grad_c2f", "avg_c2f", "div_f2c", "grad_c", "grad2_c", "lap_2nd_2d", "lap_2nd_3d"]
 
 
 def grad_c2f(a: torch.Tensor, h: float, axis: int) -> torch.Tensor:
@@ -41,3 +41,8 @@ def grad2_c(a: torch.Tensor, h: float, axis: int) -> torch.Tensor:
 def lap_2nd_2d(u: torch.Tensor, hx: float, hy: float) -> torch.Tensor:
     """2nd-order periodic Laplacian over the trailing two axes."""
     return grad2_c(u, hx, -2) + grad2_c(u, hy, -1)
+
+
+def lap_2nd_3d(u: torch.Tensor, hx: float, hy: float, hz: float) -> torch.Tensor:
+    """2nd-order periodic Laplacian over the trailing three axes."""
+    return grad2_c(u, hx, -3) + grad2_c(u, hy, -2) + grad2_c(u, hz, -1)

@@ -1,5 +1,6 @@
-"""Time steppers (PyTorch port of the explicit, CH, AC, Butler-Volmer and
-GPE subset of :mod:`pde_opt_tpu.ops.steppers`).
+"""Time steppers (PyTorch port of the explicit, CH (2D and 3D, unit and
+general mobility), AC, Butler-Volmer and GPE subset of
+:mod:`pde_opt_tpu.ops.steppers`).
 
 Each stepper exposes ``step(rhs, y, t, dt) -> (y1, y_err)``; the fused
 stepper also overrides the whole substep loop with ``evolve`` (the hook
@@ -17,6 +18,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from .bv_cas import make_bv_cc_fused_macro
+from .cas3d import make_ch3d_cas_macro
+from .cas_mobility import make_ch3d_mobility_cas_macro, make_ch_mobility_cas_macro
 from .cas_spectral import make_ac_cas_fused_macro, make_ch_cas_fused_macro
 from .gpe_cas import make_gpe_strang_cas_macro
 from .sbm_bv import make_sbm_bv_fused_macro
@@ -28,6 +31,8 @@ __all__ = [
     "RK4",
     "SemiImplicitFourierSpectral",
     "FusedSemiImplicitSpectral",
+    "FusedSemiImplicitSpectral3D",
+    "FusedMobilitySpectral",
     "FusedAllenCahnSpectral",
     "StrangSplitting",
     "FusedStrangControl",
@@ -42,8 +47,11 @@ def _normalize_per_env_control(ctrl, batch_shape, name: str = "control",
 
     Accepts a scalar, ``batch_shape`` itself, or ``batch_shape`` plus
     trailing singleton axes (``(B, 1)``, ``(B, 1, 1)``); a trailing
-    non-singleton axis is an error rather than a silent mis-broadcast.
+    non-singleton axis is an error rather than a silent mis-broadcast.  A
+    python float is filled in on ``device`` (no copy from the host).
     """
+    if isinstance(ctrl, float):
+        return torch.full(tuple(batch_shape), float(ctrl), device=device)
     ctrl = torch.as_tensor(ctrl, device=device)
     while ctrl.ndim > len(batch_shape):
         if ctrl.shape[-1] != 1:
@@ -199,6 +207,106 @@ def _epilogue_cfg(ep_cfg) -> dict:
         "obs_downsample": int(ep_cfg.get("obs_downsample", 1)),
         "stats_center": float(ep_cfg.get("stats_center", 0.0)),
     }
+
+
+class FusedSemiImplicitSpectral3D(AbstractStepper):
+    """3D whole-segment semi-implicit CH stepper on cas transforms.
+
+    The 3D counterpart of :class:`FusedSemiImplicitSpectral`: all substeps
+    of an ``evolve`` call run in one macro
+    (:func:`pde_opt_tpu_torch.ops.cas3d.make_ch3d_cas_macro`, ``torch.matmul``
+    transforms, as the JAX package uses XLA einsums), with each env's own
+    κ.  Unit mobility (``D == 1``), elementwise ``mu``; natively
+    differentiable.  ``rhs`` is ignored.
+    """
+
+    required_equation_attrs = ("kappa", "mu", "D", "domain")
+    order = 1
+
+    def __init__(self, kappa, mu, D, domain, A: float = 1.0,
+                 mats_dtype: Optional[torch.dtype] = None):
+        self.kappa = kappa
+        self.mu = mu
+        self.domain = domain
+        self.A = float(A)
+        self.mats_dtype = torch.bfloat16 if mats_dtype is None else mats_dtype
+        # The JAX stepper's probe: a D that evaluates off 1 on the host is
+        # refused; one that cannot be evaluated there (parameters on the
+        # card) is taken on trust.
+        try:
+            probe = D(torch.linspace(0.1, 0.9, 4, dtype=torch.float64))
+        except (RuntimeError, TypeError):
+            return
+        if not torch.allclose(torch.as_tensor(probe).detach().cpu().double(),
+                              torch.ones(4, dtype=torch.float64)):
+            raise ValueError(
+                "FusedSemiImplicitSpectral3D requires unit mobility "
+                "(D == 1); use SemiImplicitFourierSpectral otherwise."
+            )
+
+    def evolve(self, rhs, y0, t0, dt, n_steps):
+        del rhs, t0
+        N1, N2, N3 = self.domain.points
+        h1, h2, h3 = (float(h) for h in self.domain.dx)
+        macro = make_ch3d_cas_macro(self.mu, N1, N2, N3, h1, h2, h3, self.A, float(dt),
+                                    int(n_steps), mats_dtype=self.mats_dtype)
+        kappa = _normalize_per_env_control(self.kappa, y0.shape[:-3], "kappa",
+                                           device=y0.device)
+        return macro(y0, kappa)
+
+    def step(self, rhs, y, t, dt):
+        return self.evolve(rhs, y, t, dt, 1), None
+
+
+class FusedMobilitySpectral(AbstractStepper):
+    """Whole-segment semi-implicit CH stepper for GENERAL mobility D(c).
+
+    All substeps of an ``evolve`` call run in one macro of
+    :mod:`pde_opt_tpu_torch.ops.cas_mobility`: per substep the conservative
+    face-flux rhs ``div(D_face·grad(mu − κ∇²u))`` (on CUDA tensors one launch
+    of kernel K8, where ``mu`` and ``D`` must be forms it reads) and one
+    forward and one inverse cas transform.  Rank is dispatched from the
+    domain (2D and 3D).  On CPU tensors the rhs is the roll chain, natively
+    differentiable, learnable ``mu``/``D`` parameters included; on CUDA
+    tensors gradients with respect to the field and κ come from the roll
+    chain's macro, and learnable coefficients raise (see ``rhs_impl`` of
+    the macros).
+
+    ``stab_scale``: multiplies the implicit κλ² shift (set ≈ max D(c) when
+    the mobility is large).
+    """
+
+    required_equation_attrs = ("kappa", "mu", "D", "domain")
+    order = 1
+
+    def __init__(self, kappa, mu, D, domain, A: float = 1.0,
+                 stab_scale: float = 1.0, mats_dtype: Optional[torch.dtype] = None):
+        self.kappa = kappa
+        self.mu = mu
+        self.D = D
+        self.domain = domain
+        self.A = float(A)
+        self.stab_scale = float(stab_scale)
+        self.mats_dtype = torch.bfloat16 if mats_dtype is None else mats_dtype
+
+    def evolve(self, rhs, y0, t0, dt, n_steps):
+        del rhs, t0
+        pts = tuple(self.domain.points)
+        dxs = tuple(float(h) for h in self.domain.dx)
+        if len(pts) == 2:
+            make = make_ch_mobility_cas_macro
+        elif len(pts) == 3:
+            make = make_ch3d_mobility_cas_macro
+        else:
+            raise ValueError(f"FusedMobilitySpectral supports 2D/3D domains, got {pts}")
+        macro = make(self.mu, self.D, *pts, *dxs, self.A, float(dt), int(n_steps),
+                     stab_scale=self.stab_scale, mats_dtype=self.mats_dtype)
+        kappa = _normalize_per_env_control(self.kappa, y0.shape[:-len(pts)], "kappa",
+                                           device=y0.device)
+        return macro(y0, kappa)
+
+    def step(self, rhs, y, t, dt):
+        return self.evolve(rhs, y, t, dt, 1), None
 
 
 class FusedAllenCahnSpectral(AbstractStepper):

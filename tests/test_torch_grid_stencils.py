@@ -169,11 +169,61 @@ def test_solver_compat_contract():
 
 
 def test_pallas_derivs_not_ported():
-    td = tgrid.Domain((16, 16), ((0, 1), (0, 1)))
-    with pytest.raises(NotImplementedError, match="K8"):
-        TCH(td, 0.004, _mu_t, torch.ones_like, derivs="pallas", device="cpu")
+    """``derivs="pallas"`` is the fused FD rhs (kernel K8 on the card, its
+    plain version here): the equation's rhs equals JAX's ``rhs_pallas``
+    (Pallas interpret mode), and the CH fleet built with it steps under both
+    ``spectral_solve`` values as the JAX fleet does from the same numpy state
+    and actions (the fft stepper calls the rhs every substep; the fused
+    stepper never does).  The test keeps its name from when the option
+    raised."""
+    import jax
+
+    from pde_opt_tpu.envs.presets import make_cahn_hilliard_control_env as jpreset
+    from pde_opt_tpu.envs.vector_env import EnvState as JState
+    from pde_opt_tpu_torch.envs.presets import CH_D, CH_MU
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env as tpreset
+    from pde_opt_tpu_torch.envs.vector_env import env_state_from_numpy
+
+    box = ((-0.08, 0.08), (-0.12, 0.12))
+    jd = jgrid.Domain((16, 24), box, dtype=jnp.float32)
+    td = tgrid.Domain((16, 24), box)
+    kap = np.linspace(2e-3, 8e-3, 3).reshape(3, 1, 1).astype(np.float32)
+    je = JCH(jd, jnp.asarray(kap), _mu_j, lambda c: jnp.ones_like(c), derivs="pallas")
+    te = TCH(td, torch.from_numpy(kap), CH_MU, CH_D, derivs="pallas")
+    u = (0.5 + 0.05 * _field((3, 16, 24), seed=5)).astype(np.float32)
+    ref = np.asarray(je.rhs(jnp.asarray(u), 0.0), np.float64)
+    got = te.rhs(torch.from_numpy(u), 0.0).double().numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
     with pytest.raises(ValueError, match="Invalid"):
         TCH(td, 0.004, _mu_t, torch.ones_like, derivs="nope", device="cpu")
+
+    B, H = 4, 16
+    rng = np.random.default_rng(6)
+    arrs = {"y": (0.5 + 0.05 * rng.standard_normal((B, H, H))).astype(np.float32),
+            "t": np.zeros(B, np.float32),
+            "control_value": rng.uniform(2e-3, 1e-2, B).astype(np.float32),
+            "step_count": np.zeros(B, np.int32), "done": np.zeros(B, bool)}
+    actions = rng.uniform(-1, 1, (3, B, 1))
+    # fft: f32 SIF on the fused rhs, free-running; fused (bf16 cas macro):
+    # both envs restart from the JAX field each step (see test_torch_env.py).
+    for solve, atol, resync in (("fft", 1e-5, False), ("fused", 1e-3, True)):
+        kw = dict(num_envs=B, grid_size=H, substeps=10, spectral_solve=solve, derivs="pallas")
+        jenv, tenv = jpreset(**kw), tpreset(device="cpu", **kw)
+        js = JState(y=jnp.asarray(arrs["y"]), t=jnp.asarray(arrs["t"]),
+                    control_value=jnp.asarray(arrs["control_value"]),
+                    key=jax.random.split(jax.random.PRNGKey(0), B),
+                    step_count=jnp.asarray(arrs["step_count"]), done=jnp.asarray(arrs["done"]))
+        ts = env_state_from_numpy(arrs, "cpu")
+        tenv.reset(torch.Generator().manual_seed(0))
+        for a in actions:
+            js, _, jr, jt, _, _ = jenv.step(js, jnp.asarray(a))
+            ts, _, tr, tt, _, _ = tenv.step(ts, torch.from_numpy(a))
+            np.testing.assert_allclose(ts.y.numpy(), np.asarray(js.y), rtol=0, atol=atol)
+            np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-3)
+            np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+            assert bool(torch.isfinite(tr).all())
+            if resync:
+                ts.y.copy_(torch.from_numpy(np.array(js.y)))
 
 
 def test_fused_stepper_requires_unit_mobility():
