@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Eight paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Ten paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -19,7 +19,9 @@ bench's ``ch3d_mobility_32cubed_256batch``: 256 envs x 32^3, Legendre mu and
 D, 50 substeps a call through ``FusedMobilitySpectral`` (one launch of the
 fused FD rhs K8 a substep), and its unit-mobility twin.  The flagship CH
 fleet with ``derivs="pallas"`` (K8 2D, once a substep of the fft stepper).
-Phases (each passes or raises; nothing is caught):
+The CH and AC fleets and the CH training path on the packed-DFT macros
+(``algo="dft"``: K9a, K9b).  Phases (each passes or raises; nothing is
+caught):
 
 1. Require a CUDA device; print the card's name and power limit.
 2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``,
@@ -42,7 +44,10 @@ Phases (each passes or raises; nothing is caught):
    1 + 0.5 c^2, the Legendre pair) and 3D at 256 x 32^3 (the Legendre
    pair), on the paths' fields and on fields far outside [0, 1]; the 3D
    mobility macro (f32 matrices, 16 envs) against its FFT oracle and with
-   K8 against the roll chain.
+   K8 against the roll chain.  K9a at the CH path's and K9b at the AC
+   fleet's shapes (R == 1, and a polynomial R on 256 envs), f32 and bf16
+   tables, against their plain versions, after one bf16 substep at the
+   rounding sites, and with f32 tables (16 envs) against the FFT oracles.
 4. Reset the launch counts, then drive the CH serving path: a 120-step
    random-policy rollout of the fused-epilogue fleet (K1), which crosses
    the episode end and its auto-reset, and 10 steps of the same fleet
@@ -68,18 +73,28 @@ Phases (each passes or raises; nothing is caught):
    fleet with ``derivs="pallas"``: 30 fft steps (10 K8 launches a step)
    and 5 fused steps (K1, no K8), each with its own counts.  Value and
    gradient of the 3D macro with respect to kappa on the card against the
-   CPU.
+   CPU.  The CH and AC fleets without the fused epilogue and with
+   ``"algo": "dft"`` in their solver parameters: 120-step rollouts across
+   the episode end, one K9a (K9b) launch a step and nothing else.
 6. Reset the launch counts, then drive the training path: value and grad
    of ``sum(macro(u, kappa)**2)`` with respect to a per-env kappa (K2 +
    K3), and 5 Adam steps of ``PDEModel.optimize`` on a two-segment
    checkpointed rollout (each step: K2 twice per segment, the backward's
    recompute included, and K3 once).  Check finiteness, the launch counts,
    that kappa moved in every env, and (f32 matrices) the fused kappa
-   gradient against autograd through the FFT oracle.
+   gradient against autograd through the FFT oracle.  Through K9a: value
+   and gradient of sum(w * macro(u, kappa)) on the card against the CPU,
+   and 5 Adam steps of ``PDEModel.optimize`` with ``algo="dft"`` (two K9a
+   launches a segment a step: the forward and its checkpoint recompute; the
+   backward is the FFT oracle's, plain torch, as in JAX).  The repaired
+   fault: 3 Adam steps of ``optimize`` over a Legendre mu module on the card
+   against the CPU.
 7. Time the kernels against their plain versions with CUDA events, the
    fused and the FFT-stepper value+grad, the auto-reset block, the
    rollouts' env-steps/s, the GPE fleet's fused against its FFT path and
-   the BV and SBM fleets' fused against their RK4 paths.  Each kernel's
+   the BV and SBM fleets' fused against their RK4 paths, K9a against K2 and
+   K9b against K4 at the same shapes, the dft fleets against the K1 and K4
+   fleets, and the dft value+grad against the cas one.  Each kernel's
    bound (the least time the card could take: operations over the peak for
    their type, or bytes over the memory rate, whichever is larger) is
    computed from this run's shapes.
@@ -106,7 +121,9 @@ SOURCES = {"ch_cas_macro": "pde_opt_tpu_torch/csrc/ch_cas_macro.cu",
            "gpe_strang_macro": "pde_opt_tpu_torch/csrc/gpe_strang_macro.cu",
            "bv_cc_macro": "pde_opt_tpu_torch/csrc/bv_cc_macro.cu",
            "sbm_bv_macro": "pde_opt_tpu_torch/csrc/sbm_bv_macro.cu",
-           "ch_rhs_fd": "pde_opt_tpu_torch/csrc/ch_rhs_fd.cu"}
+           "ch_rhs_fd": "pde_opt_tpu_torch/csrc/ch_rhs_fd.cu",
+           "ch_sif_macro": "pde_opt_tpu_torch/csrc/ch_sif_macro.cu",
+           "ac_sif_macro": "pde_opt_tpu_torch/csrc/ac_sif_macro.cu"}
 # kernel (launch-count name) -> (library, the TPU kernel it replaces)
 KERNELS = {
     "ch_cas_macro_ep": ("ch_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:630"),
@@ -122,6 +139,8 @@ KERNELS = {
     "sbm_bv_macro": ("sbm_bv_macro", "pde_opt_tpu/ops/sbm_bv.py:228"),
     "ch_rhs_fd": ("ch_rhs_fd", "pde_opt_tpu/ops/fused.py:154"),
     "ch3d_rhs_fd": ("ch_rhs_fd", "pde_opt_tpu/ops/fused.py:264"),
+    "ch_sif_macro": ("ch_sif_macro", "pde_opt_tpu/ops/fused_spectral.py:340"),
+    "ac_sif_macro": ("ac_sif_macro", "pde_opt_tpu/ops/fused_spectral.py:546"),
 }
 # Training path: bench.py's train_grad config and the optimize run.
 TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
@@ -199,6 +218,23 @@ TOL_DRIFT_BF16, TOL_DRIFT_F32 = 5e-3, 1e-5
 # The 2D fleet with derivs="pallas": 30 steps of the fft stepper (10 K8
 # launches a step) and 5 of the fused stepper (K1, no K8).
 PALLAS_FFT_STEPS, PALLAS_FUSED_STEPS = 30, 5
+# The packed-DFT macros K9a (CH) and K9b (AC), selected by algo="dft": the
+# main paths' shapes (4096 x 64^2 x 10, bf16 tables, the CH and AC fleets'
+# kappa ranges).  Against their plain versions at the CH/AC macros' bounds;
+# with f32 tables on K9_ORACLE_ENVS envs against the FFT oracle at the JAX
+# test's 5e-5 (tests/test_fused_spectral.py:33); the rounding sites after one
+# substep (measured on an H100: K9a rms 2.0e-6 against the control's 8.8e-4,
+# K9b 4.6e-8 with R == 1 and 9.2e-8 with the polynomial R on K9_R_ENVS envs,
+# against 8.6e-6).
+K9_ORACLE_ENVS, K9_R_ENVS, TOL_K9_ORACLE = 16, 256, 5e-5
+TOL_SITE.update({"ch_sif": 2e-5, "ac_sif": 1e-6})
+# The dft fleets (fused_epilogue=False, solver_parameters["algo"] = "dft"),
+# one K9 launch a step; training through K9a: value+grad at TG_ENVS and
+# OPT_STEPS Adam steps of PDEModel.optimize on the dft stepper.
+# The repaired fault: 3 Adam steps of optimize with a Legendre mu (the
+# ROADMAP's case: 16^2, f64, field amplitude 0.05, kappa 0.002, mu [0, 1,
+# 0.5], objective mean(u_T^2)) on the card against the CPU, to 1e-4.
+LEG_N, LEG_MU0, LEG_STEPS, TOL_LEG = 16, (0.0, 1.0, 0.5), 3, 1e-4
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -300,10 +336,26 @@ def _bound(transforms, H, W, B, mats, ew_ops, nbytes):
     at the bf16 tensor-core peak with bf16 matrices, else the f32 peak),
     plus ``ew_ops`` elementwise operations in all at the f32 peak, against
     ``nbytes`` read and written once at the memory rate."""
+    return _bound_ops(transforms * 2.0 * H * W * (H + W) * B, mats, ew_ops, nbytes)
+
+
+def _bound_ops(product_ops, mats, ew_ops, nbytes):
+    """``_bound`` from the products' operations in all (at the bf16
+    tensor-core peak with bf16 matrices, else the f32 peak)."""
     peak = PEAK_BF16 if mats == "bf16" else PEAK_F32
-    ops_s = transforms * 2.0 * H * W * (H + W) * B / peak + ew_ops / PEAK_F32
+    ops_s = product_ops / peak + ew_ops / PEAK_F32
     bytes_s = nbytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _dft_ops(H, W):
+    """Operations of the products of one packed-DFT transform pair (forward
+    and inverse) of one env, as K9 computes them: with W2 = W/2 + 1 kept
+    columns, the forward's real-by-complex product along w (2 H W 2 W2) and
+    complex product along h (8 H^2 W2), the inverse the same two in the
+    other order."""
+    w2 = W // 2 + 1
+    return 2 * (2 * H * W * 2 * w2 + 8 * H * H * w2)
 
 
 def _bounds():
@@ -327,6 +379,7 @@ def _bounds():
     gpe_c = mats + 5 * px * 4                            # V, four phase tables
     sbm_b = 5 * px * 4                                   # the psi constants
     sbm_ew = (4 * 44 + 2) * px * n
+    sif_b = (4 * H * H + 4 * W * (W // 2 + 1)) * 4
     out = {
         "ch_cas_macro_ep": _bound(ch[0], H, W, NUM_ENVS, "bf16", ch[1] * NUM_ENVS,
                                   field(NUM_ENVS) + NUM_ENVS * (4 + ep) + ch[2]),
@@ -365,6 +418,20 @@ def _bounds():
         "ch3d_rhs_fd": _bound(0, H, W, M3_ENVS, "f32",
                               (14 + 2 + 11 + 5 + 15 + 8) * M3_N**3 * M3_ENVS,
                               M3_ENVS * M3_N**3 * 4 * 2 + M3_ENVS * 4 + 5 * 4),
+        # K9a: n transform pairs and the first forward (half a pair); a
+        # pixel's operations mu 16 (8 FMAs), the update 1, the inverse's
+        # real part 1; a kept spectral entry's (H x W2) the denominator 4,
+        # cm 2, cu 2, the increment 6, the carried spectrum 2, the complex
+        # combines of the two h-axis products 4.  K9b: n pairs; a pixel's
+        # Laplacian 8, mu 16, g 3, the update 2; an entry's multiplier 5,
+        # its product 2, the combines 4.  Bytes: the field in and out, kappa,
+        # the f32 tables (four H x H, four W x W2) and lam (and lam2).
+        "ch_sif_macro": _bound_ops((n + 0.5) * _dft_ops(H, W) * NUM_ENVS, "bf16",
+                                   (18 * px + 20 * H * (W // 2 + 1)) * n * NUM_ENVS,
+                                   field(NUM_ENVS) + NUM_ENVS * 4 + sif_b + H * (W // 2 + 1) * 8),
+        "ac_sif_macro": _bound_ops(n * _dft_ops(H, W) * AC_ENVS, "bf16",
+                                   (29 * px + 11 * H * (W // 2 + 1)) * n * AC_ENVS,
+                                   field(AC_ENVS) + AC_ENVS * 4 + sif_b + H * (W // 2 + 1) * 4),
     }
     return out
 
@@ -1119,6 +1186,238 @@ def _drive_pallas_fleet(torch, kernels, dev, gen, card):
                    f"derivs=pallas fused: launches {counts}")
     return out
 
+def _check_k9(torch, dev, gen, u, kap, u_ac, kap_ac):
+    """K9a against its plain version at the CH path's shapes and K9b at the
+    AC fleet's (R == 1), bf16 and f32 tables; with f32 tables on
+    K9_ORACLE_ENVS envs against the FFT oracle; the bf16 rounding sites
+    after one substep; K9b with a polynomial R on K9_R_ENVS envs.  Returns
+    the main paths' (bf16, 10 substeps) errors."""
+    from pde_opt_tpu_torch.envs.presets import AC_MU, AC_R, CH_MU
+    from pde_opt_tpu_torch.ops.cas_spectral import PolynomialMu
+    from pde_opt_tpu_torch.ops.fused_spectral import (
+        ac_sif_macro_cuda,
+        ac_sif_macro_plain,
+        ac_sif_macro_reference,
+        ch_sif_macro_cuda,
+        ch_sif_macro_plain,
+        ch_sif_macro_reference,
+        sif_constants,
+    )
+
+    r_gen = PolynomialMu(AC_R_GENERAL)
+    ch = ("ch_sif_macro", ch_sif_macro_cuda, ch_sif_macro_plain, u, kap,
+          dict(mu_fn=CH_MU), ch_sif_macro_reference(CH_MU, HX, HY, A, DT, SUBSTEPS), "ch_sif")
+    cases = [ch] + [
+        ("ac_sif_macro", ac_sif_macro_cuda, ac_sif_macro_plain, uu, kk,
+         dict(mu_fn=AC_MU, R_fn=R, r_identity=R is AC_R, hx=HX, hy=HY),
+         ac_sif_macro_reference(AC_MU, R, HX, HY, A, DT, SUBSTEPS), "ac_sif")
+        for R, uu, kk in ((AC_R, u_ac, kap_ac), (r_gen, u_ac[:K9_R_ENVS], kap_ac[:K9_R_ENVS]))]
+    tol = {"ch_sif_macro": TOL_U, "ac_sif_macro": TOL_AC}
+    max_err = {}
+    for name, cuda, plain, uu, kk, extra, oracle, site in cases:
+        what = f"{name} {uu.shape[0]}x{GRID}^2x{SUBSTEPS}" + (
+            " R=1+0.5u^2" if extra.get("R_fn") is r_gen else "")
+        for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            consts = sif_constants(GRID, GRID, HX, HY, mdt, True, dev)
+            kw = dict(extra, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=mdt == torch.bfloat16)
+            got, want = cuda(uu, kk, consts, **kw), plain(uu, kk, consts, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            line = f"check {what} mats={mats}: u1 max_abs_err {err:.3e}"
+            _check(bool(torch.isfinite(got).all()) and err <= tol[name][mats],
+                   f"{line} > {tol[name][mats]}")
+            print(line, flush=True)
+            if mats == "bf16":
+                max_err.setdefault(name, err)
+                one = {**kw, "n_steps": 1}
+                _check_sites(f"{what} mats=bf16", cuda(uu, kk, consts, **one),
+                             plain(uu, kk, consts, **one),
+                             plain(uu, kk, consts, **{**one, "round_bf16": False}), TOL_SITE[site])
+            else:
+                n = K9_ORACLE_ENVS
+                err = (cuda(uu[:n], kk[:n], consts, **kw) - oracle(uu[:n], kk[:n])).abs().max().item()
+                line = f"check {what} mats=f32 vs FFT oracle ({n} envs): max_abs_err {err:.3e}"
+                _check(err <= TOL_K9_ORACLE, f"{line} > {TOL_K9_ORACLE}")
+                print(line, flush=True)
+    return max_err
+
+
+def _drive_dft_fleet(torch, kernels, make_env, name, kernel, card):
+    """A preset fleet on the packed-DFT macro: ``spectral_solve="fused"``,
+    no fused epilogue, and ``"algo": "dft"`` in the env's solver_parameters
+    (read at every step).  With the launch counts reset just before, a
+    STEPS-step random-policy rollout across the episode end and its
+    auto-reset under sync debug mode "error"; the counts are read just
+    after: one launch of ``kernel`` a step and nothing else.  Returns
+    (launch counts, env-steps/s)."""
+    env = make_env(num_envs=NUM_ENVS if name == "CH" else AC_ENVS, grid_size=GRID,
+                   substeps=SUBSTEPS, spectral_solve="fused", fused_epilogue=False,
+                   device=torch.device("cuda"))
+    env.solver_parameters["algo"] = "dft"
+    gen = torch.Generator(device="cuda").manual_seed(70)
+
+    def policy(obs, g):
+        return env.sample_actions(g)
+
+    st, _ = env.reset(gen)
+    env.make_rollout(policy, 2)(st, gen)                  # warm the env glue
+    end_step = _end_step(torch, env)
+    _check(end_step < STEPS, "the rollout must cross the episode end")
+    state, _ = env.reset(gen)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    state, rewards, terms = env.make_rollout(policy, STEPS)(state, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rate = env.num_envs * STEPS / (time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    print(f"{name} fleet algo=dft: {STEPS}-step rollout of {env.num_envs} envs x {GRID}^2 x "
+          f"{SUBSTEPS} substeps, {rate:.1f} env-steps/s; episode end at step {end_step}; "
+          f"launches {counts} [{card}]", flush=True)
+    _check(counts[kernel] == STEPS and sum(counts.values()) == STEPS,
+           f"{name} dft fleet: launches {counts}, expected {STEPS} {kernel} and nothing else")
+    _check(bool(torch.isfinite(rewards).all()) and bool(torch.isfinite(state.y).all()),
+           f"{name} dft fleet: non-finite rewards or field")
+    early, episodes, since = _episode_ends(torch, terms, end_step)
+    _check(early == 0 and episodes >= env.num_envs, f"{name} dft fleet: {episodes} episodes "
+                                                    f"ended, {early} early")
+    _check(torch.equal(state.step_count.cpu().long(), since), "step counts after the resets")
+    print(f"{name} fleet algo=dft: {episodes} episodes ended at the end step, rewards finite "
+          "across the auto-reset", flush=True)
+    return counts, rate
+
+
+def _check_k9_training(torch, kernels, dev, gen, u_tg, kap_tg, card):
+    """Training through K9a.  Value and gradient of sum(w * macro(u, kappa))
+    (w random, independent of u) with respect to kappa at TG_ENVS x 64^2 x
+    10, f32 tables: the kernel forward and the checkpointed-oracle backward
+    on the card against the same call on the CPU (plain forward).  The
+    bound is _check_m3_card_grad's: kappa's gradient of a sum with a
+    zero-mean w cancels, so f32 rounding alone moves it by ~1e-3 of its
+    largest entry, and the card's FFTs round otherwise than the CPU's.  Then
+    OPT_STEPS Adam steps of PDEModel.optimize on the dft stepper (bf16
+    tables), counts reset just before and read just after: K9a forward and
+    its checkpoint recompute, two a segment a step.  Returns (launch counts,
+    ms of a bf16 value+grad)."""
+    from pde_opt_tpu_torch import Domain, PDEModel
+    from pde_opt_tpu_torch.envs.presets import CH_MU
+    from pde_opt_tpu_torch.models import CahnHilliard2DPeriodic
+    from pde_opt_tpu_torch.ops.fused_spectral import make_ch_sif_fused_macro
+    from pde_opt_tpu_torch.ops.steppers import FusedSemiImplicitSpectral
+
+    w = torch.randn(u_tg.shape, generator=gen, device=dev)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        macro = make_ch_sif_fused_macro(CH_MU, GRID, GRID, HX, HY, A, DT, SUBSTEPS,
+                                        mats_dtype=torch.float32)
+        k = kap_tg.to(d).clone().requires_grad_()
+        v = (w.to(d) * macro(u_tg.to(d), k)).sum()
+        v.backward()
+        res.append((v.item(), k.grad.cpu()))
+    (v_card, g_card), (v_cpu, g_cpu) = res
+    e_v = abs(v_card - v_cpu) / abs(v_cpu)
+    e_g = ((g_card - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    line = (f"check K9a value+grad wrt kappa on the card vs the CPU ({TG_ENVS} envs x {GRID}^2 x "
+            f"{SUBSTEPS} substeps, f32 tables): value rel_err {e_v:.3e}, grad max_err / "
+            f"max|grad| {e_g:.3e}")
+    _check(bool(torch.isfinite(g_card).all()) and e_v <= 1e-5 and e_g <= 5e-3,
+           f"{line} > (1e-5, 5e-3)")
+    print(line, flush=True)
+
+    macro = make_ch_sif_fused_macro(CH_MU, GRID, GRID, HX, HY, A, DT, SUBSTEPS)
+
+    def value_and_grad():
+        k = kap_tg.clone().requires_grad_()
+        v = (macro(u_tg, k) ** 2).sum()
+        v.backward()
+        return v.detach(), k.grad
+
+    grad_ms = _time_ms(torch, value_and_grad, reps=3, warmup=1)
+    print(f"time value+grad dft (K9a forward, checkpointed FFT-oracle backward): {grad_ms:.4f} ms "
+          f"per call, {TG_ENVS * SUBSTEPS / (grad_ms * 1e-3):.1f} grad-env-substeps/s ({TG_ENVS} "
+          f"envs x {GRID}^2 x {SUBSTEPS} substeps, bf16) [{card}]", flush=True)
+
+    L = 0.01 * GRID
+    domain = Domain((GRID, GRID), ((-L / 2, L / 2), (-L / 2, L / 2)), "dimensionless")
+    model = PDEModel(CahnHilliard2DPeriodic, domain, FusedSemiImplicitSpectral)
+    losses = []
+
+    def objective(sol):
+        v = sol[-1].var(dim=(-2, -1), correction=0).sum()
+        losses.append(v.detach())
+        return v
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    res = model.optimize(
+        objective, y0=u_tg, ts=OPT_TS, opt_parameters={"kappa": kap_tg},
+        other_parameters={"mu": CH_MU, "D": torch.ones_like},
+        solver_parameters={"A": A, "algo": "dft"}, weights={"kappa": None}, lambda_reg=0.0,
+        max_steps=OPT_STEPS, dt0=DT, method="adam", learning_rate=1e-4)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n_seg = len(OPT_TS) - 1
+    want = OPT_STEPS * n_seg * 2
+    print(f"training path algo=dft: {OPT_STEPS} optimize steps ({n_seg} checkpointed segments of "
+          f"{SUBSTEPS} substeps) at {TG_ENVS} envs x {GRID}^2; launches {counts}", flush=True)
+    _check(counts["ch_sif_macro"] == want and sum(counts.values()) == want,
+           f"dft training launches {counts}: expected {want} K9a and nothing else")
+    moved = (res["kappa"] - kap_tg).abs()
+    _check(len(losses) == OPT_STEPS and all(bool(torch.isfinite(v)) for v in losses)
+           and bool(torch.isfinite(res["kappa"]).all()) and bool((moved > 0).all()),
+           "dft optimize: losses and kappa must be finite and kappa must move in every env")
+    print(f"optimize algo=dft: loss {float(losses[0]):.6e} -> {float(losses[-1]):.6e}; kappa "
+          f"moved in every env, |change| {moved.min().item():.3e} to {moved.max().item():.3e}",
+          flush=True)
+    return counts, grad_ms
+
+
+def _check_module_fault(torch, dev):
+    """The repaired fault: a Legendre mu in opt_parameters trains.  LEG_STEPS
+    Adam steps of PDEModel.optimize over kappa and mu on
+    SemiImplicitFourierSpectral (the ROADMAP's case, f64), on the card and
+    on the CPU: the coefficients move, agree to TOL_LEG, and the caller's
+    module keeps its own."""
+    import numpy as np
+
+    from pde_opt_tpu_torch import Domain, PDEModel
+    from pde_opt_tpu_torch.models import CahnHilliard2DPeriodic
+    from pde_opt_tpu_torch.models.functions import ChemicalPotentialLegendrePolynomials
+    from pde_opt_tpu_torch.ops.steppers import SemiImplicitFourierSpectral
+
+    rng = np.random.default_rng(0)
+    y0 = torch.from_numpy(np.clip(0.5 + 0.05 * rng.standard_normal((LEG_N, LEG_N)), 0.0, 1.0))
+    ln = 0.01 * LEG_N
+    model = PDEModel(CahnHilliard2DPeriodic,
+                     Domain((LEG_N, LEG_N), ((-ln / 2, ln / 2),) * 2, dtype=torch.float64),
+                     SemiImplicitFourierSpectral)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        mu0 = ChemicalPotentialLegendrePolynomials(
+            torch.tensor(LEG_MU0, dtype=torch.float64, device=d))
+        res = model.optimize(
+            lambda s: (s[-1] ** 2).mean(), y0.to(d), [0.0, 1e-5, 2e-5],
+            opt_parameters={"kappa": torch.tensor(0.002, dtype=torch.float64, device=d),
+                            "mu": mu0},
+            other_parameters={"D": torch.ones_like, "derivs": "fd", "device": d},
+            solver_parameters={"A": 0.5}, weights={"kappa": None, "mu": None}, lambda_reg=0.0,
+            max_steps=LEG_STEPS, dt0=1e-6, method="adam", learning_rate=1e-2)
+        _check(type(res["mu"]) is type(mu0) and res["mu"] is not mu0
+               and torch.equal(mu0.expansion.params.detach().cpu(),
+                               torch.tensor(LEG_MU0, dtype=torch.float64)),
+               "optimize must return a new module and leave the caller's alone")
+        out.append(res["mu"].expansion.params.detach().cpu())
+    card_mu, cpu_mu = out
+    err = (card_mu - cpu_mu).abs().max().item()
+    moved = (card_mu - torch.tensor(LEG_MU0, dtype=torch.float64)).abs().max().item()
+    line = (f"check Legendre mu trained by optimize ({LEG_STEPS} Adam steps, {LEG_N}^2, f64) on "
+            f"the card {[round(float(c), 6) for c in card_mu]} vs the CPU: max_abs_err "
+            f"{err:.3e} <= {TOL_LEG}, moved {moved:.3e}")
+    _check(err <= TOL_LEG and moved > 1e-3, line)
+    print(line, flush=True)
+
 
 def main():
     import torch
@@ -1160,7 +1459,7 @@ def main():
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load_libraries(*SOURCES)
-    print(f"build: {', '.join(SOURCES.values())} (K1-K8), in parallel, in "
+    print(f"build: {', '.join(SOURCES.values())} (K1-K9), in parallel, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for lib in SOURCES:
         for line in kernels.build_log(lib).splitlines():
@@ -1281,6 +1580,9 @@ def main():
     k8_2d, k8_3d, err_k8 = _check_k8(torch, dev, gen)
     max_err.update(err_k8)
     _check_mobility_macro(torch, dev, gen)
+
+    # ---- 3i. K9a and K9b vs their plain versions and the FFT oracles --------
+    max_err.update(_check_k9(torch, dev, gen, u, kap, u_ac, kap_ac))
 
     # ---- 4. the serving path ----------------------------------------------
     env = make_cahn_hilliard_control_env(
@@ -1446,6 +1748,12 @@ def main():
     pallas_counts, pallas_rate = _drive_pallas_fleet(torch, kernels, dev, gen, card)
     _check_m3_card_grad(torch, dev, gen)
 
+    # ---- 5e. the CH and AC fleets on the packed-DFT macros (K9a, K9b) ------
+    dft_ch_counts, dft_ch_rate = _drive_dft_fleet(torch, kernels, make_cahn_hilliard_control_env,
+                                                  "CH", "ch_sif_macro", card)
+    dft_ac_counts, dft_ac_rate = _drive_dft_fleet(torch, kernels, make_allen_cahn_control_env,
+                                                  "AC", "ac_sif_macro", card)
+
     # ---- 6. the training path ---------------------------------------------
     from pde_opt_tpu_torch import Domain, PDEModel
     from pde_opt_tpu_torch.models import CahnHilliard2DPeriodic
@@ -1532,6 +1840,11 @@ def main():
           f"= {rel:.3e}", flush=True)
     _check(rel <= 1.0, "fused kappa gradient disagrees with the FFT oracle's")
 
+    # ---- 6b. training through K9a; the repaired module-parameter fault -------
+    dft_train_counts, dft_grad_ms = _check_k9_training(torch, kernels, dev, gen, u_tg, kap_tg,
+                                                       card)
+    _check_module_fault(torch, dev)
+
     # ---- 7. timings ------------------------------------------------------
     consts = cas_constants(GRID, GRID, HX, HY, torch.bfloat16, dev)
     timings = {}
@@ -1602,6 +1915,33 @@ def main():
         _time_pair(torch, timings, name, lambda: plain(uu, kk, **kw), lambda: cuda(uu, kk, **kw),
                    what, card)
 
+    from pde_opt_tpu_torch.ops.fused_spectral import (
+        ac_sif_macro_cuda,
+        ac_sif_macro_plain,
+        ch_sif_macro_cuda,
+        ch_sif_macro_plain,
+        sif_constants,
+    )
+
+    # K9a and K9b at the shapes K2 and K4 were timed at.
+    sconsts = sif_constants(GRID, GRID, HX, HY, torch.bfloat16, True, dev)
+    kw = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=True)
+    _time_pair(torch, timings, "ch_sif_macro", lambda: ch_sif_macro_plain(u, kap, sconsts, **kw),
+               lambda: ch_sif_macro_cuda(u, kap, sconsts, **kw),
+               f"{NUM_ENVS}x{GRID}^2x{SUBSTEPS} bf16", card,
+               (SUBSTEPS + 0.5) * _dft_ops(GRID, GRID) * NUM_ENVS)
+    kw_ac = dict(mu_fn=AC_MU, R_fn=AC_R, r_identity=True, hx=HX, hy=HY, dt=DT, A=A,
+                 n_steps=SUBSTEPS, round_bf16=True)
+    _time_pair(torch, timings, "ac_sif_macro",
+               lambda: ac_sif_macro_plain(u_ac, kap_ac, sconsts, **kw_ac),
+               lambda: ac_sif_macro_cuda(u_ac, kap_ac, sconsts, **kw_ac),
+               f"{AC_ENVS}x{GRID}^2x{SUBSTEPS} bf16, R == 1", card,
+               SUBSTEPS * _dft_ops(GRID, GRID) * AC_ENVS)
+    print(f"K9a vs K2: {timings['ch_sif_macro'][0]:.4f} vs {timings['ch_cas_macro'][0]:.4f} ms "
+          f"({timings['ch_sif_macro'][0] / timings['ch_cas_macro'][0]:.2f}x); K9b vs K4: "
+          f"{timings['ac_sif_macro'][0]:.4f} vs {timings['ac_cas_macro'][0]:.4f} ms "
+          f"({timings['ac_sif_macro'][0] / timings['ac_cas_macro'][0]:.2f}x) [{card}]", flush=True)
+
     # The GPE fleet on its fused path (K5) against its FFT path
     # (StrangSplitting(fast_evolve=True)), as bench.py's gpe64 compares them:
     # 30-step random-policy rollouts, in turns.
@@ -1641,6 +1981,10 @@ def main():
               f"grad-env-substeps/s ({TG_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps) [{card}]",
               flush=True)
     print(f"fused vs fft value+grad: {rates['fused'] / rates['fft']:.2f}x [{card}]", flush=True)
+    dft_rate = TG_ENVS * SUBSTEPS / (dft_grad_ms * 1e-3)
+    print(f"value+grad dft (K9a + oracle backward) vs cas (K2 + K3): {dft_rate:.1f} vs "
+          f"{rates['fused']:.1f} grad-env-substeps/s, {dft_rate / rates['fused']:.2f}x [{card}]",
+          flush=True)
 
     y1 = state.y.clone()
     cv1 = state.control_value.clone()
@@ -1661,6 +2005,9 @@ def main():
           f"x {SUBSTEPS} substeps, fused epilogue) [{card}]", flush=True)
     print(f"SBM rollout: {sbm_rate:.1f} env-steps/s ({STEPS} steps, {SBM_ENVS} envs x "
           f"{GRID}^2 x {SUBSTEPS} substeps, fused epilogue) [{card}]", flush=True)
+    print(f"CH fleet algo=dft rollout: {dft_ch_rate:.1f} env-steps/s (K9a, no epilogue) vs "
+          f"{rate:.1f} (K1); AC fleet algo=dft: {dft_ac_rate:.1f} (K9b) vs {ac_rate:.1f} (K4) "
+          f"[{card}]", flush=True)
     print(f"CH derivs=pallas fft rollout: {pallas_rate:.1f} env-steps/s ({PALLAS_FFT_STEPS} "
           f"steps, {NUM_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps, K8 {SUBSTEPS} a step); "
           f"3D mobility path: {m3_per_call:.0f} K8 launches a call [{card}]", flush=True)
@@ -1668,12 +2015,14 @@ def main():
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
-                                      sbm_counts, m3_counts, pallas_counts)) for n in KERNELS}
+                                      sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
+                                      dft_ac_counts, dft_train_counts)) for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()
     # library_ms is null for every kernel: no single PyTorch call computes a
-    # whole macro (transforms, closure and epilogue over all substeps), nor
-    # the flux rhs of K8 (mu, D, two stencils and a face flux).
+    # whole macro (transforms, closure and epilogue over all substeps; K9's
+    # carried spectrum or roll Laplacian), nor the flux rhs of K8 (mu, D, two
+    # stencils and a face flux).
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[lib], "replaces": replaces,
          "launches": launches[name], "max_abs_err": max_err[name],

@@ -12,9 +12,11 @@ Butler-Volmer and smoothed-boundary Butler-Volmer charging fleets
 down to their fused macros, and the 3D and general-mobility Cahn-Hilliard
 path (``CahnHilliard3DPeriodic``, ``FusedSemiImplicitSpectral3D``,
 ``FusedMobilitySpectral`` with the Legendre coefficient modules) down to the
-fused FD rhs, which also serves ``derivs="pallas"``.  On CUDA tensors the
-macros, the fused rhs and the CH backward run hand-written Hopper kernels
-(``csrc/*.cu``).  The entry points build on
+fused FD rhs, which also serves ``derivs="pallas"``.  The fused CH and AC
+steppers also take ``algo="dft"``, the packed-DFT macros.  On CUDA tensors
+the macros, the fused rhs and the CH backward run hand-written Hopper
+kernels (``csrc/*.cu``): every Pallas kernel of the JAX package has its
+counterpart.  The entry points build on
 the card unless the caller passes ``device="cpu"``.  The package imports
 torch and numpy, never jax.
 """

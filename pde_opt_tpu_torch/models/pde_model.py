@@ -8,9 +8,12 @@ initial conditions integrates as one batched rollout.  The optimizers are
 On the fused macro stepper each segment is one launch of the macro kernel
 forward and one of its backward kernel K3 in the backward pass.
 
-Not ported yet: the adaptive integrator behind ``PIDController``,
-Levenberg-Marquardt (``train(method="least_squares")``), and parameters
-that are modules (``models/functions``).
+A parameter that is an :class:`torch.nn.Module` (the Legendre coefficient
+modules of ``models/functions``) trains through its parameters, as the JAX
+package's pytree modules do (:mod:`pde_opt_tpu_torch.utils.ptree`).
+
+Not ported yet: the adaptive integrator behind ``PIDController`` and
+Levenberg-Marquardt (``train(method="least_squares")``).
 """
 
 from __future__ import annotations
@@ -100,7 +103,8 @@ class PDEModel:
         """Weighted L2 penalty: λ·Σᵢ wᵢ pᵢ² over matching tree leaves.
 
         ``weights`` mirrors ``parameters``; ``None`` weights, and leaves that
-        are not inexact arrays or floats, add nothing.
+        are not inexact arrays or floats, add nothing.  A module weight
+        against a module parameter pairs their parameters by name.
         """
 
         def weighted_square(w, v):

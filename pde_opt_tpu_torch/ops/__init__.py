@@ -15,7 +15,12 @@ from .cas_spectral import (
     make_ch_cas_fused_macro_ep,
 )
 from .fused import make_ch3d_rhs_fd_fused, make_ch_rhs_fd_fused
-from .fused_spectral import ac_sif_macro_reference, ch_sif_macro_reference
+from .fused_spectral import (
+    ac_sif_macro_reference,
+    ch_sif_macro_reference,
+    make_ac_sif_fused_macro,
+    make_ch_sif_fused_macro,
+)
 from .gpe_cas import gpe_strang_fast_reference, make_gpe_strang_cas_macro
 from .integrate import ConstantStepSize, PIDController, evolve, integrate
 from .sbm_bv import make_sbm_bv_fused_macro, sbm_bv_reference
@@ -41,6 +46,8 @@ __all__ = [
     "make_ch_cas_fused_macro",
     "make_ch_cas_fused_macro_ep",
     "make_ac_cas_fused_macro",
+    "make_ch_sif_fused_macro",
+    "make_ac_sif_fused_macro",
     "make_gpe_strang_cas_macro",
     "make_bv_cc_fused_macro",
     "make_sbm_bv_fused_macro",

@@ -52,6 +52,7 @@ _LAUNCHES: Dict[str, int] = {
     "bv_cc_macro": 0, "bv_cc_macro_ep": 0,
     "sbm_bv_macro": 0, "sbm_bv_macro_ep": 0,
     "ch_rhs_fd": 0, "ch3d_rhs_fd": 0,
+    "ch_sif_macro": 0, "ac_sif_macro": 0,
 }
 
 

@@ -21,6 +21,7 @@ from .bv_cas import make_bv_cc_fused_macro
 from .cas3d import make_ch3d_cas_macro
 from .cas_mobility import make_ch3d_mobility_cas_macro, make_ch_mobility_cas_macro
 from .cas_spectral import make_ac_cas_fused_macro, make_ch_cas_fused_macro
+from .fused_spectral import make_ac_sif_fused_macro, make_ch_sif_fused_macro
 from .gpe_cas import make_gpe_strang_cas_macro
 from .sbm_bv import make_sbm_bv_fused_macro
 
@@ -136,26 +137,42 @@ class SemiImplicitFourierSpectral(AbstractStepper):
         return y1, y1 - euler_y1
 
 
+def _check_algo(algo: str) -> str:
+    if algo not in ("cas", "dft"):
+        raise ValueError(f"algo must be 'cas' or 'dft', got {algo!r}")
+    return algo
+
+
+def _check_epilogue_algo(algo: str) -> None:
+    if algo != "cas":
+        raise NotImplementedError("fused env epilogue requires algo='cas'")
+
+
 class FusedSemiImplicitSpectral(AbstractStepper):
     """Whole-macro-step fused SIF stepper (the flagship fast path).
 
-    Runs all substeps of an ``evolve`` call in one cas macro
-    (:func:`pde_opt_tpu_torch.ops.cas_spectral.make_ch_cas_fused_macro`):
-    on CUDA tensors one launch of the Hopper kernel, with each env's own κ
-    in the implicit denominator.  The equation must be Cahn-Hilliard-like
-    with elementwise ``mu`` and unit mobility (``D == 1``); ``rhs`` is
-    ignored.  On CUDA, ``mu`` must be a
-    :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`.
+    Runs all substeps of an ``evolve`` call in one macro, on CUDA tensors
+    one launch of a Hopper kernel, with each env's own κ in the implicit
+    denominator: ``algo="cas"`` (the default) the cas macro
+    (:func:`pde_opt_tpu_torch.ops.cas_spectral.make_ch_cas_fused_macro`,
+    K2), ``algo="dft"`` the packed-DFT macro
+    (:func:`pde_opt_tpu_torch.ops.fused_spectral.make_ch_sif_fused_macro`,
+    K9a).  The equation must be Cahn-Hilliard-like with elementwise ``mu``
+    and unit mobility (``D == 1``); ``rhs`` is ignored.  On CUDA, ``mu``
+    must be a :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`.
+    The env epilogue (``evolve_with_epilogue``, K1) needs ``algo="cas"``,
+    as in the JAX package.
 
     The JAX stepper's ``block_envs``/``interpret`` (TPU tiling) have no
-    counterpart, and its ``algo="dft"`` kernel (K9) is not ported.
+    counterpart.
     """
 
     required_equation_attrs = ("kappa", "mu", "D", "domain")
     order = 1
 
     def __init__(self, kappa, mu, D, domain, A: float = 1.0,
-                 mats_dtype: Optional[torch.dtype] = None):
+                 mats_dtype: Optional[torch.dtype] = None, algo: str = "cas"):
+        self.algo = _check_algo(algo)
         self.kappa = kappa
         self.mu = mu
         self.domain = domain
@@ -170,11 +187,11 @@ class FusedSemiImplicitSpectral(AbstractStepper):
 
     def _macro(self, dt, n_steps, epilogue=None):
         H, W = self.domain.points
-        hx, hy = self.domain.dx
-        return make_ch_cas_fused_macro(
-            self.mu, H, W, float(hx), float(hy), self.A, float(dt),
-            int(n_steps), mats_dtype=self.mats_dtype, epilogue=epilogue,
-        )
+        args = (self.mu, H, W, *(float(h) for h in self.domain.dx), self.A, float(dt),
+                int(n_steps))
+        if self.algo == "dft":
+            return make_ch_sif_fused_macro(*args, mats_dtype=self.mats_dtype)
+        return make_ch_cas_fused_macro(*args, mats_dtype=self.mats_dtype, epilogue=epilogue)
 
     def evolve(self, rhs, y0, t0, dt, n_steps):
         """Advance ``n_steps`` substeps in one macro (ignores ``rhs`` — the
@@ -191,6 +208,7 @@ class FusedSemiImplicitSpectral(AbstractStepper):
         ``ep_cfg`` keys: ``obs_scale``, ``obs_offset``, ``obs_downsample``,
         ``stats_center``."""
         del rhs, t0
+        _check_epilogue_algo(self.algo)
         kappa = _normalize_per_env_control(self.kappa, y0.shape[:-2], "kappa",
                                            device=y0.device)
         return self._macro(dt, n_steps, _epilogue_cfg(ep_cfg))(y0, kappa)
@@ -313,16 +331,20 @@ class FusedAllenCahnSpectral(AbstractStepper):
     """Whole-macro-step fused semi-implicit stepper for Allen-Cahn.
 
     The Allen-Cahn counterpart of :class:`FusedSemiImplicitSpectral`: all
-    substeps of an ``evolve`` call run in one cas macro
-    (:func:`pde_opt_tpu_torch.ops.cas_spectral.make_ac_cas_fused_macro`), on
-    CUDA tensors one launch of kernel K4, with each env's own κ.  ``mu`` and
-    ``R`` must be elementwise; on CUDA ``mu`` must be a
+    substeps of an ``evolve`` call run in one macro with each env's own κ,
+    on CUDA tensors one launch of a Hopper kernel: ``algo="cas"`` (the
+    default) the cas macro
+    (:func:`pde_opt_tpu_torch.ops.cas_spectral.make_ac_cas_fused_macro`,
+    K4), ``algo="dft"`` the packed-DFT macro
+    (:func:`pde_opt_tpu_torch.ops.fused_spectral.make_ac_sif_fused_macro`,
+    K9b).  ``mu`` and ``R`` must be elementwise; on CUDA ``mu`` must be a
     :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`, and so must
     ``R`` unless the identity probe finds ``R ≡ 1``.  ``rhs`` is ignored.
-    Differentiable through the checkpointed FFT oracle.
+    Differentiable through the checkpointed FFT oracle.  The env epilogue
+    needs ``algo="cas"``, as in the JAX package.
 
     The JAX stepper's ``block_envs``/``interpret`` (TPU tiling) have no
-    counterpart, and its ``algo="dft"`` kernel (K9) is not ported.
+    counterpart.
     """
 
     required_equation_attrs = ("kappa", "mu", "R", "domain")
@@ -330,14 +352,7 @@ class FusedAllenCahnSpectral(AbstractStepper):
 
     def __init__(self, kappa, mu, R, domain, A: float = 1.0,
                  mats_dtype: Optional[torch.dtype] = None, algo: str = "cas"):
-        if algo == "dft":
-            raise NotImplementedError(
-                "algo='dft' needs the packed-DFT kernel K9 "
-                "(pde_opt_tpu/ops/fused_spectral.py), which is not ported yet; "
-                "see ROADMAP.md"
-            )
-        if algo != "cas":
-            raise ValueError(f"algo must be 'cas' or 'dft', got {algo!r}")
+        self.algo = _check_algo(algo)
         self.kappa = kappa
         self.mu = mu
         self.R = R
@@ -347,11 +362,11 @@ class FusedAllenCahnSpectral(AbstractStepper):
 
     def _macro(self, dt, n_steps, epilogue=None):
         H, W = self.domain.points
-        hx, hy = self.domain.dx
-        return make_ac_cas_fused_macro(
-            self.mu, self.R, H, W, float(hx), float(hy), self.A, float(dt),
-            int(n_steps), mats_dtype=self.mats_dtype, epilogue=epilogue,
-        )
+        args = (self.mu, self.R, H, W, *(float(h) for h in self.domain.dx), self.A,
+                float(dt), int(n_steps))
+        if self.algo == "dft":
+            return make_ac_sif_fused_macro(*args, mats_dtype=self.mats_dtype)
+        return make_ac_cas_fused_macro(*args, mats_dtype=self.mats_dtype, epilogue=epilogue)
 
     def evolve(self, rhs, y0, t0, dt, n_steps):
         del rhs, t0
@@ -363,6 +378,7 @@ class FusedAllenCahnSpectral(AbstractStepper):
         """Advance AND emit ``(y1, stats, obs)`` from the same macro (the
         contract of :meth:`FusedSemiImplicitSpectral.evolve_with_epilogue`)."""
         del rhs, t0
+        _check_epilogue_algo(self.algo)
         kappa = _normalize_per_env_control(self.kappa, y0.shape[:-2], "kappa",
                                            device=y0.device)
         return self._macro(dt, n_steps, _epilogue_cfg(ep_cfg))(y0, kappa)

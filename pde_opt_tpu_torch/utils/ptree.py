@@ -5,14 +5,24 @@ A parameter tree is a nest of dicts, lists and tuples whose leaves mix
 tensors, numpy arrays, python numbers and callables.  Optimizers see only
 the inexact-array leaves; everything else is carried through statically.
 ``None`` is a leaf that stands for "absent", as in the JAX package.
+
+An :class:`torch.nn.Module` is a node, as the JAX package's pytree modules
+are: its leaves are its parameters, its submodules' included.  Mapping over
+a module gives a shallow copy of the same class whose parameter slots hold
+the mapped values, so :func:`partition` leaves the module's structure on the
+static side and its parameters on the dynamic side, and :func:`combine`
+gives back a module of the caller's class that computes with the dynamic
+tensors (gradients flow into them).  The caller's module is never changed.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, List
 
 import numpy as np
 import torch
+from torch import nn
 
 __all__ = [
     "tree_map",
@@ -32,7 +42,25 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
         return type(tree)(out) if isinstance(tree, list) else tuple(out)
+    if isinstance(tree, nn.Module):
+        return _module_map(fn, tree, *rest)
     return fn(tree, *rest)
+
+
+def _module_map(fn: Callable, module: nn.Module, *rest: nn.Module) -> nn.Module:
+    """A shallow copy of ``module`` whose parameter slots (its submodules'
+    too, each copied) hold ``fn`` of the parameters at the same names in
+    ``module`` and ``rest``.  Attribute access on the copy reads the new
+    values, so a mapped tensor that requires grad takes part in autograd."""
+    out = copy.copy(module)
+    params = {k: tree_map(fn, p, *(r._parameters[k] for r in rest))
+              for k, p in module._parameters.items()}
+    mods = {k: None if m is None else _module_map(fn, m, *(r._modules[k] for r in rest))
+            for k, m in module._modules.items()}
+    # Past nn.Module.__setattr__, which admits only Parameters in these slots.
+    object.__setattr__(out, "_parameters", params)
+    object.__setattr__(out, "_modules", mods)
+    return out
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -83,8 +111,8 @@ def from_numpy(tree: Any, device=None) -> Any:
 
     Array leaves (numpy arrays and scalars, or any other object with
     ``__array__``, such as a JAX array) become tensors of the same dtype on
-    ``device``; tensors move to ``device``; python numbers, callables and
-    ``None`` are kept as they are.
+    ``device``; tensors, a module's parameters included, move to ``device``;
+    python numbers, other callables and ``None`` are kept as they are.
     """
 
     def leaf(x):

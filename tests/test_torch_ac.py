@@ -262,8 +262,15 @@ def test_stepper_through_evolve_matches_jax():
     assert u1.shape == (4, 16, 16) and bool(torch.isfinite(u1).all())
     assert float((u1 - torch.from_numpy(u0)).abs().max()) > 1e-8
     np.testing.assert_allclose(u1.numpy(), np.asarray(ju1), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="K9"):
-        FusedAllenCahnSpectral(kappa=1e-4, mu=AC_MU, R=AC_R, domain=eq.domain, algo="dft")
+    # algo="dft": the packed-DFT macro (kernel K9b's plain version) against
+    # JAX's, from the same equations.
+    st = FusedAllenCahnSpectral(**prepare_solver_params(
+        FusedAllenCahnSpectral, {"A": 1.0, "mats_dtype": torch.float32, "algo": "dft"}, eq))
+    jst = JFused(**jprep(JFused, {"A": 1.0, "mats_dtype": jnp.float32, "algo": "dft"}, jeq))
+    u1 = evolve(st, eq.rhs, torch.from_numpy(u0), 0.0, 1e-4, 3)
+    ju1 = jevolve(jst, jeq.rhs, jnp.asarray(u0), 0.0, 1e-4, 3)
+    assert float((u1 - torch.from_numpy(u0)).abs().max()) > 1e-8
+    np.testing.assert_allclose(u1.numpy(), np.asarray(ju1), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("derivs", ["fd", "fourier"])

@@ -46,9 +46,9 @@ def _jax():
     return jax, jnp, jp
 
 
-def _y0(n=N, seed=0, batch=()):
+def _y0(n=N, seed=0, batch=(), amp=0.01):
     rng = np.random.default_rng(seed)
-    return np.clip(0.01 * rng.standard_normal(batch + (n, n)) + 0.5, 0.0, 1.0)
+    return np.clip(amp * rng.standard_normal(batch + (n, n)) + 0.5, 0.0, 1.0)
 
 
 def _domain(n=N, dtype=torch.float64):
@@ -350,3 +350,145 @@ def test_optimize_on_fused_path_matches_jax():
     k = float(res["kappa"])
     assert np.isfinite(k) and abs(k - 0.004) > 1e-9
     np.testing.assert_allclose(k, float(jres["kappa"]), rtol=0, atol=1e-8)
+
+
+# ---- module parameters (the Legendre coefficient modules) -------------------
+
+LEG_N, LEG_MU0, LEG_TRUE = 16, [0.0, 1.0, 0.5], [0.0, 1.2, 0.3]
+# ROADMAP's case: optimize(mean(u_T²)) over κ and μ from a field of
+# amplitude 0.05, 3 Adam steps from [0, 1, 0.5].  There (f32) JAX moved μ to
+# [-1.75e-4, 1.0250, 0.4774]; in f64 the constant coefficient, which does not
+# enter the dynamics (the rhs takes ∇²μ), stays at 0 in both packages, and
+# the others agree with those to their printed digits.
+LEG_ROADMAP = dict(amp=0.05, ts=[0.0, 1e-5, 2e-5], steps=3, jax=[0.0, 1.0250, 0.4774])
+# Fits to a rollout at μ = LEG_TRUE over 2e-4 from a field of amplitude 0.1:
+# ``train`` (the MSE to the saved fields) and, for L-BFGS, ``optimize`` (the
+# squared distance to the saved fields, summed: the stop rule's absolute
+# 1e-8 would end a mean's descent early).  L-BFGS runs to the same minimizer in both
+# packages; 3 steps would not agree, as their first step and line search
+# differ (optax scales the first step by 1/|g|_2, torch by 1/|g|_1).
+LEG_FIT = dict(amp=0.1, ts=[0.0, 1e-4, 2e-4], steps={"adam": 3, "lbfgs": 20})
+
+
+def _legendre_models(jp, jnp):
+    """The two packages' CH models on 16², f64, FFT stepper."""
+    ln = 0.01 * LEG_N
+    box = ((-ln / 2, ln / 2), (-ln / 2, ln / 2))
+    jm = jp.PDEModel(jp.CahnHilliard2DPeriodic,
+                     jp.Domain((LEG_N, LEG_N), box, dtype=jnp.float64),
+                     jp.SemiImplicitFourierSpectral)
+    tm = PDEModel(CahnHilliard2DPeriodic, Domain((LEG_N, LEG_N), box, dtype=torch.float64),
+                  SemiImplicitFourierSpectral)
+    return jm, tm
+
+
+@pytest.mark.parametrize("method", ["adam", "lbfgs"])
+@pytest.mark.parametrize("entry", ["optimize", "train"])
+def test_module_coefficients_train_as_in_jax(entry, method):
+    """A Legendre μ in ``opt_parameters`` trains, as the JAX package's pytree
+    module does (SemiImplicitFourierSpectral, A = 0.5, κ = 0.002, 16², f64):
+    ``optimize`` with Adam on the ROADMAP's case (``LEG_ROADMAP``, κ trained
+    too), the other three on the fits of ``LEG_FIT``.  The coefficients
+    agree with JAX's to 1e-4 and moved as far (rtol 1e-3 of the
+    displacement); the result is a module of the caller's class, and the
+    caller's module is unchanged."""
+    jax, jnp, jp = _jax()
+    from pde_opt_tpu.models.functions import ChemicalPotentialLegendrePolynomials as JMu
+    from pde_opt_tpu_torch.models.functions import ChemicalPotentialLegendrePolynomials as TMu
+
+    jm, tm = _legendre_models(jp, jnp)
+    mu0 = TMu(torch.tensor(LEG_MU0, dtype=torch.float64))
+    jparams = {"D": jnp.ones_like, "derivs": "fd"}
+    tparams = {"D": torch.ones_like, "derivs": "fd", "device": "cpu"}
+    common = dict(solver_parameters={"A": 0.5}, lambda_reg=0.0, dt0=1e-6, learning_rate=1e-2)
+    roadmap = entry == "optimize" and method == "adam"
+    case = LEG_ROADMAP if roadmap else LEG_FIT
+    y0, ts = _y0(LEG_N, amp=case["amp"]), case["ts"]
+    if roadmap:
+        jres = jm.optimize(lambda s: jnp.mean(s[-1] ** 2), jnp.asarray(y0), ts,
+                           opt_parameters={"kappa": 0.002, "mu": JMu(jnp.array(LEG_MU0))},
+                           other_parameters=jparams, weights={"kappa": None, "mu": None},
+                           method="adam", max_steps=case["steps"], **common)
+        tres = tm.optimize(lambda s: (s[-1] ** 2).mean(), torch.from_numpy(y0), ts,
+                           opt_parameters={"kappa": 0.002, "mu": mu0},
+                           other_parameters=tparams, weights={"kappa": None, "mu": None},
+                           method="adam", max_steps=case["steps"], **common)
+        np.testing.assert_allclose(float(tres["kappa"]), float(jres["kappa"]), rtol=1e-6)
+        np.testing.assert_allclose(np.asarray(jres["mu"].expansion.params), case["jax"],
+                                   rtol=0, atol=5e-5)
+    else:
+        ys = np.array(jm.solve({"kappa": 0.002, "mu": JMu(jnp.array(LEG_TRUE)), **jparams},
+                                jnp.asarray(y0), ts, {"A": 0.5}, dt0=1e-6))
+        common.update(max_steps=case["steps"][method], weights={"mu": None})
+        jother, tother = {"kappa": 0.002, **jparams}, {"kappa": 0.002, **tparams}
+        if entry == "train":
+            kw = dict(method="mse" if method == "lbfgs" else "adam", **common)
+            jres = jm.train({"ys": list(ys), "ts": ts}, [[0, 1, 2]],
+                            opt_parameters={"mu": JMu(jnp.array(LEG_MU0))},
+                            other_parameters=jother, **kw)
+            tres = tm.train({"ys": [torch.from_numpy(y) for y in ys], "ts": ts}, [[0, 1, 2]],
+                            opt_parameters={"mu": mu0}, other_parameters=tother, **kw)
+        else:
+            target = ys[1:]
+            jres = jm.optimize(lambda s: 1e6 * jnp.sum((s[1:] - target) ** 2), jnp.asarray(y0), ts,
+                               opt_parameters={"mu": JMu(jnp.array(LEG_MU0))},
+                               other_parameters=jother, method=method, **common)
+            tres = tm.optimize(lambda s: 1e6 * ((s[1:] - torch.from_numpy(target)) ** 2).sum(),
+                               torch.from_numpy(y0), ts, opt_parameters={"mu": mu0},
+                               other_parameters=tother, method=method, **common)
+    want = np.asarray(jres["mu"].expansion.params)
+    got = tres["mu"].expansion.params
+    assert type(tres["mu"]) is TMu and tres["mu"] is not mu0 and not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.numpy() - LEG_MU0, want - LEG_MU0, rtol=1e-3, atol=1e-9)
+    assert np.abs(want - LEG_MU0).max() > 1e-3              # JAX moved them
+    assert isinstance(mu0.expansion.params, torch.nn.Parameter)
+    assert mu0.expansion.params.requires_grad
+    np.testing.assert_array_equal(mu0.expansion.params.detach().numpy(), LEG_MU0)
+
+
+def test_regularization_of_module_leaves_matches_jax():
+    """``tests/test_model.py``'s module case: a ``None`` weight scores a
+    module 0, a module weight pairs its parameters with the module's."""
+    jax, jnp, jp = _jax()
+    from pde_opt_tpu.models.functions import DiffusionLegendrePolynomials as JD
+    from pde_opt_tpu_torch.models.functions import DiffusionLegendrePolynomials as TD
+
+    jm, tm = _legendre_models(jp, jnp)
+    cases = [
+        ({"kappa": 2.0, "D": ([1.0, 2.0],)}, {"kappa": 1.0, "D": None}, 0.5, 2.0),
+        ({"D": ([1.0, 2.0],)}, {"D": ([1.0, 1.0],)}, 1.0, 5.0),
+    ]
+
+    def build(tree, mod):
+        return {k: mod(*v) if isinstance(v, tuple) else v for k, v in tree.items()}
+
+    for params, weights, lam, want in cases:
+        jreg = jm.regularization(build(params, lambda c: JD(jnp.array(c))),
+                                 build(weights, lambda c: JD(jnp.array(c))), lam)
+        treg = tm.regularization(build(params, lambda c: TD(torch.tensor(c))),
+                                 build(weights, lambda c: TD(torch.tensor(c))), lam)
+        np.testing.assert_allclose(float(jreg), want)
+        np.testing.assert_allclose(float(torch.as_tensor(treg).detach()), want)
+
+
+def test_ptree_descends_into_modules():
+    """partition keeps a module's structure static and its parameters
+    dynamic; combine rebuilds the caller's class around the dynamic tensors,
+    which carry gradients; the caller's module is untouched."""
+    from pde_opt_tpu_torch.models.functions import DiffusionLegendrePolynomials as TD
+
+    mod = TD(torch.tensor([0.3, 0.2]))
+    dyn, static = ptree.partition({"D": mod, "kappa": 0.1})
+    assert [t.data_ptr() for t in ptree.tree_leaves(dyn["D"])] == [mod.expansion.params.data_ptr()]
+    assert ptree.tree_leaves(static["D"]) == [] and static["kappa"] is None
+    leaf = torch.tensor([0.5, -0.1], requires_grad=True)
+    back = ptree.combine({"D": ptree.tree_map(lambda _: leaf, dyn["D"]), "kappa": 0.1}, static)
+    c = torch.linspace(0.1, 0.9, 5)
+    back["D"](c).sum().backward()
+    assert type(back["D"]) is TD and back["D"].expansion.params is leaf
+    ref = TD(torch.tensor([0.5, -0.1]))
+    ref(c).sum().backward()
+    torch.testing.assert_close(leaf.grad, ref.expansion.params.grad)
+    assert isinstance(mod.expansion.params, torch.nn.Parameter) and mod.expansion.params.grad is None
+    torch.testing.assert_close(mod.expansion.params.detach(), torch.tensor([0.3, 0.2]))
