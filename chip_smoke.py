@@ -25,7 +25,10 @@ caught):
 
 1. Require a CUDA device; print the card's name and power limit.
 2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``,
-   one ``nvcc`` per source, in parallel; print ``ptxas -v``'s lines.
+   one ``nvcc`` per source, in parallel; print ``ptxas -v``'s lines and each
+   library's count of warpgroup MMA (``HGMMA``) instructions in its SASS
+   (``cuobjdump -sass``): K4's and K6's bf16 paths run on the tensor cores,
+   so ``ac_cas_macro`` and ``bv_cc_macro`` must hold some.
 3. Hold each kernel against its plain-torch version on the card at its
    path's shapes, with f32 and bf16 matrices: the CH macro (K2 without, K1
    with the env epilogue, obs_downsample 1 and 4; also against the FFT
@@ -36,7 +39,9 @@ caught):
    and off; also against the FFT oracle); the BV macro (K6, f32 and bf16,
    epilogue on and off; f32 also against the roll-stencil oracle) and the
    SBM macro (K7, epilogue on and off, and against its oracle), each
-   epilogue also against the kernel's own final field.  K4, K5 and K6 with
+   epilogue also against the kernel's own final field; K4 and K6 with bf16
+   matrices also at 16 x 16 and 24 x 40 (the tensor-core kernels' padding
+   of grids below 64 x 64), epilogue on and off.  K4, K5 and K6 with
    bf16 matrices are also held after one substep, where a misplaced
    rounding shows: the RMS of kernel - plain must sit below a bound that
    the unrounded plain version (the control) exceeds.  K8 against its plain
@@ -106,6 +111,7 @@ JSON object per kernel and the JSON result line.
 
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -154,7 +160,8 @@ TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
 TOL_BWD = {"f32": (5e-6, 1e-4), "bf16": (1e-5, 1e-2)}
 # AC fleet (the preset: L = 0.01 * grid, step_dt 0.01, A = 1, kappa in
 # [1e-4, 1e-3]); K4 is held at the CH macro's bounds, bf16 tighter (5e-4:
-# R == 1 reads 1.3e-4, R = 1 + 0.5 u^2 2.5e-4 on an H100).  A polynomial
+# R == 1 reads 1.3e-4, R = 1 + 0.5 u^2 2.9e-4 on an H100 with the
+# tensor-core kernel, 2.5e-4 with the FMA kernel before it).  A polynomial
 # non-identity mobility R = 1 + 0.5 u^2 drives the 4-transform path.
 AC_ENVS = 4096
 AC_R_GENERAL = (1.0, 0.0, 0.5)
@@ -189,6 +196,11 @@ FLEET_STEPS_NO_EP = 10          # steps of each fleet without the epilogue
 BV_ENVS, SBM_ENVS, BV_KAPPA, BV_DT = 2048, 1024, 5e-4, 5e-4
 TOL_BV = {"f32": 1e-5, "bf16": 1e-4}
 TOL_BV_ORACLE = 2e-5
+# Grids below 64 x 64 on the tensor-core kernels of K4 and K6 (bf16 matrices,
+# zero-padded to 64 in shared memory), at the fleets' env counts.
+SMALL_GRIDS = ((16, 16), (24, 40))
+# Libraries whose SASS must hold warpgroup MMA (HGMMA) instructions.
+WGMMA_LIBS = ("ac_cas_macro", "bv_cc_macro")
 TOL_CHARGE = 0.05
 # The card-side gradient (64 envs x 64^2 x 2 substeps, bf16 matrices for BV):
 # value to rtol 1e-5, d/dcrate to 1e-3 of its largest entry.  Both sides run
@@ -522,6 +534,29 @@ def _check_bv(torch, dev, gen):
                          bv_cc_macro_plain(u, cr, consts, **one),
                          bv_cc_macro_plain(u, cr, consts, **{**one, "round_bf16": False}),
                          TOL_SITE["bv"])
+    for H, W in SMALL_GRIDS:
+        u = torch.clamp(0.05 + 0.005 * torch.randn((BV_ENVS, H, W), generator=gen, device=dev),
+                        0.01, 0.99)
+        u = (u + 0.4 * torch.rand((BV_ENVS, 1, 1), generator=gen, device=dev)).contiguous()
+        cr = 0.2 + 2.8 * torch.rand((BV_ENVS,), generator=gen, device=dev)
+        consts = cas_constants(H, W, 1.0 / H, 1.0 / W, torch.bfloat16, dev)
+        kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, kappa=BV_KAPPA, cell=1.0 / (H * W), dt=BV_DT,
+                  n_steps=SUBSTEPS, round_bf16=True)
+        for ep in (None, Epilogue(255.0, 0.0, CENTER, 1)):
+            got = bv_cc_macro_cuda(u, cr, consts, epilogue=ep, **kw)
+            want = bv_cc_macro_plain(u, cr, consts, epilogue=ep, **kw)
+            torch.cuda.synchronize()
+            if ep is None:
+                got, want = (got,), (want,)
+            err = (got[0] - want[0]).abs().max().item()
+            name = "bv_cc_macro_ep" if ep else "bv_cc_macro"
+            line = f"check {name} mats=bf16 {H}x{W}: u1 max_abs_err {err:.3e}"
+            _check(err <= TOL_BV["bf16"], f"{line} > {TOL_BV['bf16']}")
+            if ep is not None:
+                line = _check_own_epilogue(
+                    line, got, _moments(torch, got[0], 1.0, CENTER),
+                    torch.clamp(got[0] * 255.0, 0, 255).to(torch.uint8), H * W)
+            print(line, flush=True)
     return (*inputs["charging"], max_err)
 
 
@@ -723,6 +758,30 @@ def _check_ac(torch, dev, gen):
             print(f"check ac_cas_macro mats={mats} R={rname} vs FFT oracle: max_abs_err {err:.3e}",
                   flush=True)
             _check(err <= TOL_ORACLE[mats], f"K4 vs FFT oracle {err} > {TOL_ORACLE[mats]}")
+    for H, W in SMALL_GRIDS:
+        us = 0.1 * torch.randn((AC_ENVS, H, W), generator=gen, device=dev)
+        consts = cas_constants(H, W, HX, HY, torch.bfloat16, dev)
+        for (rname, R), ep in itertools.product(
+                (("1", AC_R), ("1+0.5u^2", PolynomialMu(AC_R_GENERAL))),
+                (None, Epilogue(127.5, 127.5, 0.0, 1))):
+            kw = dict(mu_fn=AC_MU, R_fn=R, r_identity=r_is_identity(R), dt=DT, A=A,
+                      n_steps=SUBSTEPS, round_bf16=True, epilogue=ep)
+            got = ac_cas_macro_cuda(us, kap, consts, **kw)
+            want = ac_cas_macro_plain(us, kap, consts, **kw)
+            torch.cuda.synchronize()
+            if ep is None:
+                got, want = (got,), (want,)
+            err = (got[0] - want[0]).abs().max().item()
+            name = "ac_cas_macro_ep" if ep else "ac_cas_macro"
+            line = f"check {name} mats=bf16 R={rname} {H}x{W}: u1 max_abs_err {err:.3e}"
+            _check(err <= TOL_AC["bf16"], f"{line} > {TOL_AC['bf16']}")
+            if ep is not None:
+                e2, e1 = _stats_err(got[1], want[1], H * W)
+                lsb = (got[2].int() - want[2].int()).abs().max().item()
+                line += (f", stats s2 max_rel_err {e2:.3e}, s1 err/sqrt(n s2) {e1:.3e}, "
+                         f"obs max_lsb {lsb}")
+                _check(e2 <= 1e-3 and e1 <= 1e-3 and lsb <= 1, f"{line}: epilogue bounds")
+            print(line, flush=True)
     return u, kap, max_err
 
 
@@ -1465,6 +1524,13 @@ def main():
         for line in kernels.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print(f"build: {lib}: {line.strip()}", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib in SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", kernels.library_path(lib)],
+                              capture_output=True, text=True, check=True).stdout
+        n_hgmma = sass.count("HGMMA")
+        print(f"build: {lib}: {n_hgmma} HGMMA instructions in its SASS", flush=True)
+        _check(lib not in WGMMA_LIBS or n_hgmma > 0, f"{lib} has no HGMMA instruction")
 
     # ---- 3. kernel vs plain on the card, main-path shapes ---------------
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -16,23 +16,33 @@
 // mu and j0 are the presets' LogRatioMu and SqrtJ0 (bv_common.cuh).  With
 // bf16 matrices each transform's operand and intermediate are rounded to
 // bf16, as in the JAX kernel; products accumulate in f32.  The epilogue is
-// K1's (cas_common.cuh) at obs_downsample 1.
+// K1's (cas_common.cuh; its fragment-layout twin in cas_wgmma.cuh on the
+// bf16 path) at obs_downsample 1.
 //
 // Bound: 4 transforms = 16 products of 2*64^3 FLOPs per env-substep at 64^2
-// (8.4 MFLOP), 172 GFLOP per macro at 2048 envs x 10 substeps, run as f32
-// FMA on the CUDA cores (67 TFLOP/s; the tensor cores' bf16 rate would bound
-// it at 0.17 ms), plus the closure's ~40 operations a pixel-stage with a
-// logf, an expf, a sqrtf and three divisions.  Field traffic is 32 KB per env
-// and macro: arithmetic-bound.  Design as K4: one block of 256 threads owns
-// one env at a time (grid-stride), the four matrices and two transform tiles
-// in 96 KB of shared memory, each thread a 4 x 4 tile.  RK4 keeps u, the
-// accumulator, the stage input and one work tile live in registers (64 a
-// thread); lam is read through the read-only cache at each use rather than
-// held, to stay within 128 registers (two blocks an SM).  The two per-env
-// integrals are one block reduction (block_sum3) per stage.
+// (8.4 MFLOP), 172 GFLOP per macro at 2048 envs x 10 substeps (0.17 ms at the
+// tensor cores' bf16 rate), plus the closure's ~40 operations a pixel-stage
+// with a logf, an expf, a sqrtf and three divisions.  Field traffic is 32 KB
+// per env and macro: arithmetic-bound.  Two kernels, picked by the matrices'
+// type alone:
+//
+// - bf16 matrices (the preset's): bv_cc_macro_wg_kernel runs both products of
+//   every transform on the tensor cores (cas_wgmma.cuh: warpgroup wgmma, bf16
+//   operands, f32 accumulation, the JAX rounding sites); 48 KB of shared
+//   memory, each thread the 16 pixels of its accumulator fragment.
+// - f32 matrices: bv_cc_macro_kernel, f32 FMA on the CUDA cores (67 TFLOP/s
+//   peak; TF32 would not hold the f32 path's bounds), the four matrices and
+//   two f32 transform tiles in 96 KB of shared memory, a 4 x 4 tile a thread.
+//
+// Both: one block of 256 threads owns one env at a time (grid-stride).  RK4
+// keeps u, the accumulator, the stage input and one work tile live in
+// registers (64 a thread); lam is read through the read-only cache at each
+// use rather than held, to stay within 128 registers (two blocks an SM).  The
+// two per-env integrals are one block reduction (block_sum3) per stage.
 
 #include "bv_common.cuh"
 #include "cas_common.cuh"
+#include "cas_wgmma.cuh"
 
 namespace {
 
@@ -42,7 +52,8 @@ bv_cc_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ cra
                    const float* __restrict__ g_ich, const float* __restrict__ g_icw,
                    const float* __restrict__ lam, float* __restrict__ u_out, int B, int H,
                    int W, int n_steps, Rk4 rk, float kappa, float cell, BvCoeffs bv,
-                   bool rnd, Epilogue ep) {
+                   Epilogue ep) {
+  constexpr bool rnd = false;   // f32 matrices: bf16 runs bv_cc_macro_wg_kernel
   extern __shared__ float4 smem4[];
   const Tiles sm = carve_tiles(reinterpret_cast<float*>(smem4));
   const float *ch = sm.ch, *cw = sm.cw, *ich = sm.ich, *icw = sm.icw;
@@ -119,11 +130,91 @@ bv_cc_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ cra
   }
 }
 
+// The bf16 path on the tensor cores: the same macro as bv_cc_macro_kernel
+// with every transform a wg_transform (operand and intermediate rounded to
+// bf16), the fields in the fragment layout of cas_wgmma.cuh.  Pixels off the
+// grid (H or W below 64) are computed on and never stored or summed.
+__global__ void __launch_bounds__(kThreads, 2)
+bv_cc_macro_wg_kernel(const float* __restrict__ u_in, const float* __restrict__ crate,
+                      const float* __restrict__ g_ch, const float* __restrict__ g_cw,
+                      const float* __restrict__ g_ich, const float* __restrict__ g_icw,
+                      const float* __restrict__ lam, float* __restrict__ u_out, int B,
+                      int H, int W, int n_steps, Rk4 rk, float kappa, float cell,
+                      BvCoeffs bv, Epilogue ep) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const WgTiles sm = carve_wg_tiles(smem_wg);
+  __shared__ float red[kWarps][3];
+
+  const int tid = threadIdx.x;
+  const Own o = make_own(tid);
+  load_mats_wg(sm, g_ch, g_cw, g_ich, g_icw, H, W, tid);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * H * W;
+    const float C = crate[env];
+    // u: the field; acc: the RK sum; z: the stage input, then j0(z); a: the
+    // transform output, then exp(m/2), then the stage's k.
+    float u[4][4], acc[4][4], z[4][4], a[4][4] = {};
+    load_frag(u_in + off, H, W, o, u);
+
+    for (int s = 0; s < n_steps; ++s) {
+      for (int stage = 0; stage < 4; ++stage) {
+        // The previous transform's barriers have finished every read of Z^T.
+        rk4_stage_input(z, u, a, stage, rk);
+        store_operand(sm.zt, z, o, H, W);
+        wg_transform(sm, sm.ch, sm.cw, o, a);                      // fwd(z)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            if (o.valid(j, hi, H, W)) {
+              const float2 l = __ldg(
+                  reinterpret_cast<const float2*>(lam + o.row(2 * hi) * W + o.col(j, 0)));
+              a[j][2 * hi] *= l.x;
+              a[j][2 * hi + 1] *= l.y;
+            }
+        store_operand(sm.zt, a, o, H, W);
+        wg_transform(sm, sm.ich, sm.icw, o, a);                    // lap
+        float ip = 0.f, im = 0.f, unused = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float m = __fsub_rn(bv_mu(bv, z[j][e]), __fmul_rn(kappa, a[j][e]));
+            const float jj = bv_j0(bv, z[j][e]);
+            const float em = expf(0.5f * m);
+            if (o.valid(j, e >> 1, H, W)) {
+              ip += __fmul_rn(jj, em);
+              im += __fmul_rn(jj, __fdiv_rn(1.0f, em));
+            }
+            z[j][e] = jj;
+            a[j][e] = em;
+          }
+        block_sum3(ip, im, unused, red, tid);
+        const float y = bv_root(C, __fmul_rn(ip, cell), __fmul_rn(im, cell));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[j][e] = bv_reaction(z[j][e], a[j][e], y);
+        rk4_accumulate(acc, a, stage);
+      }
+      rk4_finish(u, acc, rk);
+    }
+
+    save_frag(u_out + off, H, W, o, u);
+    // Every thread has read the last reduction's totals before the epilogue
+    // (or the next env) writes red again.
+    __syncthreads();
+    if (ep.stats != nullptr) emit_field_epilogue_wg(u, wg_scratch(sm), red, ep, env, H, W, tid, o);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches K6 on `stream`.  stats == nullptr runs the plain macro; otherwise
+// Launches K6 on `stream`: the tensor-core kernel when round_bf16 (bf16
+// matrices), the FMA kernel otherwise.  stats == nullptr runs the plain macro; otherwise
 // stats and obs are written too.  dt_half, dt, dt_sixth are the RK4 stage
 // constants rounded to f32.  Returns a cudaError_t value, 0 on success.
 int bv_cc_macro_launch(const float* u, const float* crate, const float* ch, const float* cw,
@@ -137,13 +228,22 @@ int bv_cc_macro_launch(const float* u, const float* crate, const float* ch, cons
   const Epilogue ep{stats, obs, 1, obs_scale, obs_offset, center};
   const Rk4 rk{dt_half, dt, dt_sixth};
   const BvCoeffs bv{omega, clip_lo, clip_hi, j0_floor};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int resident = 0;
-  cudaError_t err = resident_blocks(bv_cc_macro_kernel, &resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = B < resident ? B : resident;
-  bv_cc_macro_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      u, crate, ch, cw, ich, icw, lam, out, B, H, W, n_steps, rk, kappa, cell, bv,
-      round_bf16 != 0, ep);
+  cudaError_t err;
+  if (round_bf16 != 0) {
+    if ((err = resident_blocks(bv_cc_macro_wg_kernel, &resident, kWgSmemBytes)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int grid = B < resident ? B : resident;
+    bv_cc_macro_wg_kernel<<<grid, kThreads, kWgSmemBytes, st>>>(
+        u, crate, ch, cw, ich, icw, lam, out, B, H, W, n_steps, rk, kappa, cell, bv, ep);
+  } else {
+    if ((err = resident_blocks(bv_cc_macro_kernel, &resident)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int grid = B < resident ? B : resident;
+    bv_cc_macro_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+        u, crate, ch, cw, ich, icw, lam, out, B, H, W, n_steps, rk, kappa, cell, bv, ep);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -229,9 +229,9 @@ def rk4_constants(dt: float):
     return 0.5 * float(dt), float(dt), float(dt) / 6.0
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("bv_cc_macro")
+def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K6's C interface on ``lib`` (``csrc/bv_cc_macro.cu`` built
+    for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bv_cc_macro_launch.argtypes = [
         p, p, p, p, p, p, p,             # u, crate, ch, cw, ich, icw, lam
@@ -246,6 +246,11 @@ def _library():
     lib.bv_cc_error_string.argtypes = [ctypes.c_int]
     lib.bv_cc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return _bind_library(load_library("bv_cc_macro"))
 
 
 def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants, *,

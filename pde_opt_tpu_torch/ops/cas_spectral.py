@@ -702,9 +702,9 @@ def ac_cas_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstant
     return (u, *_epilogue_plain(u, epilogue))
 
 
-@functools.lru_cache(maxsize=None)
-def _ac_library():
-    lib = load_library("ac_cas_macro")
+def _bind_ac_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K4's C interface on ``lib`` (``csrc/ac_cas_macro.cu`` built
+    for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ac_cas_macro_launch.argtypes = [
         p, p, p, p, p, p, p,             # u, kappa, ch, cw, ich, icw, lam
@@ -718,6 +718,11 @@ def _ac_library():
     lib.ac_cas_error_string.argtypes = [ctypes.c_int]
     lib.ac_cas_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ac_library():
+    return _bind_ac_library(load_library("ac_cas_macro"))
 
 
 def ac_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,

@@ -29,6 +29,7 @@ __all__ = [
     "NVCC_FLAGS",
     "load_library",
     "load_libraries",
+    "library_path",
     "build_log",
     "count_launch",
     "launch_counts",
@@ -116,6 +117,12 @@ def load_libraries(*names: str) -> List[ctypes.CDLL]:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raise if the build fails."""
     return load_libraries(name)[0]
+
+
+def library_path(name: str) -> str:
+    """The file of the loaded library built from ``csrc/<name>.cu`` (for
+    ``cuobjdump``); raises ``KeyError`` if it is not loaded."""
+    return _LIBS[name]._name
 
 
 def build_log(name: str) -> str:

@@ -69,10 +69,10 @@ def _jax():
     return jnp, make_ac_cas_fused_macro, ac_sif_macro_reference
 
 
-def _inputs(B, H, seed=0):
+def _inputs(B, H, seed=0, W=None):
     """AC fields around 0 with kappa across the env's control range."""
     rng = np.random.default_rng(seed)
-    u = (0.1 * rng.standard_normal((B, H, H))).astype(np.float32)
+    u = (0.1 * rng.standard_normal((B, H, H if W is None else W))).astype(np.float32)
     kap = np.linspace(1e-4, 1e-3, B).astype(np.float32)
     return u, kap
 
@@ -485,17 +485,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("H,W", [(16, 16), (64, 64), (24, 40), (8, 8)])
 @pytest.mark.parametrize("mats", ["f32", "bf16"])
 @pytest.mark.parametrize("general", [False, True])
 @pytest.mark.parametrize("ds", [0, 1, 4])
-def test_kernel_matches_plain_on_card(cuda_device, H, mats, general, ds):
+def test_kernel_matches_plain_on_card(cuda_device, H, W, mats, general, ds):
     B = 300
-    u, _ = _inputs(B, H, seed=H)
+    u, _ = _inputs(B, H, seed=H, W=W)
     u = torch.from_numpy(u).to(cuda_device)
     kap = torch.linspace(1e-4, 1e-3, B, device=cuda_device)
     tm = MATS[mats][1]
-    consts = cas_constants(H, H, 0.01, 0.01, tm, cuda_device)
+    consts = cas_constants(H, W, 0.01, 0.01, tm, cuda_device)
     R = R_T if general else AC_R
     ep = Epilogue(127.5, 127.5, 0.0, ds) if ds else None
     kw = dict(mu_fn=MU_T, R_fn=R, r_identity=r_is_identity(R), dt=1e-3, A=A,
@@ -512,6 +512,32 @@ def test_kernel_matches_plain_on_card(cuda_device, H, mats, general, ds):
     if ep is not None:
         _assert_epilogue(got[1].cpu().numpy(), got[2].cpu().numpy(),
                          want[1].cpu().numpy(), want[2].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mats", ["f32", "bf16"])
+def test_nan_env_leaves_later_envs_alone_on_card(cuda_device, mats):
+    """NaN in two envs of a batch larger than the resident blocks: each block
+    walks on to later envs (grid stride), which must all equal plain; the
+    poisoned envs are NaN where plain's are and their epilogue flags them."""
+    B, H, W = 1000, 24, 40
+    u, _ = _inputs(B, H, seed=11, W=W)
+    u = torch.from_numpy(u).to(cuda_device)
+    u[0, 5, 9] = float("nan")
+    u[7] = float("nan")
+    kap = torch.linspace(1e-4, 1e-3, B, device=cuda_device)
+    consts = cas_constants(H, W, 0.01, 0.01, MATS[mats][1], cuda_device)
+    kw = dict(mu_fn=MU_T, R_fn=R_T, r_identity=False, dt=1e-3, A=A, n_steps=10,
+              round_bf16=mats == "bf16", epilogue=Epilogue(127.5, 127.5, 0.0, 1))
+    got = ac_cas_macro_cuda(u, kap, consts, **kw)
+    want = ac_cas_macro_plain(u, kap, consts, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    keep = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    keep[[0, 7]] = False
+    assert not bool(torch.isnan(got[0][keep]).any())
+    torch.testing.assert_close(got[0][keep], want[0][keep], rtol=0, atol=TOL_U[mats])
+    assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][7, 2]) == 0.0
 
 
 def _rms(d):

@@ -82,10 +82,11 @@ def _jax_coeffs():
     return jnp, mu, j0
 
 
-def _inputs(B=5, N=16, seed=0):
+def _inputs(B=5, N=16, seed=0, W=None):
     """The JAX tests' setup: fields around 0.1 and C-rates across [0.5, 2]."""
     rng = np.random.default_rng(seed)
-    u = np.clip(0.1 + 0.01 * rng.standard_normal((B, N, N)), 0.01, 0.99).astype(np.float32)
+    shape = (B, N, N if W is None else W)
+    u = np.clip(0.1 + 0.01 * rng.standard_normal(shape), 0.01, 0.99).astype(np.float32)
     return u, np.linspace(0.5, 2.0, B).astype(np.float32)
 
 
@@ -561,21 +562,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _card_args(dev, B, H, seed, mats="f32", n_steps=10):
-    u, cr = _inputs(B, H, seed=seed)
+def _card_args(dev, B, H, seed, mats="f32", n_steps=10, W=None):
+    W = H if W is None else W
+    u, cr = _inputs(B, H, seed=seed, W=W)
     tm = MATS[mats][1]
-    consts = cas_constants(H, H, 1 / H, 1 / H, tm, dev)
-    kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, kappa=KAPPA, cell=1 / (H * H), dt=DT,
+    consts = cas_constants(H, W, 1 / H, 1 / W, tm, dev)
+    kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, kappa=KAPPA, cell=1 / (H * W), dt=DT,
               n_steps=n_steps, round_bf16=tm == torch.bfloat16)
     return torch.from_numpy(u).to(dev), torch.from_numpy(cr).to(dev), consts, kw
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("H,W", [(16, 16), (64, 64), (24, 40), (8, 8)])
 @pytest.mark.parametrize("mats", ["f32", "bf16"])
 @pytest.mark.parametrize("ep", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, H, mats, ep):
-    u, cr, consts, kw = _card_args(cuda_device, 300, H, H, mats)
+def test_kernel_matches_plain_on_card(cuda_device, H, W, mats, ep):
+    u, cr, consts, kw = _card_args(cuda_device, 300, H, H, mats, W=W)
     epi = Epilogue(255.0, 0.0, 0.5, 1) if ep else None
     name = "bv_cc_macro_ep" if ep else "bv_cc_macro"
     before = kernels.launch_counts()[name]
@@ -590,6 +592,29 @@ def test_kernel_matches_plain_on_card(cuda_device, H, mats, ep):
         assert torch.equal(got[1][:, 2], want[1][:, 2])
         torch.testing.assert_close(got[1][:, :2], want[1][:, :2], rtol=1e-4, atol=0)
         assert int((got[2].int() - want[2].int()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mats", ["f32", "bf16"])
+def test_nan_env_leaves_later_envs_alone_on_card(cuda_device, mats):
+    """NaN in two envs of a batch larger than the resident blocks: each block
+    walks on to later envs (grid stride), which must all equal plain; the
+    poisoned envs are NaN where plain's are and their epilogue flags them."""
+    B, H, W = 1000, 24, 40
+    u, cr, consts, kw = _card_args(cuda_device, B, H, 11, mats, W=W)
+    u[0, 5, 9] = float("nan")
+    u[7] = float("nan")
+    epi = Epilogue(255.0, 0.0, 0.5, 1)
+    got = bv_cc_macro_cuda(u, cr, consts, epilogue=epi, **kw)
+    want = bv_cc_macro_plain(u, cr, consts, epilogue=epi, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    keep = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    keep[[0, 7]] = False
+    assert not bool(torch.isnan(got[0][keep]).any())
+    torch.testing.assert_close(got[0][keep], want[0][keep], rtol=0,
+                               atol=1e-5 if mats == "f32" else 1e-4)
+    assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][7, 2]) == 0.0
 
 
 def _rms(d):
