@@ -27,13 +27,17 @@ caught):
 2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``,
    one ``nvcc`` per source, in parallel; print ``ptxas -v``'s lines and each
    library's count of warpgroup MMA (``HGMMA``) instructions in its SASS
-   (``cuobjdump -sass``): K4's and K6's bf16 paths run on the tensor cores,
-   so ``ac_cas_macro`` and ``bv_cc_macro`` must hold some.
+   (``cuobjdump -sass``): the bf16 paths of K1-K3, K4 and K6 run on the
+   tensor cores, so ``ch_cas_macro``, ``ac_cas_macro`` and ``bv_cc_macro``
+   must hold some.
 3. Hold each kernel against its plain-torch version on the card at its
    path's shapes, with f32 and bf16 matrices: the CH macro (K2 without, K1
    with the env epilogue, obs_downsample 1 and 4; also against the FFT
-   oracle) and its backward K3; the epilogue variant's gradient (stats fold
-   + K3) against the plain autograd Function on the CPU; the AC macro (K4,
+   oracle) and its backward K3 (with bf16 matrices after 10 substeps also
+   against a plain backward accumulated in f64, the control of its bound;
+   see TOL_BWD); K1-K3 with bf16 matrices also at 16 x 16 and 24 x 40; the
+   epilogue variant's gradient (stats fold + K3) against the plain autograd
+   Function on the CPU; the AC macro (K4,
    epilogue on and off, the R == 1 path and a polynomial R; also against the
    FFT oracle); the GPE macro (K5, epilogue on and off, phase polynomials on
    and off; also against the FFT oracle); the BV macro (K6, f32 and bf16,
@@ -41,7 +45,8 @@ caught):
    SBM macro (K7, epilogue on and off, and against its oracle), each
    epilogue also against the kernel's own final field; K4 and K6 with bf16
    matrices also at 16 x 16 and 24 x 40 (the tensor-core kernels' padding
-   of grids below 64 x 64), epilogue on and off.  K4, K5 and K6 with
+   of grids below 64 x 64), epilogue on and off.  K2, K3 (du and dkappa on
+   the loss's cotangent, and TOL_BWD), K4, K5 and K6 with
    bf16 matrices are also held after one substep, where a misplaced
    rounding shows: the RMS of kernel - plain must sit below a bound that
    the unrounded plain version (the control) exceeds.  K8 against its plain
@@ -153,10 +158,16 @@ TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
 # K3 vs its plain backward, each error relative to its maximum (du, dkappa),
 # measured plus headroom: f32 is the same arithmetic (du 5.9e-7, dkappa
 # 3.7e-5 measured on an H100); with bf16 matrices and the training loss's
-# cotangent, du 3.5e-7 and dkappa 4.2e-3.  With bf16 matrices and a random
-# cotangent no bound is held: on the training field (0.5 +- 0.01) rounding
-# u_k to bf16 (ulp 2e-3) is ~10% of the fluctuation fwd(u_k) carries, so a
-# flipped rounding between two accumulation orders moves dkappa by ~1e-2.
+# cotangent, du 3.5e-7 and dkappa 4.2e-3 for the FMA kernel, whose f32 sums
+# ran in cuBLAS's order.  With bf16 matrices the sweep rounds gbar (about 1,
+# bf16 ulp 7.8e-3) to bf16 every substep, so sums in another order flip a
+# rounding now and then, and one flip moves du by about that ulp: after 10
+# substeps the plain backward with its products accumulated in f64 sits
+# 8.0e-3 (du) and 2.5e-2 (dkappa) from the plain one on the training fields,
+# in a few of 1024 envs, as the tensor-core kernel does (H100).  So bf16 is held
+# at TOL_BWD after one substep, and after 10 within TOL_BWD or twice the
+# f64-accumulated control's distance, whichever is larger; the random
+# cotangent (a flip moves dkappa by ~1e-2 there) is reported, not bounded.
 TOL_BWD = {"f32": (5e-6, 1e-4), "bf16": (1e-5, 1e-2)}
 # AC fleet (the preset: L = 0.01 * grid, step_dt 0.01, A = 1, kappa in
 # [1e-4, 1e-3]); K4 is held at the CH macro's bounds, bf16 tighter (5e-4:
@@ -184,6 +195,10 @@ TOL_GPE_ORACLE = {"f32": 5e-6, "bf16": 3e-2}
 # the control, the plain version with the rounding off (what a kernel that
 # ignores it computes), which every run measures.
 TOL_SITE = {"ac_r1": 2e-6, "ac_general": 6e-6, "gpe": 5e-5, "bv": 2e-7}
+# K2 and K3 (du, dkappa) after one substep, loss cotangent (measured on an
+# H100: K2 rms 2.4e-6 against the control's 8.8e-4; K3 du 4.7e-8 against
+# 2.0e-3, dkappa 5.1e-6 against 5.6e-2).
+TOL_SITE.update({"ch": 2e-5, "ch_bwd": (5e-7, 1e-4)})
 FLEET_STEPS_NO_EP = 10          # steps of each fleet without the epilogue
 # BV and SBM fleets (the presets: box 1, h = 1/64, kappa 5e-4, step_dt 5e-3,
 # dt 5e-4, C-rate in [0.2, 3], 40-step episodes).  K6 and K7 against their
@@ -196,11 +211,11 @@ FLEET_STEPS_NO_EP = 10          # steps of each fleet without the epilogue
 BV_ENVS, SBM_ENVS, BV_KAPPA, BV_DT = 2048, 1024, 5e-4, 5e-4
 TOL_BV = {"f32": 1e-5, "bf16": 1e-4}
 TOL_BV_ORACLE = 2e-5
-# Grids below 64 x 64 on the tensor-core kernels of K4 and K6 (bf16 matrices,
-# zero-padded to 64 in shared memory), at the fleets' env counts.
+# Grids below 64 x 64 on the tensor-core kernels of K1-K3, K4 and K6 (bf16
+# matrices, zero-padded to 64 in shared memory), at the paths' env counts.
 SMALL_GRIDS = ((16, 16), (24, 40))
 # Libraries whose SASS must hold warpgroup MMA (HGMMA) instructions.
-WGMMA_LIBS = ("ac_cas_macro", "bv_cc_macro")
+WGMMA_LIBS = ("ch_cas_macro", "ac_cas_macro", "bv_cc_macro")
 TOL_CHARGE = 0.05
 # The card-side gradient (64 envs x 64^2 x 2 substeps, bf16 matrices for BV):
 # value to rtol 1e-5, d/dcrate to 1e-3 of its largest entry.  Both sides run
@@ -702,6 +717,105 @@ def _check_card_grad(torch, dev, gen, name, make_macro):
     _check(bool(torch.isfinite(g_gpu).all()) and e_v <= TOL_GRAD[0] and e_g <= TOL_GRAD[1],
            f"{line} > {TOL_GRAD}")
     print(line, flush=True)
+
+
+def _bwd_errs(got, want):
+    """The (du, dkappa) max errors of ``got`` against ``want``, each relative
+    to want's largest entry."""
+    return tuple(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+
+
+def _bwd_f64_accumulated(torch, u, kap, g, consts, kw):
+    """The plain CH backward with every product accumulated in f64 and
+    rounded once to f32: a second correct bf16 backward, at the same
+    rounding sites, whose distance from the plain version is the control of
+    K3's bf16 check."""
+    from unittest import mock
+
+    from pde_opt_tpu_torch.ops import cas_spectral
+
+    def transforms(c, round_bf16):
+        def rnd(z):
+            return z.to(torch.bfloat16).to(torch.float32)
+
+        def tr(z, mh, mw):
+            t = rnd(torch.matmul(rnd(z).transpose(-1, -2).double(), mh.double()).float())
+            return torch.matmul(t.transpose(-1, -2).double(), mw.double()).float()
+
+        return (lambda z: tr(z, c.ch, c.cw), lambda z: tr(z, c.ich, c.icw))
+
+    with mock.patch.object(cas_spectral, "_transforms", transforms):
+        return cas_spectral.ch_cas_macro_bwd_plain(u, kap, g, consts, **kw)
+
+
+def _check_bwd_bf16(torch, line, got, want, alt):
+    """K3 with bf16 matrices against its plain backward after n substeps on
+    the loss's cotangent: each of du and dkappa within TOL_BWD["bf16"] or
+    twice the f64-accumulated control's distance from plain, whichever is
+    larger (see TOL_BWD).  Returns the errors."""
+    e, c = _bwd_errs(got, want), _bwd_errs(alt, want)
+    bounds = [max(t, 2.0 * ci) for t, ci in zip(TOL_BWD["bf16"], c)]
+    rms = [_rms(a - b) / _rms(b) for a, b in zip(got, want)]
+
+    def envs_off(du):
+        """Envs with a du pixel off plain's by more than TOL_BWD of max|du|."""
+        d = (du - want[0]).abs().amax((-2, -1))
+        return int((d > TOL_BWD["bf16"][0] * want[0].abs().max()).sum())
+
+    line += (f": du max_rel_err {e[0]:.3e} (rms {rms[0]:.3e}, {envs_off(got[0])} of "
+             f"{len(got[1])} envs above {TOL_BWD['bf16'][0]:.0e}), dkappa max_rel_err {e[1]:.3e}; "
+             f"f64-accumulated plain {c[0]:.3e} ({envs_off(alt[0])} envs), {c[1]:.3e}; bounds "
+             f"{bounds[0]:.3e}, {bounds[1]:.3e}")
+    _check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+           f"{line}: non-finite")
+    _check(e[0] <= bounds[0] and e[1] <= bounds[1], line)
+    print(line, flush=True)
+    return e
+
+
+def _check_ch_small(torch, dev, gen, kap, kap_tg):
+    """K1, K2 and K3 with bf16 matrices (the tensor-core kernels' zero
+    padding) at grids below 64 x 64, at the serving and training env counts;
+    K3 on the loss's cotangent."""
+    from pde_opt_tpu_torch.envs.presets import CH_MU
+    from pde_opt_tpu_torch.ops.cas_spectral import (
+        Epilogue,
+        cas_constants,
+        ch_cas_macro_bwd_cuda,
+        ch_cas_macro_bwd_plain,
+        ch_cas_macro_cuda,
+        ch_cas_macro_plain,
+    )
+
+    for H, W in SMALL_GRIDS:
+        us = 0.45 + 0.05 * torch.randn((NUM_ENVS, H, W), generator=gen, device=dev)
+        consts = cas_constants(H, W, HX, HY, torch.bfloat16, dev)
+        kw = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=True)
+        for ep in (None, Epilogue(255.0, 0.0, CENTER, 1), Epilogue(255.0, 0.0, CENTER, 4)):
+            got = ch_cas_macro_cuda(us, kap, consts, epilogue=ep, **kw)
+            want = ch_cas_macro_plain(us, kap, consts, epilogue=ep, **kw)
+            torch.cuda.synchronize()
+            if ep is None:
+                got, want = (got,), (want,)
+            err = (got[0] - want[0]).abs().max().item()
+            name = "ch_cas_macro_ep" if ep else "ch_cas_macro"
+            line = (f"check {name} mats=bf16 ds={ep.ds if ep else '-'} {H}x{W}: u1 max_abs_err "
+                    f"{err:.3e}")
+            _check(err <= TOL_U["bf16"], f"{line} > {TOL_U['bf16']}")
+            if ep is not None:
+                _check(torch.equal(got[1][:, 2], want[1][:, 2]), f"{line}: n_finite differs")
+                rel = ((got[1][:, :2] - want[1][:, :2]).abs() / want[1][:, :2].abs()).max().item()
+                lsb = (got[2].int() - want[2].int()).abs().max().item()
+                line += f", stats max_rel_err {rel:.3e}, obs max_lsb {lsb}"
+                _check(rel <= 1e-3 and lsb <= 1, f"{line}: epilogue bounds")
+            print(line, flush=True)
+        ub = (0.5 + 0.01 * torch.randn((TG_ENVS, H, W), generator=gen, device=dev)).contiguous()
+        g = 2.0 * ch_cas_macro_plain(ub, kap_tg, consts, **kw)
+        got = ch_cas_macro_bwd_cuda(ub, kap_tg, g, consts, **kw)
+        want = ch_cas_macro_bwd_plain(ub, kap_tg, g, consts, **kw)
+        torch.cuda.synchronize()
+        _check_bwd_bf16(torch, f"check ch_cas_macro_bwd mats=bf16 cotangent=loss {H}x{W}", got,
+                        want, _bwd_f64_accumulated(torch, ub, kap_tg, g, consts, kw))
 
 
 def _check_ac(torch, dev, gen):
@@ -1522,7 +1636,7 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for lib in SOURCES:
         for line in kernels.build_log(lib).splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "stack frame")):
                 print(f"build: {lib}: {line.strip()}", flush=True)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for lib in SOURCES:
@@ -1567,6 +1681,12 @@ def main():
             print(line, flush=True)
             if mats == "bf16":
                 max_err[name] = max(max_err[name], err)
+        if mdt == torch.bfloat16:
+            one = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=1, round_bf16=True)
+            _check_sites("ch_cas_macro mats=bf16", ch_cas_macro_cuda(u, kap, consts, **one),
+                         ch_cas_macro_plain(u, kap, consts, **one),
+                         ch_cas_macro_plain(u, kap, consts, **{**one, "round_bf16": False}),
+                         TOL_SITE["ch"])
         oracle = ch_cas_macro_reference(CH_MU, HX, HY, A, DT, SUBSTEPS)(u, kap)
         got = ch_cas_macro_cuda(u, kap, consts, mu_fn=CH_MU, dt=DT, A=A,
                                 n_steps=SUBSTEPS, round_bf16=mdt == torch.bfloat16)
@@ -1597,13 +1717,44 @@ def main():
                     f"{e_du:.3e} (max_abs_err {e_abs:.3e}), dkappa max_rel_err {e_dk:.3e}")
             tol_u, tol_k = TOL_BWD[mats]
             _check(bool(torch.isfinite(du).all() and torch.isfinite(dk).all()), f"{line}: non-finite")
-            if mats == "f32" or cot == "loss":
+            if mats == "f32":
                 _check(e_du <= tol_u and e_dk <= tol_k, f"{line} > {TOL_BWD[mats]}")
+            elif cot == "loss":
+                _check_bwd_bf16(torch, f"check ch_cas_macro_bwd mats=bf16 cotangent=loss "
+                                f"(max_abs_err {e_abs:.3e})", (du, dk), (pdu, pdk),
+                                _bwd_f64_accumulated(torch, u_tg, kap_tg, g, consts, kw))
+                bwd_err = e_abs
+                # The same launch again, and the first 200 envs alone (one a
+                # block, where 1024 envs give a block up to four): bitwise
+                # equal, so no state leaks between a block's envs.
+                again = ch_cas_macro_bwd_cuda(u_tg, kap_tg, g, consts, **kw)
+                few = ch_cas_macro_bwd_cuda(u_tg[:200].contiguous(), kap_tg[:200].contiguous(),
+                                            g[:200].contiguous(), consts, **kw)
+                _check(torch.equal(again[0], du) and torch.equal(again[1], dk)
+                       and torch.equal(few[0], du[:200]) and torch.equal(few[1], dk[:200]),
+                       "K3 bf16 is not deterministic, or an env depends on its block's others")
+                print("check ch_cas_macro_bwd mats=bf16: deterministic, and 200 envs alone equal "
+                      "their share of the 1024-env launch", flush=True)
+                continue
             else:
                 line += " (reported, no bound)"
             print(line, flush=True)
-            if mats == "bf16" and cot == "loss":
-                bwd_err = e_abs
+        if mdt == torch.bfloat16:
+            one = {**kw, "n_steps": 1}
+            g1 = 2.0 * ch_cas_macro_plain(u_tg, kap_tg, consts, **one)
+            got = ch_cas_macro_bwd_cuda(u_tg, kap_tg, g1, consts, **one)
+            want = ch_cas_macro_bwd_plain(u_tg, kap_tg, g1, consts, **one)
+            ctl = ch_cas_macro_bwd_plain(u_tg, kap_tg, g1, consts, **{**one, "round_bf16": False})
+            e_du, e_dk = _bwd_errs(got, want)
+            line = (f"check ch_cas_macro_bwd mats=bf16 cotangent=loss, 1 substep: du max_rel_err "
+                    f"{e_du:.3e}, dkappa max_rel_err {e_dk:.3e}")
+            _check(e_du <= TOL_BWD["bf16"][0] and e_dk <= TOL_BWD["bf16"][1],
+                   f"{line} > {TOL_BWD['bf16']}")
+            print(line, flush=True)
+            for i, part in enumerate(("du", "dkappa")):
+                _check_sites(f"ch_cas_macro_bwd mats=bf16 loss cotangent, {part}", got[i],
+                             want[i], ctl[i], TOL_SITE["ch_bwd"][i])
+    _check_ch_small(torch, dev, gen, kap, kap_tg)
 
     # The epilogue variant's gradient (stats fold + K3) against the plain
     # autograd Function on the CPU, on the first 64 envs.
@@ -2047,6 +2198,12 @@ def main():
               f"grad-env-substeps/s ({TG_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps) [{card}]",
               flush=True)
     print(f"fused vs fft value+grad: {rates['fused'] / rates['fft']:.2f}x [{card}]", flush=True)
+    kw = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=True)
+    k2_tg = _time_ms(torch, lambda: ch_cas_macro_cuda(u_tg, kap_tg, consts, **kw))
+    k3_tg = timings["ch_cas_macro_bwd"][0]
+    print(f"value+grad fused: K2 at {TG_ENVS} envs {k2_tg:.4f} ms + K3 {k3_tg:.4f} ms = "
+          f"{k2_tg + k3_tg:.4f} ms of a {TG_ENVS * SUBSTEPS / rates['fused'] * 1e3:.4f} ms call "
+          f"[{card}]", flush=True)
     dft_rate = TG_ENVS * SUBSTEPS / (dft_grad_ms * 1e-3)
     print(f"value+grad dft (K9a + oracle backward) vs cas (K2 + K3): {dft_rate:.1f} vs "
           f"{rates['fused']:.1f} grad-env-substeps/s, {dft_rate / rates['fused']:.2f}x [{card}]",

@@ -5,7 +5,7 @@
 // Replaces the TPU kernels of pde_opt_tpu/ops/cas_spectral.py,
 // make_ch_cas_fused_macro: `kernel` (the plain macro, K2), `kernel_ep`
 // with `_ep_emit` (the macro plus the env epilogue, K1) and `bwd_kernel`
-// (the macro's VJP, K3; see ch_cas_macro_bwd_kernel below).  It computes
+// (the macro's VJP, K3; see the backward kernels below).  It computes
 // what they compute, per env, without their MXU layout (no 128-wide env
 // packing, no block-diagonal matrices, no int32 detour before uint8, no
 // packed kappa accumulator summed outside the kernel):
@@ -25,15 +25,26 @@
 // 2.1 MFLOP at 64^2; at 4096 envs x 10 substeps that is ~86 GFLOP against
 // ~150 MB of field traffic, so the kernel is bound by arithmetic, not by
 // device memory.  Design: one block of 256 threads owns one env at a time
-// (grid-stride over envs, so each block loads the four matrices once); the
-// matrices and two transform tiles live in 96 KB of shared memory; u, u~ and
-// the per-pixel multipliers stay in registers for all substeps, so the field
-// touches device memory once in and once out.  Each thread computes a 4x4
-// output tile of every product from float4 shared-memory loads, in plain f32
-// FMA on the CUDA cores.  The transform, the tile helpers and the epilogue
-// are shared with K4 and K5 (cas_common.cuh).
+// (grid-stride over envs, so each block loads the four matrices once); u,
+// u~ and the per-pixel multipliers stay in registers for all substeps, so the
+// field touches device memory once in and once out.  Two kernels each for
+// the forward and the backward, picked by the matrices' type alone:
+//
+// - bf16 matrices (the presets' and train_grad's): ch_cas_macro_wg_kernel
+//   and ch_cas_macro_bwd_wg_kernel run both products of every transform on
+//   the tensor cores (cas_wgmma.cuh: warpgroup wgmma, bf16 operands, f32
+//   accumulation, the JAX rounding sites); 48 KB of shared memory, each
+//   thread the 16 pixels of its accumulator fragment, capped at 128
+//   registers so that two blocks fit an SM.
+// - f32 matrices: ch_cas_macro_kernel and ch_cas_macro_bwd_kernel, f32 FMA
+//   on the CUDA cores (TF32 would not hold the f32 path's bounds); the four
+//   matrices and two f32 transform tiles in 96 KB of shared memory, a 4 x 4
+//   output tile a thread from float4 shared-memory loads.  The transform,
+//   the tile helpers and the epilogue are shared with K4 and K5
+//   (cas_common.cuh).
 
 #include "cas_common.cuh"
+#include "cas_wgmma.cuh"
 
 namespace {
 
@@ -44,7 +55,8 @@ ch_cas_macro_kernel(const float* __restrict__ u_in,
                     const float* __restrict__ g_ich, const float* __restrict__ g_icw,
                     const float* __restrict__ lam, const float* __restrict__ lam2,
                     float* __restrict__ u_out, int B, int H, int W, int n_steps,
-                    float dt, float a_dt, MuPoly mu, bool rnd, Epilogue ep) {
+                    float dt, float a_dt, MuPoly mu, Epilogue ep) {
+  constexpr bool rnd = false;   // f32 matrices: bf16 runs ch_cas_macro_wg_kernel
   extern __shared__ float4 smem4[];
   const Tiles sm = carve_tiles(reinterpret_cast<float*>(smem4));
   const float *ch = sm.ch, *cw = sm.cw, *ich = sm.ich, *icw = sm.icw;
@@ -127,14 +139,84 @@ ch_cas_macro_kernel(const float* __restrict__ u_in,
   }
 }
 
+// The bf16 path on the tensor cores: the same macro as ch_cas_macro_kernel
+// with every transform a wg_transform (operand and intermediate rounded to
+// bf16), the fields in the fragment layout of cas_wgmma.cuh.  Pixels off the
+// grid (H or W below 64) are computed on and never stored or summed.
+__global__ void __launch_bounds__(kThreads, 2)
+ch_cas_macro_wg_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
+                       const float* __restrict__ g_ch, const float* __restrict__ g_cw,
+                       const float* __restrict__ g_ich, const float* __restrict__ g_icw,
+                       const float* __restrict__ lam, const float* __restrict__ lam2,
+                       float* __restrict__ u_out, int B, int H, int W, int n_steps,
+                       float dt, float a_dt, MuPoly mu, Epilogue ep) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const WgTiles sm = carve_wg_tiles(smem_wg);
+  __shared__ float red[kWarps][3];
+
+  const int tid = threadIdx.x;
+  const Own o = make_own(tid);
+  load_mats_wg(sm, g_ch, g_cw, g_ich, g_icw, H, W, tid);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * H * W;
+    const float k = kappa[env];
+    float u[4][4], ut[4][4], cm[4][4], cu[4][4], f[4][4];
+    load_frag(u_in + off, H, W, o, u);
+    load_frag(lam, H, W, o, cm);
+    load_frag(lam2, H, W, o, cu);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float denom = 1.0f / (1.0f + a_dt * (k * cu[j][e]));
+        cm[j][e] = (dt * cm[j][e]) * denom;
+        cu[j][e] = ((dt * k) * cu[j][e]) * denom;
+      }
+    // The previous env's last barrier has finished every read of the tiles.
+    store_operand(sm.zt, u, o, H, W);
+    wg_transform(sm, sm.ch, sm.cw, o, ut);                         // u~ = fwd(u)
+
+    for (int s = 0; s < n_steps; ++s) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[j][e] = mu_eval(mu, u[j][e]);
+      store_operand(sm.zt, f, o, H, W);
+      wg_transform(sm, sm.ch, sm.cw, o, f);                        // fwd(mu(u))
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float incr = cm[j][e] * f[j][e] - cu[j][e] * ut[j][e];
+          ut[j][e] += incr;
+          f[j][e] = incr;
+        }
+      store_operand(sm.zt, f, o, H, W);
+      wg_transform(sm, sm.ich, sm.icw, o, f);                      // inv(incr)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[j][e] += f[j][e];
+    }
+
+    save_frag(u_out + off, H, W, o, u);
+    if (ep.stats != nullptr) {
+      emit_field_epilogue_wg(u, wg_scratch(sm), red, ep, env, H, W, tid, o);
+    } else {
+      __syncthreads();   // every read of the tiles is done before the next env writes them
+    }
+  }
+}
+
 // ---- K3: the macro's VJP (`bwd_kernel`) -----------------------------------
 //
 // Per env: re-run the forward substeps, stashing each substep's input field
 // in this block's slot of a device-memory scratch (n_steps x H x W f32:
 // 160 KB at 64^2 x 10 substeps, more than shared memory holds beside the
-// matrices; two resident blocks per SM make ~42 MB of slots, which mostly
-// stay in the 50 MB L2), then sweep back with seven transforms per substep,
-// as the JAX kernel does:
+// matrices; two resident blocks per SM make ~43 MB of slots, which mostly
+// stay in the 50 MB L2), then sweep back with five transforms per substep,
+// as the JAX kernel does (1 + 7 n_steps transforms an env in all):
 //
 //   ghat  = fwd(gbar)
 //   kacc += ghat/(H*W) * (dcm * fwd(mu(u_k)) - dcu * fwd(u_k))
@@ -143,11 +225,14 @@ ch_cas_macro_kernel(const float* __restrict__ u_in,
 //   dcm = d cm/d kappa = -A*dt^2*lam^3*denom^2,  dcu = d cu/d kappa = dt*lam^2*denom^2
 //
 // Bound: 7 transforms = 14*H*W*(H+W) FLOPs per env-substep (7.3 MFLOP at
-// 64^2), f32 FMA on the CUDA cores, as in K1/K2.  gbar and kacc stay in
-// registers for the whole sweep; the four multipliers are recomputed from
-// lam/lam2 where they are used (held for 16 pixels each beside gbar, kacc
-// and ghat they would spill).  Each block reduces its env's kacc to one
-// float (shuffles, then shared memory), as the K1 epilogue reduces stats.
+// 64^2).  Two kernels, as the forward: ch_cas_macro_bwd_wg_kernel on the
+// tensor cores with bf16 matrices (every transform rounds, as the JAX
+// kernel's and the plain backward's do), ch_cas_macro_bwd_kernel in f32 FMA
+// with f32 matrices.  gbar and kacc stay in registers for the whole sweep;
+// the four multipliers are recomputed from lam/lam2 where they are used
+// (held for 16 pixels each beside gbar, kacc and ghat they would spill).
+// Each block reduces its env's kacc to one float (shuffles, then shared
+// memory), as the K1 epilogue reduces stats.
 
 struct StepConsts {
   float dt, a_dt, neg_a_dt2;   // dt, A*dt, -A*dt*dt
@@ -180,7 +265,8 @@ ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
                         const float* __restrict__ lam, const float* __restrict__ lam2,
                         float* __restrict__ du_out, float* __restrict__ dk_out,
                         float* __restrict__ scratch, int B, int H, int W, int n_steps,
-                        StepConsts c, MuPoly mu, MuPoly dmu, bool rnd) {
+                        StepConsts c, MuPoly mu, MuPoly dmu) {
+  constexpr bool rnd = false;   // f32 matrices: bf16 runs ch_cas_macro_bwd_wg_kernel
   extern __shared__ float4 smem4[];
   const Tiles sm = carve_tiles(reinterpret_cast<float*>(smem4));
   const float *ch = sm.ch, *cw = sm.cw, *ich = sm.ich, *icw = sm.icw;
@@ -329,6 +415,144 @@ ch_cas_macro_bwd_kernel(const float* __restrict__ u_in,
   }
 }
 
+// The multipliers of fragment pixel (j, e); zero off the grid, where lam
+// has no entry.
+__device__ __forceinline__ Mult mult_frag(const float* __restrict__ lam,
+                                          const float* __restrict__ lam2, const Own& o,
+                                          int j, int e, int H, int W, float k,
+                                          StepConsts c) {
+  if (!o.valid(j, e >> 1, H, W)) return Mult{0.f, 0.f, 0.f, 0.f};
+  return mult_at(lam, lam2, o.row(e) * W + o.col(j, e), k, c);
+}
+
+// The bf16 backward on the tensor cores: ch_cas_macro_bwd_kernel's forward
+// re-run and sweep with every transform a wg_transform and every per-pixel
+// value in the fragment layout of cas_wgmma.cuh.  kacc is summed into one
+// float a thread as it accrues (the same terms in another order, which
+// frees 15 registers); pixels off the grid add nothing and are never stored.
+__global__ void __launch_bounds__(kThreads, 2)
+ch_cas_macro_bwd_wg_kernel(const float* __restrict__ u_in,
+                           const float* __restrict__ kappa,
+                           const float* __restrict__ g_in,
+                           const float* __restrict__ g_ch, const float* __restrict__ g_cw,
+                           const float* __restrict__ g_ich, const float* __restrict__ g_icw,
+                           const float* __restrict__ lam, const float* __restrict__ lam2,
+                           float* __restrict__ du_out, float* __restrict__ dk_out,
+                           float* __restrict__ scratch, int B, int H, int W, int n_steps,
+                           StepConsts c, MuPoly mu, MuPoly dmu) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const WgTiles sm = carve_wg_tiles(smem_wg);
+  __shared__ float red[kWarps];
+
+  const int tid = threadIdx.x;
+  const Own o = make_own(tid);
+  const int hw = H * W;
+  const float inv_hw = 1.0f / static_cast<float>(hw);
+  // This block's trajectory slot; each thread reads back only the pixels
+  // it wrote itself, so the slot needs no barrier.
+  float* traj = scratch + static_cast<size_t>(blockIdx.x) * n_steps * hw;
+
+  load_mats_wg(sm, g_ch, g_cw, g_ich, g_icw, H, W, tid);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * hw;
+    const float k = kappa[env];
+    float u[4][4], ut[4][4], f[4][4];
+
+    // ---- forward re-run: traj[s] = the input field of substep s ----
+    load_frag(u_in + off, H, W, o, u);
+    store_operand(sm.zt, u, o, H, W);
+    wg_transform(sm, sm.ch, sm.cw, o, ut);
+    for (int s = 0; s < n_steps; ++s) {
+      save_frag(traj + static_cast<size_t>(s) * hw, H, W, o, u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[j][e] = mu_eval(mu, u[j][e]);
+      store_operand(sm.zt, f, o, H, W);
+      wg_transform(sm, sm.ch, sm.cw, o, f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Mult m = mult_frag(lam, lam2, o, j, e, H, W, k, c);
+          const float incr = m.cm * f[j][e] - m.cu * ut[j][e];
+          ut[j][e] += incr;
+          f[j][e] = incr;
+        }
+      store_operand(sm.zt, f, o, H, W);
+      wg_transform(sm, sm.ich, sm.icw, o, f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[j][e] += f[j][e];
+    }
+
+    // ---- reverse sweep; u, ut and f now hold u_k, ghat and temporaries ----
+    float gb[4][4], part = 0.f;
+    load_frag(g_in + off, H, W, o, gb);
+    for (int s = n_steps - 1; s >= 0; --s) {
+      const float* uk = traj + static_cast<size_t>(s) * hw;
+      load_frag(uk, H, W, o, u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[j][e] = mu_eval(mu, u[j][e]);
+      store_operand(sm.zt, f, o, H, W);
+      wg_transform(sm, sm.ch, sm.cw, o, f);                        // fwd(mu(u_k))
+      store_operand(sm.zt, u, o, H, W);
+      wg_transform(sm, sm.ch, sm.cw, o, u);                        // fwd(u_k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Mult m = mult_frag(lam, lam2, o, j, e, H, W, k, c);
+          f[j][e] = m.dcm * f[j][e] - m.dcu * u[j][e];
+        }
+      store_operand(sm.zt, gb, o, H, W);
+      wg_transform(sm, sm.ch, sm.cw, o, ut);                       // ghat = fwd(gbar)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Mult m = mult_frag(lam, lam2, o, j, e, H, W, k, c);
+          if (o.valid(j, e >> 1, H, W)) part += (inv_hw * ut[j][e]) * f[j][e];
+          f[j][e] = m.cm * ut[j][e];
+        }
+      store_operand(sm.zt, f, o, H, W);
+      wg_transform(sm, sm.ich, sm.icw, o, f);                      // inv(cm * ghat)
+      load_frag(uk, H, W, o, u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Mult m = mult_frag(lam, lam2, o, j, e, H, W, k, c);
+          gb[j][e] += mu_eval(dmu, u[j][e]) * f[j][e];
+          f[j][e] = m.cu * ut[j][e];
+        }
+      store_operand(sm.zt, f, o, H, W);
+      wg_transform(sm, sm.ich, sm.icw, o, f);                      // inv(cu * ghat)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gb[j][e] -= f[j][e];
+    }
+
+    save_frag(du_out + off, H, W, o, gb);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(0xffffffffu, part, d);
+    if ((tid & 31) == 0) red[tid / 32] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float a = 0.f;
+      for (int w = 0; w < kWarps; ++w) a += red[w];
+      dk_out[env] = a;
+    }
+    // The next env's first wg_transform holds barriers that order this read
+    // of red before the next write.
+  }
+}
+
 bool bad_shape(int B, int H, int W, int n_steps, int n_coeffs) {
   return bad_grid(B, H, W, n_steps) || bad_poly(n_coeffs);
 }
@@ -337,8 +561,9 @@ bool bad_shape(int B, int H, int W, int n_steps, int n_coeffs) {
 
 extern "C" {
 
-// Launches the macro on `stream`.  stats == nullptr runs the plain macro
-// (K2); otherwise stats and obs are written too (K1).  Returns a
+// Launches the macro on `stream`: the tensor-core kernel when round_bf16
+// (bf16 matrices), the FMA kernel otherwise.  stats == nullptr runs the
+// plain macro (K2); otherwise stats and obs are written too (K1).  Returns a
 // cudaError_t value, 0 on success.
 int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
                         const float* cw, const float* ich, const float* icw,
@@ -351,26 +576,39 @@ int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
   if (bad_shape(B, H, W, n_steps, n_coeffs) || ds < 1 || H % ds || W % ds)
     return static_cast<int>(cudaErrorInvalidValue);
   const MuPoly mu = make_mu(mu_coeffs, n_coeffs);
-  Epilogue ep{stats, obs, ds, obs_scale, obs_offset, center};
+  const Epilogue ep{stats, obs, ds, obs_scale, obs_offset, center};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int resident = 0;
-  cudaError_t err = resident_blocks(ch_cas_macro_kernel, &resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = B < resident ? B : resident;
-  ch_cas_macro_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      u, kappa, ch, cw, ich, icw, lam, lam2, out, B, H, W, n_steps, dt, a_dt, mu,
-      round_bf16 != 0, ep);
+  cudaError_t err;
+  if (round_bf16 != 0) {
+    if ((err = resident_blocks(ch_cas_macro_wg_kernel, &resident, kWgSmemBytes)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int grid = B < resident ? B : resident;
+    ch_cas_macro_wg_kernel<<<grid, kThreads, kWgSmemBytes, st>>>(
+        u, kappa, ch, cw, ich, icw, lam, lam2, out, B, H, W, n_steps, dt, a_dt, mu, ep);
+  } else {
+    if ((err = resident_blocks(ch_cas_macro_kernel, &resident)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int grid = B < resident ? B : resident;
+    ch_cas_macro_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+        u, kappa, ch, cw, ich, icw, lam, lam2, out, B, H, W, n_steps, dt, a_dt, mu, ep);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The number of trajectory slots a backward launch needs on the current
-// device: one per block resident at once.
-int ch_cas_macro_bwd_slots(int* slots) {
-  return static_cast<int>(resident_blocks(ch_cas_macro_bwd_kernel, slots));
+// device: one per block of the kernel that round_bf16 picks resident at once.
+int ch_cas_macro_bwd_slots(int round_bf16, int* slots) {
+  const cudaError_t err =
+      round_bf16 != 0 ? resident_blocks(ch_cas_macro_bwd_wg_kernel, slots, kWgSmemBytes)
+                      : resident_blocks(ch_cas_macro_bwd_kernel, slots);
+  return static_cast<int>(err);
 }
 
-// Launches the backward (K3) on `stream`: du (B, H, W) and dkappa (B,) from
-// u, kappa and the cotangent g.  `scratch` holds n_slots x max(n_steps, 1)
-// x H x W floats; the grid is min(B, n_slots).  Returns a cudaError_t value.
+// Launches the backward (K3) on `stream`, the tensor-core kernel when
+// round_bf16: du (B, H, W) and dkappa (B,) from u, kappa and the cotangent g.
+// `scratch` holds n_slots x max(n_steps, 1) x H x W floats; the grid is
+// min(B, n_slots).  Returns a cudaError_t value.
 int ch_cas_macro_bwd_launch(const float* u, const float* kappa, const float* g,
                             const float* ch, const float* cw, const float* ich,
                             const float* icw, const float* lam, const float* lam2,
@@ -382,14 +620,24 @@ int ch_cas_macro_bwd_launch(const float* u, const float* kappa, const float* g,
   if (bad_shape(B, H, W, n_steps, n_coeffs) || n_dcoeffs < 1 ||
       n_dcoeffs > kMaxCoeffs || n_slots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(ch_cas_macro_bwd_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const StepConsts c{dt, a_dt, neg_a_dt2};
+  const MuPoly mu = make_mu(mu_coeffs, n_coeffs), dmu = make_mu(dmu_coeffs, n_dcoeffs);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = B < n_slots ? B : n_slots;
-  ch_cas_macro_bwd_kernel<<<grid, kThreads, kSmemBytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      u, kappa, g, ch, cw, ich, icw, lam, lam2, du, dkappa, scratch, B, H, W,
-      n_steps, StepConsts{dt, a_dt, neg_a_dt2}, make_mu(mu_coeffs, n_coeffs),
-      make_mu(dmu_coeffs, n_dcoeffs), round_bf16 != 0);
+  cudaError_t err;
+  if (round_bf16 != 0) {
+    if ((err = allow_smem(ch_cas_macro_bwd_wg_kernel, kWgSmemBytes)) != cudaSuccess)
+      return static_cast<int>(err);
+    ch_cas_macro_bwd_wg_kernel<<<grid, kThreads, kWgSmemBytes, st>>>(
+        u, kappa, g, ch, cw, ich, icw, lam, lam2, du, dkappa, scratch, B, H, W, n_steps, c,
+        mu, dmu);
+  } else {
+    if ((err = allow_smem(ch_cas_macro_bwd_kernel)) != cudaSuccess)
+      return static_cast<int>(err);
+    ch_cas_macro_bwd_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+        u, kappa, g, ch, cw, ich, icw, lam, lam2, du, dkappa, scratch, B, H, W, n_steps, c,
+        mu, dmu);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -292,9 +292,9 @@ def ch_cas_macro_bwd_plain(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor
     return gbar, kacc.sum((-2, -1))
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("ch_cas_macro")
+def _bind_ch_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K1-K3's C interface on ``lib`` (``csrc/ch_cas_macro.cu`` built
+    for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ch_cas_macro_launch.argtypes = [
         p, p, p, p, p, p, p, p,          # u, kappa, ch, cw, ich, icw, lam, lam2
@@ -305,7 +305,7 @@ def _library():
         p,                               # stream
     ]
     lib.ch_cas_macro_launch.restype = ctypes.c_int
-    lib.ch_cas_macro_bwd_slots.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.ch_cas_macro_bwd_slots.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
     lib.ch_cas_macro_bwd_slots.restype = ctypes.c_int
     lib.ch_cas_macro_bwd_launch.argtypes = [
         p, p, p,                         # u, kappa, g
@@ -319,6 +319,11 @@ def _library():
     lib.ch_cas_error_string.argtypes = [ctypes.c_int]
     lib.ch_cas_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return _bind_ch_library(load_library("ch_cas_macro"))
 
 
 def _raise_if(rc: int, what: str):
@@ -387,7 +392,8 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     """The Hopper kernel: same contract as :func:`ch_cas_macro_plain`.
 
     Launches ``csrc/ch_cas_macro.cu`` on the current stream (K1 with an
-    epilogue, K2 without) and counts the launch.  Raises on anything the
+    epilogue, K2 without; with ``round_bf16`` the tensor-core kernel, else
+    the f32 FMA kernel) and counts the launch.  Raises on anything the
     kernel does not take.
     """
     B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
@@ -425,12 +431,13 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_slots(device_index: int) -> int:
-    """Blocks of the backward kernel resident at once on one device: the
-    number of trajectory scratch slots a launch needs."""
+def _bwd_slots(device_index: int, round_bf16: bool) -> int:
+    """Blocks of the backward kernel that ``round_bf16`` picks (tensor-core
+    or FMA) resident at once on one device: the number of trajectory scratch
+    slots a launch needs."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = _library().ch_cas_macro_bwd_slots(ctypes.byref(n))
+        rc = _library().ch_cas_macro_bwd_slots(int(round_bf16), ctypes.byref(n))
     _raise_if(rc, "ch_cas_macro_bwd_slots")
     return n.value
 
@@ -438,8 +445,8 @@ def _bwd_slots(device_index: int) -> int:
 def ch_cas_macro_bwd_cuda(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
                           consts: CasConstants, *, mu_fn: Callable, dt: float,
                           A: float, n_steps: int, round_bf16: bool):
-    """The Hopper backward kernel K3: same contract as
-    :func:`ch_cas_macro_bwd_plain`.
+    """The Hopper backward kernel K3 (with ``round_bf16`` on the tensor
+    cores, else f32 FMA): same contract as :func:`ch_cas_macro_bwd_plain`.
 
     ``mu'`` reaches the kernel as :meth:`PolynomialMu.derivative`.  Each
     resident block re-runs its envs' forward into its own slot of a
@@ -454,7 +461,7 @@ def ch_cas_macro_bwd_cuda(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
     n_steps = int(n_steps)
     du = torch.empty_like(u)
     dkappa = torch.empty((B,), dtype=torch.float32, device=dev)
-    slots = min(B, _bwd_slots(dev.index))
+    slots = min(B, _bwd_slots(dev.index, bool(round_bf16)))
     scratch = torch.empty((slots, max(n_steps, 1), H, W), dtype=torch.float32,
                           device=dev)
     coeffs, n_coeffs = _c_coeffs(mu_fn)

@@ -1,5 +1,6 @@
-"""Kernels K4 (``csrc/ac_cas_macro.cu``) and K6 (``csrc/bv_cc_macro.cu``)
-compiled for the CPU and held against their plain versions.
+"""Kernels K1-K3 (``csrc/ch_cas_macro.cu``), K4 (``csrc/ac_cas_macro.cu``)
+and K6 (``csrc/bv_cc_macro.cu``) compiled for the CPU and held against their
+plain versions.
 
 The CUDA sources compile with g++ against the stub headers of
 ``tests/cuda_stub/``: a block runs as 256 ``std::thread``s with a
@@ -15,12 +16,16 @@ constructs C++ has no grammar for: the ``<<<...>>>`` launch and ``extern
 __shared__``.
 
 Three envs on one block (the stub's device holds one block), so the block
-walks the envs by grid stride; two substeps; (H, W) in {(16, 16), (24, 40),
-(64, 64)}.  Bounds: the card tests' (``test_torch_ac.py``: field 1e-3 with
-bf16 matrices, 1e-5 with f32; stats n_finite exact, s2 to rtol 1e-3, s1 to
-1e-3 of sqrt(n_px s2); ``test_torch_bv.py``: field 1e-4 bf16, 1e-5 f32,
-stats to rtol 1e-4), obs within 1 LSB.  The bf16 bounds cover two
-summation orders of the products rounding a bf16 tie apart.
+walks the envs by grid stride and K3's three envs share one trajectory slot;
+two substeps (K3 also none); (H, W) in {(16, 16), (24, 40), (64, 64)}.
+Bounds: the card tests' (``test_torch_cas_macro.py``, ``chip_smoke.py``: CH
+field 1e-3 with bf16 matrices, 1e-5 with f32, stats to rtol 1e-3; K3's du
+and dkappa relative to their maxima, ``TOL_BWD``, on the cotangent of
+``sum(u1**2)``; ``test_torch_ac.py``: field 1e-3 bf16, 1e-5 f32; stats
+n_finite exact, s2 to rtol 1e-3, s1 to 1e-3 of sqrt(n_px s2);
+``test_torch_bv.py``: field 1e-4 bf16, 1e-5 f32, stats to rtol 1e-4), obs
+within 1 LSB.  The bf16 bounds cover two summation orders of the products
+rounding a bf16 tie apart.
 """
 
 import ctypes
@@ -44,9 +49,12 @@ from pde_opt_tpu_torch.ops.cas_spectral import (
     Epilogue,
     PolynomialMu,
     _bind_ac_library,
+    _bind_ch_library,
     _c_coeffs,
     ac_cas_macro_plain,
     cas_constants,
+    ch_cas_macro_bwd_plain,
+    ch_cas_macro_plain,
     r_is_identity,
 )
 
@@ -62,6 +70,9 @@ AC_DT, AC_A = 1e-3, 1.0
 BV_KAPPA, BV_DT = 5e-4, 5e-4
 TOL_AC = {True: 1e-3, False: 1e-5}                # by round_bf16
 TOL_BV = {True: 1e-4, False: 1e-5}
+CH_DT, CH_A = 1e-3, 1.0
+TOL_CH = {True: 1e-3, False: 1e-5}
+TOL_BWD = {True: (1e-5, 1e-2), False: (5e-6, 1e-4)}   # du, dkappa over their maxima
 
 
 def _cpu_source(src: str) -> str:
@@ -73,8 +84,8 @@ def _cpu_source(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """Build ``ac_cas_macro.cu`` and ``bv_cc_macro.cu`` for the CPU, in
-    parallel; return their bound libraries (K4, K6)."""
+    """Build ``ac_cas_macro.cu``, ``bv_cc_macro.cu`` and ``ch_cas_macro.cu``
+    for the CPU, in parallel; return their bound libraries (K4, K6, K1-K3)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the CPU")
@@ -83,7 +94,7 @@ def libs(tmp_path_factory):
         if header.name != "wgmma_ops.cuh":
             shutil.copy(header, build)
     procs = {}
-    for name in ("ac_cas_macro", "bv_cc_macro"):
+    for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro"):
         src = build / f"{name}.cpp"
         src.write_text(_cpu_source((CSRC / f"{name}.cu").read_text()))
         procs[name] = subprocess.Popen(
@@ -95,7 +106,8 @@ def libs(tmp_path_factory):
         _, err = proc.communicate()
         assert proc.returncode == 0, f"g++ failed on {name}:\n{err}"
     return (_bind_ac_library(ctypes.CDLL(str(build / "libac_cas_macro.so"))),
-            _bind_bv(ctypes.CDLL(str(build / "libbv_cc_macro.so"))))
+            _bind_bv(ctypes.CDLL(str(build / "libbv_cc_macro.so"))),
+            _bind_ch_library(ctypes.CDLL(str(build / "libch_cas_macro.so"))))
 
 
 def _ptr(t):
@@ -168,6 +180,76 @@ def _bv_plain(u, cr, consts, ep, bf16):
                              epilogue=ep)
 
 
+def _ch_inputs(H, W, seed):
+    """Fields around 0.45 (sum(u - 0.5) far from 0) and kappa across the CH
+    fleet's control range."""
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy((0.45 + 0.05 * rng.standard_normal((B, H, W))).astype(np.float32))
+    return u, torch.from_numpy(np.linspace(2e-3, 1e-2, B).astype(np.float32))
+
+
+def _ch_consts(H, W, bf16):
+    return cas_constants(H, W, 0.01, 0.01, torch.bfloat16 if bf16 else torch.float32,
+                         torch.device("cpu"))
+
+
+def _ch_kw(n_steps, bf16):
+    return dict(mu_fn=MU, dt=CH_DT, A=CH_A, n_steps=n_steps, round_bf16=bf16)
+
+
+def _mats(consts):
+    return (consts.ch.data_ptr(), consts.cw.data_ptr(), consts.ich.data_ptr(),
+            consts.icw.data_ptr(), consts.lam.data_ptr(), consts.lam2.data_ptr())
+
+
+def _ch_kernel(lib, u, kap, consts, ep, bf16):
+    Bn, H, W = u.shape
+    out, stats, obs = _outputs(u, ep)
+    mu_c, n_mu = _c_coeffs(MU)
+    rc = lib.ch_cas_macro_launch(
+        u.data_ptr(), kap.data_ptr(), *_mats(consts), out.data_ptr(), _ptr(stats), _ptr(obs),
+        Bn, H, W, N_STEPS, CH_DT, CH_A * CH_DT, mu_c, n_mu, int(bf16), ep.ds if ep else 1,
+        ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0, ep.center if ep else 0.0,
+        None)
+    assert rc == 0
+    return out if ep is None else (out, stats, obs)
+
+
+def _ch_bwd(lib, u, kap, consts, bf16, n_steps):
+    """K3 and the plain backward on the cotangent of ``sum(u1**2)``:
+    ``((du, dkappa), (plain du, plain dkappa))``."""
+    Bn, H, W = u.shape
+    kw = _ch_kw(n_steps, bf16)
+    g = 2.0 * ch_cas_macro_plain(u, kap, consts, **kw)
+    slots = ctypes.c_int(0)
+    assert lib.ch_cas_macro_bwd_slots(int(bf16), ctypes.byref(slots)) == 0
+    assert slots.value == 1        # one block: every env reuses its trajectory slot
+    du, dk = torch.empty_like(u), torch.empty(Bn)
+    scratch = torch.empty((slots.value, max(n_steps, 1), H, W))
+    mu_c, n_mu = _c_coeffs(MU)
+    dmu_c, n_dmu = _c_coeffs(MU.derivative())
+    rc = lib.ch_cas_macro_bwd_launch(
+        u.data_ptr(), kap.data_ptr(), g.data_ptr(), *_mats(consts), du.data_ptr(),
+        dk.data_ptr(), scratch.data_ptr(), slots.value, Bn, H, W, n_steps, CH_DT,
+        CH_A * CH_DT, -(CH_A * CH_DT * CH_DT), mu_c, n_mu, dmu_c, n_dmu, int(bf16), None)
+    assert rc == 0
+    return (du, dk), ch_cas_macro_bwd_plain(u, kap, g, consts, **kw)
+
+
+def _assert_bwd(got, want, bf16):
+    tol_u, tol_k = TOL_BWD[bf16]
+    (du, dk), (pdu, pdk) = got, want
+    assert ((du - pdu).abs().max() / pdu.abs().max()).item() <= tol_u
+    assert ((dk - pdk).abs().max() / pdk.abs().max().clamp_min(1e-30)).item() <= tol_k
+
+
+def _assert_ch_epilogue(got, want):
+    assert torch.equal(got[1][:, 2], want[1][:, 2])
+    torch.testing.assert_close(got[1][:, :2], want[1][:, :2], rtol=1e-3, atol=0)
+    assert got[2].shape == want[2].shape
+    assert int((got[2].int() - want[2].int()).abs().max()) <= 1
+
+
 def _assert_ac_epilogue(got, want):
     n_px = got[0].shape[-1] * got[0].shape[-2]
     st, wt = got[1].double(), want[1].double()
@@ -212,11 +294,50 @@ def test_bv_bf16_kernel_matches_plain(libs, H, W, ep):
         assert int((got[2].int() - want[2].int()).abs().max()) <= 1
 
 
-@pytest.mark.parametrize("kernel", ["ac", "bv"])
+@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("ds", [0, 1, 4])
+def test_ch_bf16_kernel_matches_plain(libs, H, W, ds):
+    """K2 (ds 0) and K1 (the env epilogue, obs at ds 1 and mean-pooled at
+    ds 4) on the tensor-core kernel."""
+    u, kap = _ch_inputs(H, W, seed=H + W)
+    consts = _ch_consts(H, W, True)
+    ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
+    got = _ch_kernel(libs[2], u, kap, consts, ep, True)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
+    if ep is None:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_CH[True])
+    if ep is not None:
+        _assert_ch_epilogue(got, want)
+
+
+@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("n_steps", [N_STEPS, 0])
+def test_ch_bwd_bf16_kernel_matches_plain(libs, H, W, n_steps):
+    """K3 on the tensor cores, three envs through one trajectory slot; with
+    no substep it returns du = g and dkappa = 0."""
+    u, kap = _ch_inputs(H, W, seed=2 * H + W)
+    got, want = _ch_bwd(libs[2], u, kap, _ch_consts(H, W, True), True, n_steps)
+    _assert_bwd(got, want, True)
+    if n_steps == 0:
+        assert torch.equal(got[0], want[0]) and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("kernel", ["ac", "bv", "ch", "ch_bwd"])
 def test_f32_fma_kernel_matches_plain_off_square(libs, kernel):
     """The f32 path (the FMA kernels of cas_common.cuh) at (24, 40)."""
     H, W = 24, 40
-    if kernel == "ac":
+    if kernel == "ch_bwd":
+        u, kap = _ch_inputs(H, W, seed=3)
+        _assert_bwd(*_ch_bwd(libs[2], u, kap, _ch_consts(H, W, False), False, N_STEPS), False)
+        return
+    if kernel == "ch":
+        u, kap = _ch_inputs(H, W, seed=3)
+        consts = _ch_consts(H, W, False)
+        got = _ch_kernel(libs[2], u, kap, consts, None, False)
+        want = ch_cas_macro_plain(u, kap, consts, **_ch_kw(N_STEPS, False))
+        tol = TOL_CH[False]
+    elif kernel == "ac":
         u, kap = _ac_inputs(H, W, seed=3)
         consts = cas_constants(H, W, 0.01, 0.01, torch.float32, torch.device("cpu"))
         got = _ac_kernel(libs[0], u, kap, consts, R_POLY, None, False)
@@ -231,14 +352,31 @@ def test_f32_fma_kernel_matches_plain_off_square(libs, kernel):
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("kernel", ["ac", "bv"])
+@pytest.mark.parametrize("kernel", ["ac", "bv", "ch", "ch_bwd"])
 def test_nan_env_stays_in_its_env(libs, kernel):
     """One NaN pixel in the first env: the block that takes it goes on to the
     other two envs (grid stride), which must still equal plain; the NaN env
-    is NaN wherever plain's is, and its epilogue flags it."""
+    is NaN wherever plain's is, and its epilogue flags it (K3: its du and
+    dkappa are NaN, the other envs' are not)."""
     H, W = 24, 40
     ep = Epilogue(255.0, 0.0, 0.5, 1)
-    if kernel == "ac":
+    if kernel == "ch_bwd":
+        u, kap = _ch_inputs(H, W, seed=5)
+        u[0, 3, 7] = float("nan")
+        got, want = _ch_bwd(libs[2], u, kap, _ch_consts(H, W, True), True, N_STEPS)
+        assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+        assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+        assert bool(torch.isnan(got[1][0])) and not bool(torch.isnan(got[1][1:]).any())
+        _assert_bwd([t[1:] for t in got], [t[1:] for t in want], True)
+        return
+    if kernel == "ch":
+        u, kap = _ch_inputs(H, W, seed=5)
+        u[0, 3, 7] = float("nan")
+        consts = _ch_consts(H, W, True)
+        got = _ch_kernel(libs[2], u, kap, consts, ep, True)
+        want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
+        tol = TOL_CH[True]
+    elif kernel == "ac":
         u, kap = _ac_inputs(H, W, seed=5)
         u[0, 3, 7] = float("nan")
         consts = cas_constants(H, W, 0.01, 0.01, torch.bfloat16, torch.device("cpu"))
