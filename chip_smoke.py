@@ -27,9 +27,9 @@ caught):
 2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``,
    one ``nvcc`` per source, in parallel; print ``ptxas -v``'s lines and each
    library's count of warpgroup MMA (``HGMMA``) instructions in its SASS
-   (``cuobjdump -sass``): the bf16 paths of K1-K3, K4 and K6 run on the
-   tensor cores, so ``ch_cas_macro``, ``ac_cas_macro`` and ``bv_cc_macro``
-   must hold some.
+   (``cuobjdump -sass``): the bf16 paths of K1-K3, K4, K5 and K6 run on the
+   tensor cores, so ``ch_cas_macro``, ``ac_cas_macro``, ``gpe_strang_macro``
+   and ``bv_cc_macro`` must hold some.
 3. Hold each kernel against its plain-torch version on the card at its
    path's shapes, with f32 and bf16 matrices: the CH macro (K2 without, K1
    with the env epilogue, obs_downsample 1 and 4; also against the FFT
@@ -43,16 +43,17 @@ caught):
    and off; also against the FFT oracle); the BV macro (K6, f32 and bf16,
    epilogue on and off; f32 also against the roll-stencil oracle) and the
    SBM macro (K7, epilogue on and off, and against its oracle), each
-   epilogue also against the kernel's own final field; K4 and K6 with bf16
-   matrices also at 16 x 16 and 24 x 40 (the tensor-core kernels' padding
-   of grids below 64 x 64), epilogue on and off.  K2, K3 (du and dkappa on
+   epilogue also against the kernel's own final field; K4, K5 and K6 with
+   bf16 matrices also at 16 x 16 and 24 x 40 (the tensor-core kernels'
+   padding of grids below 64 x 64), epilogue on and off.  K2, K3 (du and dkappa on
    the loss's cotangent, and TOL_BWD), K4, K5 and K6 with
    bf16 matrices are also held after one substep, where a misplaced
    rounding shows: the RMS of kernel - plain must sit below a bound that
    the unrounded plain version (the control) exceeds.  K8 against its plain
    version, 2D at 4096 x 64^2 (the fleet's c^3 - c and D == 1, c^3 - c and
    1 + 0.5 c^2, the Legendre pair) and 3D at 256 x 32^3 (the Legendre
-   pair), on the paths' fields and on fields far outside [0, 1]; the 3D
+   pair), on the paths' fields and on fields far outside [0, 1], and 3D at
+   N1 = 2 and 10 and on a non-cubic grid (the march's wrap in N1); the 3D
    mobility macro (f32 matrices, 16 envs) against its FFT oracle and with
    K8 against the roll chain.  K9a at the CH path's and K9b at the AC
    fleet's shapes (R == 1, and a polynomial R on 256 envs), f32 and bf16
@@ -79,7 +80,9 @@ caught):
    finite, per-env mass held, exactly 50 K8 launches a call; its rate
    against the FFT path (``SemiImplicitFourierSpectral`` on the
    equation's ``rhs_fd``), one call's time split (K8, transforms, the
-   rest) and the unit-mobility macro's rate against its FFT path.  The CH
+   rest; K8 also on two fields in turn, each launch finding its input out
+   of L2 as in the call), the solve's host enqueue against its wall time
+   and the unit-mobility macro's rate against its FFT path.  The CH
    fleet with ``derivs="pallas"``: 30 fft steps (10 K8 launches a step)
    and 5 fused steps (K1, no K8), each with its own counts.  Value and
    gradient of the 3D macro with respect to kappa on the card against the
@@ -211,11 +214,11 @@ FLEET_STEPS_NO_EP = 10          # steps of each fleet without the epilogue
 BV_ENVS, SBM_ENVS, BV_KAPPA, BV_DT = 2048, 1024, 5e-4, 5e-4
 TOL_BV = {"f32": 1e-5, "bf16": 1e-4}
 TOL_BV_ORACLE = 2e-5
-# Grids below 64 x 64 on the tensor-core kernels of K1-K3, K4 and K6 (bf16
-# matrices, zero-padded to 64 in shared memory), at the paths' env counts.
+# Grids below 64 x 64 on the tensor-core kernels of K1-K6 (bf16 matrices,
+# zero-padded to 64 in shared memory), at the paths' env counts.
 SMALL_GRIDS = ((16, 16), (24, 40))
 # Libraries whose SASS must hold warpgroup MMA (HGMMA) instructions.
-WGMMA_LIBS = ("ch_cas_macro", "ac_cas_macro", "bv_cc_macro")
+WGMMA_LIBS = ("ch_cas_macro", "ac_cas_macro", "gpe_strang_macro", "bv_cc_macro")
 TOL_CHARGE = 0.05
 # The card-side gradient (64 envs x 64^2 x 2 substeps, bf16 matrices for BV):
 # value to rtol 1e-5, d/dcrate to 1e-3 of its largest entry.  Both sides run
@@ -235,6 +238,14 @@ M3_MU, M3_D = (0.0, 1.0, 0.5), (0.3, 0.2)
 # envs) against its FFT oracle and "pallas" against "xla" (the JAX tests'
 # 1e-6 and 2e-5 bounds, here over 50 substeps of the bench's dt).
 TOL_K8, M3_CHECK_ENVS, TOL_M3_ORACLE, TOL_M3_IMPL = 1e-5, 16, 1e-5, 2e-5
+# K8 3D also at N1 = 2 and 10 (the march's wrap in N1 within a run of a few
+# planes), on a non-cubic grid and on planes of an odd number of floats (the
+# (m, d) pairs' padding), (B, N1, N2, N3) and spacings, Legendre pair.
+K8_3D_SHAPES = (((M3_ENVS, 2, 32, 32), (0.01, 0.01, 0.01)),
+                ((M3_ENVS, 10, 32, 32), (0.01, 0.01, 0.01)),
+                ((M3_ENVS, 24, 16, 40), (0.01, 0.02, 0.03)),
+                ((M3_ENVS, 4, 5, 7), (0.01, 0.02, 0.03)),
+                ((M3_ENVS, 9, 9, 9), (0.01, 0.01, 0.01)))
 # Per-env mass drift over the main path's 10 calls.  The flux form
 # telescopes; with bf16 matrices the k = 0 mode carries rounding noise, in
 # the JAX macro too: 6.3e-4 (JAX) and 5.8e-4 (the port) over 10 calls of 4
@@ -964,7 +975,54 @@ def _check_gpe(torch, dev, gen, env):
         print(f"check gpe_strang_macro mats={mats} vs FFT oracle: max_abs_err {err:.3e}",
               flush=True)
         _check(err <= TOL_GPE_ORACLE[mats], f"K5 vs FFT oracle {err} > {TOL_GPE_ORACLE[mats]}")
+    for H, W in SMALL_GRIDS:
+        _check_gpe_small(torch, dev, gen, H, W)
     return y, ctrl, V, spot, max_err
+
+
+def _check_gpe_small(torch, dev, gen, H, W):
+    """K5 with bf16 matrices (the tensor-core kernel's zero padding) on an
+    H x W grid at the fleet's env count, epilogue on and off: the preset's
+    reset state on that grid (a Gaussian on the 16-wide box, noise added, unit
+    norm), its trap, a spot control per env in the control range."""
+    from pde_opt_tpu_torch.ops.gpe_cas import (
+        GpeEpilogue,
+        gpe_constants,
+        gpe_strang_macro_cuda,
+        gpe_strang_macro_plain,
+    )
+
+    dx = GPE_BOX / H
+    xs = (torch.arange(H, device=dev) - H / 2) * dx
+    ys = (torch.arange(W, device=dev) - W / 2) * dx
+    X, Y = torch.meshgrid(xs, ys, indexing="ij")
+    V = (0.5 * (X**2 + Y**2)).contiguous()
+    spot = torch.exp(-((X - 1.0) ** 2 + Y**2)).contiguous()
+    noise = 0.1 * torch.randn((GPE_ENVS, H, W, 2), generator=gen, device=dev)
+    y = torch.exp(-(X**2 + Y**2) / 4)[..., None] * (torch.tensor([1.0, 0.0], device=dev) + noise)
+    y = (y / ((y**2).sum((-3, -2, -1), keepdim=True) * dx * dx).sqrt()).contiguous()
+    ctrl = ((50.0 * torch.rand((GPE_ENVS,), generator=gen, device=dev))[:, None, None]
+            * spot).contiguous()
+    consts = gpe_constants(H, W, dx, 2e-3, torch.bfloat16, dev)
+    for ep in (None, GpeEpilogue(2550.0, spot)):
+        kw = dict(g=GPE_G, dt=2e-3, dx=dx, n_steps=SUBSTEPS, round_bf16=True, phase_poly=True,
+                  epilogue=ep)
+        got = gpe_strang_macro_cuda(y, ctrl, V, consts, **kw)
+        want = gpe_strang_macro_plain(y, ctrl, V, consts, **kw)
+        torch.cuda.synchronize()
+        if ep is None:
+            got, want = (got,), (want,)
+        err = (got[0] - want[0]).abs().max().item()
+        name = "gpe_strang_macro_ep" if ep else "gpe_strang_macro"
+        line = f"check {name} mats=bf16 {H}x{W}: y1 max_abs_err {err:.3e}"
+        _check(bool(torch.isfinite(got[0]).all()) and err <= TOL_GPE["bf16"],
+               f"{line} > {TOL_GPE['bf16']}")
+        if ep is not None:
+            rho = got[0][..., 0] ** 2 + got[0][..., 1] ** 2
+            own = torch.stack([(rho * spot).sum((-2, -1)), rho.sum((-2, -1))], -1)
+            line = _check_own_epilogue(line, got, own,
+                                       torch.clamp(rho * 2550.0, 0, 255).to(torch.uint8), H * W)
+        print(line, flush=True)
 
 
 def _episode_ends(torch, terms, end_step):
@@ -1106,6 +1164,11 @@ def _check_k8(torch, dev, gen):
         h = 0.01
         cases.append(("ch3d_rhs_fd", f"3D {M3_ENVS}x{M3_N}^3 Legendre {field}", ch3d_rhs_fd_cuda,
                       ch3d_rhs_fd_plain, u, k3, dict(mu_fn=mu3, D_fn=d3, h1=h, h2=h, h3=h)))
+    for shape, (h1, h2, h3) in K8_3D_SHAPES:
+        us = torch.clamp(0.5 + 0.05 * torch.randn(shape, generator=gen, device=dev), 0.0, 1.0)
+        cases.append(("ch3d_rhs_fd", f"3D {'x'.join(map(str, shape))} Legendre",
+                      ch3d_rhs_fd_cuda, ch3d_rhs_fd_plain, us, k3,
+                      dict(mu_fn=mu3, D_fn=d3, h1=h1, h2=h2, h3=h3)))
     max_err = {}
     for name, what, cuda, plain, u, k, kw in cases:
         got, want = cuda(u, k, **kw), plain(u, k, **kw)
@@ -1192,6 +1255,7 @@ def _drive_mobility(torch, kernels, dev, gen, card):
     torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
     sol = model.solve(params, y0, ts, solver_params, dt0=M3_DT)
+    t_enq = time.perf_counter() - t0            # the host's enqueue, before the wait
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     t_cas = time.perf_counter() - t0
@@ -1245,14 +1309,35 @@ def _drive_mobility(torch, kernels, dev, gen, card):
         for _ in range(M3_SUBSTEPS):
             ch3d_rhs_fd_cuda(z, kf, mu_fn=mu, D_fn=D, h1=h, h2=h, h3=h)
 
+    # K8 on two fields in turn: each launch's input (33.5 MB) and output were
+    # pushed out of the 50 MB L2 by the other launch's, as the call's
+    # transforms push them out between its K8 launches.
+    z2 = sol[-2].contiguous()
+
+    def k8_cold():
+        for i in range(M3_SUBSTEPS):
+            ch3d_rhs_fd_cuda(z if i % 2 else z2, kf, mu_fn=mu, D_fn=D, h1=h, h2=h, h3=h)
+
     t_call = _time_ms(torch, lambda: stepper.evolve(None, z, 0.0, M3_DT, M3_SUBSTEPS), reps=3,
                       warmup=1)
     t_k8 = _time_ms(torch, k8, reps=3, warmup=1)
+    t_k8c = _time_ms(torch, k8_cold, reps=3, warmup=1)
     t_tr = _time_ms(torch, transforms, reps=3, warmup=1)
     print(f"3D mobility call split ({B} envs x {N}^3 x {M3_SUBSTEPS} substeps, bf16): call "
           f"{t_call:.4f} ms = K8 {t_k8:.4f} ms ({t_k8 / t_call:.1%}) + transforms {t_tr:.4f} ms "
           f"({t_tr / t_call:.1%}) + rest {t_call - t_k8 - t_tr:.4f} ms "
-          f"({(t_call - t_k8 - t_tr) / t_call:.1%}) [{card}]", flush=True)
+          f"({(t_call - t_k8 - t_tr) / t_call:.1%}); K8 on one field (L2-warm) "
+          f"{t_k8 / M3_SUBSTEPS:.4f} ms a launch, on two in turn (L2-cold) "
+          f"{t_k8c / M3_SUBSTEPS:.4f} [{card}]", flush=True)
+    # The solve's host enqueue against its wall time and a call's time on
+    # the card: where the enqueue takes as long as the wall, the host paces
+    # the path and the card idles for the difference.  The events also count
+    # any wait for the host inside their window, so the idle share is a
+    # lower bound.
+    wall = t_cas / M3_CALLS * 1e3
+    print(f"3D mobility path: host enqueue {t_enq / M3_CALLS * 1e3:.4f} ms of a {wall:.4f} ms "
+          f"call (wall), {t_call:.4f} ms on the card (events): device idle share at least "
+          f"{1 - t_call / wall:.1%} [{card}]", flush=True)
 
     # The unit-mobility 3D macro against its FFT path (bench.py's run_ch3d).
     eq1 = CahnHilliard3DPeriodic(domain, kappa, CH_MU, CH_D, derivs="fourier")

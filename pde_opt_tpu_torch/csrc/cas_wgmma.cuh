@@ -1,5 +1,6 @@
 // The cas transform on Hopper's tensor cores, for the bf16 paths of the
-// macro kernels (ac_cas_macro.cu: K4, bv_cc_macro.cu: K6); the f32 paths keep
+// macro kernels (ch_cas_macro.cu: K1-K3, ac_cas_macro.cu: K4,
+// gpe_strang_macro.cu: K5, bv_cc_macro.cu: K6); the f32 paths keep
 // cas_common.cuh's FMA transform.
 //
 //   transform(Z) = Mh^T Z Mw     (as cas_common.cuh, in the JAX order)
@@ -169,6 +170,42 @@ __device__ __forceinline__ void wg_product(const __nv_bfloat16* a, const __nv_bf
   wgmma_fence_operand(d);
 }
 
+// Two products as wg_product, d_a = A_a B_a and d_b = A_b B_b, issued
+// together and waited on once.
+__device__ __forceinline__ void wg_product2(const __nv_bfloat16* a_a,
+                                            const __nv_bfloat16* b_a_half,
+                                            const __nv_bfloat16* a_b,
+                                            const __nv_bfloat16* b_b_half, float da[4][4],
+                                            float db[4][4]) {
+  wgmma_fence_operand(da);
+  wgmma_fence_operand(db);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    wgmma_m64n32k16_bf16(da, wgmma_desc(a_a + s * kStepElems, kLbo, kSbo),
+                         wgmma_desc(b_a_half + s * kStepElems, kLbo, kSbo), s);
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    wgmma_m64n32k16_bf16(db, wgmma_desc(a_b + s * kStepElems, kLbo, kSbo),
+                         wgmma_desc(b_b_half + s * kStepElems, kLbo, kSbo), s);
+  wgmma_commit();
+  wgmma_wait_all();
+  wgmma_fence_operand(da);
+  wgmma_fence_operand(db);
+}
+
+// The intermediate T, this thread's fragment of it, into tile t: rounded to
+// bf16 as it is stored (the JAX kernel's `.astype(mats)`).
+__device__ __forceinline__ void store_intermediate(__nv_bfloat16* t, const float v[4][4],
+                                                   const Own& o) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+      *reinterpret_cast<__nv_bfloat162*>(t + tile_idx(o.row(2 * hi), o.col(j, 0))) =
+          __floats2bfloat162_rn(v[j][2 * hi], v[j][2 * hi + 1]);
+}
+
 // out = Mh^T Z Mw for the operand every thread has just written with
 // store_operand; out in this thread's fragment.  Every thread must call it:
 // it holds two barriers.
@@ -179,15 +216,30 @@ __device__ __forceinline__ void wg_transform(const WgTiles& s, const __nv_bfloat
   __syncthreads();                               // Z^T complete, T free
   float t[4][4];
   wg_product(mh, s.zt + o.g * kHalfElems, t);    // T[k][w], this warpgroup's w
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi)
-      *reinterpret_cast<__nv_bfloat162*>(s.t + tile_idx(o.row(2 * hi), o.col(j, 0))) =
-          __floats2bfloat162_rn(t[j][2 * hi], t[j][2 * hi + 1]);
+  store_intermediate(s.t, t, o);
   fence_proxy_async();
   __syncthreads();                               // T complete
   wg_product(s.t, mw + o.g * kHalfElems, out);   // out[k][l], this warpgroup's l
+}
+
+// Two fields through the same matrices under one pair of barriers: out_a =
+// Mh^T Z_a Mw of the operand in s.zt and out_b of the operand in zt_b (both
+// just written with store_operand); t_b is the second field's intermediate
+// tile.  Both fields' product 1 are issued before one wait, then both product
+// 2.  Every thread must call it: it holds two barriers.
+__device__ __forceinline__ void wg_transform2(const WgTiles& s, const __nv_bfloat16* zt_b,
+                                              __nv_bfloat16* t_b, const __nv_bfloat16* mh,
+                                              const __nv_bfloat16* mw, const Own& o,
+                                              float out_a[4][4], float out_b[4][4]) {
+  fence_proxy_async();
+  __syncthreads();                               // both Z^T complete, both T free
+  float ta[4][4], tb[4][4];
+  wg_product2(mh, s.zt + o.g * kHalfElems, mh, zt_b + o.g * kHalfElems, ta, tb);
+  store_intermediate(s.t, ta, o);
+  store_intermediate(t_b, tb, o);
+  fence_proxy_async();
+  __syncthreads();                               // both T complete
+  wg_product2(s.t, mw + o.g * kHalfElems, t_b, mw + o.g * kHalfElems, out_a, out_b);
 }
 
 // The field epilogue of emit_field_epilogue (cas_common.cuh) on a field held

@@ -31,21 +31,62 @@
 //   Phases: load u; compute m and d per pixel; compute fluxes and
 //   divergence (each face flux is computed by both pixels beside it, rather
 //   than stored).
-// * 3D: one block per slab of P planes along N1 of one env; u with a
-//   2-plane halo each side, m and d with a 1-plane halo (the N2 x N3 planes
-//   are whole, so the in-plane wrap is an index): 80 KB at 32^3 with P = 4.
-//   The halo planes' m and d are computed by both slabs beside them.
+// * 3D: a plane march.  One block walks along N1 over a run of R planes of
+//   one env (the N2 x N3 planes are whole, so the in-plane wrap is an index).
+//   Shared memory holds a ring of five u planes and two planes of (m, d)
+//   pairs, 8-byte aligned: 9 planes (and a float of padding where N2 N3 is
+//   odd), 36 KB at 32^2.  Each thread owns the fixed in-plane pixels
+//   q = t, t + 256, ..., whose (j, k) it carries by increments (no integer
+//   division after the block's start).  One step, for plane p:
+//     - issue the copy of u plane p + 3 with cp.async (async_copy.cuh) into
+//       the slot of plane p - 2, which no thread reads any more; it is
+//       consumed one step later, so the load overlaps this step's arithmetic
+//       (faster than synchronous copies: scripts/torch_k8_copy_ab.py);
+//     - at each own pixel q: m, d of plane p + 1 from u planes p, p + 1,
+//       p + 2 (computed once: a plane's m and d are not computed again by
+//       the next step);
+//     - out of plane p at q: the N1 face fluxes need m, d of planes p - 1
+//       and p + 1 only at q, which this thread wrote or computes, the
+//       in-plane fluxes m, d of plane p at q's neighbours (written by other
+//       threads last step).  So m, d of plane p + 1 overwrite those of plane
+//       p - 1 in their slot, pixel by pixel by the pixel's own thread, and
+//       one barrier a step suffices.
+//   The run's first step needs m, d of planes p0 - 1 and p0 (a prologue) and
+//   u planes p0 - 2 .. p0 + 2, so a run reads R + 4 u planes and computes
+//   R + 2 planes of m, d for R planes out.  The wrap in N1 is the plane index
+//   of each copy (mod N1), so N1 = 1, 2 or 3, where a plane is its own
+//   neighbour, march as any other.  Runs per env: as many as make the grid
+//   one wave of resident blocks (the occupancy API's count, asked once per
+//   device and plane size by the caller), at most N1;
+//   at 256 envs x 32^3 the kernel's 55 registers leave four blocks an SM
+//   (528 on the card), so two runs of 16 planes (512 blocks).  The kernel is
+//   bound by its instruction issue, not by memory (L2-cold launches take as
+//   long as L2-warm ones): capping it at 40 registers for six blocks an SM,
+//   or unrolling the pixel loop, ran slower (PERF.md, section 6).
 //
-// Either way u is read from device memory once (plus the halo) and out is
-// written once.
+// Either way u is read from device memory once (plus, in 3D, four planes a
+// run) and out is written once.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxCoeffs = 16;
-constexpr int kMaxPlanes = 4;   // 3D slab depth when shared memory allows
+constexpr int kRing = 5;                  // u planes in a 3D block's ring
+
+// Floats before a 3D block's two planes of (m, d) pairs: the ring, rounded
+// up to an even count so that each 8-byte pair is aligned (N2 N3 may be odd).
+__host__ __device__ constexpr int md_offset(int n23) { return (kRing * n23 + 1) & ~1; }
+
+// A 3D block's shared memory: the ring and the (m, d) pairs.
+constexpr long long smem3d_bytes(int n23) {
+  return (static_cast<long long>(md_offset(n23)) + 4LL * n23) * 4;
+}
 
 // How a coefficient function is evaluated from c[0..n).  The Python side
 // (pde_opt_tpu_torch/ops/fused.py, kernel_form) keeps the same numbering.
@@ -67,7 +108,9 @@ struct CoeffSmem {
 };
 
 // legval: p_prev = 1, acc = c0 * 1, p_cur = x, acc += c1 * x, then
-// p_{k+1} = ((2k+1) x p_k - k p_{k-1}) / (k+1), acc += c_{k+1} p_{k+1}.
+// p_{k+1} = ((2k+1) x p_k - k p_{k-1}) / (k+1), acc += c_{k+1} p_{k+1}.  The
+// first step's division by 2 is a multiplication by 0.5: the same correctly
+// rounded value, without the IEEE division's instruction sequence.
 __device__ __forceinline__ float legval(const float* c, int n, float x) {
   float acc = c[0];
   if (n >= 2) {
@@ -77,7 +120,7 @@ __device__ __forceinline__ float legval(const float* c, int n, float x) {
       const float t = __fsub_rn(__fmul_rn(__fmul_rn(static_cast<float>(2 * k + 1), x), p_cur),
                                 __fmul_rn(static_cast<float>(k), p_prev));
       p_prev = p_cur;
-      p_cur = __fdiv_rn(t, static_cast<float>(k + 1));
+      p_cur = k == 1 ? __fmul_rn(t, 0.5f) : __fdiv_rn(t, static_cast<float>(k + 1));
       acc = __fadd_rn(acc, __fmul_rn(c[k + 1], p_cur));
     }
   }
@@ -168,72 +211,119 @@ struct Inv3d {
   float h[3], h2[3];
 };
 
-// Shared floats of a 3D block with slab depth P: u on P + 4 planes, m and d
-// on P + 2 planes each.
-__host__ __device__ __forceinline__ int smem_floats_3d(int P, int n23) {
-  return (3 * P + 8) * n23;
+// The face flux (0.5 (d_a + d_b) (m_b - m_a)) iv between cells a and b along
+// an axis (b = a + 1), in the JAX 3D kernel's association.
+__device__ __forceinline__ float flux3(float ma, float da, float mb, float db, float iv) {
+  return __fmul_rn(__fmul_rn(__fmul_rn(0.5f, __fadd_rn(da, db)), __fsub_rn(mb, ma)), iv);
 }
 
+// Queue the copy of one N2 x N3 plane into shared memory: 16-byte copies when
+// the planes are 16-byte aligned (vec), else 4-byte ones.
+__device__ __forceinline__ void copy_plane(float* dst, const float* src, int n23, bool vec) {
+  const int t = static_cast<int>(threadIdx.x);
+  if (vec) {
+    for (int c = 4 * t; c < n23; c += 4 * kThreads) cp_async16(dst + c, src + c);
+  } else {
+    for (int c = t; c < n23; c += kThreads) cp_async4(dst + c, src + c);
+  }
+}
+
+__device__ __forceinline__ int wrap_ring(int s) { return s >= kRing ? s - kRing : s; }
+
+// One block marches over planes p0 .. p0 + np - 1 of one env (see the header
+// note).  March position s holds u plane p0 - 2 + s (mod N1) in ring slot
+// s mod kRing; m and d of plane p0 + i sit in slot i mod 2 (plane p0 - 1 in
+// slot 1) as (m, d) pairs, one 8-byte load a neighbour.
 __global__ void __launch_bounds__(kThreads)
 ch_rhs_fd_3d_kernel(const float* __restrict__ u, const float* __restrict__ kappa,
-                    float* __restrict__ out, int N1, int N2, int N3, int P, int slabs,
-                    Coeff mu_g, Coeff d_g, Inv3d inv) {
-  extern __shared__ float smem[];
+                    float* __restrict__ out, int N1, int N2, int N3, int R, int runs,
+                    bool vec, Coeff mu_g, Coeff d_g, Inv3d inv) {
+  extern __shared__ float4 smem3[];
   __shared__ CoeffSmem mu, dd;
   const int n23 = N2 * N3;
-  const int env = blockIdx.x / slabs;
-  const int p0 = (blockIdx.x - env * slabs) * P;        // first plane of the slab
-  const int np = min(P, N1 - p0);                       // planes of this slab
-  float* us = smem;                                     // planes p0-2 .. p0+np+1
-  float* ms = us + (P + 4) * n23;                       // planes p0-1 .. p0+np
-  float* ds = ms + (P + 2) * n23;
-  const size_t off = static_cast<size_t>(env) * N1 * n23;
+  const int env = blockIdx.x / runs;
+  const int p0 = (blockIdx.x - env * runs) * R;         // first plane of the run
+  const int np = N1 - p0 < R ? N1 - p0 : R;             // planes of this run
+  float* ring = reinterpret_cast<float*>(smem3);
+  float2* md = reinterpret_cast<float2*>(ring + md_offset(n23));   // (m, d) pairs
+  const float* ue = u + static_cast<size_t>(env) * N1 * n23;
+  float* oe = out + (static_cast<size_t>(env) * N1 + p0) * n23;
 
+  // The next u plane to copy, advanced with the wrap in N1.
+  int g = ((p0 - 2) % N1 + N1) % N1;
+  auto copy_next = [&](int slot) {
+    copy_plane(ring + slot * n23, ue + static_cast<size_t>(g) * n23, n23, vec);
+    g = g + 1 == N1 ? 0 : g + 1;
+  };
   load_coeffs(mu, mu_g);
   load_coeffs(dd, d_g);
-  for (int e = threadIdx.x; e < (np + 4) * n23; e += kThreads) {
-    const int l = e / n23, q = e - l * n23;
-    const int g = ((p0 - 2 + l) % N1 + N1) % N1;
-    us[e] = u[off + static_cast<size_t>(g) * n23 + q];
-  }
+  for (int s = 0; s < kRing; ++s) copy_next(s);        // planes p0 - 2 .. p0 + 2
+  cp_async_wait_all();
   __syncthreads();
 
+  // This thread's first pixel and the step to its next one, by increments.
+  const int t = static_cast<int>(threadIdx.x);
+  const int j0 = t / N3, k0 = t - j0 * N3;
+  const int dj = kThreads / N3, dk = kThreads - dj * N3;
+  const int wrap2 = (N2 - 1) * N3;
   const float kap = kappa[env];
-  for (int e = threadIdx.x; e < (np + 2) * n23; e += kThreads) {
-    const int m = e / n23, q = e - m * n23;
-    const int j = q / N3, k = q - j * N3;
-    const int jp = j + 1 == N2 ? 0 : j + 1, jm = j == 0 ? N2 - 1 : j - 1;
-    const int kp = k + 1 == N3 ? 0 : k + 1, km = k == 0 ? N3 - 1 : k - 1;
-    const float* pl = us + (m + 1) * n23;               // u plane of this m plane
+
+  // (m, d) at pixel q of the plane centred at ring slot sc (u planes in
+  // slots sm1, sc, sp1); up/dn/rt/lf are q's in-plane neighbours.
+  auto m_d = [&](int sm1, int sc, int sp1, int q, int up, int dn, int rt, int lf) {
+    const float* pl = ring + sc * n23;
     const float c = pl[q];
-    float lap = second_diff(pl[q + n23], c, pl[q - n23], inv.h2[0]);
-    lap = __fadd_rn(lap, second_diff(pl[jp * N3 + k], c, pl[jm * N3 + k], inv.h2[1]));
-    lap = __fadd_rn(lap, second_diff(pl[j * N3 + kp], c, pl[j * N3 + km], inv.h2[2]));
-    ms[e] = __fsub_rn(coeff_eval(mu, c), __fmul_rn(kap, lap));
-    ds[e] = coeff_eval(dd, c);
-  }
+    float lap = second_diff(ring[sp1 * n23 + q], c, ring[sm1 * n23 + q], inv.h2[0]);
+    lap = __fadd_rn(lap, second_diff(pl[up], c, pl[dn], inv.h2[1]));
+    lap = __fadd_rn(lap, second_diff(pl[rt], c, pl[lf], inv.h2[2]));
+    return make_float2(__fsub_rn(coeff_eval(mu, c), __fmul_rn(kap, lap)), coeff_eval(dd, c));
+  };
+  // Calls body(q, up, dn, rt, lf) for each pixel this thread owns.
+  auto for_pixels = [&](auto body) {
+    for (int q = t, j = j0, k = k0; q < n23; q += kThreads) {
+      const int up = j + 1 == N2 ? q - wrap2 : q + N3, dn = j == 0 ? q + wrap2 : q - N3;
+      const int rt = k + 1 == N3 ? q - (N3 - 1) : q + 1, lf = k == 0 ? q + (N3 - 1) : q - 1;
+      body(q, up, dn, rt, lf);
+      k += dk;
+      j += dj;
+      if (k >= N3) {
+        k -= N3;
+        ++j;
+      }
+    }
+  };
+
+  // Prologue: m, d of planes p0 - 1 (at own pixels only) and p0.
+  for_pixels([&](int q, int up, int dn, int rt, int lf) {
+    md[n23 + q] = m_d(0, 1, 2, q, up, dn, rt, lf);
+    md[q] = m_d(1, 2, 3, q, up, dn, rt, lf);
+  });
   __syncthreads();
 
-  auto flux = [&](int a, int b, float iv) {
-    return __fmul_rn(__fmul_rn(__fmul_rn(0.5f, __fadd_rn(ds[a], ds[b])),
-                               __fsub_rn(ms[b], ms[a])), iv);
-  };
-  for (int e = threadIdx.x; e < np * n23; e += kThreads) {
-    const int l = e / n23, q = e - l * n23;
-    const int j = q / N3, k = q - j * N3;
-    const int jp = j + 1 == N2 ? 0 : j + 1, jm = j == 0 ? N2 - 1 : j - 1;
-    const int kp = k + 1 == N3 ? 0 : k + 1, km = k == 0 ? N3 - 1 : k - 1;
-    const int base = (l + 1) * n23;                     // this plane in ms, ds
-    const int c = base + q;
-    float acc = __fmul_rn(__fsub_rn(flux(c, c + n23, inv.h[0]),
-                                    flux(c - n23, c, inv.h[0])), inv.h[0]);
-    acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(flux(c, base + jp * N3 + k, inv.h[1]),
-                                             flux(base + jm * N3 + k, c, inv.h[1])),
-                                   inv.h[1]));
-    acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(flux(c, base + j * N3 + kp, inv.h[2]),
-                                             flux(base + j * N3 + km, c, inv.h[2])),
-                                   inv.h[2]));
-    out[off + static_cast<size_t>(p0 + l) * n23 + q] = acc;
+  for (int i = 0, s0 = 0; i < np; ++i, s0 = wrap_ring(s0 + 1)) {
+    // s0 is the slot of march position i (plane p - 2): free since the last
+    // barrier; the copy lands there for the next step.
+    if (i + 1 < np) copy_next(s0);
+    const float2* mdc = md + (i & 1) * n23;              // plane p
+    float2* mdx = md + ((i + 1) & 1) * n23;              // plane p - 1, then p + 1
+    const int sa = wrap_ring(s0 + 2), sb = wrap_ring(s0 + 3), sc = wrap_ring(s0 + 4);
+    for_pixels([&](int q, int up, int dn, int rt, int lf) {
+      const float2 b = m_d(sa, sb, sc, q, up, dn, rt, lf);  // plane p + 1
+      const float2 a = mdx[q];                              // plane p - 1
+      mdx[q] = b;
+      const float2 c = mdc[q], n_up = mdc[up], n_dn = mdc[dn], n_rt = mdc[rt], n_lf = mdc[lf];
+      float acc = __fmul_rn(__fsub_rn(flux3(c.x, c.y, b.x, b.y, inv.h[0]),
+                                      flux3(a.x, a.y, c.x, c.y, inv.h[0])), inv.h[0]);
+      acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(flux3(c.x, c.y, n_up.x, n_up.y, inv.h[1]),
+                                               flux3(n_dn.x, n_dn.y, c.x, c.y, inv.h[1])),
+                                     inv.h[1]));
+      acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(flux3(c.x, c.y, n_rt.x, n_rt.y, inv.h[2]),
+                                               flux3(n_lf.x, n_lf.y, c.x, c.y, inv.h[2])),
+                                     inv.h[2]));
+      oe[static_cast<size_t>(i) * n23 + q] = acc;
+    });
+    cp_async_wait_all();
+    __syncthreads();
   }
 }
 
@@ -282,37 +372,62 @@ int ch_rhs_fd_2d_launch(const float* u, const float* kappa, float* out, int B, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K8 (3D) on `stream`: u and out (B, N1, N2, N3) f32, kappa (B,)
-// f32; inv and inv2 the three inverse spacings and their squares.  The slab
-// depth is the largest P <= 4 (and <= N1) whose shared memory fits.
-int ch_rhs_fd_3d_launch(const float* u, const float* kappa, float* out, int B, int N1, int N2,
-                        int N3, const float* mu_c, int mu_n, int mu_form, const float* d_c,
-                        int d_n, int d_form, const float* inv, const float* inv2,
-                        void* stream) {
-  const Coeff mu{mu_c, mu_n, mu_form}, dd{d_c, d_n, d_form};
-  if (B < 1 || N1 < 1 || N2 < 1 || N3 < 1 || bad_coeff(mu) || bad_coeff(dd))
-    return static_cast<int>(cudaErrorInvalidValue);
+// The K8 (3D) blocks with N2 x N3 planes that the current device holds at
+// once, into *resident.  Also allows the kernel all the dynamic shared memory
+// a block can opt in to (beside its static coefficients), so that a launch
+// needs no attribute call: the caller asks once per device and plane size
+// and passes the count to every launch.
+int ch_rhs_fd_3d_resident(int N2, int N3, int* resident) {
+  if (N2 < 1 || N3 < 1) return static_cast<int>(cudaErrorInvalidValue);
   int optin = 0;
   cudaError_t err = smem_optin(&optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n23 = N2 * N3;
-  int P = N1 < kMaxPlanes ? N1 : kMaxPlanes;
-  while (P > 1 && static_cast<long long>(smem_floats_3d(P, n23)) * 4 > optin) --P;
-  const long long bytes = static_cast<long long>(smem_floats_3d(P, n23)) * 4;
-  if (bytes > optin) return static_cast<int>(cudaErrorInvalidValue);
-  const int slabs = (N1 + P - 1) / P;
-  if (static_cast<long long>(B) * slabs > 0x7fffffffLL)
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, ch_rhs_fd_3d_kernel)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int dynamic = optin - static_cast<int>(attr.sharedSizeBytes);
+  const long long bytes = smem3d_bytes(N2 * N3);
+  if (bytes > dynamic) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = allow_smem(ch_rhs_fd_3d_kernel, dynamic)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ch_rhs_fd_3d_kernel, kThreads,
+                                                           static_cast<size_t>(bytes))) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  *resident = sms * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(cudaSuccess);
+}
+
+// Launches K8 (3D) on `stream`: u and out (B, N1, N2, N3) f32, kappa (B,)
+// f32; inv and inv2 the three inverse spacings and their squares; resident
+// as ch_rhs_fd_3d_resident gives it for this device and plane.  Each env is
+// cut into runs of R planes: as many runs as fill one wave of resident
+// blocks, at most N1 (one run an env once the envs fill a wave).
+int ch_rhs_fd_3d_launch(const float* u, const float* kappa, float* out, int B, int N1, int N2,
+                        int N3, const float* mu_c, int mu_n, int mu_form, const float* d_c,
+                        int d_n, int d_form, const float* inv, const float* inv2, int resident,
+                        void* stream) {
+  const Coeff mu{mu_c, mu_n, mu_form}, dd{d_c, d_n, d_form};
+  if (B < 1 || N1 < 1 || N2 < 1 || N3 < 1 || resident < 1 || bad_coeff(mu) || bad_coeff(dd))
     return static_cast<int>(cudaErrorInvalidValue);
-  err = allow_smem(ch_rhs_fd_3d_kernel, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long bytes = smem3d_bytes(N2 * N3);
+  long long runs = resident / B;
+  runs = runs < 1 ? 1 : (runs > N1 ? N1 : runs);
+  const int R = static_cast<int>((N1 + runs - 1) / runs);
+  runs = (N1 + R - 1) / R;                              // no empty run
+  if (static_cast<long long>(B) * runs > 0x7fffffffLL || bytes > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   Inv3d iv;
   for (int a = 0; a < 3; ++a) {
     iv.h[a] = inv[a];
     iv.h2[a] = inv2[a];
   }
-  ch_rhs_fd_3d_kernel<<<B * slabs, kThreads, static_cast<int>(bytes),
-                        static_cast<cudaStream_t>(stream)>>>(u, kappa, out, N1, N2, N3, P,
-                                                             slabs, mu, dd, iv);
+  const bool vec = (N2 * N3) % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0;
+  ch_rhs_fd_3d_kernel<<<static_cast<int>(B * runs), kThreads, static_cast<int>(bytes),
+                        static_cast<cudaStream_t>(stream)>>>(
+      u, kappa, out, N1, N2, N3, R, static_cast<int>(runs), vec, mu, dd, iv);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -156,9 +156,9 @@ def ch3d_rhs_fd_plain(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("ch_rhs_fd")
+def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K8's C interface on ``lib`` (``csrc/ch_rhs_fd.cu`` built for
+    the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ch_rhs_fd_2d_launch.argtypes = [
         p, p, p, i, i, i,                # u, kappa, out, B, H, W
@@ -167,16 +167,24 @@ def _library():
         p,                               # stream
     ]
     lib.ch_rhs_fd_2d_launch.restype = ctypes.c_int
+    lib.ch_rhs_fd_3d_resident.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]   # N2, N3
+    lib.ch_rhs_fd_3d_resident.restype = ctypes.c_int
     lib.ch_rhs_fd_3d_launch.argtypes = [
         p, p, p, i, i, i, i,             # u, kappa, out, B, N1, N2, N3
         p, i, i, p, i, i,                # mu coeffs, n, form; D coeffs, n, form
         p, p,                            # host float[3]: 1/h, 1/h^2
+        i,                               # resident blocks (ch_rhs_fd_3d_resident)
         p,                               # stream
     ]
     lib.ch_rhs_fd_3d_launch.restype = ctypes.c_int
     lib.ch_rhs_fd_error_string.argtypes = [ctypes.c_int]
     lib.ch_rhs_fd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return _bind_library(load_library("ch_rhs_fd"))
 
 
 def _launch_args(u, kappa, mu_fn, D_fn, shape):
@@ -192,6 +200,25 @@ def _launch_args(u, kappa, mu_fn, D_fn, shape):
 def _raise_if(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what} failed: {_library().ch_rhs_fd_error_string(rc).decode()}")
+
+
+def _smem_3d(n2: int, n3: int) -> int:
+    """Bytes of K8 (3D)'s shared memory (csrc/ch_rhs_fd.cu ``smem3d_bytes``):
+    five u planes, rounded up to an even float count, and two planes of
+    (m, D) pairs."""
+    n23 = n2 * n3
+    return 4 * ((5 * n23 + 1) // 2 * 2 + 4 * n23)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_3d(device_index: int, n2: int, n3: int) -> int:
+    """K8 (3D) blocks with N2 x N3 planes resident at once on one device,
+    asked once per device and plane size: a launch then only divides."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _library().ch_rhs_fd_3d_resident(n2, n3, ctypes.byref(n))
+    _raise_if(rc, "ch_rhs_fd_3d_resident")
+    return n.value
 
 
 def ch_rhs_fd_cuda(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
@@ -225,21 +252,23 @@ def ch3d_rhs_fd_cuda(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
 
     Launches ``csrc/ch_rhs_fd.cu`` on the current stream and counts the
     launch (``ch3d_rhs_fd``); raises on anything the kernel does not take
-    (eleven N2 x N3 f32 planes must fit one block's shared memory)."""
+    (nine N2 x N3 f32 planes, the march's ring of five u planes and two each
+    of m and D, must fit one block's shared memory)."""
     if u.ndim != 4:
         raise ValueError(f"the state must be (B, N1, N2, N3), got shape {tuple(u.shape)}")
     B, N1, N2, N3 = u.shape
-    if 11 * N2 * N3 * 4 > _MAX_SMEM:
-        raise ValueError(f"K8 (3D) holds 11 N2 x N3 f32 planes in shared memory; "
+    if _smem_3d(N2, N3) > _MAX_SMEM:
+        raise ValueError(f"K8 (3D) holds 9 N2 x N3 f32 planes in shared memory; "
                          f"{(N2, N3)} is too large")
     out, coeffs = _launch_args(u, kappa, mu_fn, D_fn, (B, N1, N2, N3))
     inv = [1.0 / h1, 1.0 / h2, 1.0 / h3]
     inv_c = (ctypes.c_float * 3)(*inv)
     inv2_c = (ctypes.c_float * 3)(*(v * v for v in inv))
+    resident = _resident_3d(u.device.index, N2, N3)
     with torch.cuda.device(u.device):
         rc = _library().ch_rhs_fd_3d_launch(
             u.data_ptr(), kappa.data_ptr(), out.data_ptr(), B, N1, N2, N3, *coeffs,
-            inv_c, inv2_c, torch.cuda.current_stream(u.device).cuda_stream,
+            inv_c, inv2_c, resident, torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_if(rc, "ch_rhs_fd (3D) launch")
     count_launch("ch3d_rhs_fd")

@@ -199,9 +199,9 @@ def gpe_strang_macro_plain(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
     return out, stats, obs
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("gpe_strang_macro")
+def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K5's C interface on ``lib`` (``csrc/gpe_strang_macro.cu``
+    built for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gpe_strang_macro_launch.argtypes = [
         p, p, p,                         # y, ctrl, V
@@ -216,6 +216,11 @@ def _library():
     lib.gpe_strang_error_string.argtypes = [ctypes.c_int]
     lib.gpe_strang_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return _bind_library(load_library("gpe_strang_macro"))
 
 
 def gpe_strang_macro_cuda(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,

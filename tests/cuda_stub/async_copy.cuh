@@ -1,0 +1,17 @@
+// A CPU stand-in for pde_opt_tpu_torch/csrc/async_copy.cuh: each cp.async
+// copies at once, so the wait does nothing; the kernel's barriers still
+// order its threads.
+
+#pragma once
+
+#include <cstring>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+inline void cp_async16(void* smem, const void* gmem) { std::memcpy(smem, gmem, 16); }
+inline void cp_async4(void* smem, const void* gmem) { std::memcpy(smem, gmem, 4); }
+inline void cp_async_wait_all() {}
+
+}  // namespace

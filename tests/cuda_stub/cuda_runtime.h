@@ -39,7 +39,7 @@ using std::isfinite;
 struct uint3 {
   unsigned x, y, z;
 };
-struct float2 {
+struct alignas(8) float2 {   // as CUDA's: an 8-byte access
   float x, y;
 };
 struct alignas(16) float4 {
@@ -112,7 +112,10 @@ inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97,
+};
 typedef struct StubStream* cudaStream_t;
 
 inline const char* cudaGetErrorString(cudaError_t e) {
@@ -123,19 +126,34 @@ inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
 }
-// One SM holding one block: a launch is a single block that walks every env
-// (grid-stride), the path the card takes once the envs outnumber its blocks.
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 1;
+// One SM holding one block by default: a launch is a single block that walks
+// every env (grid-stride), the path the card takes once the envs outnumber its
+// blocks.  stub_set_resident_blocks lets a test make the SM hold more (K8's 3D
+// launch cuts each env into more runs when more blocks fit).  The shared memory
+// a block may opt in to is Hopper's.  The count is static, so each kernel
+// library built from this header keeps its own.
+static int stub_resident = 1;
+extern "C" void stub_set_resident_blocks(int n) { stub_resident = n; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
+  *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? 232448 : 1;
   return cudaSuccess;
 }
 template <typename K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+// A kernel's static shared memory: the stub's functions statics take none.
+struct cudaFuncAttributes {
+  size_t sharedSizeBytes;
+};
+template <typename K>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* attr, K) {
+  attr->sharedSizeBytes = 0;
+  return cudaSuccess;
+}
 template <typename K>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
-  *n = 1;
+  *n = stub_resident;
   return cudaSuccess;
 }
 

@@ -1,6 +1,7 @@
-"""Kernels K1-K3 (``csrc/ch_cas_macro.cu``), K4 (``csrc/ac_cas_macro.cu``)
-and K6 (``csrc/bv_cc_macro.cu``) compiled for the CPU and held against their
-plain versions.
+"""Kernels K1-K3 (``csrc/ch_cas_macro.cu``), K4 (``csrc/ac_cas_macro.cu``),
+K5 (``csrc/gpe_strang_macro.cu``), K6 (``csrc/bv_cc_macro.cu``) and K8 3D
+(``csrc/ch_rhs_fd.cu``) compiled for the CPU and held against their plain
+versions.
 
 The CUDA sources compile with g++ against the stub headers of
 ``tests/cuda_stub/``: a block runs as 256 ``std::thread``s with a
@@ -8,23 +9,34 @@ The CUDA sources compile with g++ against the stub headers of
 arithmetic, and the stand-in ``wgmma_ops.cuh`` (first on the include path:
 the real one is left out of the build directory) computes each warpgroup
 product in C++ from the shared-memory tiles through the descriptors the
-kernel builds.  So the indexing, zero padding, pixel ownership, epilogue and
-barriers of the tensor-core (bf16) kernels, and the FMA (f32) kernels, run
-here on CPU tensors; only the card's reading of the descriptors and the
-real ``wgmma`` are left to the ``cuda`` tests.  The test rewrites the two
+kernel builds; the stand-in ``async_copy.cuh`` copies at once where K8's
+``cp.async`` queues the copy.  So the indexing, zero padding, pixel
+ownership, epilogue and barriers of the tensor-core (bf16) kernels, the FMA
+(f32) kernels and K8's plane march run here on CPU tensors; only the card's
+reading of the descriptors, the real ``wgmma`` and ``cp.async`` are left to
+the ``cuda`` tests.  The test rewrites the two
 constructs C++ has no grammar for: the ``<<<...>>>`` launch and ``extern
 __shared__``.
 
 Three envs on one block (the stub's device holds one block), so the block
 walks the envs by grid stride and K3's three envs share one trajectory slot;
 two substeps (K3 also none); (H, W) in {(16, 16), (24, 40), (64, 64)}.
+K8 3D: three envs at 32^3, and at N1 in {1, 2, 3, 10} (a plane its own
+neighbour, runs of a few planes) and on planes that are not 16-byte aligned
+or hold an odd number of floats, with the stub's SM holding 1, 8 or 30
+blocks (so each env is one run, or cut into up to N1 runs); K8 is built with
+UBSan's alignment check, since the CPU, unlike the card, takes a misaligned
+8-byte access.
 Bounds: the card tests' (``test_torch_cas_macro.py``, ``chip_smoke.py``: CH
 field 1e-3 with bf16 matrices, 1e-5 with f32, stats to rtol 1e-3; K3's du
 and dkappa relative to their maxima, ``TOL_BWD``, on the cotangent of
 ``sum(u1**2)``; ``test_torch_ac.py``: field 1e-3 bf16, 1e-5 f32; stats
 n_finite exact, s2 to rtol 1e-3, s1 to 1e-3 of sqrt(n_px s2);
-``test_torch_bv.py``: field 1e-4 bf16, 1e-5 f32, stats to rtol 1e-4), obs
-within 1 LSB.  The bf16 bounds cover two summation orders of the products
+``test_torch_bv.py``: field 1e-4 bf16, 1e-5 f32, stats to rtol 1e-4;
+``test_torch_gpe.py``: field 5e-3 bf16, 5e-6 f32, stats to rtol 1e-5 against
+the kernel's own final state, and one bf16 substep's RMS against plain below
+``chip_smoke.py``'s 5e-5, which the unrounded plain version must exceed;
+``chip_smoke.py``'s K8 bound 1e-5 of max|plain|), obs within 1 LSB.  The bf16 bounds cover two summation orders of the products
 rounding a bf16 tie apart.
 """
 
@@ -39,6 +51,10 @@ import pytest
 import torch
 
 from pde_opt_tpu_torch.envs.presets import AC_R, BV_J0, BV_MU
+from pde_opt_tpu_torch.models.functions import (
+    ChemicalPotentialLegendrePolynomials,
+    DiffusionLegendrePolynomials,
+)
 from pde_opt_tpu_torch.ops.bv_cas import (
     _bind_library as _bind_bv,
     bv_cc_macro_plain,
@@ -57,6 +73,19 @@ from pde_opt_tpu_torch.ops.cas_spectral import (
     ch_cas_macro_plain,
     r_is_identity,
 )
+from pde_opt_tpu_torch.ops.fused import (
+    FORM_EXP_LEGENDRE_SCALED,
+    FORM_LEGENDRE_SCALED,
+    FORM_POLY,
+    _bind_library as _bind_rhs,
+    ch3d_rhs_fd_plain,
+)
+from pde_opt_tpu_torch.ops.gpe_cas import (
+    GpeEpilogue,
+    _bind_library as _bind_gpe,
+    gpe_constants,
+    gpe_strang_macro_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -73,6 +102,15 @@ TOL_BV = {True: 1e-4, False: 1e-5}
 CH_DT, CH_A = 1e-3, 1.0
 TOL_CH = {True: 1e-3, False: 1e-5}
 TOL_BWD = {True: (1e-5, 1e-2), False: (5e-6, 1e-4)}   # du, dkappa over their maxima
+GPE_G, GPE_DT, GPE_BOX = 100.0, 2e-3, 16.0
+TOL_GPE = {True: 5e-3, False: 5e-6}
+TOL_GPE_SITE = 5e-5
+MU_LEG = np.array([0.0, 1.0, 0.5], np.float32)    # the 3D path's Legendre mu
+D_LEG = np.array([0.3, 0.2], np.float32)          # and D
+TOL_K8 = 1e-5                                     # of max|plain|
+# K8 reads (m, d) as 8-byte float2 pairs, which the card faults on at a
+# misaligned address; the x86 CPU does not, so UBSan reports it (on stderr).
+SANITIZE = {"ch_rhs_fd": ["-fsanitize=alignment"]}
 
 
 def _cpu_source(src: str) -> str:
@@ -84,30 +122,34 @@ def _cpu_source(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """Build ``ac_cas_macro.cu``, ``bv_cc_macro.cu`` and ``ch_cas_macro.cu``
-    for the CPU, in parallel; return their bound libraries (K4, K6, K1-K3)."""
+    """Build ``ac_cas_macro.cu``, ``bv_cc_macro.cu``, ``ch_cas_macro.cu``,
+    ``gpe_strang_macro.cu`` and ``ch_rhs_fd.cu`` for the CPU, in parallel;
+    return their bound libraries (K4, K6, K1-K3, K5, K8)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the CPU")
     build = tmp_path_factory.mktemp("cuda_cpu_build")
     for header in CSRC.glob("*.cuh"):
-        if header.name != "wgmma_ops.cuh":
+        if not (STUB / header.name).exists():      # the stub's stand-ins come first
             shutil.copy(header, build)
     procs = {}
-    for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro"):
+    for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro", "gpe_strang_macro", "ch_rhs_fd"):
         src = build / f"{name}.cpp"
         src.write_text(_cpu_source((CSRC / f"{name}.cu").read_text()))
         procs[name] = subprocess.Popen(
             [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-             f"-I{STUB}", "-o", str(build / f"lib{name}.so"), str(src)],
+             *SANITIZE.get(name, ()), f"-I{STUB}", "-o", str(build / f"lib{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
     for name, proc in procs.items():
         _, err = proc.communicate()
         assert proc.returncode == 0, f"g++ failed on {name}:\n{err}"
+    rhs = _bind_rhs(ctypes.CDLL(str(build / "libch_rhs_fd.so")))
+    rhs.stub_set_resident_blocks.argtypes = [ctypes.c_int]
     return (_bind_ac_library(ctypes.CDLL(str(build / "libac_cas_macro.so"))),
             _bind_bv(ctypes.CDLL(str(build / "libbv_cc_macro.so"))),
-            _bind_ch_library(ctypes.CDLL(str(build / "libch_cas_macro.so"))))
+            _bind_ch_library(ctypes.CDLL(str(build / "libch_cas_macro.so"))),
+            _bind_gpe(ctypes.CDLL(str(build / "libgpe_strang_macro.so"))), rhs)
 
 
 def _ptr(t):
@@ -260,6 +302,89 @@ def _assert_ac_epilogue(got, want):
     assert int((got[2].int() - want[2].int()).abs().max()) <= 1
 
 
+def _gpe_inputs(H, W, seed):
+    """The GPE fleet's fields on an H x W grid of the 16-wide box: a
+    Gaussian with complex noise at unit norm, the harmonic trap, and a spot
+    control per env in the control range [0, 50]."""
+    rng = np.random.default_rng(seed)
+    dx = GPE_BOX / H
+    X, Y = np.meshgrid((np.arange(H) - H / 2) * dx, (np.arange(W) - W / 2) * dx, indexing="ij")
+    psi = np.exp(-(X**2 + Y**2) / 4)[None] * (
+        1 + 0.1 * rng.standard_normal((B, H, W)) + 0.1j * rng.standard_normal((B, H, W)))
+    psi /= np.sqrt((np.abs(psi) ** 2).sum((-2, -1), keepdims=True) * dx * dx)
+    spot = np.exp(-((X - 1) ** 2 + Y**2)).astype(np.float32)
+    ctrl = (rng.uniform(0, 50, (B, 1, 1)) * spot).astype(np.float32)
+    return (torch.from_numpy(np.stack([psi.real, psi.imag], -1).astype(np.float32)),
+            torch.from_numpy(ctrl), torch.from_numpy((0.5 * (X**2 + Y**2)).astype(np.float32)),
+            torch.from_numpy(spot), dx)
+
+
+def _gpe_kernel(lib, y, ctrl, V, consts, ep, dx, n_steps, bf16, poly):
+    Bn, H, W, _ = y.shape
+    out = torch.empty_like(y)
+    stats = obs = None
+    if ep is not None:
+        stats, obs = torch.empty((Bn, 3)), torch.empty((Bn, H, W), dtype=torch.uint8)
+    rc = lib.gpe_strang_macro_launch(
+        y.data_ptr(), ctrl.data_ptr(), V.data_ptr(), consts.ch.data_ptr(), consts.cw.data_ptr(),
+        consts.ich.data_ptr(), consts.icw.data_ptr(), consts.cos_full.data_ptr(),
+        consts.sin_full.data_ptr(), consts.cos_half.data_ptr(), consts.sin_half.data_ptr(),
+        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(ep.weight if ep else None),
+        ep.obs_scale if ep else 0.0, Bn, H, W, n_steps, GPE_G, GPE_DT, dx * dx, int(poly),
+        int(bf16), None)
+    assert rc == 0
+    return out if ep is None else (out, stats, obs)
+
+
+def _gpe_case(lib, H, W, bf16, poly, ep, seed, n_steps=N_STEPS, nan=False):
+    """K5 and its plain version on the same inputs: ``(got, want)``."""
+    y, ctrl, V, spot, dx = _gpe_inputs(H, W, seed)
+    if nan:
+        y[0, 3, 7, 0] = float("nan")
+    consts = gpe_constants(H, W, dx, GPE_DT, torch.bfloat16 if bf16 else torch.float32,
+                           torch.device("cpu"))
+    epi = GpeEpilogue(2550.0, spot) if ep else None
+    got = _gpe_kernel(lib, y, ctrl, V, consts, epi, dx, n_steps, bf16, poly)
+    want = gpe_strang_macro_plain(y, ctrl, V, consts, g=GPE_G, dt=GPE_DT, dx=dx,
+                                  n_steps=n_steps, round_bf16=bf16, phase_poly=poly,
+                                  epilogue=epi)
+    return got, want, spot
+
+
+def _rhs3d_pair(kind):
+    """mu and D as the plain version calls them, and as the kernel reads them
+    ((form, coefficients) each)."""
+    if kind == "legendre":
+        return (ChemicalPotentialLegendrePolynomials(MU_LEG).requires_grad_(False),
+                DiffusionLegendrePolynomials(D_LEG).requires_grad_(False),
+                (FORM_LEGENDRE_SCALED, torch.from_numpy(MU_LEG)),
+                (FORM_EXP_LEGENDRE_SCALED, torch.from_numpy(D_LEG)))
+    mu, D = PolynomialMu((0.0, -1.0, 0.0, 1.0)), PolynomialMu((1.0, 0.0, 0.5))
+    return mu, D, (FORM_POLY, torch.tensor(mu.coeffs)), (FORM_POLY, torch.tensor(D.coeffs))
+
+
+def _rhs3d_case(lib, shape, h, kind, resident, seed):
+    """K8 3D and its plain version on fields around 0.5, the first env
+    stretched beyond [0, 1] (where exp-Legendre D grows); ``(got, want)``."""
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy((0.5 + 0.05 * rng.standard_normal(shape)).astype(np.float32))
+    u[0] = u[0] * 3.0 - 1.0
+    kap = torch.from_numpy(np.linspace(2e-3, 5e-3, shape[0]).astype(np.float32))
+    mu, D, (mf, mc), (df, dc) = _rhs3d_pair(kind)
+    inv = [1.0 / x for x in h]
+    out = torch.full_like(u, float("nan"))
+    lib.stub_set_resident_blocks(resident)
+    n = ctypes.c_int(0)
+    assert lib.ch_rhs_fd_3d_resident(shape[2], shape[3], ctypes.byref(n)) == 0
+    assert n.value == resident                    # one stub SM
+    rc = lib.ch_rhs_fd_3d_launch(
+        u.data_ptr(), kap.data_ptr(), out.data_ptr(), *shape, mc.data_ptr(), mc.numel(), mf,
+        dc.data_ptr(), dc.numel(), df, (ctypes.c_float * 3)(*inv),
+        (ctypes.c_float * 3)(*(v * v for v in inv)), n.value, None)
+    assert rc == 0
+    return out, ch3d_rhs_fd_plain(u, kap, mu_fn=mu, D_fn=D, h1=h[0], h2=h[1], h3=h[2])
+
+
 @pytest.mark.parametrize("H,W", SHAPES)
 @pytest.mark.parametrize("general", [False, True])
 @pytest.mark.parametrize("ds", [0, 1, 4])
@@ -323,6 +448,70 @@ def test_ch_bwd_bf16_kernel_matches_plain(libs, H, W, n_steps):
         assert torch.equal(got[0], want[0]) and not bool(got[1].any())
 
 
+@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("poly", [True, False])
+@pytest.mark.parametrize("ep", [False, True])
+def test_gpe_kernel_matches_plain(libs, H, W, bf16, poly, ep):
+    """K5: the tensor-core kernel (bf16 matrices) and the FMA kernel (f32),
+    B-phase polynomials on and off, with and without the env epilogue,
+    whose stats and obs are held against the kernel's own final state."""
+    got, want, spot = _gpe_case(libs[3], H, W, bf16, poly, ep, seed=H + W)
+    if not ep:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_GPE[bf16])
+    if ep:
+        rho = got[0][..., 0] ** 2 + got[0][..., 1] ** 2
+        torch.testing.assert_close(got[1][:, 0], (rho * spot).sum((-2, -1)), rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[1][:, 1], rho.sum((-2, -1)), rtol=1e-5, atol=0)
+        assert bool((got[1][:, 2] == H * W).all())
+        obs = torch.clamp(rho * 2550.0, 0, 255).to(torch.uint8)
+        assert int((got[2].int() - obs.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("H,W", SHAPES)
+def test_gpe_bf16_kernel_rounds_where_plain_rounds(libs, H, W):
+    """One substep with bf16 matrices: the RMS of kernel - plain below the
+    bound, the unrounded plain version (a kernel that skips a rounding site)
+    above it."""
+    got, want, _ = _gpe_case(libs[3], H, W, True, True, False, seed=7, n_steps=1)
+    y, ctrl, V, _, dx = _gpe_inputs(H, W, 7)
+    control = gpe_strang_macro_plain(
+        y, ctrl, V, gpe_constants(H, W, dx, GPE_DT, torch.bfloat16, torch.device("cpu")),
+        g=GPE_G, dt=GPE_DT, dx=dx, n_steps=1, round_bf16=False, phase_poly=True)
+
+    def rms(d):
+        return float(d.double().pow(2).mean().sqrt())
+
+    assert rms(got - want) <= TOL_GPE_SITE < rms(control - want)
+
+
+@pytest.mark.parametrize("kind", ["legendre", "poly"])
+def test_k8_3d_kernel_matches_plain(libs, kind, capfd):
+    """K8 3D at the 3D path's plane size: three envs x 32^3, the Legendre
+    pair and c^3 - c with D = 1 + 0.5 c^2."""
+    got, want = _rhs3d_case(libs[4], (B, 32, 32, 32), (0.01, 0.01, 0.01), kind, 1, seed=3)
+    assert float((got - want).abs().max()) <= TOL_K8 * float(want.abs().max())
+    assert "runtime error" not in capfd.readouterr().err
+
+
+@pytest.mark.parametrize("dims", [(1, 16, 8), (2, 16, 8), (3, 16, 8), (10, 16, 8), (7, 6, 5),
+                                  (4, 5, 7), (9, 9, 9)])
+@pytest.mark.parametrize("resident", [1, 8, 30])
+def test_k8_3d_march_wraps_in_n1(libs, dims, resident, capfd):
+    """K8 3D where the march's wrap in N1 matters: N1 = 1, 2, 3 (a plane is
+    its own neighbour, or its neighbour's) and 10, N2 != N3, a 6 x 5 plane
+    (not 16-byte aligned), 5 x 7 and 9 x 9 planes (an odd number of floats
+    before the (m, d) pairs, with no misaligned access); the stub's SM
+    holds 1, 8 or 30 blocks, so each env is one run or up to N1 runs of as
+    few as one plane."""
+    got, want = _rhs3d_case(libs[4], (B, *dims), (0.01, 0.02, 0.03), "legendre", resident,
+                            seed=sum(dims))
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL_K8 * float(want.abs().max())
+    assert "runtime error" not in capfd.readouterr().err
+
+
 @pytest.mark.parametrize("kernel", ["ac", "bv", "ch", "ch_bwd"])
 def test_f32_fma_kernel_matches_plain_off_square(libs, kernel):
     """The f32 path (the FMA kernels of cas_common.cuh) at (24, 40)."""
@@ -352,7 +541,7 @@ def test_f32_fma_kernel_matches_plain_off_square(libs, kernel):
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("kernel", ["ac", "bv", "ch", "ch_bwd"])
+@pytest.mark.parametrize("kernel", ["ac", "bv", "ch", "ch_bwd", "gpe"])
 def test_nan_env_stays_in_its_env(libs, kernel):
     """One NaN pixel in the first env: the block that takes it goes on to the
     other two envs (grid stride), which must still equal plain; the NaN env
@@ -369,7 +558,10 @@ def test_nan_env_stays_in_its_env(libs, kernel):
         assert bool(torch.isnan(got[1][0])) and not bool(torch.isnan(got[1][1:]).any())
         _assert_bwd([t[1:] for t in got], [t[1:] for t in want], True)
         return
-    if kernel == "ch":
+    if kernel == "gpe":
+        got, want, _ = _gpe_case(libs[3], H, W, True, True, True, seed=5, nan=True)
+        tol = TOL_GPE[True]
+    elif kernel == "ch":
         u, kap = _ch_inputs(H, W, seed=5)
         u[0, 3, 7] = float("nan")
         consts = _ch_consts(H, W, True)

@@ -229,7 +229,9 @@ def _card_pairs(kind, dev):
 @pytest.mark.parametrize("B,dims,h", [(7, (16, 24), (0.01, 0.02)), (64, (64, 64), (0.01, 0.01)),
                                       (3, (8, 8, 8), (0.01, 0.01, 0.01)),
                                       (5, (32, 32, 32), (0.01, 0.01, 0.01)),
-                                      (2, (6, 16, 8), (0.01, 0.02, 0.03))])
+                                      (2, (6, 16, 8), (0.01, 0.02, 0.03)),
+                                      (3, (4, 5, 7), (0.01, 0.02, 0.03)),
+                                      (2, (9, 9, 9), (0.01, 0.01, 0.01))])
 def test_kernel_matches_plain_on_card(cuda_device, kind, B, dims, h):
     u = torch.from_numpy(_field((B, *dims), seed=B)).to(cuda_device)
     # Beyond [0, 1] too, where exp-Legendre D grows.
