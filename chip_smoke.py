@@ -27,9 +27,10 @@ caught):
 2. Build the hand-written Hopper kernels from ``pde_opt_tpu_torch/csrc``,
    one ``nvcc`` per source, in parallel; print ``ptxas -v``'s lines and each
    library's count of warpgroup MMA (``HGMMA``) instructions in its SASS
-   (``cuobjdump -sass``): the bf16 paths of K1-K3, K4, K5 and K6 run on the
-   tensor cores, so ``ch_cas_macro``, ``ac_cas_macro``, ``gpe_strang_macro``
-   and ``bv_cc_macro`` must hold some.
+   (``cuobjdump -sass``): the bf16 paths of K1-K3, K4, K5, K6, K9a and K9b
+   run on the tensor cores, so ``ch_cas_macro``, ``ac_cas_macro``,
+   ``gpe_strang_macro``, ``bv_cc_macro``, ``ch_sif_macro`` and
+   ``ac_sif_macro`` must hold some.
 3. Hold each kernel against its plain-torch version on the card at its
    path's shapes, with f32 and bf16 matrices: the CH macro (K2 without, K1
    with the env epilogue, obs_downsample 1 and 4; also against the FFT
@@ -58,7 +59,11 @@ caught):
    K8 against the roll chain.  K9a at the CH path's and K9b at the AC
    fleet's shapes (R == 1, and a polynomial R on 256 envs), f32 and bf16
    tables, against their plain versions, after one bf16 substep at the
-   rounding sites, and with f32 tables (16 envs) against the FFT oracles.
+   rounding sites, and with f32 tables (16 envs) against the FFT oracles;
+   with bf16 tables (the tensor-core kernels) also at 16 x 16 and 24 x 40
+   and at 64 x 64 with the full spectrum (the padding of the spectrum's
+   width to a multiple of 8), each with one NaN env that must stay in its
+   env.
 4. Reset the launch counts, then drive the CH serving path: a 120-step
    random-policy rollout of the fused-epilogue fleet (K1), which crosses
    the episode end and its auto-reset, and 10 steps of the same fleet
@@ -218,7 +223,8 @@ TOL_BV_ORACLE = 2e-5
 # zero-padded to 64 in shared memory), at the paths' env counts.
 SMALL_GRIDS = ((16, 16), (24, 40))
 # Libraries whose SASS must hold warpgroup MMA (HGMMA) instructions.
-WGMMA_LIBS = ("ch_cas_macro", "ac_cas_macro", "gpe_strang_macro", "bv_cc_macro")
+WGMMA_LIBS = ("ch_cas_macro", "ac_cas_macro", "gpe_strang_macro", "bv_cc_macro", "ch_sif_macro",
+              "ac_sif_macro")
 TOL_CHARGE = 0.05
 # The card-side gradient (64 envs x 64^2 x 2 substeps, bf16 matrices for BV):
 # value to rtol 1e-5, d/dcrate to 1e-3 of its largest entry.  Both sides run
@@ -261,9 +267,10 @@ PALLAS_FFT_STEPS, PALLAS_FUSED_STEPS = 30, 5
 # kappa ranges).  Against their plain versions at the CH/AC macros' bounds;
 # with f32 tables on K9_ORACLE_ENVS envs against the FFT oracle at the JAX
 # test's 5e-5 (tests/test_fused_spectral.py:33); the rounding sites after one
-# substep (measured on an H100: K9a rms 2.0e-6 against the control's 8.8e-4,
-# K9b 4.6e-8 with R == 1 and 9.2e-8 with the polynomial R on K9_R_ENVS envs,
-# against 8.6e-6).
+# substep (measured on an H100 with the tensor-core kernels: K9a rms 3.1e-6
+# against the control's 8.8e-4, K9b 1.9e-7 with R == 1 and 2.6e-7 with the
+# polynomial R on K9_R_ENVS envs, against 8.6e-6; the FMA kernels before
+# them read 2.0e-6, 4.6e-8 and 9.2e-8).
 K9_ORACLE_ENVS, K9_R_ENVS, TOL_K9_ORACLE = 16, 256, 5e-5
 TOL_SITE.update({"ch_sif": 2e-5, "ac_sif": 1e-6})
 # The dft fleets (fused_epilogue=False, solver_parameters["algo"] = "dft"),
@@ -1448,8 +1455,10 @@ def _check_k9(torch, dev, gen, u, kap, u_ac, kap_ac):
     """K9a against its plain version at the CH path's shapes and K9b at the
     AC fleet's (R == 1), bf16 and f32 tables; with f32 tables on
     K9_ORACLE_ENVS envs against the FFT oracle; the bf16 rounding sites
-    after one substep; K9b with a polynomial R on K9_R_ENVS envs.  Returns
-    the main paths' (bf16, 10 substeps) errors."""
+    after one substep; K9b with a polynomial R on K9_R_ENVS envs.  The
+    tensor-core kernels (bf16) also at SMALL_GRIDS and at 64 x 64 with the
+    full spectrum, one NaN env each.  Returns the main paths' (bf16, 10
+    substeps) errors."""
     from pde_opt_tpu_torch.envs.presets import AC_MU, AC_R, CH_MU
     from pde_opt_tpu_torch.ops.cas_spectral import PolynomialMu
     from pde_opt_tpu_torch.ops.fused_spectral import (
@@ -1497,6 +1506,24 @@ def _check_k9(torch, dev, gen, u, kap, u_ac, kap_ac):
                 line = f"check {what} mats=f32 vs FFT oracle ({n} envs): max_abs_err {err:.3e}"
                 _check(err <= TOL_K9_ORACLE, f"{line} > {TOL_K9_ORACLE}")
                 print(line, flush=True)
+    # The spectrum's width padded to a multiple of 8 (W2 9, 21; 64 full).
+    for (H, W), half in [(hw, True) for hw in SMALL_GRIDS] + [((GRID, GRID), False)]:
+        consts = sif_constants(H, W, HX, HY, torch.bfloat16, half, dev)
+        for name, cuda, plain, uu, kk, extra, _, _ in cases:
+            x = uu[:, :H, :W].clone(memory_format=torch.contiguous_format)
+            x[0, 3, 7] = float("nan")
+            kw = dict(extra, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=True)
+            got, want = cuda(x, kk, consts, **kw), plain(x, kk, consts, **kw)
+            torch.cuda.synchronize()
+            err = (got[1:] - want[1:]).abs().max().item()
+            line = (f"check {name} {x.shape[0]}x{H}x{W}x{SUBSTEPS} "
+                    f"{'half' if half else 'full'} spectrum mats=bf16"
+                    f"{'' if extra.get('R_fn') is not r_gen else ' R=1+0.5u^2'}, env 0 NaN: "
+                    f"u1 max_abs_err {err:.3e} over the other envs")
+            _check(torch.equal(torch.isnan(got), torch.isnan(want))
+                   and not bool(torch.isnan(got[1:]).any()), f"{line}: the NaN left its env")
+            _check(err <= tol[name]["bf16"], f"{line} > {tol[name]['bf16']}")
+            print(line, flush=True)
     return max_err
 
 

@@ -10,7 +10,7 @@
 //   g   = -R(u) * (mu(u) - kappa * lap)          (-(mu(u) - kappa lap) when R == 1)
 //   u  += Re F^-1(F(g) * dt / (1 + A dt kappa (-lam)))
 //
-// F and F^-1 are the separable complex DFTs of sif_common.cuh.  mu and R are
+// F and F^-1 are the separable complex DFTs of K9a.  mu and R are
 // polynomials (Horner, degree <= 7); n_r = 0 selects R == 1, which the
 // wrapper picks by the JAX package's identity probe.  The Laplacian wraps by
 // index on a shared-memory copy of the f32 field (the TPU kernel's
@@ -19,25 +19,45 @@
 // sums are f32, the elementwise arithmetic _rn intrinsics in the plain
 // version's order.
 //
-// Bound: per env and substep one forward and one inverse transform, 3.24
-// MFLOP at 64^2 (W2 = 33), f32 FMA on the CUDA cores, against 32 KB of field
-// traffic per env and macro: arithmetic-bound.  Design as K9a: one 256-thread
-// block per env at a time, the tables, the f32 field (16 KB) and two f32
-// work buffers in 106 KB of shared memory at 64^2 with bf16 tables (two
-// blocks an SM), the field in registers (a 4 x 4 tile a thread).
+// Bound: per env and substep one forward and one inverse transform,
+// 2 * (4 H W W2 + 8 H^2 W2) operations = 3.24 MFLOP at 64^2 (W2 = 33),
+// against 32 KB of field traffic per env and macro: arithmetic-bound, on the
+// tensor cores with bf16 tables.  Two kernels, picked by the tables' type
+// alone:
+//
+// - bf16 tables (the default): ac_sif_macro_wg_kernel runs the transforms
+//   as warpgroup wgmma (sif_wgmma.cuh, as K9a).  The implicit multiplier is
+//   real, so each warpgroup scales its part of the spectrum in registers,
+//   where the multiplier sits for the whole env (20 f32 a thread at 64^2).
+//   The Laplacian reads neighbours across fragment owners, so the f32 field
+//   goes through shared memory once a substep, over the spectrum tiles that
+//   are free then; the field itself stays in the accumulator fragment where
+//   the inverse lands.  Five barriers a substep; 106 KB of shared memory at
+//   64^2, capped at 128 registers (8 B of spills at N = 40), so two blocks
+//   share an SM.  The Laplacian reads the field copy as pairs, swizzled so
+//   that a warp's 8 rows do not share banks.  On an H100 at 4096 x 64^2 x
+//   10 (scripts/torch_k9_variants_ab.py) it takes 0.85 ms; uncapped (143
+//   registers, one block an SM) 1.05 ms; reading single floats from an
+//   unswizzled copy (8-way bank conflicts) 1.33 ms.
+// - f32 tables: ac_sif_macro_kernel, f32 FMA on the CUDA cores
+//   (sif_common.cuh): the tables, the f32 field and two work buffers in
+//   shared memory, a 4 x 4 tile of the field a thread.
+//
+// Both: one block of 256 threads per env at a time (grid-stride).
 
 #include "sif_common.cuh"
+#include "sif_wgmma.cuh"
 
 namespace {
 
-template <class S, class T, int KG>
+template <int KG>
 __global__ void __launch_bounds__(kThreads, 2)
 ac_sif_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
                     SifTables g, float* __restrict__ u_out, int B, SifDims d, int n_steps,
                     float dt, float a_dt, float inv_hx2, float inv_hy2, MuPoly mu, MuPoly R,
                     bool r_identity) {
   extern __shared__ float4 smem4[];
-  const SifSmem<T> s = carve_sif<T>(reinterpret_cast<char*>(smem4), d, false);
+  const SifSmem s = carve_sif(reinterpret_cast<char*>(smem4), d, false);
   const int tid = threadIdx.x;
   const int ty4 = (tid / 16) * 4;        // first row (H axis) this thread owns
   const int tx4 = (tid % 16) * 4;        // first column (W axis)
@@ -75,12 +95,12 @@ ac_sif_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ ka
             v[i][j] = r_identity ? -m : __fmul_rn(-mu_eval(R, c), m);
           }
         }
-        store_operand<S>(s.zs, H, ty4, tx4, v);
+        store_operand(s.zs, H, ty4, tx4, v);
       }
       __syncthreads();
-      dft_stage_a<S, T, KG>(s, d, tid);
+      dft_stage_a<KG>(s, d, tid);
       __syncthreads();
-      dft_stage_b<T, KG>(s, d, tid, [&](int kh, int kw, float xr, float xi) {
+      dft_stage_b<KG>(s, d, tid, [&](int kh, int kw, float xr, float xi) {
         float zr = 0.f, zi = 0.f;
         if (kw < d.W2) {
           const float l = __ldg(g.lam + kh * d.W2 + kw);
@@ -88,13 +108,13 @@ ac_sif_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ ka
           zr = __fmul_rn(dd, xr);
           zi = __fmul_rn(dd, xi);
         }
-        s.Q[kh * d.W2p + kw] = S::put(zr, zi);
+        s.Q[kh * d.W2p + kw] = make_float2(zr, zi);
       });
       __syncthreads();
-      dft_stage_c<S, T, KG>(s, d, tid);
+      dft_stage_c<KG>(s, d, tid);
       __syncthreads();
       if (own) {
-        dft_stage_d<T>(s, d, ty4, tx4, v);
+        dft_stage_d(s, d, ty4, tx4, v);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -105,18 +125,103 @@ ac_sif_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ ka
   }
 }
 
-template <class S, class T, int KG>
-cudaError_t launch(const float* u, const float* kappa, const SifTables& g, float* out, int B,
-                   const SifDims& d, int n_steps, float dt, float a_dt, float inv_hx2,
-                   float inv_hy2, const MuPoly& mu, const MuPoly& R, bool r_identity,
-                   cudaStream_t stream) {
-  int smem = 0, grid = 0;
-  const cudaError_t err =
-      sif_config<T>(ac_sif_macro_kernel<S, T, KG>, d, false, B, &smem, &grid);
-  if (err != cudaSuccess) return err;
-  ac_sif_macro_kernel<S, T, KG><<<grid, kThreads, smem, stream>>>(
-      u, kappa, g, out, B, d, n_steps, dt, a_dt, inv_hx2, inv_hy2, mu, R, r_identity);
-  return cudaGetLastError();
+// Pixel (h, w) of the wgmma kernel's f32 field copy uf: rows of W floats,
+// and when W is a multiple of 32 the 8-float groups of row h XOR-swizzled by
+// h % 4, so that the 8 rows a warp reads at once fall on different banks
+// (two to a bank; unswizzled, at W = 64, all 8 shared one).
+__device__ __forceinline__ int uf_idx(int h, int w, int W) {
+  return h * W + (W % 32 == 0 ? w ^ ((h & 3) << 3) : w);
+}
+
+// The bf16 path on the tensor cores: the same macro with sif_wgmma.cuh's
+// transforms, N = W2 padded to a multiple of 8.
+template <int N>
+__global__ void __launch_bounds__(kThreads, 2)
+ac_sif_macro_wg_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
+                       SifTables g, float* __restrict__ u_out, int B, int H, int W, int W2,
+                       int n_steps, float dt, float a_dt, float inv_hx2, float inv_hy2,
+                       MuPoly mu, MuPoly R, bool r_identity) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const SifWgTiles s = carve_sif_wg(smem_wg, N);
+  const int tid = threadIdx.x;
+  const Own o = make_own(tid), f = make_spec(tid);
+  load_sif_tables_wg<N>(s, g, H, W, W2, tid);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * H * W;
+    const float k = kappa[env];
+    // The implicit multiplier at this thread's spectrum entries, 0 beyond H
+    // and W2.
+    float dd[N / 8][4], x[N / 8][4], u[4][4], v[4][4];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kh = f.row(e), kw = f.col(j, e);
+        dd[j][e] = 0.f;
+        if (kh < H && kw < W2) {
+          const float l = __ldg(g.lam + kh * W2 + kw);
+          dd[j][e] = __fdiv_rn(dt, __fadd_rn(1.f, __fmul_rn(a_dt, __fmul_rn(k, -l))));
+        }
+      }
+    load_frag(u_in + off, H, W, o, u);
+
+    for (int step = 0; step < n_steps; ++step) {
+      // uf lies over pc and zc: the previous substep's stages B and C
+      // finished reading them before the barriers ahead of its stages C
+      // and D.
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi)
+          if (o.valid(j, hi, H, W))
+            *reinterpret_cast<float2*>(s.uf + uf_idx(o.row(2 * hi), o.col(j, 0), W)) =
+                make_float2(u[j][2 * hi], u[j][2 * hi + 1]);
+      __syncthreads();
+      // The Laplacian at the pixel pairs (h, c), (h, c + 1): the rows above
+      // and below as pairs, the pair's own values from registers.
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          v[j][2 * hi] = v[j][2 * hi + 1] = 0.f;
+          if (!o.valid(j, hi, H, W)) continue;
+          const int h = o.row(2 * hi), c = o.col(j, 0);
+          const float2 up = *reinterpret_cast<const float2*>(
+              s.uf + uf_idx(h + 1 == H ? 0 : h + 1, c, W));
+          const float2 dn = *reinterpret_cast<const float2*>(
+              s.uf + uf_idx(h == 0 ? H - 1 : h - 1, c, W));
+          const float left = s.uf[uf_idx(h, c == 0 ? W - 1 : c - 1, W)];
+          const float right = s.uf[uf_idx(h, c + 2 == W ? 0 : c + 2, W)];
+          const float uu[2] = {u[j][2 * hi], u[j][2 * hi + 1]};
+          const float above[2] = {up.x, up.y}, below[2] = {dn.x, dn.y};
+          const float next[2] = {uu[1], right}, prev[2] = {left, uu[0]};
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float c2 = __fmul_rn(2.f, uu[q]);
+            const float lx = __fadd_rn(__fsub_rn(above[q], c2), below[q]);
+            const float ly = __fadd_rn(__fsub_rn(next[q], c2), prev[q]);
+            const float lap = __fadd_rn(__fmul_rn(lx, inv_hx2), __fmul_rn(ly, inv_hy2));
+            const float m = __fsub_rn(mu_eval(mu, uu[q]), __fmul_rn(k, lap));
+            v[j][2 * hi + q] = r_identity ? -m : __fmul_rn(-mu_eval(R, uu[q]), m);
+          }
+        }
+      store_field(s.xa, v, o, H, W);
+      sif_forward<N>(s, f, x);                                 // F(g)
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[j][e] = f.col(j, e) < W2 ? __fmul_rn(dd[j][e], x[j][e]) : 0.f;
+      store_transposed<N>(s.zc, x, f);
+      sif_inverse<N>(s, f, o, v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[j][e] = __fadd_rn(u[j][e], v[j][e]);
+    }
+    save_frag(u_out + off, H, W, o, u);
+  }
 }
 
 }  // namespace
@@ -124,9 +229,10 @@ cudaError_t launch(const float* u, const float* kappa, const SifTables& g, float
 extern "C" {
 
 // Launches K9b on `stream`: u (B, H, W) -> out, the tables as SifTables
-// lists them (lam2 is not read).  n_r == 0 runs the R == 1 path; otherwise R
-// is the polynomial r_coeffs.  Rounds to bf16 when round_bf16.  Returns a
-// cudaError_t value, 0 on success.
+// lists them (lam2 is not read); the tensor-core kernel when round_bf16
+// (bf16 tables), the FMA kernel otherwise.  n_r == 0 runs the R == 1 path;
+// otherwise R is the polynomial r_coeffs.  Returns a cudaError_t value, 0 on
+// success.
 int ac_sif_macro_launch(const float* u, const float* kappa, const float* wr_w,
                         const float* wi_w, const float* wr_h, const float* wi_h,
                         const float* vr_h, const float* vi_h, const float* vr_w,
@@ -137,23 +243,35 @@ int ac_sif_macro_launch(const float* u, const float* kappa, const float* wr_w,
   if (bad_sif(B, H, W, W2, n_steps) || bad_poly(n_mu) || n_r < 0 || n_r > kMaxCoeffs)
     return static_cast<int>(cudaErrorInvalidValue);
   const SifTables g{wr_w, wi_w, wr_h, wi_h, vr_h, vi_h, vr_w, vi_w, lam, lam2};
-  const SifDims d = sif_dims(H, W, W2);
   const MuPoly mu = make_mu(mu_coeffs, n_mu);
   const MuPoly R = make_mu(r_coeffs, n_r);
   const bool r1 = n_r == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool g4 = sif_group(W2) == 4;
   cudaError_t err;
-  if (round_bf16)
-    err = g4 ? launch<RF32, BF16, 4>(u, kappa, g, out, B, d, n_steps, dt, a_dt, inv_hx2,
-                                     inv_hy2, mu, R, r1, st)
-             : launch<RF32, BF16, 3>(u, kappa, g, out, B, d, n_steps, dt, a_dt, inv_hx2,
-                                     inv_hy2, mu, R, r1, st);
-  else
-    err = g4 ? launch<F32, F32, 4>(u, kappa, g, out, B, d, n_steps, dt, a_dt, inv_hx2, inv_hy2,
-                                   mu, R, r1, st)
-             : launch<F32, F32, 3>(u, kappa, g, out, B, d, n_steps, dt, a_dt, inv_hx2, inv_hy2,
-                                   mu, R, r1, st);
+  if (round_bf16) {
+    err = with_sif_width(W2, [&](auto width) {
+      constexpr int N = decltype(width)::value;
+      const auto kernel = ac_sif_macro_wg_kernel<N>;
+      const int smem = sif_wg_smem_bytes(N);
+      int grid = 0;
+      cudaError_t e = sif_grid(kernel, smem, B, &grid);
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, kThreads, smem, st>>>(u, kappa, g, out, B, H, W, W2, n_steps, dt, a_dt,
+                                           inv_hx2, inv_hy2, mu, R, r1);
+      return cudaGetLastError();
+    });
+  } else {
+    const SifDims d = sif_dims(H, W, W2);
+    int at[7];
+    const int smem = sif_smem_bytes(d, false, at);
+    const auto kernel = sif_group(W2) == 4 ? ac_sif_macro_kernel<4> : ac_sif_macro_kernel<3>;
+    int grid = 0;
+    err = sif_grid(kernel, smem, B, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, smem, st>>>(u, kappa, g, out, B, d, n_steps, dt, a_dt, inv_hx2,
+                                         inv_hy2, mu, R, r1);
+    err = cudaGetLastError();
+  }
   return static_cast<int>(err);
 }
 

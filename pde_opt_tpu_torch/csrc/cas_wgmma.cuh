@@ -163,8 +163,8 @@ __device__ __forceinline__ void wg_product(const __nv_bfloat16* a, const __nv_bf
   wgmma_fence();
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    wgmma_m64n32k16_bf16(d, wgmma_desc(a + s * kStepElems, kLbo, kSbo),
-                         wgmma_desc(b_half + s * kStepElems, kLbo, kSbo), s);
+    wgmma_m64nNk16_bf16<32>(d, wgmma_desc(a + s * kStepElems, kLbo, kSbo),
+                            wgmma_desc(b_half + s * kStepElems, kLbo, kSbo), s);
   wgmma_commit();
   wgmma_wait_all();
   wgmma_fence_operand(d);
@@ -182,12 +182,12 @@ __device__ __forceinline__ void wg_product2(const __nv_bfloat16* a_a,
   wgmma_fence();
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    wgmma_m64n32k16_bf16(da, wgmma_desc(a_a + s * kStepElems, kLbo, kSbo),
-                         wgmma_desc(b_a_half + s * kStepElems, kLbo, kSbo), s);
+    wgmma_m64nNk16_bf16<32>(da, wgmma_desc(a_a + s * kStepElems, kLbo, kSbo),
+                            wgmma_desc(b_a_half + s * kStepElems, kLbo, kSbo), s);
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    wgmma_m64n32k16_bf16(db, wgmma_desc(a_b + s * kStepElems, kLbo, kSbo),
-                         wgmma_desc(b_b_half + s * kStepElems, kLbo, kSbo), s);
+    wgmma_m64nNk16_bf16<32>(db, wgmma_desc(a_b + s * kStepElems, kLbo, kSbo),
+                            wgmma_desc(b_b_half + s * kStepElems, kLbo, kSbo), s);
   wgmma_commit();
   wgmma_wait_all();
   wgmma_fence_operand(da);

@@ -223,9 +223,10 @@ def ac_sif_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstant
 
 # ---- the Hopper kernels K9a and K9b ------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _library(name: str):
-    lib = load_library(name)
+def _bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declare the C interface of ``name`` (``ch_sif_macro`` or
+    ``ac_sif_macro``) on ``lib``: ``csrc/<name>.cu`` built for the card, or
+    for the CPU by the tests' stub build."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     common = [p, p, *[p] * len(SifConstants._fields), p,   # u, kappa, tables, out
               i, i, i, i, i, f, f]                         # B, H, W, W2, n_steps, dt, A*dt
@@ -238,6 +239,11 @@ def _library(name: str):
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str):
+    return _bind_library(load_library(name), name)
 
 
 def _launch(name: str, u, kappa, consts: SifConstants, mu_fn, dt, A, n_steps,

@@ -8,10 +8,11 @@
 // operand: element (r, k) at start + (r / 8) SBO + (r % 8) 16 B + (k / 8) LBO
 // + (k % 8) 2 B.  So a kernel that builds a wrong descriptor, or lays its
 // tiles out otherwise, computes a wrong product here too.  Each thread
-// computes its own accumulator fragment (register 4 j + e: row 16 warp +
-// lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2), summing the 16
-// exact bf16 products in k order in f32.  The product is synchronous, so the
-// fences do nothing; the kernel's barriers still order its threads.
+// computes its own accumulator fragment of the m64nN product (register 4 j +
+// e, j < N / 8: row 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4)
+// + e % 2), summing the 16 exact bf16 products in k order in f32.  The
+// product is synchronous, so the fences do nothing; the kernel's barriers
+// still order its threads.
 
 #pragma once
 
@@ -34,6 +35,7 @@ inline void fence_proxy_async() {}
 inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 inline void wgmma_wait_all() {}
+template <int J = 4>
 inline void wgmma_fence_operand(float (*)[4]) {}
 
 // Element (r, k) of the operand that `desc` describes.
@@ -47,11 +49,12 @@ inline float stub_operand(uint64_t desc, int r, int k) {
   return __bfloat162float(h);
 }
 
-inline void wgmma_m64n32k16_bf16(float d[4][4], uint64_t desc_a, uint64_t desc_b,
-                                 int scale_d) {
+template <int N>
+inline void wgmma_m64nNk16_bf16(float (*d)[4], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  static_assert(N >= 8 && N <= 64 && N % 8 == 0, "N in 8, 16, ..., 64");
   const int lane = static_cast<int>(threadIdx.x % 32);
   const int warp = static_cast<int>((threadIdx.x / 32) % 4);
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N / 8; ++j)
     for (int e = 0; e < 4; ++e) {
       const int row = 16 * warp + lane / 4 + 8 * (e / 2);
       const int col = 8 * j + 2 * (lane % 4) + e % 2;

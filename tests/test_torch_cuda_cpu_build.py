@@ -1,7 +1,8 @@
 """Kernels K1-K3 (``csrc/ch_cas_macro.cu``), K4 (``csrc/ac_cas_macro.cu``),
-K5 (``csrc/gpe_strang_macro.cu``), K6 (``csrc/bv_cc_macro.cu``) and K8 3D
-(``csrc/ch_rhs_fd.cu``) compiled for the CPU and held against their plain
-versions.
+K5 (``csrc/gpe_strang_macro.cu``), K6 (``csrc/bv_cc_macro.cu``), K8 3D
+(``csrc/ch_rhs_fd.cu``), K9a (``csrc/ch_sif_macro.cu``) and K9b
+(``csrc/ac_sif_macro.cu``) compiled for the CPU and held against their
+plain versions.
 
 The CUDA sources compile with g++ against the stub headers of
 ``tests/cuda_stub/``: a block runs as 256 ``std::thread``s with a
@@ -26,7 +27,10 @@ neighbour, runs of a few planes) and on planes that are not 16-byte aligned
 or hold an odd number of floats, with the stub's SM holding 1, 8 or 30
 blocks (so each env is one run, or cut into up to N1 runs); K8 is built with
 UBSan's alignment check, since the CPU, unlike the card, takes a misaligned
-8-byte access.
+8-byte access.  K9a/K9b: the tensor-core kernels (bf16 tables) at 64^2 with
+the half and the full spectrum, 16^2 and 24 x 40, R == 1 and a polynomial
+R, with a NaN env, and after one substep against the unrounded control;
+the FMA kernels (f32 tables) at 24 x 40 and 16^2 (full spectrum).
 Bounds: the card tests' (``test_torch_cas_macro.py``, ``chip_smoke.py``: CH
 field 1e-3 with bf16 matrices, 1e-5 with f32, stats to rtol 1e-3; K3's du
 and dkappa relative to their maxima, ``TOL_BWD``, on the cotangent of
@@ -36,7 +40,8 @@ n_finite exact, s2 to rtol 1e-3, s1 to 1e-3 of sqrt(n_px s2);
 ``test_torch_gpe.py``: field 5e-3 bf16, 5e-6 f32, stats to rtol 1e-5 against
 the kernel's own final state, and one bf16 substep's RMS against plain below
 ``chip_smoke.py``'s 5e-5, which the unrounded plain version must exceed;
-``chip_smoke.py``'s K8 bound 1e-5 of max|plain|), obs within 1 LSB.  The bf16 bounds cover two summation orders of the products
+``chip_smoke.py``'s K8 bound 1e-5 of max|plain|; K9a and K9b at
+``chip_smoke.py``'s TOL_U, TOL_AC and TOL_SITE), obs within 1 LSB.  The bf16 bounds cover two summation orders of the products
 rounding a bf16 tie apart.
 """
 
@@ -79,6 +84,12 @@ from pde_opt_tpu_torch.ops.fused import (
     FORM_POLY,
     _bind_library as _bind_rhs,
     ch3d_rhs_fd_plain,
+)
+from pde_opt_tpu_torch.ops.fused_spectral import (
+    _bind_library as _bind_sif,
+    ac_sif_macro_plain,
+    ch_sif_macro_plain,
+    sif_constants,
 )
 from pde_opt_tpu_torch.ops.gpe_cas import (
     GpeEpilogue,
@@ -123,8 +134,9 @@ def _cpu_source(src: str) -> str:
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """Build ``ac_cas_macro.cu``, ``bv_cc_macro.cu``, ``ch_cas_macro.cu``,
-    ``gpe_strang_macro.cu`` and ``ch_rhs_fd.cu`` for the CPU, in parallel;
-    return their bound libraries (K4, K6, K1-K3, K5, K8)."""
+    ``gpe_strang_macro.cu``, ``ch_rhs_fd.cu``, ``ch_sif_macro.cu`` and
+    ``ac_sif_macro.cu`` for the CPU, in parallel; return their bound
+    libraries (K4, K6, K1-K3, K5, K8, K9a, K9b)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the CPU")
@@ -133,7 +145,8 @@ def libs(tmp_path_factory):
         if not (STUB / header.name).exists():      # the stub's stand-ins come first
             shutil.copy(header, build)
     procs = {}
-    for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro", "gpe_strang_macro", "ch_rhs_fd"):
+    for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro", "gpe_strang_macro", "ch_rhs_fd",
+                 "ch_sif_macro", "ac_sif_macro"):
         src = build / f"{name}.cpp"
         src.write_text(_cpu_source((CSRC / f"{name}.cu").read_text()))
         procs[name] = subprocess.Popen(
@@ -149,7 +162,9 @@ def libs(tmp_path_factory):
     return (_bind_ac_library(ctypes.CDLL(str(build / "libac_cas_macro.so"))),
             _bind_bv(ctypes.CDLL(str(build / "libbv_cc_macro.so"))),
             _bind_ch_library(ctypes.CDLL(str(build / "libch_cas_macro.so"))),
-            _bind_gpe(ctypes.CDLL(str(build / "libgpe_strang_macro.so"))), rhs)
+            _bind_gpe(ctypes.CDLL(str(build / "libgpe_strang_macro.so"))), rhs,
+            *(_bind_sif(ctypes.CDLL(str(build / f"lib{n}.so")), n)
+              for n in ("ch_sif_macro", "ac_sif_macro")))
 
 
 def _ptr(t):
@@ -586,3 +601,87 @@ def test_nan_env_stays_in_its_env(libs, kernel):
     assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=tol)
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < H * W
+
+
+# ---- K9a and K9b, the packed-DFT macros ----------------------------------------
+
+def _sif_case(libs, kind, H, W, half, bf16, R=None, n_steps=N_STEPS, seed=0, nan=False):
+    """K9a (``kind`` "ch") or K9b ("ac"; ``R`` None for R == 1) from the stub
+    build and its plain version on the same inputs, spacings 0.01 along H
+    and 0.02 along W: ``(got, want, control)``, the control the plain
+    version with the rounding off."""
+    u, kap = (_ch_inputs if kind == "ch" else _ac_inputs)(H, W, seed)
+    if nan:
+        u[0, 3, 7] = float("nan")
+    consts = sif_constants(H, W, SIF_HX, SIF_HY, torch.bfloat16 if bf16 else torch.float32,
+                           half, torch.device("cpu"))
+    dt, A = (CH_DT, CH_A) if kind == "ch" else (AC_DT, AC_A)
+    out = torch.empty_like(u)
+    mu_c, n_mu = _c_coeffs(MU)
+    common = (u.data_ptr(), kap.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
+              u.shape[0], H, W, consts.wr_w.shape[-1], n_steps, dt, A * dt)
+    kw = dict(mu_fn=MU, dt=dt, A=A, n_steps=n_steps)
+    if kind == "ch":
+        rc = libs[5].ch_sif_macro_launch(*common, mu_c, n_mu, int(bf16), None)
+        plain = ch_sif_macro_plain
+    else:
+        r_c, n_r = (None, 0) if R is None else _c_coeffs(R)
+        rc = libs[6].ac_sif_macro_launch(*common, 1 / SIF_HX**2, 1 / SIF_HY**2, mu_c, n_mu, r_c,
+                                         n_r, int(bf16), None)
+        plain = ac_sif_macro_plain
+        kw.update(R_fn=R, r_identity=R is None, hx=SIF_HX, hy=SIF_HY)
+    assert rc == 0
+    return (out, plain(u, kap, consts, round_bf16=bf16, **kw),
+            plain(u, kap, consts, round_bf16=False, **kw))
+
+
+SIF_HX, SIF_HY = 0.01, 0.02
+SIF_KINDS = [("ch", None), ("ac", None), ("ac", R_POLY)]
+SIF_IDS = ["ch", "ac_r1", "ac_poly"]
+# chip_smoke.py's bounds: K9a TOL_U, K9b TOL_AC (bf16), both 1e-5 with f32
+# tables; one substep's RMS, TOL_SITE["ch_sif"] and ["ac_sif"].
+TOL_SIF = {("ch", True): 1e-3, ("ac", True): 5e-4, ("ch", False): 1e-5, ("ac", False): 1e-5}
+TOL_SIF_SITE = {"ch": 2e-5, "ac": 1e-6}
+
+
+@pytest.mark.parametrize("H,W,half", [(64, 64, True), (64, 64, False), (16, 16, True),
+                                      (24, 40, True)], ids=["64-half", "64-full", "16", "24x40"])
+@pytest.mark.parametrize("kind,R", SIF_KINDS, ids=SIF_IDS)
+def test_sif_bf16_kernel_matches_plain(libs, kind, R, H, W, half):
+    """K9a/K9b on the tensor-core kernel (bf16 tables): 64^2 with the half
+    spectrum (N = 40) and the full one (N = 64), and the padded shapes
+    16^2 (W2 9, N 16) and 24 x 40 (W2 21, N 24; K of the w product 48)."""
+    got, want, _ = _sif_case(libs, kind, H, W, half, True, R, seed=H + W)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL_SIF[kind, True])
+
+
+@pytest.mark.parametrize("kind,R", SIF_KINDS, ids=SIF_IDS)
+def test_sif_bf16_kernel_rounds_where_plain_rounds(libs, kind, R):
+    """One substep with bf16 tables at 64^2: the RMS of kernel - plain below
+    chip_smoke.py's bound, the unrounded plain version (a kernel that skips a
+    rounding site) above it."""
+    got, want, control = _sif_case(libs, kind, 64, 64, True, True, R, n_steps=1, seed=7)
+
+    def rms(d):
+        return float(d.double().pow(2).mean().sqrt())
+
+    assert rms(got - want) <= TOL_SIF_SITE[kind] < rms(control - want)
+
+
+@pytest.mark.parametrize("H,W,half", [(24, 40, True), (16, 16, False)], ids=["24x40", "16-full"])
+@pytest.mark.parametrize("kind,R", SIF_KINDS, ids=SIF_IDS)
+def test_sif_f32_fma_kernel_matches_plain(libs, kind, R, H, W, half):
+    """The f32-table path: K9a/K9b's FMA kernels (sif_common.cuh), column
+    groups of 3 (W2 21) and 4 (W2 16)."""
+    got, want, _ = _sif_case(libs, kind, H, W, half, False, R, seed=3)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL_SIF[kind, False])
+
+
+@pytest.mark.parametrize("kind,R", SIF_KINDS, ids=SIF_IDS)
+def test_sif_nan_env_stays_in_its_env(libs, kind, R):
+    """One NaN pixel in the first env on the tensor-core kernel at 24 x 40:
+    the block goes on to the other two envs, which must still equal plain."""
+    got, want, _ = _sif_case(libs, kind, 24, 40, True, True, R, seed=5, nan=True)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[0]).any()) and not bool(torch.isnan(got[1:]).any())
+    torch.testing.assert_close(got[1:], want[1:], rtol=0, atol=TOL_SIF[kind, True])
