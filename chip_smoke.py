@@ -43,8 +43,9 @@ caught):
    FFT oracle); the GPE macro (K5, epilogue on and off, phase polynomials on
    and off; also against the FFT oracle); the BV macro (K6, f32 and bf16,
    epilogue on and off; f32 also against the roll-stencil oracle) and the
-   SBM macro (K7, epilogue on and off, and against its oracle), each
-   epilogue also against the kernel's own final field; K4, K5 and K6 with
+   SBM macro (K7, epilogue on and off, and against its oracle; also at 24
+   x 40 with a NaN env that must stay in its env), each epilogue also
+   against the kernel's own final field; K4, K5 and K6 with
    bf16 matrices also at 16 x 16 and 24 x 40 (the tensor-core kernels'
    padding of grids below 64 x 64), epilogue on and off.  K2, K3 (du and dkappa on
    the loss's cotangent, and TOL_BWD), K4, K5 and K6 with
@@ -52,7 +53,9 @@ caught):
    rounding shows: the RMS of kernel - plain must sit below a bound that
    the unrounded plain version (the control) exceeds.  K8 against its plain
    version, 2D at 4096 x 64^2 (the fleet's c^3 - c and D == 1, c^3 - c and
-   1 + 0.5 c^2, the Legendre pair) and 3D at 256 x 32^3 (the Legendre
+   1 + 0.5 c^2, the Legendre pair), 2D also at 64 x 16 x 24, 8 x 128^2
+   and 4 x 256^2 (the row march's lanes of one, four and eight columns),
+   and 3D at 256 x 32^3 (the Legendre
    pair), on the paths' fields and on fields far outside [0, 1], and 3D at
    N1 = 2 and 10 and on a non-cubic grid (the march's wrap in N1); the 3D
    mobility macro (f32 matrices, 16 envs) against its FFT oracle and with
@@ -222,6 +225,7 @@ TOL_BV_ORACLE = 2e-5
 # Grids below 64 x 64 on the tensor-core kernels of K1-K6 (bf16 matrices,
 # zero-padded to 64 in shared memory), at the paths' env counts.
 SMALL_GRIDS = ((16, 16), (24, 40))
+SBM_SMALL = (24, 40)           # K7 beside the fleet's 64^2, a NaN env in it
 # Libraries whose SASS must hold warpgroup MMA (HGMMA) instructions.
 WGMMA_LIBS = ("ch_cas_macro", "ac_cas_macro", "gpe_strang_macro", "bv_cc_macro", "ch_sif_macro",
               "ac_sif_macro")
@@ -244,6 +248,9 @@ M3_MU, M3_D = (0.0, 1.0, 0.5), (0.3, 0.2)
 # envs) against its FFT oracle and "pallas" against "xla" (the JAX tests'
 # 1e-6 and 2e-5 bounds, here over 50 substeps of the bench's dt).
 TOL_K8, M3_CHECK_ENVS, TOL_M3_ORACLE, TOL_M3_IMPL = 1e-5, 16, 1e-5, 2e-5
+# K8 2D also at 16 x 24 (one column a lane, 24 lanes), 128^2 and 256^2 (four
+# and eight columns a lane), where the row march's lanes and wraps differ.
+K8_2D_SHAPES = ((64, 16, 24), (8, 128, 128), (4, 256, 256))
 # K8 3D also at N1 = 2 and 10 (the march's wrap in N1 within a run of a few
 # planes), on a non-cubic grid and on planes of an odd number of floats (the
 # (m, d) pairs' padding), (B, N1, N2, N3) and spacings, Legendre pair.
@@ -639,7 +646,62 @@ def _check_sbm(torch, dev, gen, env):
         print(f"check sbm_bv_macro {field} vs roll-stencil oracle: max_abs_err {err:.3e}",
               flush=True)
         _check(err <= TOL_BV_ORACLE, f"K7 vs oracle {err} > {TOL_BV_ORACLE}")
+    _check_sbm_small(torch, dev, gen)
     return (*inputs["charging"], consts, max_err)
+
+
+def _check_sbm_small(torch, dev, gen):
+    """K7 at SBM_SMALL (H != W, so the tiles' wraps at both seams differ)
+    on the preset's disk psi of that grid: charging fields with one NaN env,
+    against plain (epilogue on and off; the NaN must stay in its env) and
+    the roll-stencil oracle on the finite envs."""
+    from pde_opt_tpu_torch import grid as gridmod
+    from pde_opt_tpu_torch.envs.presets import BV_J0, BV_MU, sbm_disk_psi
+    from pde_opt_tpu_torch.ops.sbm_bv import (
+        SbmEpilogue,
+        sbm_bv_constants,
+        sbm_bv_macro_cuda,
+        sbm_bv_macro_plain,
+        sbm_bv_reference,
+    )
+
+    H, W = SBM_SMALL
+    hx, hy = 1.0 / H, 1.0 / W
+    psi = sbm_disk_psi(gridmod.Domain((H, W), ((-0.5, 0.5), (-0.5, 0.5)), "dimensionless",
+                                      dtype=torch.float32))
+    consts = sbm_bv_constants(psi, BV_KAPPA, hx, hy, dev)
+    u = torch.clamp(0.05 + 0.005 * torch.randn((SBM_ENVS, H, W), generator=gen, device=dev),
+                    0.01, 0.99)
+    u = (u + 0.4 * torch.rand((SBM_ENVS, 1, 1), generator=gen, device=dev)).contiguous()
+    u[0, 3, 7] = float("nan")
+    cr = 0.2 + 2.8 * torch.rand((SBM_ENVS,), generator=gen, device=dev)
+    kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=BV_DT, n_steps=SUBSTEPS)
+    for ep in (None, SbmEpilogue(255.0, CENTER)):
+        got = sbm_bv_macro_cuda(u, cr, consts, epilogue=ep, **kw)
+        want = sbm_bv_macro_plain(u, cr, consts, epilogue=ep, **kw)
+        torch.cuda.synchronize()
+        if ep is None:
+            got, want = (got,), (want,)
+        name = "sbm_bv_macro_ep" if ep else "sbm_bv_macro"
+        err = (got[0][1:] - want[0][1:]).abs().max().item()
+        line = f"check {name} {H}x{W}, env 0 NaN: u1 max_abs_err {err:.3e} (finite envs)"
+        _check(torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+               and bool(torch.isnan(got[0][0]).all())
+               and not bool(torch.isnan(got[0][1:]).any()), f"{line}: the NaN left its env")
+        _check(err <= TOL_BV["f32"], f"{line} > {TOL_BV['f32']}")
+        if ep is not None:
+            line = _check_own_epilogue(
+                line, tuple(t[1:] for t in got),
+                _moments(torch, got[0][1:], consts.psic.double(), CENTER),
+                torch.clamp(got[0][1:] * consts.psi * 255.0, 0, 255).to(torch.uint8), H * W)
+            _check(float(got[1][0, 2]) == 0.0, f"{line}: the NaN env's n_finite")
+        print(line, flush=True)
+    oracle = sbm_bv_reference(BV_MU, BV_J0, BV_KAPPA, consts.psi, hx, hy, BV_DT, SUBSTEPS,
+                              remat=False)(u[1:], cr[1:])
+    err = (sbm_bv_macro_cuda(u, cr, consts, **kw)[1:] - oracle).abs().max().item()
+    print(f"check sbm_bv_macro {H}x{W} vs roll-stencil oracle: max_abs_err {err:.3e} "
+          f"(finite envs)", flush=True)
+    _check(err <= TOL_BV_ORACLE, f"K7 {H}x{W} vs oracle {err} > {TOL_BV_ORACLE}")
 
 
 def _check_charging(torch, env, gen, name):
@@ -1171,6 +1233,11 @@ def _check_k8(torch, dev, gen):
         h = 0.01
         cases.append(("ch3d_rhs_fd", f"3D {M3_ENVS}x{M3_N}^3 Legendre {field}", ch3d_rhs_fd_cuda,
                       ch3d_rhs_fd_plain, u, k3, dict(mu_fn=mu3, D_fn=d3, h1=h, h2=h, h3=h)))
+    for shape in K8_2D_SHAPES:
+        us = torch.clamp(0.5 + 0.05 * torch.randn(shape, generator=gen, device=dev), 0.0, 1.0)
+        cases.append(("ch_rhs_fd", f"2D {'x'.join(map(str, shape))} Legendre", ch_rhs_fd_cuda,
+                      ch_rhs_fd_plain, us, k2[:shape[0]].contiguous(),
+                      dict(mu_fn=mu3, D_fn=d3, hx=HX, hy=2 * HY)))
     for shape, (h1, h2, h3) in K8_3D_SHAPES:
         us = torch.clamp(0.5 + 0.05 * torch.randn(shape, generator=gen, device=dev), 0.0, 1.0)
         cases.append(("ch3d_rhs_fd", f"3D {'x'.join(map(str, shape))} Legendre",

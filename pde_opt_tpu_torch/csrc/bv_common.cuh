@@ -39,10 +39,14 @@ __device__ __forceinline__ float bv_root(float C, float ip, float im) {
   return __fdiv_rn(__fadd_rn(-C, __fsqrt_rn(disc)), __fmul_rn(2.0f, ip));
 }
 
-// The reaction j (1/(em y) - em y), written j (inv_em / y - em y).
-__device__ __forceinline__ float bv_reaction(float j, float em, float y) {
-  const float inv_em = __fdiv_rn(1.0f, em);
+// The reaction j (1/(em y) - em y), written j (inv_em / y - em y), with
+// inv_em = 1/em computed by a caller that needs it before y (K7).
+__device__ __forceinline__ float bv_reaction(float j, float em, float inv_em, float y) {
   return __fmul_rn(j, __fsub_rn(__fdiv_rn(inv_em, y), __fmul_rn(em, y)));
+}
+
+__device__ __forceinline__ float bv_reaction(float j, float em, float y) {
+  return bv_reaction(j, em, __fdiv_rn(1.0f, em), y);
 }
 
 // RK4 stage constants: the stage inputs u + c k with c = dt/2, dt/2, dt, and

@@ -25,12 +25,28 @@
 // cells (the Laplacian, then the face gradient of m), and the work is ~100
 // f32 operations a pixel against 8 bytes of traffic, so a kernel that reads
 // u once and writes out once is bound by memory traffic and by its own
-// barriers.  Design, simple first:
+// barriers.  Design:
 //
-// * 2D: one block per env; u, m and d live in shared memory (48 KB at 64^2).
-//   Phases: load u; compute m and d per pixel; compute fluxes and
-//   divergence (each face flux is computed by both pixels beside it, rather
-//   than stored).
+// * 2D: a row march in registers, no shared memory but the coefficients and
+//   no barrier in the march.  One warp walks a run of rows of one env; each
+//   lane owns V adjacent columns of every row (V = 1, 2, 4, 8: the fewest
+//   that put a row of up to 256 on 32 lanes, the last lane owning the rest
+//   of the row).  A lane carries u of rows i .. i + 2 with the next kAhead
+//   rows in flight (loads issued that many steps before their use), m and
+//   d of row i, and the H faces between rows i - 1 and i.  One
+//   step, for row i: m, d of row i + 1 (the W neighbours of u by warp
+//   shuffle, with the wrap at the seam as the lane index); the H faces
+//   between rows i and i + 1 (carried to the next step, so each is computed
+//   once); the W face left of each own column (the face right of the last
+//   column is the next lane's, by shuffle: each computed once); out of row
+//   i.  A run of R rows reads R + 4 u rows and computes m, d of R + 2.  Runs
+//   per env: as many as fill the resident warps (the occupancy API's count,
+//   asked once per device and width by the caller), at most H.  At 4096
+//   envs x 64^2, 55 registers leave nine blocks (36 warps) an SM and one run
+//   an env; more rows in flight ran no faster, mu and D evaluated a row at
+//   a time (71 registers) ran slower, and the 3D march's shape run in 2D at
+//   less than half the speed (scripts/torch_k7_k8_ab.py, PERF.md section
+//   6).
 // * 3D: a plane march.  One block walks along N1 over a run of R planes of
 //   one env (the N2 x N3 planes are whole, so the in-plane wrap is an index).
 //   Shared memory holds a ring of five u planes and two planes of (m, d)
@@ -75,7 +91,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;            // a 3D block
+constexpr int kRowThreads = 128;         // a 2D block: four warps, each marching its own rows
+constexpr int kAhead = 1;                 // u rows a 2D lane has in flight (2, 4: no faster)
+constexpr int kMaxRowLanes = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxCoeffs = 16;
 constexpr int kRing = 5;                  // u planes in a 3D block's ring
 
@@ -161,49 +181,162 @@ struct Inv2d {
   float hx, hy, hx2, hy2;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// 2D (see the header note): the warp `warp` of the grid marches rows p0 ..
+// p0 + np - 1 of one env; lane l owns the V columns l V .. l V + V - 1 of
+// every row (the last lane of `lanes` may own fewer, the rest none).
+template <int V>
+__global__ void __launch_bounds__(kRowThreads)
 ch_rhs_fd_2d_kernel(const float* __restrict__ u, const float* __restrict__ kappa,
-                    float* __restrict__ out, int H, int W, Coeff mu_g, Coeff d_g, Inv2d inv) {
-  extern __shared__ float smem[];
+                    float* __restrict__ out, int B, int H, int W, int R, int runs, int lanes,
+                    bool vec, Coeff mu_g, Coeff d_g, Inv2d inv) {
   __shared__ CoeffSmem mu, dd;
-  const int n = H * W;
-  float* us = smem;
-  float* ms = us + n;
-  float* ds = ms + n;
-  const size_t off = static_cast<size_t>(blockIdx.x) * n;
-
   load_coeffs(mu, mu_g);
   load_coeffs(dd, d_g);
-  for (int p = threadIdx.x; p < n; p += kThreads) us[p] = u[off + p];
   __syncthreads();
+  const int warp = static_cast<int>(blockIdx.x) * (kRowThreads / 32) +
+                   static_cast<int>(threadIdx.x) / 32;
+  if (warp >= B * runs) return;
+  const int env = warp / runs;
+  const int p0 = (warp - env * runs) * R;               // first row of the run
+  const int np = H - p0 < R ? H - p0 : R;               // rows of this run
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int c0 = lane * V;
+  const int nown = lane >= lanes ? 0 : (W - c0 < V ? W - c0 : V);   // columns owned
+  // The lanes that own the columns right of this lane's last and left of its
+  // first, with the periodic wrap.
+  const int src_r = lane + 1 >= lanes ? 0 : lane + 1;
+  const int src_l = lane == 0 ? lanes - 1 : lane - 1;
+  const float* ue = u + static_cast<size_t>(env) * H * W + c0;
+  float* oe = out + static_cast<size_t>(env) * H * W + c0;
+  const float kap = kappa[env];
 
-  const float kap = kappa[blockIdx.x];
-  for (int p = threadIdx.x; p < n; p += kThreads) {
-    const int i = p / W, j = p - i * W;
-    const int ip = i + 1 == H ? 0 : i + 1, im = i == 0 ? H - 1 : i - 1;
-    const int jp = j + 1 == W ? 0 : j + 1, jm = j == 0 ? W - 1 : j - 1;
-    const float c = us[p];
-    const float lap = __fadd_rn(second_diff(us[ip * W + j], c, us[im * W + j], inv.hx2),
-                                second_diff(us[i * W + jp], c, us[i * W + jm], inv.hy2));
-    ms[p] = __fsub_rn(coeff_eval(mu, c), __fmul_rn(kap, lap));
-    ds[p] = coeff_eval(dd, c);
-  }
-  __syncthreads();
-
-  // F at the face between cells a and b (b = a + 1 along the axis).
-  auto flux = [&](int a, int b, float iv) {
-    return __fmul_rn(__fmul_rn(0.5f, __fadd_rn(ds[a], ds[b])),
-                     __fmul_rn(__fsub_rn(ms[b], ms[a]), iv));
+  // Row r (0 <= r < H) at this lane's columns; zeros where it owns none.
+  auto load_row = [&](int r, float (&x)[V]) {
+    const float* p = ue + static_cast<size_t>(r) * W;
+    if (vec && nown == V) {
+      if constexpr (V == 1) {
+        x[0] = p[0];
+      } else if constexpr (V == 2) {
+        const float2 q = *reinterpret_cast<const float2*>(p);
+        x[0] = q.x;
+        x[1] = q.y;
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; v += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(p + v);
+          x[v] = q.x;
+          x[v + 1] = q.y;
+          x[v + 2] = q.z;
+          x[v + 3] = q.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) x[v] = v < nown ? p[v] : 0.f;
+    }
   };
-  for (int p = threadIdx.x; p < n; p += kThreads) {
-    const int i = p / W, j = p - i * W;
-    const int ip = i + 1 == H ? 0 : i + 1, im = i == 0 ? H - 1 : i - 1;
-    const int jp = j + 1 == W ? 0 : j + 1, jm = j == 0 ? W - 1 : j - 1;
-    const float gx = __fmul_rn(__fsub_rn(flux(p, ip * W + j, inv.hx),
-                                         flux(im * W + j, p, inv.hx)), inv.hx);
-    const float gy = __fmul_rn(__fsub_rn(flux(p, i * W + jp, inv.hy),
-                                         flux(i * W + jm, p, inv.hy)), inv.hy);
-    out[off + p] = __fadd_rn(gx, gy);
+  // The value at the column right of this lane's last column (lane src_r's
+  // first) and left of its first (lane src_l's last).  Every lane calls them.
+  auto right_of = [&](const float (&x)[V]) { return __shfl_sync(kFullMask, x[0], src_r); };
+  auto left_of = [&](const float (&x)[V]) {
+    float last = x[0];
+#pragma unroll
+    for (int v = 1; v < V; ++v) last = v < nown ? x[v] : last;
+    return __shfl_sync(kFullMask, last, src_l);
+  };
+  // The neighbours of column v, given the halo values xl, xr.
+  auto left = [&](const float (&x)[V], int v, float xl) {
+    return v > 0 ? x[v > 0 ? v - 1 : 0] : xl;
+  };
+  auto right = [&](const float (&x)[V], int v, float xr) {
+    return v + 1 < nown ? x[v + 1 < V ? v + 1 : v] : xr;
+  };
+
+  // m and d of the row whose u is b, between rows a (above) and c (below).
+  auto m_d = [&](const float (&a)[V], const float (&b)[V], const float (&c)[V], float (&m)[V],
+                 float (&d)[V]) {
+    const float bl = left_of(b), br = right_of(b);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float ctr = b[v];
+      const float lap = __fadd_rn(second_diff(c[v], ctr, a[v], inv.hx2),
+                                  second_diff(right(b, v, br), ctr, left(b, v, bl), inv.hy2));
+      m[v] = __fsub_rn(coeff_eval(mu, ctr), __fmul_rn(kap, lap));
+      d[v] = coeff_eval(dd, ctr);
+    }
+  };
+  // The face flux 0.5 (d_a + d_b) ((m_b - m_a) iv) between cells a and b
+  // (b = a + 1 along the axis), in the JAX 2D kernel's association.
+  auto flux = [](float ma, float da, float mb, float db, float iv) {
+    return __fmul_rn(__fmul_rn(0.5f, __fadd_rn(da, db)), __fmul_rn(__fsub_rn(mb, ma), iv));
+  };
+
+  // The march: u rows i, i + 1, i + 2 in ua, ub, uc and the next kAhead
+  // rows in flight (ahead[k] is row i + 3 + k; the last is loaded at the
+  // step's start); m, d of row i in mc, dc; the faces between rows i - 1 and
+  // i in fxp.  Rows past p0 + np + 1 are not loaded.
+  auto wrap = [&](int r) { return r >= H ? r - H : r; };
+  int g = p0 + 2 * H - 2;                               // row p0 - 2, kept in [0, H)
+  while (g >= H) g -= H;
+  float ua[V], ub[V], uc[V], ahead[kAhead][V] = {}, mc[V], dc[V], mn[V], dn[V], fxp[V];
+  load_row(g, ua);                                      // row p0 - 2
+  load_row(g = wrap(g + 1), ub);                        // p0 - 1
+  load_row(g = wrap(g + 1), uc);                        // p0
+  load_row(g = wrap(g + 1), ahead[0]);                  // p0 + 1
+  m_d(ua, ub, uc, mn, dn);                              // m, d of row p0 - 1
+  m_d(ub, uc, ahead[0], mc, dc);                        // m, d of row p0
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    fxp[v] = flux(mn[v], dn[v], mc[v], dc[v], inv.hx);
+    ua[v] = uc[v];                                      // row p0
+    ub[v] = ahead[0][v];                                // p0 + 1
+  }
+  load_row(g = wrap(g + 1), uc);                        // p0 + 2
+#pragma unroll
+  for (int k = 0; k + 1 < kAhead; ++k)                  // p0 + 3 + k
+    if (k + 2 <= np) load_row(g = wrap(g + 1), ahead[k]);
+  for (int i = 0; i < np; ++i) {
+    if (i + kAhead + 1 <= np) load_row(g = wrap(g + 1), ahead[kAhead - 1]);
+    m_d(ua, ub, uc, mn, dn);                            // row p0 + i + 1
+    // The faces left of each own column of row p0 + i, and the one right of
+    // the last (lane src_r's first left face): each face computed once.
+    const float ml = left_of(mc), dl = left_of(dc);
+    float fyl[V], o[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      fyl[v] = flux(left(mc, v, ml), left(dc, v, dl), mc[v], dc[v], inv.hy);
+    const float fyr = right_of(fyl);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float fx = flux(mc[v], dc[v], mn[v], dn[v], inv.hx);
+      const float gx = __fmul_rn(__fsub_rn(fx, fxp[v]), inv.hx);
+      const float gy = __fmul_rn(__fsub_rn(right(fyl, v, fyr), fyl[v]), inv.hy);
+      o[v] = __fadd_rn(gx, gy);
+      fxp[v] = fx;
+      mc[v] = mn[v];
+      dc[v] = dn[v];
+      ua[v] = ub[v];
+      ub[v] = uc[v];
+      uc[v] = ahead[0][v];
+#pragma unroll
+      for (int k = 0; k + 1 < kAhead; ++k) ahead[k][v] = ahead[k + 1][v];
+    }
+    float* po = oe + static_cast<size_t>(p0 + i) * W;
+    if (vec && nown == V) {
+      if constexpr (V == 1) {
+        po[0] = o[0];
+      } else if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(po) = make_float2(o[0], o[1]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; v += 4)
+          *reinterpret_cast<float4*>(po + v) = make_float4(o[v], o[v + 1], o[v + 2], o[v + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (v < nown) po[v] = o[v];
+    }
   }
 }
 
@@ -344,31 +477,93 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Columns a lane owns in 2D for a width W: 1, 2, 4 or 8, the fewest that
+// fit a row on one warp; 0 for a width above 256.
+int cols_per_lane(int W) {
+  for (int v = 1; v <= 8; v *= 2)
+    if (W <= v * kMaxRowLanes) return v;
+  return 0;
+}
+
+template <int V>
+cudaError_t resident_2d(int* warps) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ch_rhs_fd_2d_kernel<V>,
+                                                           kRowThreads, 0)) != cudaSuccess)
+    return err;
+  *warps = sms * (per_sm > 0 ? per_sm : 1) * (kRowThreads / 32);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
+// The K8 (2D) warps that the current device holds at once for rows of width
+// W, into *resident: the caller asks once per device and width and passes
+// the count to every launch.
+int ch_rhs_fd_2d_resident(int W, int* resident) {
+  switch (cols_per_lane(W)) {
+    case 1: return static_cast<int>(resident_2d<1>(resident));
+    case 2: return static_cast<int>(resident_2d<2>(resident));
+    case 4: return static_cast<int>(resident_2d<4>(resident));
+    case 8: return static_cast<int>(resident_2d<8>(resident));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // Launches K8 (2D) on `stream`: u and out (B, H, W) f32, kappa (B,) f32;
-// mu and D each as (coefficients in device memory, count, form).  Returns a
-// cudaError_t value, 0 on success (cudaErrorInvalidValue for shapes or
-// coefficients it does not take).
+// mu and D each as (coefficients in device memory, count, form); resident
+// as ch_rhs_fd_2d_resident gives it for this device and width.  One warp
+// marches a run of rows of one env: as many runs an env as fill the
+// resident warps, at most H.  Returns a cudaError_t value, 0 on success
+// (cudaErrorInvalidValue for shapes or coefficients it does not take: W
+// above 256).
 int ch_rhs_fd_2d_launch(const float* u, const float* kappa, float* out, int B, int H, int W,
                         const float* mu_c, int mu_n, int mu_form, const float* d_c, int d_n,
                         int d_form, float inv_hx, float inv_hy, float inv_hx2, float inv_hy2,
-                        void* stream) {
+                        int resident, void* stream) {
   const Coeff mu{mu_c, mu_n, mu_form}, dd{d_c, d_n, d_form};
-  if (B < 1 || H < 1 || W < 1 || bad_coeff(mu) || bad_coeff(dd))
+  const int V = cols_per_lane(W);
+  if (B < 1 || H < 1 || W < 1 || V == 0 || resident < 1 || bad_coeff(mu) || bad_coeff(dd))
     return static_cast<int>(cudaErrorInvalidValue);
-  int optin = 0;
-  cudaError_t err = smem_optin(&optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long bytes = 3LL * H * W * static_cast<long long>(sizeof(float));
-  if (bytes > optin) return static_cast<int>(cudaErrorInvalidValue);
-  err = allow_smem(ch_rhs_fd_2d_kernel, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  long long runs = resident / B;
+  runs = runs < 1 ? 1 : (runs > H ? H : runs);
+  const int R = static_cast<int>((H + runs - 1) / runs);
+  runs = (H + R - 1) / R;                               // no empty run
+  const long long warps = static_cast<long long>(B) * runs;
+  const long long grid = (warps + kRowThreads / 32 - 1) / (kRowThreads / 32);
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = (W + V - 1) / V;
+  const bool vec = W % V == 0 && reinterpret_cast<uintptr_t>(u) % (4 * V) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * V) == 0;
   const Inv2d inv{inv_hx, inv_hy, inv_hx2, inv_hy2};
-  ch_rhs_fd_2d_kernel<<<B, kThreads, static_cast<int>(bytes),
-                        static_cast<cudaStream_t>(stream)>>>(u, kappa, out, H, W, mu, dd, inv);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int g = static_cast<int>(grid), r = static_cast<int>(runs);
+  switch (V) {
+    case 1: {
+      const auto kernel = ch_rhs_fd_2d_kernel<1>;
+      kernel<<<g, kRowThreads, 0, st>>>(u, kappa, out, B, H, W, R, r, lanes, vec, mu, dd, inv);
+      break;
+    }
+    case 2: {
+      const auto kernel = ch_rhs_fd_2d_kernel<2>;
+      kernel<<<g, kRowThreads, 0, st>>>(u, kappa, out, B, H, W, R, r, lanes, vec, mu, dd, inv);
+      break;
+    }
+    case 4: {
+      const auto kernel = ch_rhs_fd_2d_kernel<4>;
+      kernel<<<g, kRowThreads, 0, st>>>(u, kappa, out, B, H, W, R, r, lanes, vec, mu, dd, inv);
+      break;
+    }
+    default: {
+      const auto kernel = ch_rhs_fd_2d_kernel<8>;
+      kernel<<<g, kRowThreads, 0, st>>>(u, kappa, out, B, H, W, R, r, lanes, vec, mu, dd, inv);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

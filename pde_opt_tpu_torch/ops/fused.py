@@ -54,6 +54,7 @@ __all__ = [
 ]
 
 MAX_COEFFS = 16              # csrc/ch_rhs_fd.cu kMaxCoeffs
+MAX_WIDTH_2D = 256           # 32 lanes x 8 columns (csrc/ch_rhs_fd.cu cols_per_lane)
 _MAX_SMEM = 232448           # shared memory a Hopper block can opt in to
 # The coefficient forms of csrc/ch_rhs_fd.cu (enum Form).
 FORM_POLY, FORM_LEGENDRE, FORM_LEGENDRE_SCALED, FORM_EXP_LEGENDRE_SCALED = 0, 1, 2, 3
@@ -160,10 +161,13 @@ def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare K8's C interface on ``lib`` (``csrc/ch_rhs_fd.cu`` built for
     the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ch_rhs_fd_2d_resident.argtypes = [i, ctypes.POINTER(ctypes.c_int)]        # W
+    lib.ch_rhs_fd_2d_resident.restype = ctypes.c_int
     lib.ch_rhs_fd_2d_launch.argtypes = [
         p, p, p, i, i, i,                # u, kappa, out, B, H, W
         p, i, i, p, i, i,                # mu coeffs, n, form; D coeffs, n, form
         f, f, f, f,                      # 1/hx, 1/hy, 1/hx^2, 1/hy^2
+        i,                               # resident warps (ch_rhs_fd_2d_resident)
         p,                               # stream
     ]
     lib.ch_rhs_fd_2d_launch.restype = ctypes.c_int
@@ -211,6 +215,17 @@ def _smem_3d(n2: int, n3: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _resident_2d(device_index: int, w: int) -> int:
+    """K8 (2D) warps resident at once on one device for rows of width ``w``,
+    asked once per device and width: a launch then only divides."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _library().ch_rhs_fd_2d_resident(w, ctypes.byref(n))
+    _raise_if(rc, "ch_rhs_fd_2d_resident")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
 def _resident_3d(device_index: int, n2: int, n3: int) -> int:
     """K8 (3D) blocks with N2 x N3 planes resident at once on one device,
     asked once per device and plane size: a launch then only divides."""
@@ -226,19 +241,19 @@ def ch_rhs_fd_cuda(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
     """Kernel K8 (2D): same contract as :func:`ch_rhs_fd_plain`, f32.
 
     Launches ``csrc/ch_rhs_fd.cu`` on the current stream and counts the
-    launch (``ch_rhs_fd``); raises on anything the kernel does not take (an
-    env's field and two more like it must fit one block's shared memory:
-    H·W ≤ 19,370)."""
+    launch (``ch_rhs_fd``); raises on anything the kernel does not take (a
+    row is one warp's, at most 8 columns a lane: W ≤ 256; any H)."""
     if u.ndim != 3:
         raise ValueError(f"the state must be (B, H, W), got shape {tuple(u.shape)}")
     B, H, W = u.shape
-    if 12 * H * W > _MAX_SMEM:
-        raise ValueError(f"K8 (2D) holds 3 x H x W f32 in shared memory; {(H, W)} is too large")
+    if W > MAX_WIDTH_2D:
+        raise ValueError(f"K8 (2D) puts a row on one warp, W <= {MAX_WIDTH_2D}; got {(H, W)}")
     out, coeffs = _launch_args(u, kappa, mu_fn, D_fn, (B, H, W))
+    resident = _resident_2d(u.device.index, W)
     with torch.cuda.device(u.device):
         rc = _library().ch_rhs_fd_2d_launch(
             u.data_ptr(), kappa.data_ptr(), out.data_ptr(), B, H, W, *coeffs,
-            1.0 / hx, 1.0 / hy, 1.0 / (hx * hx), 1.0 / (hy * hy),
+            1.0 / hx, 1.0 / hy, 1.0 / (hx * hx), 1.0 / (hy * hy), resident,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_if(rc, "ch_rhs_fd (2D) launch")

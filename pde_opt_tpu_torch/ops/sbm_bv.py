@@ -170,9 +170,9 @@ def sbm_bv_macro_plain(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstant
     return u, stats, torch.clamp(x, 0.0, 255.0).to(torch.uint8)
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("sbm_bv_macro")
+def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K7's C interface on ``lib`` (``csrc/sbm_bv_macro.cu`` built
+    for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sbm_bv_macro_launch.argtypes = [
         p, p, p, p, p, p, p,             # u, crate, psi_ax, psi_ay, kop, psic, psi
@@ -187,6 +187,11 @@ def _library():
     lib.sbm_bv_error_string.argtypes = [ctypes.c_int]
     lib.sbm_bv_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return _bind_library(load_library("sbm_bv_macro"))
 
 
 def sbm_bv_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstants, *,

@@ -6,11 +6,12 @@
 // std::threads that share the block's dynamic shared memory and the
 // kernel's `__shared__` arrays (function statics).  __syncthreads is a
 // std::barrier over the block, a warp shuffle an exchange through a per-warp
-// buffer between two barriers of the warp's 32 threads.  The test rewrites
-// two things the C++ grammar has no room for: `kernel<<<grid, block, smem,
-// stream>>>(args)` becomes `stub_launch(kernel, grid, block, smem, stream,
-// args)` and `extern __shared__ T name[];` becomes a pointer to the block's
-// dynamic shared memory (`stub_dynamic_smem()`).
+// buffer between two barriers of the warp's 32 threads (__shfl_sync and
+// __shfl_xor_sync, on floats).  The
+// test rewrites two things the C++ grammar has no room for: `kernel<<<grid,
+// block, smem, stream>>>(args)` becomes `stub_launch(kernel, grid, block,
+// smem, stream, args)` and `extern __shared__ T name[];` becomes a pointer to
+// the block's dynamic shared memory (`stub_dynamic_smem()`).
 //
 // Compile with -std=c++20 -ffp-contract=off: a product and a sum stay two
 // roundings, as the kernels' _rn intrinsics ask.
@@ -87,14 +88,21 @@ inline void* stub_dynamic_smem() { return stub_block->smem.get(); }
 
 inline void __syncthreads() { stub_block->bar.arrive_and_wait(); }
 
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+// Every lane of the warp publishes v and reads lane src's.
+inline float stub_shfl(float v, unsigned src) {
   StubWarp& w = stub_block->warps[threadIdx.x / 32];
-  const unsigned lane = threadIdx.x % 32;
-  w.buf[lane] = v;
+  w.buf[threadIdx.x % 32] = v;
   w.bar.arrive_and_wait();
-  const float r = w.buf[lane ^ static_cast<unsigned>(lane_mask)];
+  const float r = w.buf[src % 32];
   w.bar.arrive_and_wait();
   return r;
+}
+
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  return stub_shfl(v, (threadIdx.x % 32) ^ static_cast<unsigned>(lane_mask));
+}
+inline float __shfl_sync(unsigned, float v, int src_lane) {
+  return stub_shfl(v, static_cast<unsigned>(src_lane));
 }
 
 template <typename T>

@@ -1,19 +1,21 @@
 """Kernels K1-K3 (``csrc/ch_cas_macro.cu``), K4 (``csrc/ac_cas_macro.cu``),
-K5 (``csrc/gpe_strang_macro.cu``), K6 (``csrc/bv_cc_macro.cu``), K8 3D
-(``csrc/ch_rhs_fd.cu``), K9a (``csrc/ch_sif_macro.cu``) and K9b
-(``csrc/ac_sif_macro.cu``) compiled for the CPU and held against their
-plain versions.
+K5 (``csrc/gpe_strang_macro.cu``), K6 (``csrc/bv_cc_macro.cu``), K7
+(``csrc/sbm_bv_macro.cu``), K8 2D and 3D (``csrc/ch_rhs_fd.cu``), K9a
+(``csrc/ch_sif_macro.cu``) and K9b (``csrc/ac_sif_macro.cu``) compiled for
+the CPU and held against their plain versions.
 
 The CUDA sources compile with g++ against the stub headers of
-``tests/cuda_stub/``: a block runs as 256 ``std::thread``s with a
-``std::barrier`` for ``__syncthreads``, bf16 rounds to nearest even by bit
+``tests/cuda_stub/``: a block runs as one ``std::thread`` a CUDA thread
+with a ``std::barrier`` for ``__syncthreads``, a warp shuffle through a
+buffer of the warp, bf16 rounds to nearest even by bit
 arithmetic, and the stand-in ``wgmma_ops.cuh`` (first on the include path:
 the real one is left out of the build directory) computes each warpgroup
 product in C++ from the shared-memory tiles through the descriptors the
 kernel builds; the stand-in ``async_copy.cuh`` copies at once where K8's
 ``cp.async`` queues the copy.  So the indexing, zero padding, pixel
 ownership, epilogue and barriers of the tensor-core (bf16) kernels, the FMA
-(f32) kernels and K8's plane march run here on CPU tensors; only the card's
+(f32) kernels, K7's tiles and K8's row and plane marches run here on CPU
+tensors; only the card's
 reading of the descriptors, the real ``wgmma`` and ``cp.async`` are left to
 the ``cuda`` tests.  The test rewrites the two
 constructs C++ has no grammar for: the ``<<<...>>>`` launch and ``extern
@@ -22,7 +24,13 @@ __shared__``.
 Three envs on one block (the stub's device holds one block), so the block
 walks the envs by grid stride and K3's three envs share one trajectory slot;
 two substeps (K3 also none); (H, W) in {(16, 16), (24, 40), (64, 64)}.
-K8 3D: three envs at 32^3, and at N1 in {1, 2, 3, 10} (a plane its own
+K7 (f32, field 1e-5, stats to rtol 1e-4 as ``test_torch_sbm_bv.py``'s card
+test) there too, epilogue on and off, with a NaN env and with no substep.
+K8 2D: three envs at 64^2, and at 16 x 24, W = 33, 70 and 256 (one, two,
+four and eight columns a lane, a last lane that owns fewer), H = 1 and 2
+(a row its own neighbour), with the stub's SM holding 1, 8 or 30 blocks of
+four warps (each env one run of rows or up to H runs), and on rows one
+float off their 16-byte alignment.  K8 3D: three envs at 32^3, and at N1 in {1, 2, 3, 10} (a plane its own
 neighbour, runs of a few planes) and on planes that are not 16-byte aligned
 or hold an odd number of floats, with the stub's SM holding 1, 8 or 30
 blocks (so each env is one run, or cut into up to N1 runs); K8 is built with
@@ -84,12 +92,19 @@ from pde_opt_tpu_torch.ops.fused import (
     FORM_POLY,
     _bind_library as _bind_rhs,
     ch3d_rhs_fd_plain,
+    ch_rhs_fd_plain,
 )
 from pde_opt_tpu_torch.ops.fused_spectral import (
     _bind_library as _bind_sif,
     ac_sif_macro_plain,
     ch_sif_macro_plain,
     sif_constants,
+)
+from pde_opt_tpu_torch.ops.sbm_bv import (
+    SbmEpilogue,
+    _bind_library as _bind_sbm,
+    sbm_bv_constants,
+    sbm_bv_macro_plain,
 )
 from pde_opt_tpu_torch.ops.gpe_cas import (
     GpeEpilogue,
@@ -122,6 +137,8 @@ TOL_K8 = 1e-5                                     # of max|plain|
 # K8 reads (m, d) as 8-byte float2 pairs, which the card faults on at a
 # misaligned address; the x86 CPU does not, so UBSan reports it (on stderr).
 SANITIZE = {"ch_rhs_fd": ["-fsanitize=alignment"]}
+SBM_KAPPA, SBM_DT = 5e-4, 5e-4
+TOL_SBM = 1e-5                                    # chip_smoke.py's TOL_BV["f32"]
 
 
 def _cpu_source(src: str) -> str:
@@ -134,9 +151,9 @@ def _cpu_source(src: str) -> str:
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """Build ``ac_cas_macro.cu``, ``bv_cc_macro.cu``, ``ch_cas_macro.cu``,
-    ``gpe_strang_macro.cu``, ``ch_rhs_fd.cu``, ``ch_sif_macro.cu`` and
-    ``ac_sif_macro.cu`` for the CPU, in parallel; return their bound
-    libraries (K4, K6, K1-K3, K5, K8, K9a, K9b)."""
+    ``gpe_strang_macro.cu``, ``ch_rhs_fd.cu``, ``ch_sif_macro.cu``,
+    ``ac_sif_macro.cu`` and ``sbm_bv_macro.cu`` for the CPU, in parallel;
+    return their bound libraries (K4, K6, K1-K3, K5, K8, K9a, K9b, K7)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the CPU")
@@ -146,7 +163,7 @@ def libs(tmp_path_factory):
             shutil.copy(header, build)
     procs = {}
     for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro", "gpe_strang_macro", "ch_rhs_fd",
-                 "ch_sif_macro", "ac_sif_macro"):
+                 "ch_sif_macro", "ac_sif_macro", "sbm_bv_macro"):
         src = build / f"{name}.cpp"
         src.write_text(_cpu_source((CSRC / f"{name}.cu").read_text()))
         procs[name] = subprocess.Popen(
@@ -164,7 +181,8 @@ def libs(tmp_path_factory):
             _bind_ch_library(ctypes.CDLL(str(build / "libch_cas_macro.so"))),
             _bind_gpe(ctypes.CDLL(str(build / "libgpe_strang_macro.so"))), rhs,
             *(_bind_sif(ctypes.CDLL(str(build / f"lib{n}.so")), n)
-              for n in ("ch_sif_macro", "ac_sif_macro")))
+              for n in ("ch_sif_macro", "ac_sif_macro")),
+            _bind_sbm(ctypes.CDLL(str(build / "libsbm_bv_macro.so"))))
 
 
 def _ptr(t):
@@ -685,3 +703,144 @@ def test_sif_nan_env_stays_in_its_env(libs, kind, R):
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert bool(torch.isnan(got[0]).any()) and not bool(torch.isnan(got[1:]).any())
     torch.testing.assert_close(got[1:], want[1:], rtol=0, atol=TOL_SIF[kind, True])
+
+
+# ---- K7, the SBM Butler-Volmer macro -------------------------------------------
+
+def _sbm_psi(H, W, width=0.06):
+    """The SBM tests' disk level set on an H x W grid of the unit box."""
+    x, y = ((np.arange(n) + 0.5) / n - 0.5 for n in (H, W))
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    psi = 0.5 * (1.0 + np.tanh((0.35 - np.sqrt(X**2 + Y**2)) / width))
+    psi = np.where(psi < 0.001, 0.001, psi)
+    return np.where(psi > 0.99, 1.0, psi).astype(np.float32)
+
+
+def _sbm_case(lib, H, W, ep, seed, nan=False, n_steps=N_STEPS):
+    """K7 from the stub build and its plain version on charging fields:
+    ``(got, want)``, each ``u1`` or ``(u1, stats, obs)``."""
+    u, cr = _bv_inputs(H, W, seed)
+    if nan:
+        u[0, 3, 7] = float("nan")
+    consts = sbm_bv_constants(_sbm_psi(H, W), SBM_KAPPA, 1 / H, 1 / W, torch.device("cpu"))
+    epi = SbmEpilogue(255.0, 0.5) if ep else None
+    out, stats, obs = torch.empty_like(u), None, None
+    if ep:
+        stats, obs = torch.empty((B, 3)), torch.empty((B, H, W), dtype=torch.uint8)
+    rc = lib.sbm_bv_macro_launch(
+        u.data_ptr(), cr.data_ptr(), *(getattr(consts, k).data_ptr() for k in
+                                       ("psi_ax", "psi_ay", "kop", "psic", "psi")),
+        out.data_ptr(), _ptr(stats), _ptr(obs), B, H, W, n_steps, *rk4_constants(SBM_DT),
+        consts.inv_hx, consts.inv_hy, *check_bv_coefficients(BV_MU, BV_J0),
+        epi.obs_scale if epi else 0.0, epi.center if epi else 0.0, None)
+    assert rc == 0
+    want = sbm_bv_macro_plain(u, cr, consts, mu_fn=BV_MU, j0_fn=BV_J0, dt=SBM_DT,
+                              n_steps=n_steps, epilogue=epi)
+    return (out if not ep else (out, stats, obs)), want
+
+
+def _assert_sbm_epilogue(got, want):
+    assert torch.equal(got[1][:, 2], want[1][:, 2])
+    torch.testing.assert_close(got[1][:, :2], want[1][:, :2], rtol=1e-4, atol=0)
+    assert int((got[2].int() - want[2].int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("ep", [False, True])
+def test_sbm_kernel_matches_plain(libs, H, W, ep):
+    """K7 at 16^2, 24 x 40 and 64^2, with and without the psi-weighted
+    epilogue: three envs through one block (grid stride), each tile's
+    fluxes from its neighbours' stage input in shared memory."""
+    got, want = _sbm_case(libs[7], H, W, ep, seed=H + W)
+    if not ep:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_SBM)
+    if ep:
+        _assert_sbm_epilogue(got, want)
+
+
+@pytest.mark.parametrize("ep", [False, True])
+def test_sbm_nan_env_stays_in_its_env(libs, ep):
+    """One NaN pixel in the first env at 24 x 40: its reduction poisons that
+    env only; the block goes on to the other two, which must equal plain."""
+    got, want = _sbm_case(libs[7], 24, 40, ep, seed=5, nan=True)
+    if not ep:
+        got, want = (got,), (want,)
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert bool(torch.isnan(got[0][0]).all()) and not bool(torch.isnan(got[0][1:]).any())
+    torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_SBM)
+    if ep:
+        assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) == 0.0
+        torch.testing.assert_close(got[1][1:, :2], want[1][1:, :2], rtol=1e-4, atol=0)
+
+
+def test_sbm_no_substep_copies_the_field(libs):
+    """n_steps = 0: the field comes back as it went in, and the epilogue
+    reads it."""
+    got, want = _sbm_case(libs[7], 16, 16, True, seed=1, n_steps=0)
+    assert torch.equal(got[0], want[0])
+    _assert_sbm_epilogue(got, want)
+
+
+# ---- K8 2D, the row march ------------------------------------------------------
+
+def _rhs2d_case(lib, shape, h, kind, resident, seed, offset=0):
+    """K8 2D from the stub build and its plain version on fields around 0.5,
+    the first env stretched beyond [0, 1]; the stub's SM holds ``resident``
+    blocks of four warps; ``offset`` floats put u and out off their 16-byte
+    alignment.  ``(got, want)``."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    buf = torch.from_numpy((0.5 + 0.05 * rng.standard_normal(n + offset)).astype(np.float32))
+    u = buf[offset:].view(shape)
+    u[0] = u[0] * 3.0 - 1.0
+    kap = torch.from_numpy(np.linspace(2e-3, 5e-3, shape[0]).astype(np.float32))
+    mu, D, (mf, mc), (df, dc) = _rhs3d_pair(kind)
+    out = torch.full((n + offset,), float("nan"))[offset:].view(shape)
+    lib.stub_set_resident_blocks(resident)
+    w = ctypes.c_int(0)
+    assert lib.ch_rhs_fd_2d_resident(shape[2], ctypes.byref(w)) == 0
+    assert w.value == 4 * resident                   # one stub SM, four warps a block
+    rc = lib.ch_rhs_fd_2d_launch(
+        u.data_ptr(), kap.data_ptr(), out.data_ptr(), *shape, mc.data_ptr(), mc.numel(), mf,
+        dc.data_ptr(), dc.numel(), df, 1 / h[0], 1 / h[1], 1 / h[0] ** 2, 1 / h[1] ** 2,
+        w.value, None)
+    assert rc == 0
+    return out, ch_rhs_fd_plain(u, kap, mu_fn=mu, D_fn=D, hx=h[0], hy=h[1])
+
+
+def _assert_k8(got, want, capfd):
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL_K8 * float(want.abs().max())
+    assert "runtime error" not in capfd.readouterr().err
+
+
+@pytest.mark.parametrize("kind", ["legendre", "poly"])
+def test_k8_2d_kernel_matches_plain(libs, kind, capfd):
+    """K8 2D at the fleet's grid: three envs x 64^2 (two columns a lane), the
+    Legendre pair and c^3 - c with D = 1 + 0.5 c^2."""
+    got, want = _rhs2d_case(libs[4], (B, 64, 64), (0.01, 0.01), kind, 1, seed=4)
+    _assert_k8(got, want, capfd)
+
+
+@pytest.mark.parametrize("dims", [(16, 24), (64, 64), (9, 70), (5, 33), (3, 256), (1, 8),
+                                  (2, 16)])
+@pytest.mark.parametrize("resident", [1, 8, 30])
+def test_k8_2d_march_wraps(libs, dims, resident, capfd):
+    """K8 2D where the row march's wraps matter: 16 x 24 (24 lanes of one
+    column), 64^2, W = 70 (four columns a lane, the last lane two) and 33
+    (two a lane, the last one, odd rows: single-float access), 256 (eight a
+    lane), H = 1 and 2 (a row its own neighbour, or its neighbour's); the
+    stub's SM holds 1, 8 or 30 blocks, so each env is one run of rows or up
+    to H runs of as few as one row."""
+    got, want = _rhs2d_case(libs[4], (B, *dims), (0.01, 0.02), "legendre", resident,
+                            seed=sum(dims))
+    _assert_k8(got, want, capfd)
+
+
+@pytest.mark.parametrize("dims", [(16, 64), (8, 128)])
+def test_k8_2d_unaligned_rows(libs, dims, capfd):
+    """u and out one float off their 16-byte alignment: the march takes
+    single-float accesses, not float2 or float4 ones."""
+    got, want = _rhs2d_case(libs[4], (B, *dims), (0.01, 0.01), "poly", 8, seed=2, offset=1)
+    _assert_k8(got, want, capfd)

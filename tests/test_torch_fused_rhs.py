@@ -227,6 +227,8 @@ def _card_pairs(kind, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["poly", "legendre"])
 @pytest.mark.parametrize("B,dims,h", [(7, (16, 24), (0.01, 0.02)), (64, (64, 64), (0.01, 0.01)),
+                                      (3, (128, 128), (0.01, 0.02)),
+                                      (2, (256, 256), (0.01, 0.01)),
                                       (3, (8, 8, 8), (0.01, 0.01, 0.01)),
                                       (5, (32, 32, 32), (0.01, 0.01, 0.01)),
                                       (2, (6, 16, 8), (0.01, 0.02, 0.03)),

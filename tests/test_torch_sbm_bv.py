@@ -78,19 +78,21 @@ def F(c):
     return 3.0 * c * (1.0 - c)
 
 
-def _psi(N, width=0.06):
-    """The JAX tests' disk level set."""
+def _psi(N, width=0.06, W=None):
+    """The JAX tests' disk level set (on an N x W grid with ``W``)."""
     x = (np.arange(N) + 0.5) / N - 0.5
-    X, Y = np.meshgrid(x, x, indexing="ij")
+    y = x if W is None else (np.arange(W) + 0.5) / W - 0.5
+    X, Y = np.meshgrid(x, y, indexing="ij")
     psi = 0.5 * (1.0 + np.tanh((0.35 - np.sqrt(X**2 + Y**2)) / width))
     psi = np.where(psi < 0.001, 0.001, psi)
     return np.where(psi > 0.99, 1.0, psi).astype(np.float32)
 
 
-def _inputs(B=5, N=16, seed=0):
+def _inputs(B=5, N=16, seed=0, W=None):
     rng = np.random.default_rng(seed)
-    u = np.clip(0.1 + 0.01 * rng.standard_normal((B, N, N)), 0.01, 0.99).astype(np.float32)
-    return u, np.linspace(0.5, 2.0, B).astype(np.float32), _psi(N)
+    shape = (B, N, N if W is None else W)
+    u = np.clip(0.1 + 0.01 * rng.standard_normal(shape), 0.01, 0.99).astype(np.float32)
+    return u, np.linspace(0.5, 2.0, B).astype(np.float32), _psi(N, W=W)
 
 
 def _t(*arrays):
@@ -514,12 +516,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("H,W", [(16, 16), (64, 64), (24, 40)])
 @pytest.mark.parametrize("ep", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, H, ep):
-    u, cr, psi = _inputs(300, H, seed=H)
+def test_kernel_matches_plain_on_card(cuda_device, H, W, ep):
+    u, cr, psi = _inputs(300, H, seed=H, W=W)
     u, cr = (t.to(cuda_device) for t in _t(u, cr))
-    consts = sbm_bv_constants(torch.from_numpy(psi), KAPPA, 1 / H, 1 / H, cuda_device)
+    consts = sbm_bv_constants(torch.from_numpy(psi), KAPPA, 1 / H, 1 / W, cuda_device)
     kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=DT, n_steps=10,
               epilogue=SbmEpilogue(255.0, 0.5) if ep else None)
     name = "sbm_bv_macro_ep" if ep else "sbm_bv_macro"
