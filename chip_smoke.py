@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Ten paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Thirteen paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -20,7 +20,9 @@ D, 50 substeps a call through ``FusedMobilitySpectral`` (one launch of the
 fused FD rhs K8 a substep), and its unit-mobility twin.  The flagship CH
 fleet with ``derivs="pallas"`` (K8 2D, once a substep of the fft stepper).
 The CH and AC fleets and the CH training path on the packed-DFT macros
-(``algo="dft"``: K9a, K9b).  Phases (each passes or raises; nothing is
+(``algo="dft"``: K9a, K9b).  The RL learners on the flagship fleet (K1):
+PPO at the JAX bench's ``run_ppo`` shape, DQN with three discrete actions,
+and DDPG.  Phases (each passes or raises; nothing is
 caught):
 
 1. Require a CUDA device; print the card's name and power limit.
@@ -120,13 +122,29 @@ caught):
    their type, or bytes over the memory rate, whichever is larger) is
    computed from this run's shapes.
 
-Every rollout runs under ``torch.cuda.set_sync_debug_mode("error")``: a
+8. The RL learners on the flagship fleet, each with its launch counts
+   reset just before its timed updates and read just after: PPO at
+   ``run_ppo``'s shape (4096 x 64^2 x 10, ``derivs="pallas"``, the fused
+   epilogue at ``obs_downsample=4``, the bf16 ``ActorCriticMLP``, T = 64,
+   2 epochs x 4 minibatches): trained env-steps/s, the update time, the
+   physics floor (a random-policy rollout of the same env) and the
+   learner's share; 64 K1 launches an update and no other kernel; finite
+   metrics, moved parameters, an auto-reset inside a rollout; one update's
+   loss and gradients on a fixed trajectory against the CPU.  DQN
+   (``QNetConv``, default ``DQNConfig``) on the flagship fleet with the
+   discrete actions {0, +1, -1} on kappa's offset, and DDPG
+   (``DeterministicActorConv``, ``QCriticConv``, default ``DDPGConfig``) on
+   the preset: the update time, one K1 launch an update, finite losses,
+   epsilon's decay, the replay's fill, targets that trail the online nets.
+
+Every rollout and update runs under ``torch.cuda.set_sync_debug_mode("error")``: a
 step that waits for the device fails the run.  The last two lines are a
 JSON object per kernel and the JSON result line.
 """
 
 import itertools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -287,6 +305,24 @@ TOL_SITE.update({"ch_sif": 2e-5, "ac_sif": 1e-6})
 # ROADMAP's case: 16^2, f64, field amplitude 0.05, kappa 0.002, mu [0, 1,
 # 0.5], objective mean(u_T^2)) on the card against the CPU, to 1e-4.
 LEG_N, LEG_MU0, LEG_STEPS, TOL_LEG = 16, (0.0, 1.0, 0.5), 3, 1e-4
+# The RL learners on the flagship fleet (phase 8).  PPO at bench.py's run_ppo
+# shape, uncut: 4096 envs x 64^2 x 10 substeps, derivs="pallas", the fused
+# epilogue (K1) with obs_downsample 4; ActorCriticMLP 256 -> 256 -> 64 in
+# bf16; T = 64, 2 epochs x 4 minibatches, lr 3e-4.  PPO_WARM updates, then
+# PPO_TIMED timed, the physics floor (a random-policy 64-step rollout of the
+# same env, PPO_FLOOR_RUNS times), and PPO_BRACKET more timed updates around
+# it.  One update's loss and gradients on a fixed trajectory (its first
+# PPO_CHECK_ENVS envs, all 64 steps) on the card against the CPU, to
+# TOL_RL_BF16 (the bf16 nets' bound in tests/test_torch_rl.py).  DQN
+# (QNetConv, the default DQNConfig) on the flagship fleet with the actions
+# {0, +1, -1} on kappa's offset, and DDPG (DeterministicActorConv,
+# QCriticConv, the default DDPGConfig) on the preset itself: RL_WARM updates,
+# then RL_TIMED timed.
+PPO_T, PPO_WARM, PPO_TIMED, PPO_BRACKET, PPO_FLOOR_RUNS = 64, 2, 8, 4, 3
+PPO_CHECK_ENVS, TOL_RL_BF16 = 256, 2e-2
+RL_WARM, RL_TIMED = 2, 4
+DQN_ACTIONS = {"type": "discrete", "num_actions": 3,
+               "action_mapping": {0: [0.0], 1: [1.0], 2: [-1.0]}}
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1771,6 +1807,254 @@ def _check_module_fault(torch, dev):
     print(line, flush=True)
 
 
+def _timed(torch, n, fn):
+    """Host seconds per call of ``fn`` over ``n`` calls under sync debug mode
+    "error" (a call that waits for the device fails), to one trailing
+    synchronisation."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def _only_k1(counts, n, what):
+    """K1 launched ``n`` times and no other kernel."""
+    others = {k: v for k, v in counts.items() if k != "ch_cas_macro_ep" and v}
+    _check(counts["ch_cas_macro_ep"] == n and not others,
+           f"{what}: launches {counts}, expected {n} of K1 and nothing else")
+
+
+def _finite_metrics(history, what):
+    from pde_opt_tpu_torch.utils.metrics import to_host
+
+    rows = [to_host(m) for m in history]
+    _check(all(all(math.isfinite(v) for v in r.values()) for r in rows),
+           f"{what}: a non-finite metric")
+    return rows
+
+
+def _moved(before, params):
+    return sum(float((p.detach() - q).abs().sum()) for p, q in zip(params, before))
+
+
+def _loss_grads(torch, net, traj, last_value, cfg, loss_fn):
+    """The PPO loss and its gradients on one fixed trajectory, as one batch."""
+    from pde_opt_tpu_torch.rl.ppo import advantages
+
+    adv, ret = advantages(traj, last_value, cfg)
+    flat = type(traj)(*(x.reshape(-1, *x.shape[2:]) for x in traj))
+    net.zero_grad(set_to_none=True)
+    loss, aux = loss_fn(net, flat, adv.reshape(-1), ret.reshape(-1))
+    loss.backward()
+    pg, v, ent = (abs(float(a.detach())) for a in aux[:3])
+    scale = pg + cfg.vf_coef * v + cfg.ent_coef * ent     # the size of the loss's terms
+    return float(loss), scale, [p.grad.detach().cpu() for p in net.parameters()]
+
+
+def _drive_ppo(torch, kernels, dev, card):
+    """PPO at run_ppo's shape (see PPO_T): trained env-steps/s, the update
+    time, the physics floor and the learner's share; K1 64 times an update
+    and nothing else; an auto-reset inside a rollout; one update's loss and
+    gradients on the card against the CPU.  Returns the launch counts of the
+    PPO_TIMED timed updates."""
+    import copy
+
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.rl import ActorCriticMLP, PPOConfig, Sampler, make_ppo_train_step
+
+    env = make_cahn_hilliard_control_env(NUM_ENVS, GRID, SUBSTEPS, derivs="pallas",
+                                         spectral_solve="fused", obs_downsample=4, device=dev)
+    net = ActorCriticMLP(1, (GRID // 4) ** 2, widths=(256,), features=64,
+                         compute_dtype=torch.bfloat16,
+                         generator=torch.Generator(device=dev).manual_seed(70), device=dev)
+    w0 = [p.detach().clone() for p in net.parameters()]
+    cfg = PPOConfig(rollout_steps=PPO_T, epochs=2, minibatches=4, lr=3e-4)
+    train_step, optimizer = make_ppo_train_step(env, cfg)
+    opt = optimizer(net.parameters())
+    sampler = Sampler(torch.Generator(device=dev).manual_seed(71))
+    state, _ = env.reset(torch.Generator(device=dev).manual_seed(72))
+    history = []
+
+    def update():
+        nonlocal state
+        state, m = train_step(net, opt, state, sampler)
+        history.append(m)
+
+    for _ in range(PPO_WARM):
+        update()
+    kernels.reset_launch_counts()
+    dt = _timed(torch, PPO_TIMED, update)
+    counts = kernels.launch_counts()
+
+    # The physics floor: a random-policy rollout of the same env, same T.
+    run = env.make_rollout(lambda o, g: env.sample_actions(g), PPO_T)
+    gen = torch.Generator(device=dev).manual_seed(74)
+    floor_state, _ = env.reset(torch.Generator(device=dev).manual_seed(73))
+
+    def floor():
+        nonlocal floor_state
+        floor_state, _, _ = run(floor_state, gen)
+
+    floor()
+    physics_s = _timed(torch, PPO_FLOOR_RUNS, floor)
+    dt2 = _timed(torch, PPO_BRACKET, update)
+    split = 0.5 * (dt + dt2)
+    physics_ms = 1e3 * physics_s
+    learner_ms = max(1e3 * split - physics_ms, 0.0)
+    share = min(physics_ms / (1e3 * split), 1.0)
+    rate = PPO_T * NUM_ENVS / dt
+    per_update = counts["ch_cas_macro_ep"] / PPO_TIMED
+    print("ppo: " + json.dumps({
+        "trained_env_steps_per_s": rate, "update_ms": 1e3 * dt,
+        "update_ms_bracket": [1e3 * dt, 1e3 * dt2], "split_update_ms": 1e3 * split,
+        "physics_ms": physics_ms, "learner_ms": learner_ms, "physics_share": share,
+        "k1_launches_per_update": per_update}) + f" ({NUM_ENVS} envs x {GRID}^2 x {SUBSTEPS} "
+          f"substeps, T {PPO_T}, ActorCriticMLP bf16, 2 epochs x 4 minibatches) [{card}]",
+          flush=True)
+    _only_k1(counts, PPO_TIMED * PPO_T, "PPO")
+    rows = _finite_metrics(history, "PPO")
+    _check(len(rows[0]) == 7, f"PPO metrics {sorted(rows[0])}")
+    moved = _moved(w0, net.parameters())
+    _check(moved > 0.0, "PPO: the parameters did not move")
+    total = (PPO_WARM + PPO_TIMED + PPO_BRACKET) * PPO_T
+    end_step = _end_step(torch, env)
+    max_count = int(state.step_count.max())
+    _check(total > end_step and max_count < total,
+           f"PPO: no auto-reset in {total} steps (step counts up to {max_count})")
+    print(f"ppo: {len(rows)} updates, reward_mean {rows[0]['reward_mean']:.6e} -> "
+          f"{rows[-1]['reward_mean']:.6e}, loss {rows[-1]['loss']:.6e}; parameters moved "
+          f"(sum |change| {moved:.6e}); {total} env steps crossed the episode end at step "
+          f"{end_step} (step counts now <= {max_count})", flush=True)
+
+    # One update's loss and gradients on a fixed trajectory, card vs CPU.
+    cpu_net = copy.deepcopy(net).to("cpu")
+    _, traj, last = train_step.rollout(net, state, sampler)
+    traj = type(traj)(*(x[:, :PPO_CHECK_ENVS] for x in traj))
+    last = last[:PPO_CHECK_ENVS]
+    lc, _, gc = _loss_grads(torch, net, traj, last, cfg, train_step.loss_fn)
+    lp, scale, gp = _loss_grads(torch, cpu_net, type(traj)(*(x.cpu() for x in traj)),
+                                last.cpu(), cfg, train_step.loss_fn)
+    e_loss = abs(lc - lp) / max(scale, 1e-12)
+    e_grad = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+                 for a, b in zip(gc, gp))
+    line = (f"check ppo loss and gradients, card vs CPU ({PPO_CHECK_ENVS} envs x {PPO_T} "
+            f"steps, bf16 net): loss err {e_loss:.3e} of its terms' size, gradients max "
+            f"rel err {e_grad:.3e}")
+    _check(e_loss <= TOL_RL_BF16 and e_grad <= TOL_RL_BF16, f"{line} > {TOL_RL_BF16}")
+    print(line, flush=True)
+    return counts
+
+
+_ENV_ARGS = ("equation_type", "domain", "solver_type", "end_time", "step_dt", "numeric_dt",
+             "state_to_observation_func", "reward_function", "reset_func",
+             "reset_control_value", "update_control_value", "update_control_parameter",
+             "static_equation_parameters", "control_equation_parameter_name",
+             "solver_parameters", "num_envs", "auto_reset", "vectorized_control",
+             "fused_epilogue", "device")
+
+
+def _drive_replay_learner(torch, kernels, name, step, cfg, env, card, **action_kw):
+    """RL_WARM then RL_TIMED calls of ``step(replay, state, obs, k, sampler)``
+    (a replay learner's train step, its nets and optimizers bound) on
+    ``env``; checks K1 once an update and nothing else, finite metrics and
+    the replay's fill.  Returns (the launch counts of the timed updates, the
+    metrics rows)."""
+    from pde_opt_tpu_torch.rl import Sampler, init_replay
+
+    dev = env.device
+    sampler = Sampler(torch.Generator(device=dev).manual_seed(81))
+    state, obs = env.reset(torch.Generator(device=dev).manual_seed(82))
+    replay = init_replay(cfg, obs.shape[1:], obs.dtype, device=dev, **action_kw)
+    history, sizes = [], []
+
+    def update():
+        nonlocal state, obs, replay
+        replay, state, obs, m = step(replay, state, obs, len(history), sampler)
+        history.append(m)
+        sizes.append(replay.size)
+
+    for _ in range(RL_WARM):
+        update()
+    kernels.reset_launch_counts()
+    dt = _timed(torch, RL_TIMED, update)
+    counts = kernels.launch_counts()
+    _only_k1(counts, RL_TIMED, name)
+    rows = _finite_metrics(history, name)
+    want = [min((i + 1) * env.num_envs, cfg.capacity) for i in range(len(sizes))]
+    _check(sizes == want, f"{name}: replay sizes {sizes} != {want}")
+    print(f"{name}: {RL_WARM} + {RL_TIMED} updates on {env.num_envs} envs x {GRID}^2 x "
+          f"{SUBSTEPS} substeps, {1e3 * dt:.4f} ms an update, replay size {sizes[-1]} of "
+          f"{cfg.capacity}; launches {counts} [{card}]", flush=True)
+    return counts, rows
+
+
+def _drive_dqn_ddpg(torch, kernels, dev, card):
+    """DQN on the flagship fleet with a three-action table, DDPG on the
+    preset itself (fused epilogue, K1).  Returns their launch counts."""
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.envs.vector_env import VectorPDEEnv
+    from pde_opt_tpu_torch.rl import (
+        DDPGConfig,
+        DDPGState,
+        DeterministicActorConv,
+        DQNConfig,
+        QCriticConv,
+        QNetConv,
+        make_ddpg_train_step,
+        make_dqn_train_step,
+    )
+    from pde_opt_tpu_torch.rl.dqn import target_copy
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def trail(targets, nets):
+        return sum(_moved([p.detach() for p in t.parameters()], n.parameters())
+                   for t, n in zip(targets, nets))
+
+    base = make_cahn_hilliard_control_env(NUM_ENVS, GRID, SUBSTEPS, spectral_solve="fused",
+                                          device=dev)
+    denv = VectorPDEEnv(**{n: getattr(base, n) for n in _ENV_ARGS},
+                        action_space_config=DQN_ACTIONS)
+    qnet = QNetConv(3, generator=gen(80), device=dev)
+    target = target_copy(qnet)
+    q0 = [p.detach().clone() for p in qnet.parameters()]
+    dcfg = DQNConfig()
+    dstep, dopt = make_dqn_train_step(denv, dcfg)
+    opt = dopt(qnet.parameters())
+    dqn_counts, rows = _drive_replay_learner(
+        torch, kernels, "dqn", lambda *a: dstep(qnet, target, opt, *a), dcfg, denv, card)
+    _check(rows[-1]["epsilon"] < rows[0]["epsilon"], "DQN: epsilon did not anneal")
+    _check(_moved(q0, qnet.parameters()) > 0.0, "DQN: the Q-net did not move")
+    gap = trail([target], [qnet])
+    _check(gap > 0.0, "DQN: the target does not trail the online net")
+    print(f"dqn: loss {rows[0]['loss']:.6e} -> {rows[-1]['loss']:.6e}, epsilon "
+          f"{rows[0]['epsilon']:.4f} -> {rows[-1]['epsilon']:.4f}, sum |target - online| "
+          f"{gap:.6e}", flush=True)
+
+    actor = DeterministicActorConv(1, generator=gen(83), device=dev)
+    critic = QCriticConv(1, generator=gen(84), device=dev)
+    a0 = [p.detach().clone() for p in actor.parameters()]
+    ccfg = DDPGConfig()
+    cstep, (ao, co) = make_ddpg_train_step(base, ccfg)
+    agent = DDPGState(actor, critic, target_copy(actor), target_copy(critic),
+                      ao(actor.parameters()), co(critic.parameters()))
+    ddpg_counts, rows = _drive_replay_learner(
+        torch, kernels, "ddpg", lambda *a: cstep(agent, *a), ccfg, base, card,
+        action_shape=tuple(base.action_shape), action_dtype=torch.float32)
+    _check(_moved(a0, actor.parameters()) > 0.0, "DDPG: the actor did not move")
+    gap = trail([agent.target_actor, agent.target_critic], [actor, critic])
+    _check(gap > 0.0, "DDPG: the targets do not trail the online nets")
+    print(f"ddpg: critic_loss {rows[0]['critic_loss']:.6e} -> {rows[-1]['critic_loss']:.6e}, "
+          f"actor_loss {rows[-1]['actor_loss']:.6e}, sum |target - online| {gap:.6e}",
+          flush=True)
+    return dqn_counts, ddpg_counts
+
+
 def main():
     import torch
 
@@ -2414,11 +2698,16 @@ def main():
           f"steps, {NUM_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps, K8 {SUBSTEPS} a step); "
           f"3D mobility path: {m3_per_call:.0f} K8 launches a call [{card}]", flush=True)
 
+    # ---- 8. the RL learners on the flagship fleet (K1) ----------------------
+    ppo_counts = _drive_ppo(torch, kernels, dev, card)
+    dqn_counts, ddpg_counts = _drive_dqn_ddpg(torch, kernels, dev, card)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
-                                      dft_ac_counts, dft_train_counts)) for n in KERNELS}
+                                      dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
+                                      ddpg_counts)) for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()
     # library_ms is null for every kernel: no single PyTorch call computes a

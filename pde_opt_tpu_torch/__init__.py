@@ -13,7 +13,9 @@ down to their fused macros, and the 3D and general-mobility Cahn-Hilliard
 path (``CahnHilliard3DPeriodic``, ``FusedSemiImplicitSpectral3D``,
 ``FusedMobilitySpectral`` with the Legendre coefficient modules) down to the
 fused FD rhs, which also serves ``derivs="pallas"``.  The fused CH and AC
-steppers also take ``algo="dft"``, the packed-DFT macros.  On CUDA tensors
+steppers also take ``algo="dft"``, the packed-DFT macros.  The RL learners
+(``rl``: PPO, DQN and DDPG with their nets) train on the fleets' device,
+and the fleets take discrete action spaces.  On CUDA tensors
 the macros, the fused rhs and the CH backward run hand-written Hopper
 kernels (``csrc/*.cu``): every Pallas kernel of the JAX package has its
 counterpart.  The entry points build on
@@ -21,7 +23,7 @@ the card unless the caller passes ``device="cpu"``.  The package imports
 torch and numpy, never jax.
 """
 
-from . import envs, models, ops, optim, utils
+from . import envs, models, ops, optim, rl, utils
 from .envs import (
     EnvState,
     VectorPDEEnv,
@@ -36,7 +38,7 @@ from .models import CahnHilliard3DPeriodic, PDEModel
 from .ops import FusedMobilitySpectral, FusedSemiImplicitSpectral3D, integrate
 
 __all__ = [
-    "envs", "models", "ops", "optim", "utils",
+    "envs", "models", "ops", "optim", "rl", "utils",
     "Domain", "Grid", "PDEModel", "integrate",
     "CahnHilliard3DPeriodic", "FusedSemiImplicitSpectral3D", "FusedMobilitySpectral",
     "EnvState", "VectorPDEEnv", "make_cahn_hilliard_control_env",

@@ -96,9 +96,13 @@ class VectorPDEEnv:
             optional ``obs_transform`` and ``n_px``).
         device: where the fleet lives.
 
-    Only the batch-transparent stepping of the JAX env's
-    ``vectorized_control=True`` and continuous action spaces are ported;
-    the rest raises ``NotImplementedError``.
+    ``action_space_config`` is continuous (``{"type": "continuous",
+    "shape", "low", "high"}``) or discrete (``{"type": "discrete",
+    "num_actions", "action_mapping"}``: action ``i`` becomes the control
+    offset ``action_mapping[i]``, looked up on the device; no mapping gives
+    zero offsets).  Only the batch-transparent stepping of the JAX env's
+    ``vectorized_control=True`` is ported; per-env stepping raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -164,14 +168,21 @@ class VectorPDEEnv:
 
         cfg = dict(action_space_config)
         self.action_type = cfg.get("type", "continuous")
-        if self.action_type != "continuous":
-            raise NotImplementedError(
-                f"{self.action_type!r} action spaces are not ported; the "
-                "port's presets use continuous actions"
-            )
-        self.action_shape = tuple(cfg.get("shape", (2,)))
-        self.action_low = cfg.get("low", -1.0)
-        self.action_high = cfg.get("high", 1.0)
+        if self.action_type == "discrete":
+            self.num_actions = cfg.get("num_actions", 5)
+            mapping = cfg.get("action_mapping", {})
+            # The offsets table lives on the device: step() looks actions up
+            # there, with no host round trip.
+            if mapping:
+                table = np.stack([np.asarray(mapping[i], dtype=np.float32)
+                                  for i in range(len(mapping))])
+            else:
+                table = np.zeros((self.num_actions, 1), np.float32)
+            self._action_table = torch.from_numpy(table).to(self.device)
+        else:
+            self.action_shape = tuple(cfg.get("shape", (2,)))
+            self.action_low = cfg.get("low", -1.0)
+            self.action_high = cfg.get("high", 1.0)
         self.action_space_config = cfg
 
     # ------------------------------------------------------------------
@@ -182,7 +193,10 @@ class VectorPDEEnv:
         Returns ``(y1, new_cv, stats, obs)`` with ``ep_cfg`` (the
         ``fused_epilogue`` config), else ``(y1, new_cv)``.
         """
-        new_cv = self.update_control_value(actions, cv)
+        offset = actions
+        if self.action_type == "discrete":
+            offset = self._action_table.index_select(0, actions.reshape(-1).long())
+        new_cv = self.update_control_value(offset, cv)
         if tuple(new_cv.shape) != tuple(cv.shape):
             raise ValueError(
                 f"update_control_value produced shape {tuple(new_cv.shape)} "
@@ -322,7 +336,11 @@ class VectorPDEEnv:
         return state, obs, reward, terminated, truncated, info
 
     def sample_actions(self, generator: torch.Generator):
-        """Uniform random actions for the whole batch."""
+        """Uniform random actions for the whole batch (integers in
+        ``[0, num_actions)`` for a discrete space)."""
+        if self.action_type == "discrete":
+            return torch.randint(0, self.num_actions, (self.num_envs,), generator=generator,
+                                 device=self.device)
         u = torch.rand((self.num_envs, *self.action_shape), generator=generator,
                        device=self.device)
         return self.action_low + (self.action_high - self.action_low) * u

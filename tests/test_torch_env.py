@@ -232,8 +232,14 @@ def test_pooled_obs_and_unported_options():
         tpreset(device="cpu", num_envs=4, grid_size=16, spectral_solve="dense")
     with pytest.raises(NotImplementedError, match="vmapped"):
         tpreset(device="cpu", num_envs=4, grid_size=16, vectorized_control=False)
-    with pytest.raises(NotImplementedError, match="discrete"):
-        TEnv(**{**_env_kwargs(env), "action_space_config": {"type": "discrete"}})
+    # A discrete space with no mapping: five actions, all a zero offset.
+    denv = TEnv(**{**_env_kwargs(env), "action_space_config": {"type": "discrete"}})
+    dstate, _ = denv.reset(gen)
+    cv0 = dstate.control_value.clone()
+    acts = denv.sample_actions(gen)
+    assert denv.num_actions == 5 and acts.shape == (4,) and int(acts.max()) < 5
+    dstate, *_ = denv.step(dstate, acts)
+    assert torch.equal(dstate.control_value, cv0)
     with pytest.raises(ValueError, match="must divide"):
         tpreset(device="cpu", num_envs=4, grid_size=16, obs_downsample=3)
 
