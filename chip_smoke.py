@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Thirteen paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Sixteen paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -22,7 +22,11 @@ fleet with ``derivs="pallas"`` (K8 2D, once a substep of the fft stepper).
 The CH and AC fleets and the CH training path on the packed-DFT macros
 (``algo="dft"``: K9a, K9b).  The RL learners on the flagship fleet (K1):
 PPO at the JAX bench's ``run_ppo`` shape, DQN with three discrete actions,
-and DDPG.  Phases (each passes or raises; nothing is
+and DDPG.  Above 64^2, on the tiled K1-K3: the 128^2 CH control fleet of
+the JAX bench's ``run_ch128`` (1024 envs), the 256^2 macro of ``run_ch256``
+(256 envs) and the differentiable NN-control rollout of
+``run_train_grad_128`` (4096 envs x 128^2, value and gradient with respect
+to the net's parameters).  Phases (each passes or raises; nothing is
 caught):
 
 1. Require a CUDA device; print the card's name and power limit.
@@ -136,6 +140,17 @@ caught):
    (``DeterministicActorConv``, ``QCriticConv``, default ``DDPGConfig``) on
    the preset: the update time, one K1 launch an update, finite losses,
    epsilon's decay, the replay's fill, targets that trail the online nets.
+9. The CH macros above 64^2 (the tiled K1-K3).  Each kernel against its
+   plain version at 128^2, 96 x 136 and 256^2 (K3 at 128^2), f32 and bf16
+   matrices, K1 at obs_downsample 1 and 4, each launch with a NaN env that
+   must stay in its env, at phase 3's bounds; one bf16 substep at the
+   rounding sites.  Then the three paths, each with its launch counts reset
+   just before and read just after, under sync debug mode "error": the
+   128^2 fleet (30 steps, K1 only), the 256^2 macro (20 chained calls, K2
+   only, per-env mass held) and the NN-control value+grad (K2 and K3 once a
+   call; with f32 matrices also against the CPU on a few envs).  Their
+   rates, and the tiled kernels' times beside their plain versions' and
+   their bounds at these shapes.
 
 Every rollout and update runs under ``torch.cuda.set_sync_debug_mode("error")``: a
 step that waits for the device fails the run.  The last two lines are a
@@ -197,6 +212,11 @@ TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
 # at TOL_BWD after one substep, and after 10 within TOL_BWD or twice the
 # f64-accumulated control's distance, whichever is larger; the random
 # cotangent (a flip moves dkappa by ~1e-2 there) is reported, not bounded.
+# The tiled K3 at the NN-control path's 4096 x 128^2 sums two 64-term
+# chunks a product on the tensor cores: there the plain backward with its
+# products on the TF32 tensor cores sits 1.6e-2 (dkappa) from plain against
+# 8.7e-3 for the f64 control (H100, scripts/torch_tiled_ab.py), so that check
+# is held to twice the larger of the two controls' distances.
 TOL_BWD = {"f32": (5e-6, 1e-4), "bf16": (1e-5, 1e-2)}
 # AC fleet (the preset: L = 0.01 * grid, step_dt 0.01, A = 1, kappa in
 # [1e-4, 1e-3]); K4 is held at the CH macro's bounds, bf16 tighter (5e-4:
@@ -323,6 +343,26 @@ PPO_CHECK_ENVS, TOL_RL_BF16 = 256, 2e-2
 RL_WARM, RL_TIMED = 2, 4
 DQN_ACTIONS = {"type": "discrete", "num_actions": 3,
                "action_mapping": {0: [0.0], 1: [1.0], 2: [-1.0]}}
+# The CH macros above 64^2 (the tiled K1-K3, phase 9).  Kernel against
+# plain at 128^2, 96 x 136 (no multiple of 64, not square) and 256^2 (K3 at
+# 128^2 alone), f32 and bf16 matrices, K1 at ds 1 and 4, one NaN env each
+# (BIG_NAN_ENV), at the card bounds of phase 3 (TOL_U, stats rtol 1e-3, obs
+# 1 LSB, TOL_BWD, TOL_SITE["ch"]).  Then the paths, uncut: bench.py's run_ch128
+# fleet (1024 envs x 128^2 x 10 substeps, derivs="pallas", fused epilogue:
+# K1), run_ch256's macro (256 envs x 256^2 x 10, dt 1e-4: K2, BIG256_CALLS
+# chained calls) and run_train_grad_128's NN-control value+grad (BASELINE
+# config 3: 4096 envs x 128^2 x 10, dt 1e-3, bf16: K2 + K3, NN_CALLS calls),
+# its loss and gradients on NN_CHECK_ENVS envs with f32 matrices also against
+# the CPU (value rtol 1e-6, gradients 1e-4 of their largest entry).  The
+# kernels are timed at those paths' shapes and held against plain there too
+# (bf16, the same card bounds), where a block walks several envs through its
+# scratch slot.
+BIG_GRIDS = ((128, 128), (96, 136), (256, 256))
+BIG_CHECK_ENVS, BIG_NAN_ENV = 256, 5
+FLEET128_ENVS, FLEET128_GRID, FLEET128_STEPS = 1024, 128, 30
+BIG256_ENVS, BIG256_GRID, BIG256_DT, BIG256_CALLS = 256, 256, 1e-4, 20
+NN_ENVS, NN_GRID, NN_DT, NN_CALLS, NN_CHECK_ENVS = 4096, 128, 1e-3, 3, 16
+TOL_NN = (1e-6, 1e-4)
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -841,36 +881,50 @@ def _bwd_errs(got, want):
     return tuple(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
 
 
-def _bwd_f64_accumulated(torch, u, kap, g, consts, kw):
+def _bwd_f64_accumulated(torch, u, kap, g, consts, kw, tensor_cores=False):
     """The plain CH backward with every product accumulated in f64 and
     rounded once to f32: a second correct bf16 backward, at the same
     rounding sites, whose distance from the plain version is the control of
-    K3's bf16 check."""
+    K3's bf16 check.  With ``tensor_cores`` a third: every product on the
+    TF32 tensor cores instead, whose operands (bf16 values) TF32 holds
+    exactly, so the products are exact and summed in the tensor cores' f32,
+    the arithmetic of the kernel's wgmma."""
     from unittest import mock
 
     from pde_opt_tpu_torch.ops import cas_spectral
+
+    def mm(a, b):
+        return a @ b if tensor_cores else torch.matmul(a.double(), b.double()).float()
 
     def transforms(c, round_bf16):
         def rnd(z):
             return z.to(torch.bfloat16).to(torch.float32)
 
         def tr(z, mh, mw):
-            t = rnd(torch.matmul(rnd(z).transpose(-1, -2).double(), mh.double()).float())
-            return torch.matmul(t.transpose(-1, -2).double(), mw.double()).float()
+            t = rnd(mm(rnd(z).transpose(-1, -2), mh))
+            return mm(t.transpose(-1, -2), mw)
 
         return (lambda z: tr(z, c.ch, c.cw), lambda z: tr(z, c.ich, c.icw))
 
-    with mock.patch.object(cas_spectral, "_transforms", transforms):
-        return cas_spectral.ch_cas_macro_bwd_plain(u, kap, g, consts, **kw)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tensor_cores
+    try:
+        with mock.patch.object(cas_spectral, "_transforms", transforms):
+            return cas_spectral.ch_cas_macro_bwd_plain(u, kap, g, consts, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _check_bwd_bf16(torch, line, got, want, alt):
+def _check_bwd_bf16(torch, line, got, want, alt, alt_tc=None):
     """K3 with bf16 matrices against its plain backward after n substeps on
     the loss's cotangent: each of du and dkappa within TOL_BWD["bf16"] or
     twice the f64-accumulated control's distance from plain, whichever is
-    larger (see TOL_BWD).  Returns the errors."""
+    larger (see TOL_BWD); with ``alt_tc`` (the tensor-core control of
+    _bwd_f64_accumulated), twice the larger control's.  Returns the
+    errors."""
     e, c = _bwd_errs(got, want), _bwd_errs(alt, want)
-    bounds = [max(t, 2.0 * ci) for t, ci in zip(TOL_BWD["bf16"], c)]
+    c_tc = (0.0, 0.0) if alt_tc is None else _bwd_errs(alt_tc, want)
+    bounds = [max(t, 2.0 * ci, 2.0 * cj) for t, ci, cj in zip(TOL_BWD["bf16"], c, c_tc)]
     rms = [_rms(a - b) / _rms(b) for a, b in zip(got, want)]
 
     def envs_off(du):
@@ -878,10 +932,11 @@ def _check_bwd_bf16(torch, line, got, want, alt):
         d = (du - want[0]).abs().amax((-2, -1))
         return int((d > TOL_BWD["bf16"][0] * want[0].abs().max()).sum())
 
+    tc = "" if alt_tc is None else f"tensor-core plain {c_tc[0]:.3e}, {c_tc[1]:.3e}; "
     line += (f": du max_rel_err {e[0]:.3e} (rms {rms[0]:.3e}, {envs_off(got[0])} of "
              f"{len(got[1])} envs above {TOL_BWD['bf16'][0]:.0e}), dkappa max_rel_err {e[1]:.3e}; "
-             f"f64-accumulated plain {c[0]:.3e} ({envs_off(alt[0])} envs), {c[1]:.3e}; bounds "
-             f"{bounds[0]:.3e}, {bounds[1]:.3e}")
+             f"f64-accumulated plain {c[0]:.3e} ({envs_off(alt[0])} envs), {c[1]:.3e}; {tc}"
+             f"bounds {bounds[0]:.3e}, {bounds[1]:.3e}")
     _check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
            f"{line}: non-finite")
     _check(e[0] <= bounds[0] and e[1] <= bounds[1], line)
@@ -2055,6 +2110,339 @@ def _drive_dqn_ddpg(torch, kernels, dev, card):
     return dqn_counts, ddpg_counts
 
 
+def _big_bounds():
+    """The bounds of the tiled kernels at this phase's path shapes, counted
+    as _bounds() counts them at 64^2: K1 (the 128^2 fleet), K2 (the 256^2
+    macro, and the NN-control value+grad's forward at 4096 x 128^2) and K3
+    (the value+grad's backward).  The tiled K3 runs 7n - 1 transforms an
+    env, not the 1 + 7n of the 64^2 one: its forward re-run stops before the
+    last substep, whose output the sweep never reads."""
+    n = SUBSTEPS
+
+    def ch(B, N, transforms, ew, planes, extra):
+        px = N * N
+        mats = 4 * 2 * N * N * 4
+        return _bound(transforms, N, N, B, "bf16", ew * px * n * B,
+                      B * px * 4 * planes + B * extra + mats + 2 * px * 4)
+
+    f, b, g = FLEET128_GRID, BIG256_GRID, NN_GRID
+    return {
+        "ch_cas_macro_ep 128^2": ch(FLEET128_ENVS, f, 1 + 2 * n, 21, 2, 4 + f * f + 12),
+        "ch_cas_macro 256^2": ch(BIG256_ENVS, b, 1 + 2 * n, 21, 2, 4),
+        "ch_cas_macro 128^2 nn": ch(NN_ENVS, g, 1 + 2 * n, 21, 2, 4),
+        "ch_cas_macro_bwd 128^2 nn": ch(NN_ENVS, g, 7 * n - 1, 50, 3, 8),
+    }
+
+
+def _check_big(torch, dev, gen):
+    """Phase 9a: the tiled K1/K2 at BIG_GRIDS and K3 at 128^2 against their
+    plain versions on the card, f32 and bf16 matrices, each launch with one
+    NaN env that must stay in its env; one bf16 substep at the rounding
+    sites at 128^2.  Returns the largest bf16 field error of each."""
+    from pde_opt_tpu_torch.envs.presets import CH_MU
+    from pde_opt_tpu_torch.ops.cas_spectral import (
+        Epilogue,
+        cas_constants,
+        ch_cas_macro_bwd_cuda,
+        ch_cas_macro_bwd_plain,
+        ch_cas_macro_cuda,
+        ch_cas_macro_plain,
+    )
+
+    B, bad = BIG_CHECK_ENVS, BIG_NAN_ENV
+    keep = torch.arange(B, device=dev) != bad
+    kap = 2e-3 + 8e-3 * torch.rand((B,), generator=gen, device=dev)
+    errs = {}
+    for H, W in BIG_GRIDS:
+        u = 0.45 + 0.05 * torch.randn((B, H, W), generator=gen, device=dev)
+        u[bad, 3, 7] = float("nan")
+        for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            consts = cas_constants(H, W, HX, HY, mdt, dev)
+            kw = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=mats == "bf16")
+            for ep in (None, Epilogue(255.0, 0.0, CENTER, 1), Epilogue(255.0, 0.0, CENTER, 4)):
+                got = ch_cas_macro_cuda(u, kap, consts, epilogue=ep, **kw)
+                want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **kw)
+                torch.cuda.synchronize()
+                if ep is None:
+                    got, want = (got,), (want,)
+                name = "ch_cas_macro_ep" if ep else "ch_cas_macro"
+                err = (got[0][keep] - want[0][keep]).abs().max().item()
+                line = (f"check {name} mats={mats} ds={ep.ds if ep else '-'} {H}x{W} ({B} envs, "
+                        f"env {bad} NaN): u1 max_abs_err {err:.3e}")
+                _check(err <= TOL_U[mats], f"{line} > {TOL_U[mats]}")
+                _check(torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+                       and bool(torch.isnan(got[0][bad]).any())
+                       and not bool(torch.isnan(got[0][keep]).any()),
+                       f"{line}: the NaN env left its env")
+                if ep is not None:
+                    _check(torch.equal(got[1][:, 2], want[1][:, 2])
+                           and float(got[1][bad, 2]) < H * W, f"{line}: n_finite differs")
+                    rel = ((got[1][keep, :2] - want[1][keep, :2]).abs()
+                           / want[1][keep, :2].abs()).max().item()
+                    lsb = (got[2].int() - want[2].int()).abs().max().item()
+                    line += f", stats max_rel_err {rel:.3e}, obs max_lsb {lsb}"
+                    _check(rel <= 1e-3 and lsb <= 1, f"{line}: epilogue bounds")
+                    _check(got[2].shape == (B, H // ep.ds, W // ep.ds), f"{line}: obs shape")
+                print(line, flush=True)
+                if mats == "bf16":
+                    errs[name] = max(errs.get(name, 0.0), err)
+            if mats == "bf16" and (H, W) == (128, 128):
+                one = {**kw, "n_steps": 1}
+                _check_sites(f"ch_cas_macro mats=bf16 {H}x{W}",
+                             ch_cas_macro_cuda(u[keep], kap[keep], consts, **one),
+                             ch_cas_macro_plain(u[keep], kap[keep], consts, **one),
+                             ch_cas_macro_plain(u[keep], kap[keep], consts,
+                                                **{**one, "round_bf16": False}),
+                             TOL_SITE["ch"])
+    # K3 at 128^2 on the training fields and the loss's cotangent.
+    H = W = NN_GRID
+    ub = 0.5 + 0.01 * torch.randn((B, H, W), generator=gen, device=dev)
+    kb = torch.full((B,), 0.004, device=dev)
+    for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        consts = cas_constants(H, W, HX, HY, mdt, dev)
+        kw = dict(mu_fn=CH_MU, dt=NN_DT, A=A, n_steps=SUBSTEPS, round_bf16=mats == "bf16")
+        g = 2.0 * ch_cas_macro_plain(ub, kb, consts, **kw)
+        got = ch_cas_macro_bwd_cuda(ub, kb, g, consts, **kw)
+        want = ch_cas_macro_bwd_plain(ub, kb, g, consts, **kw)
+        torch.cuda.synchronize()
+        line = f"check ch_cas_macro_bwd mats={mats} cotangent=loss {H}x{W} ({B} envs)"
+        if mats == "f32":
+            e = _bwd_errs(got, want)
+            line += f": du max_rel_err {e[0]:.3e}, dkappa max_rel_err {e[1]:.3e}"
+            _check(e[0] <= TOL_BWD["f32"][0] and e[1] <= TOL_BWD["f32"][1],
+                   f"{line} > {TOL_BWD['f32']}")
+            print(line, flush=True)
+        else:
+            e = _check_bwd_bf16(torch, line, got, want,
+                                _bwd_f64_accumulated(torch, ub, kb, g, consts, kw))
+            errs["ch_cas_macro_bwd"] = (got[0] - want[0]).abs().max().item()
+            one = {**kw, "n_steps": 1}
+            g1 = 2.0 * ch_cas_macro_plain(ub, kb, consts, **one)
+            got1 = ch_cas_macro_bwd_cuda(ub, kb, g1, consts, **one)
+            want1 = ch_cas_macro_bwd_plain(ub, kb, g1, consts, **one)
+            ctl1 = ch_cas_macro_bwd_plain(ub, kb, g1, consts, **{**one, "round_bf16": False})
+            e1 = _bwd_errs(got1, want1)
+            line1 = (f"check ch_cas_macro_bwd mats=bf16 cotangent=loss {H}x{W}, 1 substep: "
+                     f"du max_rel_err {e1[0]:.3e}, dkappa max_rel_err {e1[1]:.3e}")
+            _check(e1[0] <= TOL_BWD["bf16"][0] and e1[1] <= TOL_BWD["bf16"][1],
+                   f"{line1} > {TOL_BWD['bf16']}")
+            print(line1, flush=True)
+            for i, part in enumerate(("du", "dkappa")):
+                _check_sites(f"ch_cas_macro_bwd mats=bf16 {H}x{W} loss cotangent, {part}",
+                             got1[i], want1[i], ctl1[i], TOL_SITE["ch_bwd"][i])
+        # One NaN env: its du and dkappa are NaN, no other env's is.
+        un = ub.clone()
+        un[bad, 3, 7] = float("nan")
+        du, dk = ch_cas_macro_bwd_cuda(un, kb, g, consts, **kw)
+        torch.cuda.synchronize()
+        _check(bool(torch.isnan(du[bad]).any()) and bool(torch.isnan(dk[bad]))
+               and bool(torch.isfinite(du[keep]).all()) and bool(torch.isfinite(dk[keep]).all()),
+               f"K3 mats={mats} {H}x{W}: the NaN env left its env")
+        print(f"check ch_cas_macro_bwd mats={mats} {H}x{W}: NaN env {bad} stays in its env",
+              flush=True)
+    return errs
+
+
+def _check_fwd_bf16(torch, line, got, want):
+    """A bf16 forward against its plain version at the card bounds: the
+    field within TOL_U["bf16"] and, for K1's (field, stats, obs), the stats
+    to rtol 1e-3, n_finite equal and the obs within 1 LSB."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    err = (got[0] - want[0]).abs().max().item()
+    line += f": u1 max_abs_err {err:.3e}"
+    _check(bool(torch.isfinite(got[0]).all()), f"{line}: non-finite field")
+    _check(err <= TOL_U["bf16"], f"{line} > {TOL_U['bf16']}")
+    if len(got) == 3:
+        rel = ((got[1][:, :2] - want[1][:, :2]).abs() / want[1][:, :2].abs()).max().item()
+        lsb = (got[2].int() - want[2].int()).abs().max().item()
+        line += f", stats max_rel_err {rel:.3e}, obs max_lsb {lsb}"
+        _check(torch.equal(got[1][:, 2], want[1][:, 2]), f"{line}: n_finite differs")
+        _check(rel <= 1e-3 and lsb <= 1, f"{line}: epilogue bounds")
+    print(line, flush=True)
+
+
+def _drive_big(torch, kernels, dev, gen, card):
+    """Phase 9b: the 128^2 fleet (K1), the 256^2 macro (K2) and the 128^2
+    NN-control value+grad (K2 + K3) through their entry points, each with
+    its launch counts reset just before and read just after, under sync
+    debug mode "error"; then the tiled kernels' times against their plain
+    versions and bounds at these shapes, and each kernel held against its
+    plain version there.  Returns each path's counts."""
+    from pde_opt_tpu_torch.envs.presets import CH_MU, make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.ops.cas_spectral import (
+        Epilogue,
+        cas_constants,
+        ch_cas_macro_bwd_cuda,
+        ch_cas_macro_bwd_plain,
+        ch_cas_macro_cuda,
+        ch_cas_macro_plain,
+        make_ch_cas_fused_macro,
+    )
+    from pde_opt_tpu_torch.bench.nn_control import KappaControlNet, nn_control_loss
+
+    # -- the 128^2 control fleet (run_ch128) --
+    env = make_cahn_hilliard_control_env(num_envs=FLEET128_ENVS, grid_size=FLEET128_GRID,
+                                         substeps=SUBSTEPS, derivs="pallas",
+                                         spectral_solve="fused", device=dev)
+    state, _ = env.reset(gen)
+    env.make_rollout(lambda o, g: env.sample_actions(g), 2)(state, gen)
+    state, _ = env.reset(gen)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    state, rew, term = env.make_rollout(lambda o, g: env.sample_actions(g),
+                                        FLEET128_STEPS)(state, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_fleet = time.perf_counter() - t0
+    fleet_counts = kernels.launch_counts()
+    _check(fleet_counts["ch_cas_macro_ep"] == FLEET128_STEPS
+           and sum(fleet_counts.values()) == FLEET128_STEPS, f"128^2 fleet launches {fleet_counts}")
+    _check(rew.shape == (FLEET128_STEPS, FLEET128_ENVS) and bool(torch.isfinite(rew).all())
+           and bool(torch.isfinite(state.y).all()), "128^2 fleet: non-finite rewards or field")
+    fleet_rate = FLEET128_ENVS * FLEET128_STEPS / t_fleet
+    print(f"128^2 fleet: {FLEET128_STEPS}-step rollout of {FLEET128_ENVS} envs x "
+          f"{FLEET128_GRID}^2 x {SUBSTEPS} substeps (derivs=pallas, fused epilogue), no host "
+          f"sync, launches {fleet_counts}: {fleet_rate:.1f} env-steps/s [{card}]", flush=True)
+
+    # -- the 256^2 macro (run_ch256) --
+    N = BIG256_GRID
+    macro = make_ch_cas_fused_macro(CH_MU, N, N, 0.01, 0.01, 1.0, BIG256_DT, SUBSTEPS)
+    u = 0.5 + 0.01 * torch.randn((BIG256_ENVS, N, N), generator=gen, device=dev)
+    k = torch.full((BIG256_ENVS,), 4e-3, device=dev)
+    out = macro(u, k)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for _ in range(BIG256_CALLS):
+        out = macro(out, k)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_256 = time.perf_counter() - t0
+    m256_counts = kernels.launch_counts()
+    _check(m256_counts["ch_cas_macro"] == BIG256_CALLS
+           and sum(m256_counts.values()) == BIG256_CALLS, f"256^2 macro launches {m256_counts}")
+    _check(bool(torch.isfinite(out).all()), "256^2 macro: non-finite field")
+    drift = (out.mean((-2, -1)) - u.mean((-2, -1))).abs().max().item()
+    _check(drift < 1e-3, f"256^2 macro: per-env mean drift {drift}")
+    rate_256 = BIG256_ENVS * SUBSTEPS * BIG256_CALLS / t_256
+    print(f"256^2 macro: {BIG256_CALLS} chained calls of {BIG256_ENVS} envs x {N}^2 x "
+          f"{SUBSTEPS} substeps (dt {BIG256_DT}), no host sync, launches {m256_counts}, per-env "
+          f"mean drift {drift:.3e}: {rate_256:.1f} field-substeps/s [{card}]", flush=True)
+
+    # -- the NN-control value+grad (run_train_grad_128, BASELINE config 3) --
+    G = NN_GRID
+    u_nn = 0.5 + 0.01 * torch.randn((NN_ENVS, G, G), generator=gen, device=dev)
+    net = KappaControlNet(generator=torch.Generator(device=dev).manual_seed(56), device=dev)
+    m_nn = make_ch_cas_fused_macro(CH_MU, G, G, 0.01, 0.01, 1.0, NN_DT, SUBSTEPS)
+
+    def value_and_grad(m, uu, nn_):
+        nn_.zero_grad(set_to_none=True)
+        v = nn_control_loss(nn_, m, uu)
+        v.backward()
+        return v.detach(), [p.grad for p in nn_.parameters()]
+
+    value_and_grad(m_nn, u_nn, net)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    vg = [value_and_grad(m_nn, u_nn, net) for _ in range(NN_CALLS)]
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_nn = time.perf_counter() - t0
+    nn_counts = kernels.launch_counts()
+    _check(nn_counts["ch_cas_macro"] == NN_CALLS and nn_counts["ch_cas_macro_bwd"] == NN_CALLS
+           and sum(nn_counts.values()) == 2 * NN_CALLS, f"NN value+grad launches {nn_counts}")
+    _check(all(bool(torch.isfinite(v)) and all(bool(torch.isfinite(g).all()) for g in gs)
+               for v, gs in vg), "NN value+grad: non-finite value or gradient")
+    nn_rate = NN_ENVS * SUBSTEPS * NN_CALLS / t_nn
+    print(f"128^2 NN-control value+grad: {NN_CALLS} calls of {NN_ENVS} envs x {G}^2 x "
+          f"{SUBSTEPS} substeps (bf16), no host sync, launches {nn_counts}, loss "
+          f"{float(vg[-1][0]):.6e}: {nn_rate:.1f} grad-env-substeps/s, "
+          f"{t_nn / NN_CALLS * 1e3:.4f} ms a call [{card}]", flush=True)
+    # Its loss and gradients with f32 matrices on NN_CHECK_ENVS envs: the card
+    # (the tiled FMA K2 and K3) against the CPU (the plain macro and backward).
+    m32 = make_ch_cas_fused_macro(CH_MU, G, G, 0.01, 0.01, 1.0, NN_DT, SUBSTEPS,
+                                  mats_dtype=torch.float32)
+    cpu_net = KappaControlNet(device="cpu")
+    cpu_net.load_state_dict({n_: p.detach().cpu() for n_, p in net.state_dict().items()})
+    v_card, g_card = value_and_grad(m32, u_nn[:NN_CHECK_ENVS].contiguous(), net)
+    v_cpu, g_cpu = value_and_grad(m32, u_nn[:NN_CHECK_ENVS].cpu(), cpu_net)
+    e_v = abs(float(v_card) / float(v_cpu) - 1.0)
+    e_g = max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(g_card, g_cpu))
+    line = (f"check NN-control value+grad (f32, {NN_CHECK_ENVS} envs) card vs CPU: value "
+            f"rel_err {e_v:.3e}, gradients max_rel_err {e_g:.3e}")
+    _check(e_v <= TOL_NN[0] and e_g <= TOL_NN[1], f"{line} > {TOL_NN}")
+    print(line, flush=True)
+
+    # -- the tiled kernels' times at these shapes, against plain and bounds --
+    bounds = _big_bounds()
+    c128 = cas_constants(FLEET128_GRID, FLEET128_GRID, HX, HY, torch.bfloat16, dev)
+    # Fields around 0.45, as in phase 9a: sum(u - 0.5), the first stat, far
+    # from 0, so that its relative error is a fair check.
+    u128 = 0.45 + 0.05 * torch.randn((FLEET128_ENVS, FLEET128_GRID, FLEET128_GRID),
+                                     generator=gen, device=dev)
+    k128 = 2e-3 + 8e-3 * torch.rand((FLEET128_ENVS,), generator=gen, device=dev)
+    kw = dict(mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS, round_bf16=True)
+    ep = Epilogue(255.0, 0.0, CENTER, 1)
+    c256 = cas_constants(N, N, 0.01, 0.01, torch.bfloat16, dev)
+    kw256 = {**kw, "dt": BIG256_DT}
+    cnn = cas_constants(G, G, 0.01, 0.01, torch.bfloat16, dev)
+    kwnn = {**kw, "dt": NN_DT}
+    knn = net(u_nn).detach()
+    g_nn = 2.0 * (ch_cas_macro_cuda(u_nn, knn, cnn, **kwnn) - 0.5)
+    cases = (
+        ("ch_cas_macro_ep 128^2", f"{FLEET128_ENVS}x{FLEET128_GRID}^2x{SUBSTEPS}",
+         lambda: ch_cas_macro_cuda(u128, k128, c128, epilogue=ep, **kw),
+         lambda: ch_cas_macro_plain(u128, k128, c128, epilogue=ep, **kw)),
+        ("ch_cas_macro 256^2", f"{BIG256_ENVS}x{N}^2x{SUBSTEPS}",
+         lambda: ch_cas_macro_cuda(u, k, c256, **kw256),
+         lambda: ch_cas_macro_plain(u, k, c256, **kw256)),
+        ("ch_cas_macro 128^2 nn", f"{NN_ENVS}x{G}^2x{SUBSTEPS}",
+         lambda: ch_cas_macro_cuda(u_nn, knn, cnn, **kwnn),
+         lambda: ch_cas_macro_plain(u_nn, knn, cnn, **kwnn)),
+        ("ch_cas_macro_bwd 128^2 nn", f"{NN_ENVS}x{G}^2x{SUBSTEPS}",
+         lambda: ch_cas_macro_bwd_cuda(u_nn, knn, g_nn, cnn, **kwnn),
+         lambda: ch_cas_macro_bwd_plain(u_nn, knn, g_nn, cnn, **kwnn)),
+    )
+    for name, what, kernel, plain in cases:
+        k1, p1, k2 = (_time_ms(torch, f, reps=3, warmup=1) for f in (kernel, plain, kernel))
+        ms = (k1 + k2) / 2
+        b_ms, b_by = bounds[name]
+        print(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of the kernel's time) at {what} bf16 "
+              f"[{card}]", flush=True)
+        # The kernel against plain on these inputs: each block walks several
+        # envs through its slot here, which the checks of phase 9a at 256
+        # envs (one env a block) do not reach.
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        line = f"check {name} mats=bf16 at {what}"
+        if name.startswith("ch_cas_macro_bwd"):
+            # K3 sums 2 x 64 terms a product on the tensor cores: its bf16
+            # dkappa strays from plain's as far as a plain backward with
+            # tensor-core products does, further than the f64 control
+            # (scripts/torch_tiled_ab.py), so both controls bound it here.
+            _check_bwd_bf16(torch, line, got, want,
+                            _bwd_f64_accumulated(torch, u_nn, knn, g_nn, cnn, kwnn),
+                            _bwd_f64_accumulated(torch, u_nn, knn, g_nn, cnn, kwnn, True))
+            # And each env's du and dkappa are those of the same kernel on
+            # BIG_CHECK_ENVS envs at a time (one env a block), bit for bit.
+            alone = [ch_cas_macro_bwd_cuda(*(x[i:i + BIG_CHECK_ENVS].contiguous()
+                                             for x in (u_nn, knn, g_nn)), cnn, **kwnn)
+                     for i in range(0, NN_ENVS, BIG_CHECK_ENVS)]
+            same = all(torch.equal(got[j], torch.cat([a[j] for a in alone])) for j in range(2))
+            _check(same, f"{line}: differs from its launches of {BIG_CHECK_ENVS} envs")
+            print(f"{line}: equals its launches of {BIG_CHECK_ENVS} envs (one env a block) "
+                  f"bit for bit", flush=True)
+        else:
+            _check_fwd_bf16(torch, line, got, want)
+    return fleet_counts, m256_counts, nn_counts
+
+
 def main():
     import torch
 
@@ -2702,12 +3090,17 @@ def main():
     ppo_counts = _drive_ppo(torch, kernels, dev, card)
     dqn_counts, ddpg_counts = _drive_dqn_ddpg(torch, kernels, dev, card)
 
+    # ---- 9. the CH macros above 64^2: the tiled K1-K3 -----------------------
+    big_err = _check_big(torch, dev, gen)
+    print(f"tiled kernels' largest bf16 field errors: {big_err}", flush=True)
+    big_counts = _drive_big(torch, kernels, dev, gen, card)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
                                       dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
-                                      ddpg_counts)) for n in KERNELS}
+                                      ddpg_counts, *big_counts)) for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()
     # library_ms is null for every kernel: no single PyTorch call computes a

@@ -42,8 +42,18 @@
 //   output tile a thread from float4 shared-memory loads.  The transform,
 //   the tile helpers and the epilogue are shared with K4 and K5
 //   (cas_common.cuh).
+//
+// Grids above 64 x 64 (any H and W that are multiples of 8 up to 256) run
+// the tiled kernels at the end of this file, bf16 and f32 alike:
+// ch_cas_macro_tiled_kernel (K1, K2) and ch_cas_macro_bwd_tiled_kernel
+// (K3).  An env's field, spectrum and intermediates no longer fit one
+// block's registers and shared memory there (one f32 256^2 field is 256 KB),
+// so they live in device memory and each transform streams 64-wide chunks
+// through shared memory (cas_tiled.cuh).  The launch picks the kernel by
+// grid; the 64^2 kernels above are unchanged.
 
 #include "cas_common.cuh"
+#include "cas_tiled.cuh"
 #include "cas_wgmma.cuh"
 
 namespace {
@@ -242,11 +252,9 @@ struct Mult {
   float cm, cu, dcm, dcu;
 };
 
-// The multipliers of pixel o, in the JAX kernel's order of operations.
-__device__ __forceinline__ Mult mult_at(const float* __restrict__ lam,
-                                        const float* __restrict__ lam2, int o,
-                                        float k, StepConsts c) {
-  const float l = __ldg(lam + o), l2 = __ldg(lam2 + o);
+// The multipliers of a pixel with symbols l = lam and l2 = lam^2, in the
+// JAX kernel's order of operations.
+__device__ __forceinline__ Mult mult_from(float l, float l2, float k, StepConsts c) {
   const float denom = 1.0f / (1.0f + c.a_dt * (k * l2));
   Mult m;
   m.cm = (c.dt * l) * denom;
@@ -254,6 +262,13 @@ __device__ __forceinline__ Mult mult_at(const float* __restrict__ lam,
   m.dcm = ((c.neg_a_dt2 * (l * l2)) * denom) * denom;
   m.dcu = ((c.dt * l2) * denom) * denom;
   return m;
+}
+
+// The multipliers of pixel o.
+__device__ __forceinline__ Mult mult_at(const float* __restrict__ lam,
+                                        const float* __restrict__ lam2, int o,
+                                        float k, StepConsts c) {
+  return mult_from(__ldg(lam + o), __ldg(lam2 + o), k, c);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -553,34 +568,314 @@ ch_cas_macro_bwd_wg_kernel(const float* __restrict__ u_in,
   }
 }
 
+// ---- K1-K3 above 64 x 64: the tiled kernels ---------------------------------
+//
+// One block owns one env at a time (grid-stride over envs), as above, but an
+// env's per-pixel planes live in device memory: the field in u_out (K3's
+// gbar in du_out), the rest in this block's slot of a scratch that the
+// wrapper allocates (ch_cas_macro_scratch says how large).  Every transform
+// is a tiled_transform (cas_tiled.cuh) whose epilogue does the substep's
+// elementwise work at a pixel pair and writes the next transform's operand
+// plane z there.  The arithmetic and its order per pixel are the 64^2
+// kernels'; the multipliers are recomputed from lam and lam2 where they are
+// used.
+
+// The multipliers at the pixel pair that starts at p.
+struct Mult2 {
+  Mult x, y;
+};
+
+__device__ __forceinline__ Mult2 mult2(const float* __restrict__ lam,
+                                       const float* __restrict__ lam2, int p, float k,
+                                       const StepConsts& sc) {
+  const float2 l = ld2(lam + p), l2 = ld2(lam2 + p);
+  return {mult_from(l.x, l2.x, k, sc), mult_from(l.y, l2.y, k, sc)};
+}
+
+__device__ __forceinline__ float2 mu2(const MuPoly& mu, float2 x) {
+  return make_float2(mu_eval(mu, x.x), mu_eval(mu, x.y));
+}
+
+// K1/K2: slot = [z, t, u~], three H x W f32 planes (z and t hold bf16 on
+// the tensor-core path, the matrices g_* are then bf16 copies).
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+ch_cas_macro_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
+                          const Op<kBf16>* __restrict__ g_ch, const Op<kBf16>* __restrict__ g_cw,
+                          const Op<kBf16>* __restrict__ g_ich,
+                          const Op<kBf16>* __restrict__ g_icw,
+                          const float* __restrict__ lam, const float* __restrict__ lam2,
+                          float* u_out, float* scratch, int B, int H, int W, int n_steps,
+                          float dt, float a_dt, MuPoly mu, Epilogue ep) {
+  extern __shared__ __align__(128) unsigned char smem_tl[];
+  __shared__ float red[kWarps][3];
+  const int tid = threadIdx.x, hw = H * W;
+  const StepConsts sc{dt, a_dt, 0.f};
+  float* z = scratch + static_cast<size_t>(blockIdx.x) * 3 * hw;
+  float* t = z + hw;
+  float* ut = t + hw;
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * hw;
+    const float k = kappa[env];
+    float* u = u_out + off;
+    __syncthreads();                 // the previous env's last epilogue is done with the planes
+    for (int p = 4 * tid; p < hw; p += 4 * kThreads) {
+      const float4 v = *reinterpret_cast<const float4*>(u_in + off + p);
+      *reinterpret_cast<float4*>(u + p) = v;
+      put_z4<kBf16>(z, p, H, W, v);
+    }
+    tiled_transform<kBf16>(                                       // u~ = fwd(u)
+        smem_tl, z, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+          const int p = r * W + c;
+          st2(ut + p, v);
+          put_z<kBf16>(z, r, c, H, W, mu2(mu, ld2(u + p)));
+        });
+    for (int s = 0; s < n_steps; ++s) {
+      tiled_transform<kBf16>(                                     // incr = cm fwd(mu(u)) - cu u~
+          smem_tl, z, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            const Mult2 m = mult2(lam, lam2, p, k, sc);
+            const float2 a = ld2(ut + p);
+            const float i0 = m.x.cm * v.x - m.x.cu * a.x, i1 = m.y.cm * v.y - m.y.cu * a.y;
+            st2(ut + p, make_float2(a.x + i0, a.y + i1));
+            put_z<kBf16>(z, r, c, H, W, make_float2(i0, i1));
+          });
+      tiled_transform<kBf16>(                                     // u += inv(incr)
+          smem_tl, z, t, g_ich, g_icw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            float2 x = ld2(u + p);
+            x.x += v.x;
+            x.y += v.y;
+            st2(u + p, x);
+            put_z<kBf16>(z, r, c, H, W, mu2(mu, x));
+          });
+    }
+    if (ep.stats != nullptr) tiled_field_epilogue(u, red, ep, env, H, W, tid);
+  }
+}
+
+// K3: slot = [traj (max(n_steps, 1) planes), z, t, u~, f, ghat].  The forward
+// re-run stores u_0 .. u_{n-1} (the sweep needs no u_n, so the last
+// substep's two transforms are not re-run: 1 + 2 (n - 1) transforms), then
+// the sweep runs the five transforms a substep of the 64^2 kernels, in
+// their order, with gbar in du_out.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+ch_cas_macro_bwd_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
+                              const float* __restrict__ g_in,
+                              const Op<kBf16>* __restrict__ g_ch,
+                              const Op<kBf16>* __restrict__ g_cw,
+                              const Op<kBf16>* __restrict__ g_ich,
+                              const Op<kBf16>* __restrict__ g_icw,
+                              const float* __restrict__ lam, const float* __restrict__ lam2,
+                              float* du_out, float* __restrict__ dk_out, float* scratch, int B,
+                              int H, int W, int n_steps, StepConsts sc, MuPoly mu, MuPoly dmu) {
+  extern __shared__ __align__(128) unsigned char smem_tl[];
+  __shared__ float red[kWarps];
+  const int tid = threadIdx.x, hw = H * W;
+  const float inv_hw = 1.0f / static_cast<float>(hw);
+  const int n_traj = n_steps > 0 ? n_steps : 1;
+  float* traj = scratch + static_cast<size_t>(blockIdx.x) * (n_traj + 5) * hw;
+  float* z = traj + static_cast<size_t>(n_traj) * hw;
+  float* t = z + hw;
+  float* ut = t + hw;
+  float* f = ut + hw;
+  float* gh = f + hw;
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * hw;
+    const float k = kappa[env];
+    float* gb = du_out + off;
+    __syncthreads();                 // the previous env's last epilogue is done with the planes
+    for (int p = 4 * tid; p < hw; p += 4 * kThreads) {
+      const float4 g4 = *reinterpret_cast<const float4*>(g_in + off + p);
+      const float4 u4 = *reinterpret_cast<const float4*>(u_in + off + p);
+      *reinterpret_cast<float4*>(gb + p) = g4;
+      *reinterpret_cast<float4*>(traj + p) = u4;
+      put_z4<kBf16>(z, p, H, W,
+                    n_steps >= 2 ? u4
+                                 : make_float4(mu_eval(mu, u4.x), mu_eval(mu, u4.y),
+                                               mu_eval(mu, u4.z), mu_eval(mu, u4.w)));
+    }
+
+    // ---- forward re-run: traj[s] = the input field of substep s ----
+    if (n_steps >= 2) {
+      tiled_transform<kBf16>(                                     // u~ = fwd(u_0)
+          smem_tl, z, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            st2(ut + p, v);
+            put_z<kBf16>(z, r, c, H, W, mu2(mu, ld2(traj + p)));
+          });
+    }
+    for (int s = 0; s + 1 < n_steps; ++s) {
+      float* us = traj + static_cast<size_t>(s) * hw;
+      tiled_transform<kBf16>(                                     // incr
+          smem_tl, z, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            const Mult2 m = mult2(lam, lam2, p, k, sc);
+            const float2 a = ld2(ut + p);
+            const float i0 = m.x.cm * v.x - m.x.cu * a.x, i1 = m.y.cm * v.y - m.y.cu * a.y;
+            st2(ut + p, make_float2(a.x + i0, a.y + i1));
+            put_z<kBf16>(z, r, c, H, W, make_float2(i0, i1));
+          });
+      tiled_transform<kBf16>(                                     // u_{s+1} = u_s + inv(incr)
+          smem_tl, z, t, g_ich, g_icw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            float2 x = ld2(us + p);
+            x.x += v.x;
+            x.y += v.y;
+            st2(us + hw + p, x);
+            put_z<kBf16>(z, r, c, H, W, mu2(mu, x));
+          });
+    }
+
+    // ---- reverse sweep: z holds mu(u_k) as each substep starts ----
+    float part = 0.f;
+    for (int s = n_steps - 1; s >= 0; --s) {
+      const float* uk = traj + static_cast<size_t>(s) * hw;
+      tiled_transform<kBf16>(                                     // fwd(mu(u_k))
+          smem_tl, z, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            st2(f + p, v);
+            put_z<kBf16>(z, r, c, H, W, ld2(uk + p));
+          });
+      tiled_transform<kBf16>(                                     // fwd(u_k)
+          smem_tl, z, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            const Mult2 m = mult2(lam, lam2, p, k, sc);
+            const float2 a = ld2(f + p);
+            st2(f + p, make_float2(m.x.dcm * a.x - m.x.dcu * v.x, m.y.dcm * a.y - m.y.dcu * v.y));
+            put_z<kBf16>(z, r, c, H, W, ld2(gb + p));
+          });
+      tiled_transform<kBf16>(                                     // ghat = fwd(gbar)
+          smem_tl, z, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            const Mult2 m = mult2(lam, lam2, p, k, sc);
+            const float2 a = ld2(f + p);
+            part += (inv_hw * v.x) * a.x;
+            part += (inv_hw * v.y) * a.y;
+            st2(gh + p, v);
+            put_z<kBf16>(z, r, c, H, W, make_float2(m.x.cm * v.x, m.y.cm * v.y));
+          });
+      tiled_transform<kBf16>(                                     // inv(cm * ghat)
+          smem_tl, z, t, g_ich, g_icw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            const Mult2 m = mult2(lam, lam2, p, k, sc);
+            const float2 a = ld2(uk + p), b = ld2(gh + p), g = ld2(gb + p);
+            st2(gb + p, make_float2(g.x + mu_eval(dmu, a.x) * v.x, g.y + mu_eval(dmu, a.y) * v.y));
+            put_z<kBf16>(z, r, c, H, W, make_float2(m.x.cu * b.x, m.y.cu * b.y));
+          });
+      tiled_transform<kBf16>(                                     // inv(cu * ghat)
+          smem_tl, z, t, g_ich, g_icw, H, W, tid, [&](int r, int c, float2 v) {
+            const int p = r * W + c;
+            const float2 g = ld2(gb + p);
+            st2(gb + p, make_float2(g.x - v.x, g.y - v.y));
+            if (s > 0) put_z<kBf16>(z, r, c, H, W, mu2(mu, ld2(uk - hw + p)));
+          });
+    }
+
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(0xffffffffu, part, d);
+    if ((tid & 31) == 0) red[tid / 32] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float a = 0.f;
+      for (int w = 0; w < kWarps; ++w) a += red[w];
+      dk_out[env] = a;
+    }
+    // The next env's first barrier orders this read of red before the next write.
+  }
+}
+
+bool tiled(int H, int W) { return H > kLd || W > kLd; }
+
+// The bf16 copies of the matrices that the tiled tensor-core kernels read.
+const __nv_bfloat16* B16(const void* p) { return static_cast<const __nv_bfloat16*>(p); }
+
+bool bad_mats16(const void* ch16, const void* cw16, const void* ich16, const void* icw16) {
+  return ch16 == nullptr || cw16 == nullptr || ich16 == nullptr || icw16 == nullptr;
+}
+
 bool bad_shape(int B, int H, int W, int n_steps, int n_coeffs) {
-  return bad_grid(B, H, W, n_steps) || bad_poly(n_coeffs);
+  return (tiled(H, W) ? bad_tiled_grid(B, H, W, n_steps) : bad_grid(B, H, W, n_steps)) ||
+         bad_poly(n_coeffs);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the macro on `stream`: the tensor-core kernel when round_bf16
-// (bf16 matrices), the FMA kernel otherwise.  stats == nullptr runs the
-// plain macro (K2); otherwise stats and obs are written too (K1).  Returns a
-// cudaError_t value, 0 on success.
+// The scratch a launch needs on the current device: `slots` blocks resident
+// at once of the kernel that the grid and round_bf16 pick, each with a slot
+// of `floats` f32.  The 64^2 forward needs none (0, 0); the 64^2 backward
+// (bwd != 0) a trajectory of max(n_steps, 1) planes of H x W a slot; the
+// tiled forward 3 planes, the tiled backward max(n_steps, 1) + 5.  Returns a
+// cudaError_t value.
+int ch_cas_macro_scratch(int bwd, int round_bf16, int H, int W, int n_steps, int* slots,
+                         long long* floats) {
+  const long long hw = static_cast<long long>(H) * W, n = n_steps > 0 ? n_steps : 1;
+  *slots = 0;
+  *floats = 0;
+  cudaError_t err = cudaSuccess;
+  if (!tiled(H, W)) {
+    if (bwd == 0) return 0;
+    err = round_bf16 != 0 ? resident_blocks(ch_cas_macro_bwd_wg_kernel, slots, kWgSmemBytes)
+                          : resident_blocks(ch_cas_macro_bwd_kernel, slots);
+    *floats = n * hw;
+  } else if (bwd == 0) {
+    err = round_bf16 != 0 ? resident_blocks(ch_cas_macro_tiled_kernel<true>, slots, kTiledSmemWg)
+                          : resident_blocks(ch_cas_macro_tiled_kernel<false>, slots, kTiledSmemFma);
+    *floats = 3 * hw;
+  } else {
+    err = round_bf16 != 0
+              ? resident_blocks(ch_cas_macro_bwd_tiled_kernel<true>, slots, kTiledSmemWg)
+              : resident_blocks(ch_cas_macro_bwd_tiled_kernel<false>, slots, kTiledSmemFma);
+    *floats = (n + 5) * hw;
+  }
+  return static_cast<int>(err);
+}
+
+// Launches the macro on `stream`: at 64^2 and below the tensor-core kernel
+// when round_bf16 (bf16 matrices), the FMA kernel otherwise; above, the
+// tiled kernel of that type, on min(B, n_slots) blocks with `scratch` as
+// ch_cas_macro_scratch sizes it (unused at 64^2).  ch16 .. icw16 are the
+// matrices as bf16 (read by the tiled tensor-core kernel alone; may be null
+// otherwise).  stats == nullptr runs
+// the plain macro (K2); otherwise stats and obs are written too (K1).
+// Returns a cudaError_t value, 0 on success.
 int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
                         const float* cw, const float* ich, const float* icw,
-                        const float* lam, const float* lam2, float* out,
-                        float* stats, unsigned char* obs, int B, int H, int W,
-                        int n_steps, float dt, float a_dt,
+                        const void* ch16, const void* cw16, const void* ich16,
+                        const void* icw16, const float* lam, const float* lam2, float* out,
+                        float* stats, unsigned char* obs, float* scratch, int n_slots,
+                        int B, int H, int W, int n_steps, float dt, float a_dt,
                         const float* mu_coeffs, int n_coeffs, int round_bf16,
                         int ds, float obs_scale, float obs_offset, float center,
                         void* stream) {
-  if (bad_shape(B, H, W, n_steps, n_coeffs) || ds < 1 || H % ds || W % ds)
+  if (bad_shape(B, H, W, n_steps, n_coeffs) || ds < 1 || H % ds || W % ds ||
+      (tiled(H, W) && (scratch == nullptr || n_slots < 1 ||
+                       (round_bf16 != 0 && bad_mats16(ch16, cw16, ich16, icw16)))))
     return static_cast<int>(cudaErrorInvalidValue);
   const MuPoly mu = make_mu(mu_coeffs, n_coeffs);
   const Epilogue ep{stats, obs, ds, obs_scale, obs_offset, center};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int resident = 0;
   cudaError_t err;
-  if (round_bf16 != 0) {
+  if (tiled(H, W) && round_bf16 != 0) {
+    const int grid = B < n_slots ? B : n_slots;
+    auto kernel = ch_cas_macro_tiled_kernel<true>;
+    if ((err = allow_smem(kernel, kTiledSmemWg)) != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, kTiledSmemWg, st>>>(u, kappa, B16(ch16), B16(cw16), B16(ich16),
+                                                 B16(icw16), lam, lam2, out, scratch, B, H, W,
+                                                 n_steps, dt, a_dt, mu, ep);
+  } else if (tiled(H, W)) {
+    const int grid = B < n_slots ? B : n_slots;
+    auto kernel = ch_cas_macro_tiled_kernel<false>;
+    if ((err = allow_smem(kernel, kTiledSmemFma)) != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, kTiledSmemFma, st>>>(u, kappa, ch, cw, ich, icw, lam, lam2, out,
+                                                  scratch, B, H, W, n_steps, dt, a_dt, mu, ep);
+  } else if (round_bf16 != 0) {
     if ((err = resident_blocks(ch_cas_macro_wg_kernel, &resident, kWgSmemBytes)) != cudaSuccess)
       return static_cast<int>(err);
     const int grid = B < resident ? B : resident;
@@ -596,36 +891,42 @@ int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The number of trajectory slots a backward launch needs on the current
-// device: one per block of the kernel that round_bf16 picks resident at once.
-int ch_cas_macro_bwd_slots(int round_bf16, int* slots) {
-  const cudaError_t err =
-      round_bf16 != 0 ? resident_blocks(ch_cas_macro_bwd_wg_kernel, slots, kWgSmemBytes)
-                      : resident_blocks(ch_cas_macro_bwd_kernel, slots);
-  return static_cast<int>(err);
-}
-
-// Launches the backward (K3) on `stream`, the tensor-core kernel when
-// round_bf16: du (B, H, W) and dkappa (B,) from u, kappa and the cotangent g.
-// `scratch` holds n_slots x max(n_steps, 1) x H x W floats; the grid is
-// min(B, n_slots).  Returns a cudaError_t value.
+// Launches the backward (K3) on `stream`, on the tensor cores when
+// round_bf16, tiled above 64^2 (ch16 .. icw16 as for the forward): du (B,
+// H, W) and dkappa (B,) from u, kappa and the cotangent g.  `scratch` holds n_slots slots as
+// ch_cas_macro_scratch sizes them; the grid is min(B, n_slots).  Returns a
+// cudaError_t value.
 int ch_cas_macro_bwd_launch(const float* u, const float* kappa, const float* g,
                             const float* ch, const float* cw, const float* ich,
-                            const float* icw, const float* lam, const float* lam2,
+                            const float* icw, const void* ch16, const void* cw16,
+                            const void* ich16, const void* icw16, const float* lam,
+                            const float* lam2,
                             float* du, float* dkappa, float* scratch, int n_slots,
                             int B, int H, int W, int n_steps, float dt, float a_dt,
                             float neg_a_dt2, const float* mu_coeffs, int n_coeffs,
                             const float* dmu_coeffs, int n_dcoeffs, int round_bf16,
                             void* stream) {
   if (bad_shape(B, H, W, n_steps, n_coeffs) || n_dcoeffs < 1 ||
-      n_dcoeffs > kMaxCoeffs || n_slots < 1)
+      n_dcoeffs > kMaxCoeffs || n_slots < 1 || scratch == nullptr ||
+      (tiled(H, W) && round_bf16 != 0 && bad_mats16(ch16, cw16, ich16, icw16)))
     return static_cast<int>(cudaErrorInvalidValue);
   const StepConsts c{dt, a_dt, neg_a_dt2};
   const MuPoly mu = make_mu(mu_coeffs, n_coeffs), dmu = make_mu(dmu_coeffs, n_dcoeffs);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = B < n_slots ? B : n_slots;
   cudaError_t err;
-  if (round_bf16 != 0) {
+  if (tiled(H, W) && round_bf16 != 0) {
+    auto kernel = ch_cas_macro_bwd_tiled_kernel<true>;
+    if ((err = allow_smem(kernel, kTiledSmemWg)) != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, kTiledSmemWg, st>>>(u, kappa, g, B16(ch16), B16(cw16), B16(ich16),
+                                                 B16(icw16), lam, lam2, du, dkappa, scratch, B,
+                                                 H, W, n_steps, c, mu, dmu);
+  } else if (tiled(H, W)) {
+    auto kernel = ch_cas_macro_bwd_tiled_kernel<false>;
+    if ((err = allow_smem(kernel, kTiledSmemFma)) != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, kTiledSmemFma, st>>>(u, kappa, g, ch, cw, ich, icw, lam, lam2, du,
+                                                  dkappa, scratch, B, H, W, n_steps, c, mu, dmu);
+  } else if (round_bf16 != 0) {
     if ((err = allow_smem(ch_cas_macro_bwd_wg_kernel, kWgSmemBytes)) != cudaSuccess)
       return static_cast<int>(err);
     ch_cas_macro_bwd_wg_kernel<<<grid, kThreads, kWgSmemBytes, st>>>(

@@ -28,7 +28,9 @@ Each macro has two implementations of the same function:
 :func:`ch_cas_macro_cuda` (the hand-written Hopper kernel
 ``csrc/ch_cas_macro.cu``; what CUDA tensors run).  So has its backward:
 :func:`ch_cas_macro_bwd_plain` and :func:`ch_cas_macro_bwd_cuda` (kernel
-K3, in the same source).  The macros are ``torch.autograd.Function``s
+K3, in the same source).  The CUDA forward takes grids up to 256² and K3 up
+to 128²: above 64² they run the tiled kernels (``csrc/cas_tiled.cuh``),
+whose per-block scratch the wrappers allocate.  The macros are ``torch.autograd.Function``s
 whose backward is the JAX package's custom VJP: re-run the forward, then
 sweep back through the same transforms, rounding where the forward rounds.
 There is no fallback from one implementation to the other.
@@ -75,7 +77,12 @@ __all__ = [
 ch_cas_macro_reference = ch_sif_macro_reference
 
 MAX_MU_DEGREE = 7
-MAX_GRID = 64        # the CUDA kernel holds one env's 64x64 tiles per block
+# The largest H, W each CUDA macro takes: the CH forward (K1/K2) runs tiled
+# kernels above 64^2, K3 up to 128^2; every other family holds one env's 64 x
+# 64 tiles in a block.  Larger grids are ROADMAP.md queue 1 item 4.
+MAX_GRID = 64
+MAX_GRID_CH = 256
+MAX_GRID_CH_BWD = 128
 
 
 class PolynomialMu:
@@ -125,11 +132,14 @@ def _cas_mat(N: int) -> np.ndarray:
 
 
 class CasConstants(NamedTuple):
-    """The macro's constant operands, f32 and contiguous on one device.
+    """The macro's constant operands, contiguous on one device.
 
     ``ch``/``cw`` are the cas matrices and ``ich``/``icw`` the inverse pair
-    ``C/N``, each already rounded to ``mats_dtype``; ``lam``/``lam2`` are the
-    FD Laplacian symbol and its square on the (H, W) grid.
+    ``C/N``, f32, each already rounded to ``mats_dtype``; ``lam``/``lam2``
+    are the FD Laplacian symbol and its square on the (H, W) grid (f32).
+    With bf16 matrices, ``ch16`` .. ``icw16`` are the same four as bf16
+    tensors (exact copies), which the tiled tensor-core CH kernels read;
+    ``None`` with f32 matrices, where those kernels refuse the launch.
     """
 
     ch: torch.Tensor
@@ -138,6 +148,10 @@ class CasConstants(NamedTuple):
     icw: torch.Tensor
     lam: torch.Tensor
     lam2: torch.Tensor
+    ch16: Optional[torch.Tensor] = None
+    cw16: Optional[torch.Tensor] = None
+    ich16: Optional[torch.Tensor] = None
+    icw16: Optional[torch.Tensor] = None
 
 
 @functools.lru_cache(maxsize=32)
@@ -154,11 +168,11 @@ def cas_constants(H: int, W: int, hx: float, hy: float,
     def f32(a):
         return torch.from_numpy(a).to(device, torch.float32).contiguous()
 
-    return CasConstants(
-        ch=mat(_cas_mat(H)), cw=mat(_cas_mat(W)),
-        ich=mat(_cas_mat(H) / H), icw=mat(_cas_mat(W) / W),
-        lam=f32(lam), lam2=f32(lam**2),
-    )
+    mats = {"ch": mat(_cas_mat(H)), "cw": mat(_cas_mat(W)),
+            "ich": mat(_cas_mat(H) / H), "icw": mat(_cas_mat(W) / W)}
+    if mats_dtype == torch.bfloat16:
+        mats.update({f"{n}16": m.to(torch.bfloat16) for n, m in list(mats.items())})
+    return CasConstants(**mats, lam=f32(lam), lam2=f32(lam**2))
 
 
 class Epilogue(NamedTuple):
@@ -297,19 +311,20 @@ def _bind_ch_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ch_cas_macro_launch.argtypes = [
-        p, p, p, p, p, p, p, p,          # u, kappa, ch, cw, ich, icw, lam, lam2
-        p, p, p,                         # out, stats, obs
+        p, p, p, p, p, p, p, p, p, p,    # u, kappa, ch, cw, ich, icw, ch16 .. icw16
+        p, p, p, p, p, p, i,             # lam, lam2, out, stats, obs, scratch, n_slots
         i, i, i, i, f, f,                # B, H, W, n_steps, dt, A*dt
         p, i, i,                         # mu coeffs, n_coeffs, round_bf16
         i, f, f, f,                      # ds, obs_scale, obs_offset, center
         p,                               # stream
     ]
     lib.ch_cas_macro_launch.restype = ctypes.c_int
-    lib.ch_cas_macro_bwd_slots.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    lib.ch_cas_macro_bwd_slots.restype = ctypes.c_int
+    lib.ch_cas_macro_scratch.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_longlong)]
+    lib.ch_cas_macro_scratch.restype = ctypes.c_int
     lib.ch_cas_macro_bwd_launch.argtypes = [
         p, p, p,                         # u, kappa, g
-        p, p, p, p, p, p,                # ch, cw, ich, icw, lam, lam2
+        p, p, p, p, p, p, p, p, p, p,    # ch, cw, ich, icw, ch16 .. icw16, lam, lam2
         p, p, p, i,                      # du, dkappa, scratch, n_slots
         i, i, i, i, f, f, f,             # B, H, W, n_steps, dt, A*dt, -A*dt*dt
         p, i, p, i, i,                   # mu, n, mu', n, round_bf16
@@ -349,41 +364,82 @@ def _check_cuda(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_grid(u, ndim: int = 3):
+def _check_grid(u, ndim: int = 3, cap: int = MAX_GRID):
     """Raise on a state the CUDA kernels do not take: ``(B, H, W)`` (with
     ``ndim=4`` ``(B, H, W, 2)``), B >= 1, H and W multiples of 8 up to
-    :data:`MAX_GRID`.  Returns ``(B, H, W)``."""
+    ``cap`` (the family's: :data:`MAX_GRID`, :data:`MAX_GRID_CH` or
+    :data:`MAX_GRID_CH_BWD`).  Returns ``(B, H, W)``."""
     if u.ndim != ndim or (ndim == 4 and u.shape[-1] != 2):
         want = "(B, H, W)" if ndim == 3 else "(B, H, W, 2)"
         raise ValueError(f"the state must be {want}, got shape {tuple(u.shape)}")
     B, H, W = u.shape[:3]
-    if B < 1 or H % 8 or W % 8 or not (8 <= H <= MAX_GRID and 8 <= W <= MAX_GRID):
+    if B < 1 or H % 8 or W % 8 or not (8 <= H <= cap and 8 <= W <= cap):
         raise ValueError(
             f"the CUDA macro takes B >= 1 envs and H, W multiples of 8 up to "
-            f"{MAX_GRID}; got {(B, H, W)}"
+            f"{cap}; got {(B, H, W)} (larger grids: ROADMAP.md queue 1 item 4)"
         )
     return B, H, W
 
 
-def _check_macro_args(u, kappa, consts, mu_fn):
-    """Raise on what the CUDA kernels do not take; return ``(B, H, W)``."""
+def _check_macro_args(u, kappa, consts, mu_fn, cap: int = MAX_GRID):
+    """Raise on what the CUDA kernels do not take (grids up to ``cap``);
+    return ``(B, H, W)``."""
     if not isinstance(mu_fn, PolynomialMu):
         raise ValueError(
             "the CUDA macro evaluates mu from polynomial coefficients: pass a "
             f"PolynomialMu, got {mu_fn!r}"
         )
-    B, H, W = _check_grid(u)
+    B, H, W = _check_grid(u, cap=cap)
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("kappa", kappa, (B,), torch.float32, dev)
     for name, shape in (("ch", (H, H)), ("cw", (W, W)), ("ich", (H, H)),
                         ("icw", (W, W)), ("lam", (H, W)), ("lam2", (H, W))):
         _check_cuda(name, getattr(consts, name), shape, torch.float32, dev)
+    for name, shape in (("ch16", (H, H)), ("cw16", (W, W)), ("ich16", (H, H)),
+                        ("icw16", (W, W))):
+        if getattr(consts, name) is not None:
+            _check_cuda(name, getattr(consts, name), shape, torch.bfloat16, dev)
     return B, H, W
+
+
+def _mat_ptrs(consts: CasConstants):
+    """The pointers of ``ch, cw, ich, icw, ch16 .. icw16, lam, lam2`` as the
+    CH launches take them, null where there is no bf16 copy (the launch
+    refuses a grid whose kernel reads one)."""
+    return tuple(None if m is None else m.data_ptr()
+                 for m in (consts.ch, consts.cw, consts.ich, consts.icw, consts.ch16,
+                           consts.cw16, consts.ich16, consts.icw16, consts.lam, consts.lam2))
 
 
 def _c_coeffs(mu: PolynomialMu):
     return (ctypes.c_float * len(mu.coeffs))(*mu.coeffs), len(mu.coeffs)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch(device_index: int, bwd: bool, round_bf16: bool, H: int, W: int,
+             n_steps: int):
+    """``(slots, floats)``: the scratch a launch of the kernel that the grid
+    and ``round_bf16`` pick needs on one device, one slot of ``floats`` f32
+    for each block resident at once (``ch_cas_macro_scratch``; ``(0, 0)``
+    for the 64² forward)."""
+    n, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        rc = _library().ch_cas_macro_scratch(int(bwd), int(round_bf16), H, W, int(n_steps),
+                                             ctypes.byref(n), ctypes.byref(floats))
+    _raise_if(rc, "ch_cas_macro_scratch")
+    return n.value, floats.value
+
+
+def _alloc_scratch(dev, B, bwd, round_bf16, H, W, n_steps):
+    """``(scratch, slots)`` for a launch of ``B`` envs: ``min(B, slots)``
+    slots, allocated with ``torch.empty`` (``(None, 0)`` where the kernel
+    takes none)."""
+    slots, floats = _scratch(dev.index, bool(bwd), bool(round_bf16), H, W, int(n_steps))
+    if floats == 0:
+        return None, 0
+    slots = min(B, slots)
+    return torch.empty((slots * floats,), dtype=torch.float32, device=dev), slots
 
 
 def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
@@ -392,11 +448,13 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     """The Hopper kernel: same contract as :func:`ch_cas_macro_plain`.
 
     Launches ``csrc/ch_cas_macro.cu`` on the current stream (K1 with an
-    epilogue, K2 without; with ``round_bf16`` the tensor-core kernel, else
-    the f32 FMA kernel) and counts the launch.  Raises on anything the
-    kernel does not take.
+    epilogue, K2 without; with ``round_bf16`` on the tensor cores, else f32
+    FMA) and counts the launch.  H and W up to :data:`MAX_GRID_CH`: above
+    64² the tiled kernel runs, with a scratch of three H x W planes for
+    each resident block, allocated here.  Raises on anything the kernel
+    does not take.
     """
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_CH)
     dev = u.device
     out = torch.empty_like(u)
     stats = obs = None
@@ -407,13 +465,13 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
         stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
         obs = torch.empty((B, H // ds, W // ds), dtype=torch.uint8, device=dev)
     coeffs, n_coeffs = _c_coeffs(mu_fn)
+    scratch, slots = _alloc_scratch(dev, B, False, round_bf16, H, W, n_steps)
     with torch.cuda.device(dev):
         rc = _library().ch_cas_macro_launch(
-            u.data_ptr(), kappa.data_ptr(), consts.ch.data_ptr(),
-            consts.cw.data_ptr(), consts.ich.data_ptr(), consts.icw.data_ptr(),
-            consts.lam.data_ptr(), consts.lam2.data_ptr(), out.data_ptr(),
+            u.data_ptr(), kappa.data_ptr(), *_mat_ptrs(consts), out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             obs.data_ptr() if obs is not None else None,
+            scratch.data_ptr() if scratch is not None else None, slots,
             B, H, W, int(n_steps), float(dt), float(A) * float(dt),
             coeffs, n_coeffs, int(bool(round_bf16)),
             epilogue.ds if epilogue else 1,
@@ -430,18 +488,6 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     return out, stats, obs
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_slots(device_index: int, round_bf16: bool) -> int:
-    """Blocks of the backward kernel that ``round_bf16`` picks (tensor-core
-    or FMA) resident at once on one device: the number of trajectory scratch
-    slots a launch needs."""
-    n = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        rc = _library().ch_cas_macro_bwd_slots(int(round_bf16), ctypes.byref(n))
-    _raise_if(rc, "ch_cas_macro_bwd_slots")
-    return n.value
-
-
 def ch_cas_macro_bwd_cuda(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
                           consts: CasConstants, *, mu_fn: Callable, dt: float,
                           A: float, n_steps: int, round_bf16: bool):
@@ -450,27 +496,24 @@ def ch_cas_macro_bwd_cuda(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
 
     ``mu'`` reaches the kernel as :meth:`PolynomialMu.derivative`.  Each
     resident block re-runs its envs' forward into its own slot of a
-    device-memory scratch of ``slots x n_steps x H x W`` f32 (43 MB at
-    64², 10 substeps on an H100: 264 slots), allocated here.  Launches on the
-    current stream and counts the launch; raises on anything the kernel
-    does not take.
+    device-memory scratch, allocated here: ``n_steps`` H x W f32 planes a
+    slot at 64² and below (43 MB at 64², 10 substeps on an H100: 264
+    slots), ``n_steps + 5`` above (the tiled kernel's planes), H and W up to
+    :data:`MAX_GRID_CH_BWD`.  Launches on the current stream and counts the
+    launch; raises on anything the kernel does not take.
     """
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_CH_BWD)
     dev = u.device
     _check_cuda("g", g, (B, H, W), torch.float32, dev)
     n_steps = int(n_steps)
     du = torch.empty_like(u)
     dkappa = torch.empty((B,), dtype=torch.float32, device=dev)
-    slots = min(B, _bwd_slots(dev.index, bool(round_bf16)))
-    scratch = torch.empty((slots, max(n_steps, 1), H, W), dtype=torch.float32,
-                          device=dev)
+    scratch, slots = _alloc_scratch(dev, B, True, round_bf16, H, W, n_steps)
     coeffs, n_coeffs = _c_coeffs(mu_fn)
     dcoeffs, n_dcoeffs = _c_coeffs(mu_fn.derivative())
     with torch.cuda.device(dev):
         rc = _library().ch_cas_macro_bwd_launch(
-            u.data_ptr(), kappa.data_ptr(), g.data_ptr(),
-            consts.ch.data_ptr(), consts.cw.data_ptr(), consts.ich.data_ptr(),
-            consts.icw.data_ptr(), consts.lam.data_ptr(), consts.lam2.data_ptr(),
+            u.data_ptr(), kappa.data_ptr(), g.data_ptr(), *_mat_ptrs(consts),
             du.data_ptr(), dkappa.data_ptr(), scratch.data_ptr(), slots,
             B, H, W, n_steps, float(dt), float(A) * float(dt),
             -(float(A) * float(dt) * float(dt)),

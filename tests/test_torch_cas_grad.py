@@ -206,6 +206,26 @@ def test_bwd_plain_matches_jax_vjp(mats):
     _assert_grads(mats, du.numpy(), dk.numpy(), jdu, jdk)
 
 
+@pytest.mark.parametrize("mats", ["f32", "bf16"])
+def test_bwd_plain_128_matches_jax_grad(mats):
+    """The plain VJP at 128² (the grid of the NN-control rollout, where the
+    card runs the tiled K3) against ``jax.grad`` of the interpret macro."""
+    B, H, n, h = 2, 128, 2, 0.01
+    u, kap, w = _inputs(B, H, seed=13)
+    jax, jnp, jmake = _jax()
+    jm = jmake(MU_J, H, H, h, h, A, DT, n, mats_dtype=getattr(jnp, MATS[mats][0]),
+               interpret=True)
+    jdu, jdk = jax.grad(lambda a, b: jnp.sum(jnp.asarray(w) * jm(a, b)),
+                        argnums=(0, 1))(jnp.asarray(u), jnp.asarray(kap))
+    tm = MATS[mats][1]
+    consts = cas_constants(H, H, h, h, tm, torch.device("cpu"))
+    du, dk = ch_cas_macro_bwd_plain(
+        torch.from_numpy(u), torch.from_numpy(kap), torch.from_numpy(w), consts,
+        mu_fn=MU_T, dt=DT, A=A, n_steps=n, round_bf16=tm == torch.bfloat16)
+    assert du.shape == (B, H, H) and dk.shape == (B,)
+    _assert_grads(mats, du.numpy(), dk.numpy(), jdu, jdk)
+
+
 def test_grad_through_fused_stepper_evolve():
     """Autograd through ``FusedSemiImplicitSpectral`` + ``evolve`` with a
     kappa that requires grad: the stepper hands kappa's graph to the macro
@@ -285,7 +305,8 @@ TOL_REL = {"f32": (1e-5, 1e-4), "bf16": (1e-2, 1e-2)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,n_steps", [(3, 16, 3), (5, 40, 4), (300, 64, 10), (7, 64, 0)])
+@pytest.mark.parametrize("B,H,n_steps", [(3, 16, 3), (5, 40, 4), (300, 64, 10), (7, 64, 0),
+                                         (300, 128, 3), (7, 128, 0)])
 @pytest.mark.parametrize("mats", ["f32", "bf16"])
 def test_k3_matches_plain_on_card(cuda_device, B, H, n_steps, mats):
     u, kap, w = (torch.from_numpy(a).to(cuda_device) for a in _inputs(B, H, seed=B))

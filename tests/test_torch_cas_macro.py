@@ -26,7 +26,9 @@ from pde_opt_tpu_torch.ops import kernels
 from pde_opt_tpu_torch.ops.cas_spectral import (
     Epilogue,
     PolynomialMu,
+    ac_cas_macro_cuda,
     cas_constants,
+    ch_cas_macro_bwd_cuda,
     ch_cas_macro_cuda,
     ch_cas_macro_plain,
     make_ch_cas_fused_macro as tmake,
@@ -64,11 +66,12 @@ def _jax():
     return jnp, make_ch_cas_fused_macro, ch_sif_macro_reference
 
 
-def _inputs(B, H, seed=0):
+def _inputs(B, H, seed=0, W=None):
     """Fields around 0.45 (so sum(u - 0.5) is far from 0 and a relative
-    tolerance on it is meaningful) and κ across the env's control range."""
+    tolerance on it is meaningful) and κ across the env's control range;
+    (B, H, W), W = H unless given."""
     rng = np.random.default_rng(seed)
-    u = (0.45 + 0.05 * rng.standard_normal((B, H, H))).astype(np.float32)
+    u = (0.45 + 0.05 * rng.standard_normal((B, H, W or H))).astype(np.float32)
     kap = rng.uniform(2e-3, 1e-2, B).astype(np.float32)
     return u, kap
 
@@ -115,6 +118,54 @@ def test_macro_epilogue_matches_jax(H, n_steps, ds, mats):
     assert tobs.dtype == torch.uint8
     np.testing.assert_allclose(tu.numpy(), np.asarray(ju), rtol=0, atol=TOL_U[mats])
     _assert_epilogue(tstats.numpy(), tobs.numpy(), jstats, jobs)
+
+
+# Grids above 64², where the card runs the tiled kernels: 128² (the control
+# fleet of bench.py's run_ch128 and the NN-control rollout), 256² (run_ch256)
+# and a non-square grid that is no multiple of 64.
+BIG = [(128, 128), (256, 256), (96, 136)]
+
+
+@pytest.mark.parametrize("H,W", BIG)
+@pytest.mark.parametrize("mats", ["f32", "bf16"])
+@pytest.mark.parametrize("ds", [0, 1, 4])
+def test_macro_above_64_matches_jax(H, W, mats, ds):
+    """The plain macro (K2 without an epilogue, K1 with it at obs_downsample
+    ds) against the JAX macro in interpret mode, 2 envs x 2 substeps."""
+    B, n = 2, 2
+    u, kap = _inputs(B, H, seed=H + W + ds, W=W)
+    jnp, jmake, _ = _jax()
+    jm, tm = getattr(jnp, MATS[mats][0]), MATS[mats][1]
+    ep = {"obs_downsample": ds, "stats_center": 0.5} if ds else None
+    jout = jmake(MU_J, H, W, HX, HY, A, DT, n, mats_dtype=jm, epilogue=ep, interpret=True)(
+        jnp.asarray(u), jnp.asarray(kap))
+    tout = tmake(MU_T, H, W, HX, HY, A, DT, n, mats_dtype=tm, epilogue=ep)(
+        torch.from_numpy(u), torch.from_numpy(kap))
+    if ep is None:
+        jout, tout = (jout,), (tout,)
+    assert tout[0].shape == (B, H, W) and tout[0].dtype == torch.float32
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0, atol=TOL_U[mats])
+    if ep is not None:
+        assert tout[2].shape == (B, H // ds, W // ds) and tout[2].dtype == torch.uint8
+        _assert_epilogue(tout[1].numpy(), tout[2].numpy(), jout[1], jout[2])
+
+
+def test_cas_matrices_are_symmetric():
+    """The tiled tensor-core kernels read C^T as C: every cas matrix and
+    inverse pair that cas_constants builds is exactly symmetric, in f32 and,
+    with bf16 matrices, in its bf16 copy (an exact copy); f32 matrices have
+    no bf16 copy."""
+    for H, W in [(16, 24), (96, 136), (128, 128), (256, 256)]:
+        for mdt in (torch.float32, torch.bfloat16):
+            c = cas_constants(H, W, HX, HY, mdt, torch.device("cpu"))
+            for name in ("ch", "cw", "ich", "icw"):
+                m, m16 = getattr(c, name), getattr(c, name + "16")
+                assert torch.equal(m, m.T)
+                if mdt == torch.float32:
+                    assert m16 is None
+                    continue
+                assert torch.equal(m16, m16.T)
+                assert m16.dtype == torch.bfloat16 and torch.equal(m16.float(), m)
 
 
 @pytest.mark.parametrize("mats", ["f32", "bf16"])
@@ -195,13 +246,55 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         ch_cas_macro_cuda(u, kap, consts, **kw)
     with pytest.raises(ValueError, match="PolynomialMu"):
         ch_cas_macro_cuda(u, kap, consts, **{**kw, "mu_fn": MU_J})
-    with pytest.raises(ValueError, match="up to 64"):
-        ch_cas_macro_cuda(torch.zeros(2, 128, 128), kap, consts, **kw)
+    # The CH forward takes grids up to 256² (tiled above 64²), K3 up to 128².
+    with pytest.raises(ValueError, match="up to 256.*ROADMAP"):
+        ch_cas_macro_cuda(torch.zeros(2, 264, 264), kap, consts, **kw)
+    with pytest.raises(ValueError, match="up to 128.*ROADMAP"):
+        ch_cas_macro_bwd_cuda(torch.zeros(2, 256, 256), kap, torch.zeros(2, 256, 256),
+                              consts, **kw)
     # A gradient through the macro on CPU tensors runs the plain backward:
     # it launches no kernel, K3 included.
     ut, kt = u.clone().requires_grad_(), kap.clone().requires_grad_()
     tmake(MU_T, 16, 16, HX, HY, A, DT, 2, mats_dtype=torch.float32)(ut, kt).sum().backward()
     assert ut.grad is not None and kt.grad is not None
+    assert kernels.launch_counts() == before
+
+
+def _other_family_launch(family):
+    """A launch of another family's CUDA wrapper on a 128² state (CPU
+    tensors; the grid check comes first)."""
+    from pde_opt_tpu_torch.envs.presets import BV_J0, BV_MU
+    from pde_opt_tpu_torch.ops.bv_cas import bv_cc_macro_cuda
+    from pde_opt_tpu_torch.ops.fused_spectral import ac_sif_macro_cuda, ch_sif_macro_cuda
+    from pde_opt_tpu_torch.ops.gpe_cas import gpe_strang_macro_cuda
+    from pde_opt_tpu_torch.ops.sbm_bv import sbm_bv_macro_cuda
+
+    u, k = torch.zeros(2, 128, 128), torch.zeros(2)
+    if family == "ac":
+        return ac_cas_macro_cuda(u, k, None, mu_fn=MU_T, R_fn=None, r_identity=True, dt=DT,
+                                 A=A, n_steps=1, round_bf16=True)
+    if family == "gpe":
+        return gpe_strang_macro_cuda(torch.zeros(2, 128, 128, 2), u, u[0], None, g=1.0, dt=DT,
+                                     dx=0.1, n_steps=1, round_bf16=True, phase_poly=True)
+    if family == "bv":
+        return bv_cc_macro_cuda(u, k, None, mu_fn=BV_MU, j0_fn=BV_J0, kappa=5e-4, cell=1e-4,
+                                dt=DT, n_steps=1, round_bf16=True)
+    if family == "sbm":
+        return sbm_bv_macro_cuda(u, k, None, mu_fn=BV_MU, j0_fn=BV_J0, dt=DT, n_steps=1)
+    if family == "ch_dft":
+        return ch_sif_macro_cuda(u, k, None, mu_fn=MU_T, dt=DT, A=A, n_steps=1, round_bf16=True)
+    return ac_sif_macro_cuda(u, k, None, mu_fn=MU_T, R_fn=None, r_identity=True, hx=HX, hy=HY,
+                             dt=DT, A=A, n_steps=1, round_bf16=True)
+
+
+@pytest.mark.parametrize("family", ["ac", "gpe", "bv", "sbm", "ch_dft", "ac_dft"])
+def test_other_families_refuse_grids_above_64(family):
+    """K4 (AC), K5 (GPE), K6 (BV), K7 (SBM) and K9a/K9b (algo="dft") keep
+    their 64² cap: a 128² state raises, naming ROADMAP, and launches nothing
+    (no fallback to the plain version)."""
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="up to 64.*ROADMAP"):
+        _other_family_launch(family)
     assert kernels.launch_counts() == before
 
 
@@ -236,7 +329,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [16, 64])
+@pytest.mark.parametrize("H", [16, 64, 128, 256])
 @pytest.mark.parametrize("mats", ["f32", "bf16"])
 @pytest.mark.parametrize("ds", [0, 1, 4])
 def test_kernel_matches_plain_on_card(cuda_device, H, mats, ds):

@@ -23,7 +23,12 @@ __shared__``.
 
 Three envs on one block (the stub's device holds one block), so the block
 walks the envs by grid stride and K3's three envs share one trajectory slot;
-two substeps (K3 also none); (H, W) in {(16, 16), (24, 40), (64, 64)}.
+two substeps (K3 also none); (H, W) in {(16, 16), (24, 40), (64, 64)}.  The
+tiled K1/K2 above 64² (a cp.async ring, which the stub's stand-in copies at
+once) at 128², 96 x 136 and 256², bf16 and f32 matrices, epilogue off and at
+ds 1 and 4, two envs through one slot; the tiled K3 at 128² with 2, 1 and 0
+substeps; a NaN env in each; one bf16 substep at 128² against the unrounded
+control.
 K7 (f32, field 1e-5, stats to rtol 1e-4 as ``test_torch_sbm_bv.py``'s card
 test) there too, epilogue on and off, with a NaN env and with no substep.
 K8 2D: three envs at 64^2, and at 16 x 24, W = 33, 70 and 256 (one, two,
@@ -80,6 +85,7 @@ from pde_opt_tpu_torch.ops.cas_spectral import (
     _bind_ac_library,
     _bind_ch_library,
     _c_coeffs,
+    _mat_ptrs,
     ac_cas_macro_plain,
     cas_constants,
     ch_cas_macro_bwd_plain,
@@ -128,6 +134,9 @@ TOL_BV = {True: 1e-4, False: 1e-5}
 CH_DT, CH_A = 1e-3, 1.0
 TOL_CH = {True: 1e-3, False: 1e-5}
 TOL_BWD = {True: (1e-5, 1e-2), False: (5e-6, 1e-4)}   # du, dkappa over their maxima
+# K1-K3 above 64² (the tiled kernels); one bf16 substep's RMS bound.
+TILED_SHAPES = [(128, 128), (96, 136), (256, 256)]
+TOL_CH_SITE = 2e-5
 GPE_G, GPE_DT, GPE_BOX = 100.0, 2e-3, 16.0
 TOL_GPE = {True: 5e-3, False: 5e-6}
 TOL_GPE_SITE = 5e-5
@@ -255,12 +264,12 @@ def _bv_plain(u, cr, consts, ep, bf16):
                              epilogue=ep)
 
 
-def _ch_inputs(H, W, seed):
-    """Fields around 0.45 (sum(u - 0.5) far from 0) and kappa across the CH
-    fleet's control range."""
+def _ch_inputs(H, W, seed, n=B):
+    """``n`` fields around 0.45 (sum(u - 0.5) far from 0) and kappa across
+    the CH fleet's control range."""
     rng = np.random.default_rng(seed)
-    u = torch.from_numpy((0.45 + 0.05 * rng.standard_normal((B, H, W))).astype(np.float32))
-    return u, torch.from_numpy(np.linspace(2e-3, 1e-2, B).astype(np.float32))
+    u = torch.from_numpy((0.45 + 0.05 * rng.standard_normal((n, H, W))).astype(np.float32))
+    return u, torch.from_numpy(np.linspace(2e-3, 1e-2, n).astype(np.float32))
 
 
 def _ch_consts(H, W, bf16):
@@ -272,20 +281,29 @@ def _ch_kw(n_steps, bf16):
     return dict(mu_fn=MU, dt=CH_DT, A=CH_A, n_steps=n_steps, round_bf16=bf16)
 
 
-def _mats(consts):
-    return (consts.ch.data_ptr(), consts.cw.data_ptr(), consts.ich.data_ptr(),
-            consts.icw.data_ptr(), consts.lam.data_ptr(), consts.lam2.data_ptr())
+def _ch_scratch(lib, bwd, bf16, H, W, n_steps):
+    """``(scratch, slots)`` as ``ch_cas_macro_scratch`` sizes them (``(None,
+    0)`` for the 64^2 forward): the stub's SM holds one block, so one slot
+    that every env reuses."""
+    slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    assert lib.ch_cas_macro_scratch(int(bwd), int(bf16), H, W, n_steps, ctypes.byref(slots),
+                                    ctypes.byref(floats)) == 0
+    if floats.value == 0:
+        return None, 0
+    assert slots.value == 1
+    return torch.empty(slots.value * floats.value), slots.value
 
 
-def _ch_kernel(lib, u, kap, consts, ep, bf16):
+def _ch_kernel(lib, u, kap, consts, ep, bf16, n_steps=N_STEPS):
     Bn, H, W = u.shape
     out, stats, obs = _outputs(u, ep)
     mu_c, n_mu = _c_coeffs(MU)
+    scratch, slots = _ch_scratch(lib, False, bf16, H, W, n_steps)
     rc = lib.ch_cas_macro_launch(
-        u.data_ptr(), kap.data_ptr(), *_mats(consts), out.data_ptr(), _ptr(stats), _ptr(obs),
-        Bn, H, W, N_STEPS, CH_DT, CH_A * CH_DT, mu_c, n_mu, int(bf16), ep.ds if ep else 1,
-        ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0, ep.center if ep else 0.0,
-        None)
+        u.data_ptr(), kap.data_ptr(), *_mat_ptrs(consts), out.data_ptr(), _ptr(stats),
+        _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps, CH_DT, CH_A * CH_DT, mu_c, n_mu, int(bf16),
+        ep.ds if ep else 1, ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0,
+        ep.center if ep else 0.0, None)
     assert rc == 0
     return out if ep is None else (out, stats, obs)
 
@@ -296,16 +314,13 @@ def _ch_bwd(lib, u, kap, consts, bf16, n_steps):
     Bn, H, W = u.shape
     kw = _ch_kw(n_steps, bf16)
     g = 2.0 * ch_cas_macro_plain(u, kap, consts, **kw)
-    slots = ctypes.c_int(0)
-    assert lib.ch_cas_macro_bwd_slots(int(bf16), ctypes.byref(slots)) == 0
-    assert slots.value == 1        # one block: every env reuses its trajectory slot
+    scratch, slots = _ch_scratch(lib, True, bf16, H, W, n_steps)
     du, dk = torch.empty_like(u), torch.empty(Bn)
-    scratch = torch.empty((slots.value, max(n_steps, 1), H, W))
     mu_c, n_mu = _c_coeffs(MU)
     dmu_c, n_dmu = _c_coeffs(MU.derivative())
     rc = lib.ch_cas_macro_bwd_launch(
-        u.data_ptr(), kap.data_ptr(), g.data_ptr(), *_mats(consts), du.data_ptr(),
-        dk.data_ptr(), scratch.data_ptr(), slots.value, Bn, H, W, n_steps, CH_DT,
+        u.data_ptr(), kap.data_ptr(), g.data_ptr(), *_mat_ptrs(consts), du.data_ptr(),
+        dk.data_ptr(), scratch.data_ptr(), slots, Bn, H, W, n_steps, CH_DT,
         CH_A * CH_DT, -(CH_A * CH_DT * CH_DT), mu_c, n_mu, dmu_c, n_dmu, int(bf16), None)
     assert rc == 0
     return (du, dk), ch_cas_macro_bwd_plain(u, kap, g, consts, **kw)
@@ -479,6 +494,77 @@ def test_ch_bwd_bf16_kernel_matches_plain(libs, H, W, n_steps):
     _assert_bwd(got, want, True)
     if n_steps == 0:
         assert torch.equal(got[0], want[0]) and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("H,W", TILED_SHAPES)
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("ds", [0, 1, 4])
+def test_ch_tiled_kernel_matches_plain(libs, H, W, bf16, ds):
+    """K2 (ds 0) and K1 above 64² on the tiled kernels (tensor cores with
+    bf16 matrices, FMA with f32), two envs through the stub's one slot."""
+    u, kap = _ch_inputs(H, W, seed=H + W + ds, n=2)
+    consts = _ch_consts(H, W, bf16)
+    ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
+    got = _ch_kernel(libs[2], u, kap, consts, ep, bf16)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, bf16))
+    if ep is None:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_CH[bf16])
+    if ep is not None:
+        _assert_ch_epilogue(got, want)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("n_steps", [N_STEPS, 1, 0])
+def test_ch_tiled_bwd_matches_plain(libs, bf16, n_steps):
+    """K3 at 128² on the tiled kernel, three envs through one slot: with one
+    substep there is no forward re-run, with none du = g and dkappa = 0."""
+    u, kap = _ch_inputs(128, 128, seed=11 + n_steps)
+    got, want = _ch_bwd(libs[2], u, kap, _ch_consts(128, 128, bf16), bf16, n_steps)
+    _assert_bwd(got, want, bf16)
+    if n_steps == 0:
+        assert torch.equal(got[0], want[0]) and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("kernel", ["fwd_bf16", "fwd_f32", "bwd_bf16"])
+def test_ch_tiled_nan_env_stays_in_its_env(libs, kernel):
+    """One NaN pixel in the first env (96 x 136 forward with the epilogue,
+    128² K3): the other envs, which reuse its slot, still equal plain."""
+    bf16 = kernel != "fwd_f32"
+    H, W = (128, 128) if kernel == "bwd_bf16" else (96, 136)
+    u, kap = _ch_inputs(H, W, seed=5)
+    u[0, 3, 7] = float("nan")
+    consts = _ch_consts(H, W, bf16)
+    if kernel == "bwd_bf16":
+        got, want = _ch_bwd(libs[2], u, kap, consts, True, N_STEPS)
+        assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+        assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+        assert bool(torch.isnan(got[1][0])) and not bool(torch.isnan(got[1][1:]).any())
+        _assert_bwd([t[1:] for t in got], [t[1:] for t in want], True)
+        return
+    ep = Epilogue(255.0, 0.0, 0.5, 1)
+    got = _ch_kernel(libs[2], u, kap, consts, ep, bf16)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, bf16))
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_CH[bf16])
+    assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < H * W
+
+
+def test_ch_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
+    """One substep at 128² with bf16 matrices: the RMS of kernel - plain
+    sits below chip_smoke.py's TOL_SITE["ch"], which the unrounded plain
+    version (the control) exceeds."""
+    u, kap = _ch_inputs(128, 128, seed=21, n=2)
+    consts = _ch_consts(128, 128, True)
+    got = _ch_kernel(libs[2], u, kap, consts, None, True, n_steps=1)
+    want = ch_cas_macro_plain(u, kap, consts, **_ch_kw(1, True))
+    ctl = ch_cas_macro_plain(u, kap, consts, **_ch_kw(1, False))
+
+    def rms(d):
+        return float(d.double().pow(2).mean().sqrt())
+
+    assert rms(got - want) <= TOL_CH_SITE < rms(ctl - want)
 
 
 @pytest.mark.parametrize("H,W", SHAPES)

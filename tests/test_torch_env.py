@@ -101,6 +101,36 @@ def test_env_step_matches_jax(solve, mats, dtype, resync, atol):
             ts.y.copy_(torch.from_numpy(np.array(js.y)))
 
 
+def test_env_step_at_128_matches_jax():
+    """One step of bench.py's run_ch128 fleet (128², derivs="pallas", the
+    fused stepper with its epilogue, bf16 matrices) from the same state, on
+    the CPU against the JAX env; the card runs the tiled K1 here."""
+    n, N = 4, 128
+    kw = dict(num_envs=n, grid_size=N, substeps=10, spectral_solve="fused", derivs="pallas")
+    jenv, tenv = jpreset(**kw), tpreset(device="cpu", **kw)
+    rng = np.random.default_rng(7)
+    arrs = {"y": (0.5 + 0.05 * rng.standard_normal((n, N, N))).astype(np.float32),
+            "t": np.zeros(n, np.float32),
+            "control_value": rng.uniform(2e-3, 1e-2, n).astype(np.float32),
+            "step_count": np.zeros(n, np.int32), "done": np.zeros(n, bool)}
+    js = JState(y=jnp.asarray(arrs["y"]), t=jnp.asarray(arrs["t"]),
+                control_value=jnp.asarray(arrs["control_value"]),
+                key=jax.random.split(jax.random.PRNGKey(0), n),
+                step_count=jnp.asarray(arrs["step_count"]), done=jnp.asarray(arrs["done"]))
+    ts = env_state_from_numpy(arrs, "cpu")
+    tenv.reset(torch.Generator().manual_seed(0))
+    a = rng.uniform(-1, 1, (n, 1))
+    js, jo, jr, jt, jtr, ji = jenv.step(js, jnp.asarray(a))
+    ts, to, tr, tt, ttr, ti = tenv.step(ts, torch.from_numpy(a))
+    assert ts.y.shape == (n, N, N) and to.shape == (n, 1, N, N)
+    np.testing.assert_allclose(ts.y.numpy(), np.asarray(js.y), rtol=0, atol=1e-3)
+    _assert_obs(to, jo)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-3)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(ti["diverged"].numpy(), np.asarray(ji["diverged"]))
+    np.testing.assert_array_equal(ts.control_value.numpy(), np.asarray(js.control_value))
+
+
 def _direct_envs(reset_field, end_time):
     """The fused-epilogue CH fleet built as ``VectorPDEEnv`` in both
     packages, with the same key-ignoring reset field and f32 matrices (a
