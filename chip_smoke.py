@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Sixteen paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Nineteen paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -26,7 +26,11 @@ and DDPG.  Above 64^2, on the tiled K1-K3: the 128^2 CH control fleet of
 the JAX bench's ``run_ch128`` (1024 envs), the 256^2 macro of ``run_ch256``
 (256 envs) and the differentiable NN-control rollout of
 ``run_train_grad_128`` (4096 envs x 128^2, value and gradient with respect
-to the net's parameters).  Phases (each passes or raises; nothing is
+to the net's parameters).  Above 64^2 on the tiled K4, K5 and K3: the GPE
+fleet of ``run_gpe128`` (BASELINE config 5: 256 envs x 128^2), the AC fleet
+at ``run_ch128``'s shape (1024 envs x 128^2) and the value and gradient of
+``sum(macro(u, kappa)^2)`` at ``run_ch256``'s shape (256 envs x 256^2).
+Phases (each passes or raises; nothing is
 caught):
 
 1. Require a CUDA device; print the card's name and power limit.
@@ -151,6 +155,20 @@ caught):
    call; with f32 matrices also against the CPU on a few envs).  Their
    rates, and the tiled kernels' times beside their plain versions' and
    their bounds at these shapes.
+10. The AC and GPE macros above 64^2 and K3 at 256^2 (the tiled K4, K5,
+   K3).  K4 (R == 1 and a polynomial R) and K5 (phase polynomials on and
+   off) against their plain versions at 128^2, 96 x 136 and 256^2, f32 and
+   bf16 matrices, epilogue off and on, K3 at 256^2; each launch with a NaN
+   env that must stay in its env, at phase 3's bounds (K3's bf16 check by
+   phase 9's rule); one bf16 substep of K4 and K5 at the rounding sites.
+   Then the three paths, each with its launch counts reset just before and
+   read just after, under sync debug mode "error": the GPE 128^2 fleet and
+   the AC 128^2 fleet (STEPS steps across the episode end, then
+   FLEET_STEPS_NO_EP without the epilogue: K5, K4 only; rewards, episode
+   ends, a poisoned env, per-env GPE norms) and the 256^2 value+grad (K2
+   and K3 once a call).  The GPE fleet's fused and fft rates in turns; each
+   kernel against plain at its path's shape (K4, K5 also where a block walks
+   several envs through its slot) and timed beside plain and its bound.
 
 Every rollout and update runs under ``torch.cuda.set_sync_debug_mode("error")``: a
 step that waits for the device fails the run.  The last two lines are a
@@ -363,6 +381,26 @@ FLEET128_ENVS, FLEET128_GRID, FLEET128_STEPS = 1024, 128, 30
 BIG256_ENVS, BIG256_GRID, BIG256_DT, BIG256_CALLS = 256, 256, 1e-4, 20
 NN_ENVS, NN_GRID, NN_DT, NN_CALLS, NN_CHECK_ENVS = 4096, 128, 1e-3, 3, 16
 TOL_NN = (1e-6, 1e-4)
+# The AC and GPE macros above 64^2 and K3 at 256^2 (the tiled K4, K5 and K3,
+# phase 10).  Kernel against plain at BIG_GRIDS on BIG_CHECK_ENVS envs: K4
+# f32 and bf16, R == 1 and R = 1 + 0.5 u^2, epilogue off and on; K5 f32 and
+# bf16, phase polynomials on and off, epilogue off and on (the fleet's box
+# and g on square cells, dt 2e-3); K3 at 256 x 256^2 (run_ch256's fields and
+# dt, the loss's cotangent); a NaN env in each; one bf16 substep of K4 and K5
+# at 128^2 at the rounding sites; at phase 3's bounds (TOL_AC, TOL_GPE,
+# TOL_BWD with phase 9's rule, TOL_SITE).  Then the paths, uncut: bench.py's
+# run_gpe128 (BASELINE config 5: 256 envs x 128^2 x 10, the preset's fused
+# epilogue, K5; its fft mode timed beside it in turns over GPE128_FFT_STEPS),
+# the AC preset at run_ch128's shape (1024 x 128^2 x 10, R == 1, K4), both
+# over STEPS steps across the episode end and FLEET_STEPS_NO_EP without the
+# epilogue, and the 256^2 value+grad of sum(macro(u, kappa)^2) at run_ch256's
+# shape (K2 + K3, VG256_CALLS calls).  Each kernel is held against plain
+# and timed at its path's shape; K4 and K5 also where a block walks several
+# envs through its slot (1024 envs at 128^2).
+GPE128_ENVS, GPE128_GRID, GPE128_DT, GPE128_FFT_STEPS = 256, 128, 2e-3, 10
+AC128_ENVS, AC128_GRID = 1024, 128
+VG256_CALLS = 3
+WALK_ENVS = 1024
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1224,6 +1262,7 @@ def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=
     _check(end_step < STEPS, "the rollout must cross the episode end")
     state, _ = env.reset(gen)
     state0, _ = env0.reset(gen)
+    N = state.y.shape[1]
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1238,7 +1277,7 @@ def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
 
-    print(f"{name} path: {STEPS}-step rollout of {B} envs x {GRID}^2 x {SUBSTEPS} substeps "
+    print(f"{name} path: {STEPS}-step rollout of {B} envs x {N}^2 x {SUBSTEPS} substeps "
           f"(+{FLEET_STEPS_NO_EP} without the epilogue); episode end at step {end_step}; "
           f"launches {counts}", flush=True)
     _check(rewards.shape == (STEPS, B), "rewards shape")
@@ -1267,9 +1306,21 @@ def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=
     _check(bool(terminated[7]) and float(reward[7]) == 0.0, "NaN env not terminated")
     _check(bool(torch.isfinite(state.y).all()) and int(state.step_count[7]) == 0,
            "NaN env not reset")
-    _check(obs.shape == (B, 1, GRID, GRID) and obs.dtype == torch.uint8, "obs")
+    _check(obs.shape == (B, 1, N, N) and obs.dtype == torch.uint8, "obs")
     print(f"{name}: poisoned env 7 flagged diverged, reward 0, reset", flush=True)
     return state, counts, B * STEPS / t_roll
+
+
+def _fleet_rate(torch, env, gen, n):
+    """env-steps/s of an ``n``-step random-policy rollout of ``env`` after a
+    2-step warm-up, host clock to a trailing synchronize."""
+    st, _ = env.reset(gen)
+    env.make_rollout(lambda o, g: env.sample_actions(g), 2)(st, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env.make_rollout(lambda o, g: env.sample_actions(g), n)(st, gen)
+    torch.cuda.synchronize()
+    return env.num_envs * n / (time.perf_counter() - t0)
 
 
 def _m3_coeffs(torch, dev):
@@ -2170,10 +2221,7 @@ def _check_big(torch, dev, gen):
                 line = (f"check {name} mats={mats} ds={ep.ds if ep else '-'} {H}x{W} ({B} envs, "
                         f"env {bad} NaN): u1 max_abs_err {err:.3e}")
                 _check(err <= TOL_U[mats], f"{line} > {TOL_U[mats]}")
-                _check(torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-                       and bool(torch.isnan(got[0][bad]).any())
-                       and not bool(torch.isnan(got[0][keep]).any()),
-                       f"{line}: the NaN env left its env")
+                _check_nan_env(torch, line, got[0], want[0], bad, keep)
                 if ep is not None:
                     _check(torch.equal(got[1][:, 2], want[1][:, 2])
                            and float(got[1][bad, 2]) < H * W, f"{line}: n_finite differs")
@@ -2441,6 +2489,411 @@ def _drive_big(torch, kernels, dev, gen, card):
         else:
             _check_fwd_bf16(torch, line, got, want)
     return fleet_counts, m256_counts, nn_counts
+
+
+def _tiled_bounds():
+    """The bounds of the tiled K4, K5 and K3 at phase 10's path shapes,
+    counted as _bounds() counts them at 64^2: K4 with the epilogue, R == 1
+    (3 transforms a substep) at 1024 x 128^2; K5 with the epilogue (n + 1
+    propagations of 4 transforms) at 256 x 128^2, and at WALK_ENVS envs; K3
+    (7n - 1 transforms, as phase 9's) at 256 x 256^2."""
+    n = SUBSTEPS
+
+    def mats(N):
+        return 4 * 2 * N * N * 4
+
+    a, g, b = AC128_GRID, GPE128_GRID, BIG256_GRID
+    ac_px, g_px, b_px = a * a, g * g, b * b
+
+    def gpe(B):
+        return _bound(4 * (n + 1), g, g, B, "bf16", 40 * g_px * n * B,
+                      B * (g_px * 4 * 5 + g_px + 12) + mats(g) + 6 * g_px * 4)
+
+    return {
+        "ac_cas_macro_ep 128^2": _bound(
+            3 * n, a, a, AC128_ENVS, "bf16", 21 * ac_px * n * AC128_ENVS,
+            AC128_ENVS * (ac_px * 4 * 2 + 4 + ac_px + 12) + mats(a) + ac_px * 4),
+        "gpe_strang_macro_ep 128^2": gpe(GPE128_ENVS),
+        "gpe_strang_macro_ep 128^2 walk": gpe(WALK_ENVS),
+        "ch_cas_macro_bwd 256^2": _bound(
+            7 * n - 1, b, b, BIG256_ENVS, "bf16", 50 * b_px * n * BIG256_ENVS,
+            BIG256_ENVS * (b_px * 4 * 3 + 8) + mats(b) + 2 * b_px * 4),
+    }
+
+
+def _gpe_fields(torch, dev, gen, B, H, W):
+    """The GPE fleet's fields on an H x W grid of square cells in its 16-wide
+    box: a Gaussian condensate with complex noise at unit norm per env, the
+    harmonic trap, the control spot, an intensity per env in [0, 50].
+    Returns (y, ctrl, V, spot, dx)."""
+    dx = GPE_BOX / H
+    x = (torch.arange(H, device=dev) + 0.5) * dx - H * dx / 2
+    xw = (torch.arange(W, device=dev) + 0.5) * dx - W * dx / 2
+    X, Y = torch.meshgrid(x, xw, indexing="ij")
+    noise = 0.1 * torch.randn((B, H, W, 2), generator=gen, device=dev)
+    psi = torch.exp(-(X**2 + Y**2) / 4)[None, ..., None] * (
+        torch.tensor([1.0, 0.0], device=dev) + noise)
+    psi = psi / ((psi**2).sum((-3, -2, -1), keepdim=True) * dx * dx).sqrt()
+    spot = torch.exp(-((X - 1.0) ** 2 + Y**2)).contiguous()
+    ctrl = (50.0 * torch.rand((B, 1, 1), generator=gen, device=dev) * spot).contiguous()
+    return psi.contiguous(), ctrl, (0.5 * (X**2 + Y**2)).contiguous(), spot, dx
+
+
+def _check_nan_env(torch, line, got, want, bad, keep):
+    """The NaN env's field is NaN where plain's is, and no other env's is
+    (``bad`` None: no env is NaN)."""
+    _check(torch.equal(torch.isnan(got), torch.isnan(want))
+           and (bad is None or bool(torch.isnan(got[bad]).any()))
+           and not bool(torch.isnan(got[keep]).any()), f"{line}: the NaN env left its env")
+
+
+def _check_ac_big(torch, line, got, want, mats, bad, keep, n_px):
+    """K4 against plain with the NaN env ``bad`` (None: none): the field
+    off plain by at most TOL_AC on the other envs ``keep``; with the
+    epilogue, n_finite equal (the NaN env's below n_px), stats within 1e-3
+    (phase 3c's measures) and obs within 1 LSB.  Returns (the line, the
+    field error)."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    if bad is None:
+        keep = torch.ones(len(got[0]), dtype=torch.bool, device=got[0].device)
+    err = (got[0][keep] - want[0][keep]).abs().max().item()
+    line += f": u1 max_abs_err {err:.3e}"
+    _check(err <= TOL_AC[mats], f"{line} > {TOL_AC[mats]}")
+    _check_nan_env(torch, line, got[0], want[0], bad, keep)
+    if len(got) == 3:
+        e2, e1 = _stats_err(got[1][keep], want[1][keep], n_px)
+        lsb = (got[2].int() - want[2].int()).abs().max().item()
+        line += (f", stats s2 max_rel_err {e2:.3e}, s1 err/sqrt(n s2) {e1:.3e}, "
+                 f"obs max_lsb {lsb}")
+        _check(torch.equal(got[1][:, 2], want[1][:, 2])
+               and (bad is None or float(got[1][bad, 2]) < n_px), f"{line}: n_finite")
+        _check(e2 <= 1e-3 and e1 <= 1e-3 and lsb <= 1, f"{line}: epilogue bounds")
+    return line, err
+
+
+def _check_gpe_big(torch, line, got, want, mats, spot, dx, bad, keep):
+    """K5 against plain with the NaN env ``bad`` (None: none): the state off
+    plain by at most TOL_GPE on the other envs ``keep``, each of them at
+    unit norm to 1e-5; with the epilogue, its stats and obs against the
+    kernel's own final state (the NaN env's n_finite below the pixel
+    count).  Returns (the line, the state error)."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    if bad is None:
+        keep = torch.ones(len(got[0]), dtype=torch.bool, device=got[0].device)
+    err = (got[0][keep] - want[0][keep]).abs().max().item()
+    rho = got[0][keep][..., 0] ** 2 + got[0][keep][..., 1] ** 2
+    norm_err = (rho.sum((-2, -1)) * dx * dx - 1.0).abs().max().item()
+    line += f": y1 max_abs_err {err:.3e}, max |norm - 1| {norm_err:.3e}"
+    _check(err <= TOL_GPE[mats], f"{line} > {TOL_GPE[mats]}")
+    _check(norm_err <= 1e-5, f"{line}: norm off by more than 1e-5")
+    _check_nan_env(torch, line, got[0], want[0], bad, keep)
+    if len(got) == 3:
+        n_px = spot.numel()
+        own = torch.stack([(rho * spot).sum((-2, -1)), rho.sum((-2, -1))], -1)
+        line = _check_own_epilogue(line, tuple(t[keep] for t in got), own,
+                                   torch.clamp(rho * 2550.0, 0, 255).to(torch.uint8), n_px)
+        _check(bad is None or float(got[1][bad, 2]) < n_px, f"{line}: the NaN env's n_finite")
+    return line, err
+
+
+def _check_tiled(torch, dev, gen):
+    """Phase 10a: the tiled K4 and K5 at BIG_GRIDS and K3 at 256^2 against
+    their plain versions on the card, f32 and bf16 matrices, each launch
+    with one NaN env that must stay in its env; one bf16 substep of K4 and
+    K5 at the rounding sites at 128^2.  Returns the largest bf16 error of
+    each."""
+    from pde_opt_tpu_torch.envs.presets import AC_MU, AC_R, CH_MU
+    from pde_opt_tpu_torch.ops.cas_spectral import (
+        Epilogue,
+        PolynomialMu,
+        ac_cas_macro_cuda,
+        ac_cas_macro_plain,
+        cas_constants,
+        ch_cas_macro_bwd_cuda,
+        ch_cas_macro_bwd_plain,
+        ch_cas_macro_plain,
+        r_is_identity,
+    )
+    from pde_opt_tpu_torch.ops.gpe_cas import (
+        GpeEpilogue,
+        gpe_constants,
+        gpe_strang_macro_cuda,
+        gpe_strang_macro_plain,
+    )
+
+    B, bad = BIG_CHECK_ENVS, BIG_NAN_ENV
+    keep = torch.arange(B, device=dev) != bad
+    kap = 1e-4 + 9e-4 * torch.rand((B,), generator=gen, device=dev)
+    errs = {}
+    for H, W in BIG_GRIDS:
+        u = 0.1 * torch.randn((B, H, W), generator=gen, device=dev)
+        u[bad, 3, 7] = float("nan")
+        y, ctrl, V, spot, dx = _gpe_fields(torch, dev, gen, B, H, W)
+        y[bad, 3, 7, 0] = float("nan")
+        for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            consts = cas_constants(H, W, HX, HY, mdt, dev)
+            for rname, R in (("1", AC_R), ("1+0.5u^2", PolynomialMu(AC_R_GENERAL))):
+                kw = dict(mu_fn=AC_MU, R_fn=R, r_identity=r_is_identity(R), dt=DT, A=A,
+                          n_steps=SUBSTEPS, round_bf16=mats == "bf16")
+                for ep in (None, Epilogue(127.5, 127.5, 0.0, 1)):
+                    got = ac_cas_macro_cuda(u, kap, consts, epilogue=ep, **kw)
+                    want = ac_cas_macro_plain(u, kap, consts, epilogue=ep, **kw)
+                    torch.cuda.synchronize()
+                    name = "ac_cas_macro_ep" if ep else "ac_cas_macro"
+                    line, err = _check_ac_big(
+                        torch, f"check {name} mats={mats} R={rname} {H}x{W} ({B} envs, env "
+                        f"{bad} NaN)", got, want, mats, bad, keep, H * W)
+                    print(line, flush=True)
+                    if mats == "bf16":
+                        errs[name] = max(errs.get(name, 0.0), err)
+                if mats == "bf16" and (H, W) == (128, 128):
+                    one = {**kw, "n_steps": 1}
+                    _check_sites(f"ac_cas_macro mats=bf16 R={rname} {H}x{W}",
+                                 ac_cas_macro_cuda(u[keep], kap[keep], consts, **one),
+                                 ac_cas_macro_plain(u[keep], kap[keep], consts, **one),
+                                 ac_cas_macro_plain(u[keep], kap[keep], consts,
+                                                    **{**one, "round_bf16": False}),
+                                 TOL_SITE["ac_r1" if R is AC_R else "ac_general"])
+            gconsts = gpe_constants(H, W, dx, GPE128_DT, mdt, dev)
+            for poly in (True, False):
+                kw = dict(g=GPE_G, dt=GPE128_DT, dx=dx, n_steps=SUBSTEPS,
+                          round_bf16=mats == "bf16", phase_poly=poly)
+                for ep in (None, GpeEpilogue(2550.0, spot)):
+                    got = gpe_strang_macro_cuda(y, ctrl, V, gconsts, epilogue=ep, **kw)
+                    want = gpe_strang_macro_plain(y, ctrl, V, gconsts, epilogue=ep, **kw)
+                    torch.cuda.synchronize()
+                    name = "gpe_strang_macro_ep" if ep else "gpe_strang_macro"
+                    line, err = _check_gpe_big(
+                        torch, f"check {name} mats={mats} phase_poly={poly} {H}x{W} ({B} envs, "
+                        f"env {bad} NaN)", got, want, mats, spot, dx, bad, keep)
+                    print(line, flush=True)
+                    if mats == "bf16":
+                        errs[name] = max(errs.get(name, 0.0), err)
+                if mats == "bf16" and (H, W) == (128, 128):
+                    one = {**kw, "n_steps": 1}
+                    yk, ck = y[keep], ctrl[keep]
+                    _check_sites(f"gpe_strang_macro mats=bf16 phase_poly={poly} {H}x{W}",
+                                 gpe_strang_macro_cuda(yk, ck, V, gconsts, **one),
+                                 gpe_strang_macro_plain(yk, ck, V, gconsts, **one),
+                                 gpe_strang_macro_plain(yk, ck, V, gconsts,
+                                                        **{**one, "round_bf16": False}),
+                                 TOL_SITE["gpe"])
+            if (H, W) == (128, 128):
+                # A state at 1.5 times unit norm: each B phase after the first
+                # takes theta from the field its renormalisation scaled.
+                y15 = 1.5 * y[keep]
+                line, _ = _check_gpe_big(
+                    torch, f"check gpe_strang_macro mats={mats} {H}x{W}, state at 1.5 x unit norm",
+                    gpe_strang_macro_cuda(y15, ctrl[keep], V, gconsts, **kw),
+                    gpe_strang_macro_plain(y15, ctrl[keep], V, gconsts, **kw), mats, spot, dx,
+                    None, None)
+                print(line, flush=True)
+    # K3 at 256^2: run_ch256's fields and dt, the loss's cotangent.
+    H = W = BIG256_GRID
+    ub = 0.5 + 0.01 * torch.randn((B, H, W), generator=gen, device=dev)
+    kb = torch.full((B,), 0.004, device=dev)
+    for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        consts = cas_constants(H, W, 0.01, 0.01, mdt, dev)
+        kw = dict(mu_fn=CH_MU, dt=BIG256_DT, A=A, n_steps=SUBSTEPS, round_bf16=mats == "bf16")
+        g = 2.0 * ch_cas_macro_plain(ub, kb, consts, **kw)
+        got = ch_cas_macro_bwd_cuda(ub, kb, g, consts, **kw)
+        want = ch_cas_macro_bwd_plain(ub, kb, g, consts, **kw)
+        torch.cuda.synchronize()
+        line = f"check ch_cas_macro_bwd mats={mats} cotangent=loss {H}x{W} ({B} envs)"
+        if mats == "f32":
+            e = _bwd_errs(got, want)
+            line += f": du max_rel_err {e[0]:.3e}, dkappa max_rel_err {e[1]:.3e}"
+            _check(e[0] <= TOL_BWD["f32"][0] and e[1] <= TOL_BWD["f32"][1],
+                   f"{line} > {TOL_BWD['f32']}")
+            print(line, flush=True)
+        else:
+            _check_bwd_bf16(torch, line, got, want,
+                            _bwd_f64_accumulated(torch, ub, kb, g, consts, kw),
+                            _bwd_f64_accumulated(torch, ub, kb, g, consts, kw, True))
+            errs["ch_cas_macro_bwd"] = (got[0] - want[0]).abs().max().item()
+        un = ub.clone()
+        un[bad, 3, 7] = float("nan")
+        du, dk = ch_cas_macro_bwd_cuda(un, kb, g, consts, **kw)
+        torch.cuda.synchronize()
+        _check(bool(torch.isnan(du[bad]).any()) and bool(torch.isnan(dk[bad]))
+               and bool(torch.isfinite(du[keep]).all()) and bool(torch.isfinite(dk[keep]).all()),
+               f"K3 mats={mats} {H}x{W}: the NaN env left its env")
+        print(f"check ch_cas_macro_bwd mats={mats} {H}x{W}: NaN env {bad} stays in its env",
+              flush=True)
+    # K3 at 256^2 with 50 substeps a call: a slot holds 55 planes (14 MB),
+    # one for each resident block; the scratch allocates and the call runs.
+    from pde_opt_tpu_torch.ops.cas_spectral import _alloc_scratch, _library
+
+    kw = dict(mu_fn=CH_MU, dt=BIG256_DT, A=A, n_steps=50, round_bf16=True)
+    scratch, slots = _alloc_scratch(dev, B, _library, "ch_cas_macro_scratch", 1, 1, H, W, 50)
+    nbytes = scratch.numel() * 4
+    del scratch
+    du, dk = ch_cas_macro_bwd_cuda(ub, kb, torch.ones_like(ub), consts, **kw)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(du).all() and torch.isfinite(dk).all()),
+           "K3 at 256^2 x 50 substeps: non-finite")
+    print(f"check ch_cas_macro_bwd mats=bf16 {H}x{W} x 50 substeps ({B} envs): scratch "
+          f"{slots} slots, {nbytes / 2**30:.2f} GiB; finite du and dkappa", flush=True)
+    return errs
+
+
+def _drive_tiled(torch, kernels, dev, gen, card):
+    """Phase 10b: the GPE 128^2 fleet (run_gpe128: K5), the AC 128^2 fleet
+    (K4) and the 256^2 value+grad (K2 + K3) through their entry points, each
+    with its launch counts reset just before and read just after, under sync
+    debug mode "error"; the GPE fleet's fft mode timed beside its fused one;
+    then the tiled kernels held against plain and timed at these shapes.
+    Returns each path's counts."""
+    from pde_opt_tpu_torch.envs.presets import (
+        AC_MU,
+        AC_R,
+        CH_MU,
+        make_allen_cahn_control_env,
+        make_gpe_control_env,
+    )
+    from pde_opt_tpu_torch.ops.cas_spectral import (
+        Epilogue,
+        ac_cas_macro_cuda,
+        ac_cas_macro_plain,
+        cas_constants,
+        ch_cas_macro_bwd_cuda,
+        ch_cas_macro_bwd_plain,
+        ch_cas_macro_plain,
+        make_ch_cas_fused_macro,
+    )
+    from pde_opt_tpu_torch.ops.gpe_cas import (
+        GpeEpilogue,
+        gpe_constants,
+        gpe_strang_macro_cuda,
+        gpe_strang_macro_plain,
+    )
+
+    # -- the GPE 128^2 fleet (run_gpe128, BASELINE config 5), fused and fft --
+    G = GPE128_GRID
+    gpe = make_gpe_control_env(num_envs=GPE128_ENVS, grid_size=G, substeps=SUBSTEPS,
+                               spectral_solve="fused", device=dev)
+    gpe0 = make_gpe_control_env(num_envs=GPE128_ENVS, grid_size=G, substeps=SUBSTEPS,
+                                fused_epilogue=False, device=dev)
+    g_state, g_counts, g_rate = _drive_fleet(torch, kernels, gpe, gpe0, gen, "GPE 128^2", 1e-4)
+    _check(g_counts["gpe_strang_macro_ep"] == STEPS
+           and g_counts["gpe_strang_macro"] == FLEET_STEPS_NO_EP
+           and sum(g_counts.values()) == STEPS + FLEET_STEPS_NO_EP,
+           f"GPE 128^2 launches {g_counts}")
+    dx = float(gpe.domain.dx[0])
+    norm_err = ((g_state.y ** 2).sum((-3, -2, -1)) * dx * dx - 1.0).abs().max().item()
+    print(f"GPE 128^2: per-env norm after the rollout: max |norm - 1| {norm_err:.3e}", flush=True)
+    _check(norm_err <= 1e-5, "GPE 128^2: per-env norm must stay 1 to 1e-5")
+    gpe_fft = make_gpe_control_env(num_envs=GPE128_ENVS, grid_size=G, substeps=SUBSTEPS,
+                                   spectral_solve="fft", device=dev)
+    r_f1, r_x1, r_x2, r_f2 = (_fleet_rate(torch, e, gen, GPE128_FFT_STEPS)
+                              for e in (gpe, gpe_fft, gpe_fft, gpe))
+    print(f"GPE 128^2 fleet (run_gpe128): fused {g_rate:.1f} env-steps/s over the {STEPS}-step "
+          f"rollout; fused vs fft in turns over {GPE128_FFT_STEPS} steps: {r_f1:.1f} / "
+          f"{r_f2:.1f} vs {r_x1:.1f} / {r_x2:.1f} env-steps/s, "
+          f"{(r_f1 + r_f2) / (r_x1 + r_x2):.2f}x ({GPE128_ENVS} envs x {G}^2 x {SUBSTEPS} "
+          f"substeps) [{card}]", flush=True)
+
+    # -- the AC 128^2 fleet (run_ch128's shape on the AC preset, R == 1) --
+    N = AC128_GRID
+    ac = make_allen_cahn_control_env(num_envs=AC128_ENVS, grid_size=N, substeps=SUBSTEPS,
+                                     device=dev)
+    ac0 = make_allen_cahn_control_env(num_envs=AC128_ENVS, grid_size=N, substeps=SUBSTEPS,
+                                      fused_epilogue=False, device=dev)
+    _, a_counts, a_rate = _drive_fleet(torch, kernels, ac, ac0, gen, "AC 128^2", 1e-3)
+    _check(a_counts["ac_cas_macro_ep"] == STEPS and a_counts["ac_cas_macro"] == FLEET_STEPS_NO_EP
+           and sum(a_counts.values()) == STEPS + FLEET_STEPS_NO_EP,
+           f"AC 128^2 launches {a_counts}")
+    print(f"AC 128^2 fleet: {a_rate:.1f} env-steps/s ({AC128_ENVS} envs x {N}^2 x {SUBSTEPS} "
+          f"substeps, {STEPS} steps) [{card}]", flush=True)
+
+    # -- the 256^2 value+grad of sum(macro(u, kappa)^2) (run_ch256's shape) --
+    M = BIG256_GRID
+    macro = make_ch_cas_fused_macro(CH_MU, M, M, 0.01, 0.01, 1.0, BIG256_DT, SUBSTEPS)
+    u0 = 0.5 + 0.01 * torch.randn((BIG256_ENVS, M, M), generator=gen, device=dev)
+    k0 = torch.full((BIG256_ENVS,), 4e-3, device=dev)
+
+    def value_and_grad():
+        u, k = u0.detach().requires_grad_(), k0.detach().requires_grad_()
+        v = (macro(u, k) ** 2).sum()
+        v.backward()
+        return v.detach(), u.grad, k.grad
+
+    value_and_grad()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    vg = [value_and_grad() for _ in range(VG256_CALLS)]
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_vg = time.perf_counter() - t0
+    v_counts = kernels.launch_counts()
+    _check(v_counts["ch_cas_macro"] == VG256_CALLS and v_counts["ch_cas_macro_bwd"] == VG256_CALLS
+           and sum(v_counts.values()) == 2 * VG256_CALLS, f"256^2 value+grad launches {v_counts}")
+    _check(all(bool(torch.isfinite(t).all()) for r in vg for t in r),
+           "256^2 value+grad: non-finite value or gradient")
+    print(f"256^2 value+grad: {VG256_CALLS} calls of sum(macro(u, kappa)^2) at {BIG256_ENVS} envs "
+          f"x {M}^2 x {SUBSTEPS} substeps (dt {BIG256_DT}, bf16), no host sync, launches "
+          f"{v_counts}: {BIG256_ENVS * SUBSTEPS * VG256_CALLS / t_vg:.1f} grad-env-substeps/s, "
+          f"{t_vg / VG256_CALLS * 1e3:.4f} ms a call [{card}]", flush=True)
+
+    # -- the kernels at these shapes: against plain where a block walks
+    # several envs through its slot, and timed against plain and the bound --
+    bounds = _tiled_bounds()
+    ep = Epilogue(127.5, 127.5, 0.0, 1)
+    c_ac = cas_constants(N, N, HX, HY, torch.bfloat16, dev)
+    kw_ac = dict(mu_fn=AC_MU, R_fn=AC_R, r_identity=True, dt=DT, A=A, n_steps=SUBSTEPS,
+                 round_bf16=True, epilogue=ep)
+    u_ac = 0.1 * torch.randn((AC128_ENVS, N, N), generator=gen, device=dev)
+    k_ac = 1e-4 + 9e-4 * torch.rand((AC128_ENVS,), generator=gen, device=dev)
+    y, ctrl, V, spot, dxg = _gpe_fields(torch, dev, gen, WALK_ENVS, G, G)
+    c_g = gpe_constants(G, G, dxg, GPE128_DT, torch.bfloat16, dev)
+    kw_g = dict(g=GPE_G, dt=GPE128_DT, dx=dxg, n_steps=SUBSTEPS, round_bf16=True,
+                phase_poly=True, epilogue=GpeEpilogue(2550.0, spot))
+    yb, cb = y[:GPE128_ENVS], ctrl[:GPE128_ENVS]
+    c_vg = cas_constants(M, M, 0.01, 0.01, torch.bfloat16, dev)
+    kw_vg = dict(mu_fn=CH_MU, dt=BIG256_DT, A=A, n_steps=SUBSTEPS, round_bf16=True)
+    g_vg = 2.0 * ch_cas_macro_plain(u0, k0, c_vg, **kw_vg)
+    got = ac_cas_macro_cuda(u_ac, k_ac, c_ac, **kw_ac)
+    want = ac_cas_macro_plain(u_ac, k_ac, c_ac, **kw_ac)
+    torch.cuda.synchronize()
+    line, _ = _check_ac_big(torch, f"check ac_cas_macro_ep mats=bf16 R=1 at {AC128_ENVS}x{N}^2x"
+                            f"{SUBSTEPS} (a block walks several envs)", got, want, "bf16",
+                            None, None, N * N)
+    print(line, flush=True)
+    for B_, yy, cc in ((GPE128_ENVS, yb, cb), (WALK_ENVS, y, ctrl)):
+        got = gpe_strang_macro_cuda(yy, cc, V, c_g, **kw_g)
+        want = gpe_strang_macro_plain(yy, cc, V, c_g, **kw_g)
+        torch.cuda.synchronize()
+        walk = " (a block walks several envs)" if B_ == WALK_ENVS else ""
+        line, _ = _check_gpe_big(torch, f"check gpe_strang_macro_ep mats=bf16 phase_poly=True at "
+                                 f"{B_}x{G}^2x{SUBSTEPS}{walk}", got, want, "bf16", spot, dxg,
+                                 None, None)
+        print(line, flush=True)
+    cases = (
+        ("ac_cas_macro_ep 128^2", f"{AC128_ENVS}x{N}^2x{SUBSTEPS}, R == 1",
+         lambda: ac_cas_macro_cuda(u_ac, k_ac, c_ac, **kw_ac),
+         lambda: ac_cas_macro_plain(u_ac, k_ac, c_ac, **kw_ac)),
+        ("gpe_strang_macro_ep 128^2", f"{GPE128_ENVS}x{G}^2x{SUBSTEPS}, phase polynomials",
+         lambda: gpe_strang_macro_cuda(yb, cb, V, c_g, **kw_g),
+         lambda: gpe_strang_macro_plain(yb, cb, V, c_g, **kw_g)),
+        # The same at WALK_ENVS envs, several waves of blocks: its time an
+        # env-transform beside the path's single wave.
+        ("gpe_strang_macro_ep 128^2 walk", f"{WALK_ENVS}x{G}^2x{SUBSTEPS}, phase polynomials",
+         lambda: gpe_strang_macro_cuda(y, ctrl, V, c_g, **kw_g),
+         lambda: gpe_strang_macro_plain(y, ctrl, V, c_g, **kw_g)),
+        ("ch_cas_macro_bwd 256^2", f"{BIG256_ENVS}x{M}^2x{SUBSTEPS}",
+         lambda: ch_cas_macro_bwd_cuda(u0, k0, g_vg, c_vg, **kw_vg),
+         lambda: ch_cas_macro_bwd_plain(u0, k0, g_vg, c_vg, **kw_vg)),
+    )
+    for name, what, kernel, plain in cases:
+        k1, p1, k2 = (_time_ms(torch, f, reps=3, warmup=1) for f in (kernel, plain, kernel))
+        ms = (k1 + k2) / 2
+        b_ms, b_by = bounds[name]
+        print(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of the kernel's time) at {what} bf16 "
+              f"[{card}]", flush=True)
+    return g_counts, a_counts, v_counts
 
 
 def main():
@@ -3017,14 +3470,8 @@ def main():
                                    box_size=GPE_BOX, k_interaction=GPE_G, spectral_solve="fft",
                                    device=dev)
 
-    def fleet_rate(e, n=30):
-        st, _ = e.reset(gen)
-        e.make_rollout(lambda o, g: e.sample_actions(g), 2)(st, gen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e.make_rollout(lambda o, g: e.sample_actions(g), n)(st, gen)
-        torch.cuda.synchronize()
-        return e.num_envs * n / (time.perf_counter() - t0)
+    def fleet_rate(e):
+        return _fleet_rate(torch, e, gen, 30)
 
     r_f1, r_x1, r_x2, r_f2 = (fleet_rate(e) for e in (gpe_env, gpe_fft, gpe_fft, gpe_env))
     gpe_fused_rate, gpe_fft_rate = (r_f1 + r_f2) / 2, (r_x1 + r_x2) / 2
@@ -3095,12 +3542,18 @@ def main():
     print(f"tiled kernels' largest bf16 field errors: {big_err}", flush=True)
     big_counts = _drive_big(torch, kernels, dev, gen, card)
 
+    # ---- 10. the AC and GPE macros above 64^2, K3 at 256^2: the tiled K4, K5, K3
+    tiled_err = _check_tiled(torch, dev, gen)
+    print(f"tiled K4, K5, K3 (256^2): largest bf16 errors: {tiled_err}", flush=True)
+    tiled_counts = _drive_tiled(torch, kernels, dev, gen, card)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
                                       dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
-                                      ddpg_counts, *big_counts)) for n in KERNELS}
+                                      ddpg_counts, *big_counts, *tiled_counts))
+                for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()
     # library_ms is null for every kernel: no single PyTorch call computes a

@@ -1,7 +1,8 @@
-// The cas transform for grids above 64 x 64 (ch_cas_macro.cu: the tiled
-// kernels of K1-K3), where one env's fields, spectrum and intermediate no
-// longer fit a block's registers and shared memory (one f32 field is 64 KB
-// at 128^2, 256 KB at 256^2).
+// The cas transform for grids above 64 x 64 (the tiled kernels of K1-K3 in
+// ch_cas_macro.cu, K4 in ac_cas_macro.cu and K5 in gpe_strang_macro.cu),
+// where one env's fields, spectrum and intermediate no longer fit a block's
+// registers and shared memory (one f32 field is 64 KB at 128^2, 256 KB at
+// 256^2).
 //
 //   transform(Z) = Mh^T Z Mw     (as cas_common.cuh, in the JAX order)
 //
@@ -75,6 +76,11 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 
 __device__ __forceinline__ void st2(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
+}
+
+// A polynomial (mu, R) at a pixel pair.
+__device__ __forceinline__ float2 mu2(const MuPoly& mu, float2 x) {
+  return make_float2(mu_eval(mu, x.x), mu_eval(mu, x.y));
 }
 
 // Chunk copies, one 16-byte cp.async each, zero where the source lies past
@@ -362,6 +368,37 @@ __device__ __forceinline__ void tiled_field_epilogue(const float* u, float (*red
 bool bad_tiled_grid(int B, int H, int W, int n_steps) {
   return B < 1 || H < 8 || W < 8 || H > kTiledMaxGrid || W > kTiledMaxGrid || H % 8 || W % 8 ||
          n_steps < 0;
+}
+
+// Whether a grid runs the tiled kernels of its family (above 64 x 64) or the
+// one-block-an-env kernels of cas_common.cuh / cas_wgmma.cuh.
+bool tiled(int H, int W) { return H > kLd || W > kLd; }
+
+// The bf16 copies of the matrices that the tiled tensor-core kernels read.
+const __nv_bfloat16* B16(const void* p) { return static_cast<const __nv_bfloat16*>(p); }
+
+bool bad_mats16(const void* ch16, const void* cw16, const void* ich16, const void* icw16) {
+  return ch16 == nullptr || cw16 == nullptr || ich16 == nullptr || icw16 == nullptr;
+}
+
+// The scratch a tiled kernel needs: `slots` blocks resident at once, each
+// with a slot of `planes` H x W f32 planes (`floats` f32).
+template <class Kernel>
+cudaError_t tiled_scratch(Kernel kernel, bool bf16, long long planes, int H, int W, int* slots,
+                          long long* floats) {
+  *floats = planes * H * W;
+  return resident_blocks(kernel, slots, bf16 ? kTiledSmemWg : kTiledSmemFma);
+}
+
+// Launches a tiled kernel on min(B, n_slots) blocks, one scratch slot each.
+template <class Kernel, class... Args>
+cudaError_t launch_tiled(Kernel kernel, bool bf16, int B, int n_slots, cudaStream_t st,
+                         Args... args) {
+  const int smem = bf16 ? kTiledSmemWg : kTiledSmemFma;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B < n_slots ? B : n_slots, kThreads, smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -592,10 +592,6 @@ __device__ __forceinline__ Mult2 mult2(const float* __restrict__ lam,
   return {mult_from(l.x, l2.x, k, sc), mult_from(l.y, l2.y, k, sc)};
 }
 
-__device__ __forceinline__ float2 mu2(const MuPoly& mu, float2 x) {
-  return make_float2(mu_eval(mu, x.x), mu_eval(mu, x.y));
-}
-
 // K1/K2: slot = [z, t, u~], three H x W f32 planes (z and t hold bf16 on
 // the tensor-core path, the matrices g_* are then bf16 copies).
 template <bool kBf16>
@@ -788,15 +784,6 @@ ch_cas_macro_bwd_tiled_kernel(const float* __restrict__ u_in, const float* __res
   }
 }
 
-bool tiled(int H, int W) { return H > kLd || W > kLd; }
-
-// The bf16 copies of the matrices that the tiled tensor-core kernels read.
-const __nv_bfloat16* B16(const void* p) { return static_cast<const __nv_bfloat16*>(p); }
-
-bool bad_mats16(const void* ch16, const void* cw16, const void* ich16, const void* icw16) {
-  return ch16 == nullptr || cw16 == nullptr || ich16 == nullptr || icw16 == nullptr;
-}
-
 bool bad_shape(int B, int H, int W, int n_steps, int n_coeffs) {
   return (tiled(H, W) ? bad_tiled_grid(B, H, W, n_steps) : bad_grid(B, H, W, n_steps)) ||
          bad_poly(n_coeffs);
@@ -824,14 +811,14 @@ int ch_cas_macro_scratch(int bwd, int round_bf16, int H, int W, int n_steps, int
                           : resident_blocks(ch_cas_macro_bwd_kernel, slots);
     *floats = n * hw;
   } else if (bwd == 0) {
-    err = round_bf16 != 0 ? resident_blocks(ch_cas_macro_tiled_kernel<true>, slots, kTiledSmemWg)
-                          : resident_blocks(ch_cas_macro_tiled_kernel<false>, slots, kTiledSmemFma);
-    *floats = 3 * hw;
+    err = round_bf16 != 0
+              ? tiled_scratch(ch_cas_macro_tiled_kernel<true>, true, 3, H, W, slots, floats)
+              : tiled_scratch(ch_cas_macro_tiled_kernel<false>, false, 3, H, W, slots, floats);
   } else {
     err = round_bf16 != 0
-              ? resident_blocks(ch_cas_macro_bwd_tiled_kernel<true>, slots, kTiledSmemWg)
-              : resident_blocks(ch_cas_macro_bwd_tiled_kernel<false>, slots, kTiledSmemFma);
-    *floats = (n + 5) * hw;
+              ? tiled_scratch(ch_cas_macro_bwd_tiled_kernel<true>, true, n + 5, H, W, slots, floats)
+              : tiled_scratch(ch_cas_macro_bwd_tiled_kernel<false>, false, n + 5, H, W, slots,
+                              floats);
   }
   return static_cast<int>(err);
 }
@@ -863,18 +850,14 @@ int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
   int resident = 0;
   cudaError_t err;
   if (tiled(H, W) && round_bf16 != 0) {
-    const int grid = B < n_slots ? B : n_slots;
-    auto kernel = ch_cas_macro_tiled_kernel<true>;
-    if ((err = allow_smem(kernel, kTiledSmemWg)) != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, kTiledSmemWg, st>>>(u, kappa, B16(ch16), B16(cw16), B16(ich16),
-                                                 B16(icw16), lam, lam2, out, scratch, B, H, W,
-                                                 n_steps, dt, a_dt, mu, ep);
+    return static_cast<int>(launch_tiled(ch_cas_macro_tiled_kernel<true>, true, B, n_slots, st, u,
+                                         kappa, B16(ch16), B16(cw16), B16(ich16), B16(icw16),
+                                         lam, lam2, out, scratch, B, H, W, n_steps, dt, a_dt,
+                                         mu, ep));
   } else if (tiled(H, W)) {
-    const int grid = B < n_slots ? B : n_slots;
-    auto kernel = ch_cas_macro_tiled_kernel<false>;
-    if ((err = allow_smem(kernel, kTiledSmemFma)) != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, kTiledSmemFma, st>>>(u, kappa, ch, cw, ich, icw, lam, lam2, out,
-                                                  scratch, B, H, W, n_steps, dt, a_dt, mu, ep);
+    return static_cast<int>(launch_tiled(ch_cas_macro_tiled_kernel<false>, false, B, n_slots, st,
+                                         u, kappa, ch, cw, ich, icw, lam, lam2, out, scratch, B,
+                                         H, W, n_steps, dt, a_dt, mu, ep));
   } else if (round_bf16 != 0) {
     if ((err = resident_blocks(ch_cas_macro_wg_kernel, &resident, kWgSmemBytes)) != cudaSuccess)
       return static_cast<int>(err);
@@ -916,16 +899,14 @@ int ch_cas_macro_bwd_launch(const float* u, const float* kappa, const float* g,
   const int grid = B < n_slots ? B : n_slots;
   cudaError_t err;
   if (tiled(H, W) && round_bf16 != 0) {
-    auto kernel = ch_cas_macro_bwd_tiled_kernel<true>;
-    if ((err = allow_smem(kernel, kTiledSmemWg)) != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, kTiledSmemWg, st>>>(u, kappa, g, B16(ch16), B16(cw16), B16(ich16),
-                                                 B16(icw16), lam, lam2, du, dkappa, scratch, B,
-                                                 H, W, n_steps, c, mu, dmu);
+    return static_cast<int>(launch_tiled(ch_cas_macro_bwd_tiled_kernel<true>, true, B, n_slots,
+                                         st, u, kappa, g, B16(ch16), B16(cw16), B16(ich16),
+                                         B16(icw16), lam, lam2, du, dkappa, scratch, B, H, W,
+                                         n_steps, c, mu, dmu));
   } else if (tiled(H, W)) {
-    auto kernel = ch_cas_macro_bwd_tiled_kernel<false>;
-    if ((err = allow_smem(kernel, kTiledSmemFma)) != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, kTiledSmemFma, st>>>(u, kappa, g, ch, cw, ich, icw, lam, lam2, du,
-                                                  dkappa, scratch, B, H, W, n_steps, c, mu, dmu);
+    return static_cast<int>(launch_tiled(ch_cas_macro_bwd_tiled_kernel<false>, false, B, n_slots,
+                                         st, u, kappa, g, ch, cw, ich, icw, lam, lam2, du,
+                                         dkappa, scratch, B, H, W, n_steps, c, mu, dmu));
   } else if (round_bf16 != 0) {
     if ((err = allow_smem(ch_cas_macro_bwd_wg_kernel, kWgSmemBytes)) != cudaSuccess)
       return static_cast<int>(err);

@@ -49,8 +49,15 @@
 // Both: one block of 256 threads per env at a time (grid-stride), the B phase
 // and the full-f32 renorm in the same code; the state is read and written in
 // its interleaved (B, H, W, 2) layout.
+//
+// Grids above 64 x 64 (any H and W that are multiples of 8 up to 256) run
+// gpe_strang_macro_tiled_kernel at the end of this file, bf16 and f32 alike:
+// an env's planes live in device memory and each transform streams 64-wide
+// chunks through shared memory (cas_tiled.cuh).  The launch picks the kernel
+// by grid; the 64^2 kernels are unchanged.
 
 #include "cas_common.cuh"
+#include "cas_tiled.cuh"
 #include "cas_wgmma.cuh"
 
 namespace {
@@ -406,31 +413,224 @@ gpe_strang_macro_wg_kernel(const float* __restrict__ y_in, const float* __restri
   }
 }
 
+// ---- K5 above 64 x 64: the tiled kernel ------------------------------------
+//
+// One block owns one env at a time (grid-stride).  Its planes live in this
+// block's slot of a scratch that the wrapper allocates
+// (gpe_strang_macro_scratch): [zr, zi, t, pr, pi], five H x W f32 planes (the
+// operands zr, zi and the intermediate t hold bf16 on the tensor-core path,
+// whose matrices g_* are then bf16 copies).  A propagation is four
+// tiled_transforms whose epilogues work at a pixel pair:
+//
+//   fwd(zr): rh into the pr plane, in f32 (the JAX kernel's products emit
+//            f32; rh is rounded only as part of the next operand)
+//   fwd(zi): c rh + s ih -> zr and c ih - s rh -> zi, formed in f32
+//   inv(zr): pr
+//   inv(zi): pi, and this thread's share of sum(pr^2 + pi^2)
+//
+// The norm is whole only after the last tile of inv(zi), so the scale is a
+// full-f32 block sum applied where the pixels are next read: the B-phase
+// pass scales (pr, pi) first and takes theta from the scaled field (JAX's
+// order of operations), then writes the next operands; after the last
+// propagation one closing pass scales, writes the interleaved state and runs
+// the epilogue.  The first propagation's operands are the state itself,
+// deinterleaved as it is read, and it is not renormalised.
+
+constexpr int kGpeTiledPlanes = 5;
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+gpe_strang_macro_tiled_kernel(const float* __restrict__ y_in, const float* __restrict__ ctrl,
+                              const float* __restrict__ V, const Op<kBf16>* __restrict__ g_ch,
+                              const Op<kBf16>* __restrict__ g_cw,
+                              const Op<kBf16>* __restrict__ g_ich,
+                              const Op<kBf16>* __restrict__ g_icw, Tables tab,
+                              float* __restrict__ y_out, float* scratch, int B, int H, int W,
+                              int n_steps, float g, float dt, float dx2, bool poly,
+                              GpeEpilogue ep) {
+  extern __shared__ __align__(128) unsigned char smem_tl[];
+  __shared__ float red[kWarps][3];
+  const int tid = threadIdx.x, hw = H * W;
+  // B phases a macro: n_steps - 1 before full propagations, one before the
+  // closing half propagation (n_steps 0 runs as 1, as in JAX).
+  const int n_b = n_steps > 1 ? n_steps : 1;
+  float* zr = scratch + static_cast<size_t>(blockIdx.x) * kGpeTiledPlanes * hw;
+  float* zi = zr + hw;
+  float* t = zi + hw;
+  float* pr = t + hw;
+  float* pi = pr + hw;
+
+  // One kinetic propagation by the phase tables (c_tab, s_tab) of the
+  // operands in zr, zi; returns this thread's share of sum(pr^2 + pi^2).
+  auto propagate = [&](const float* __restrict__ c_tab, const float* __restrict__ s_tab) {
+    tiled_transform<kBf16>(smem_tl, zr, t, g_ch, g_cw, H, W, tid,          // rh
+                           [&](int r, int c, float2 v) { st2(pr + r * W + c, v); });
+    tiled_transform<kBf16>(                                                 // ih
+        smem_tl, zi, t, g_ch, g_cw, H, W, tid, [&](int r, int c, float2 v) {
+          const int p = r * W + c;
+          const float2 rh = ld2(pr + p), cs = ld2(c_tab + p), sn = ld2(s_tab + p);
+          put_z<kBf16>(zr, r, c, H, W,
+                       make_float2(cs.x * rh.x + sn.x * v.x, cs.y * rh.y + sn.y * v.y));
+          put_z<kBf16>(zi, r, c, H, W,
+                       make_float2(cs.x * v.x - sn.x * rh.x, cs.y * v.y - sn.y * rh.y));
+        });
+    tiled_transform<kBf16>(smem_tl, zr, t, g_ich, g_icw, H, W, tid,        // pr
+                           [&](int r, int c, float2 v) { st2(pr + r * W + c, v); });
+    float n2 = 0.f;
+    tiled_transform<kBf16>(                                                 // pi
+        smem_tl, zi, t, g_ich, g_icw, H, W, tid, [&](int r, int c, float2 v) {
+          const int p = r * W + c;
+          const float2 a = ld2(pr + p);
+          st2(pi + p, v);
+          n2 += a.x * a.x + v.x * v.x;
+          n2 += a.y * a.y + v.y * v.y;
+        });
+    return n2;
+  };
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * hw;
+    const float* ce = ctrl + off;
+    for (int p = 2 * tid; p < hw; p += 2 * kThreads) {
+      const float4 q = *reinterpret_cast<const float4*>(y_in + 2 * (off + p));
+      put_z<kBf16>(zr, p / W, p % W, H, W, make_float2(q.x, q.z));
+      put_z<kBf16>(zi, p / W, p % W, H, W, make_float2(q.y, q.w));
+    }
+    propagate(tab.cosH, tab.sinH);
+    float inv_norm = 1.0f;
+    for (int s = 0; s < n_b; ++s) {
+      // The B phase exp(-i th), th = dt (V + ctrl + g |psi|^2), on the
+      // scaled field, into the next propagation's operands.
+      __syncthreads();               // every pixel of pr and pi is written
+      for (int p = 2 * tid; p < hw; p += 2 * kThreads) {
+        const float2 a = ld2(pr + p), b = ld2(pi + p), v = ld2(V + p), q = ld2(ce + p);
+        const float rs[2] = {a.x * inv_norm, a.y * inv_norm};
+        const float ms[2] = {b.x * inv_norm, b.y * inv_norm};
+        const float vc[2] = {v.x + q.x, v.y + q.y};
+        float nr[2], ni[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float r = rs[e], m = ms[e];
+          const float th = dt * (vc[e] + g * (r * r + m * m));
+          float c, sn;
+          if (poly) {
+            const float t2 = th * th;
+            c = 1.0f + t2 * (-0.5f + t2 * (static_cast<float>(1.0 / 24.0) +
+                                           t2 * static_cast<float>(-1.0 / 720.0)));
+            sn = th * (1.0f + t2 * (static_cast<float>(-1.0 / 6.0) +
+                                    t2 * (static_cast<float>(1.0 / 120.0) +
+                                          t2 * static_cast<float>(-1.0 / 5040.0))));
+          } else {
+            sincosf(th, &sn, &c);
+          }
+          nr[e] = c * r + sn * m;
+          ni[e] = c * m - sn * r;
+        }
+        put_z<kBf16>(zr, p / W, p % W, H, W, make_float2(nr[0], nr[1]));
+        put_z<kBf16>(zi, p / W, p % W, H, W, make_float2(ni[0], ni[1]));
+      }
+      const bool half = s + 1 == n_b;
+      float n2 = propagate(half ? tab.cosH : tab.cosF, half ? tab.sinH : tab.sinF);
+      // renorm: a full-f32 block sum, broadcast to all.
+      float unused1 = 0.f, unused2 = 0.f;
+      block_sum3(n2, unused1, unused2, red, tid);
+      inv_norm = 1.0f / sqrtf(n2 * dx2);
+    }
+
+    // ---- closing pass: the scaled state, interleaved, and the epilogue ----
+    __syncthreads();                 // every read of red is done
+    float sw = 0.f, sr = 0.f, nf = 0.f;
+    for (int p = 2 * tid; p < hw; p += 2 * kThreads) {
+      const float2 a = ld2(pr + p), b = ld2(pi + p);
+      const float x[2] = {a.x * inv_norm, a.y * inv_norm};
+      const float y[2] = {b.x * inv_norm, b.y * inv_norm};
+      *reinterpret_cast<float4*>(y_out + 2 * (off + p)) = make_float4(x[0], y[0], x[1], y[1]);
+      if (ep.stats == nullptr) continue;
+      const float2 w = ld2(ep.weight + p);
+      unsigned char ob[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float rho = x[e] * x[e] + y[e] * y[e];
+        const bool fin = isfinite(rho);
+        const float rz = fin ? rho : 0.f;
+        sw += rz * (e ? w.y : w.x);
+        sr += rz;
+        nf += fin ? 1.f : 0.f;
+        ob[e] = static_cast<unsigned char>(fminf(fmaxf(rz * ep.scale, 0.f), 255.f));
+      }
+      *reinterpret_cast<uchar2*>(ep.obs + off + p) = make_uchar2(ob[0], ob[1]);
+    }
+    if (ep.stats != nullptr) {
+      block_sum3(sw, sr, nf, red, tid);
+      if (tid == 0) {
+        float* st = ep.stats + static_cast<size_t>(env) * 3;
+        st[0] = sw;
+        st[1] = sr;
+        st[2] = nf;
+      }
+    }
+    __syncthreads();                 // red and the planes free for the next env
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches K5 on `stream`: the tensor-core kernel when round_bf16 (bf16
-// matrices), the FMA kernel otherwise.  y (B, H, W, 2) and ctrl (B, H, W)
-// in, y_out (B, H, W, 2) out; stats == nullptr runs the plain macro,
-// otherwise stats (B, 3) and obs (B, H, W) are written too.  Returns a
-// cudaError_t value.
+// The scratch a launch needs on the current device: `slots` blocks resident
+// at once of the kernel that the grid and round_bf16 pick, each with a slot
+// of `floats` f32: none at 64^2 and below (0, 0), kGpeTiledPlanes H x W
+// planes above.  Returns a cudaError_t value.
+int gpe_strang_macro_scratch(int round_bf16, int H, int W, int* slots, long long* floats) {
+  *slots = 0;
+  *floats = 0;
+  if (!tiled(H, W)) return 0;
+  return static_cast<int>(
+      round_bf16 != 0 ? tiled_scratch(gpe_strang_macro_tiled_kernel<true>, true, kGpeTiledPlanes,
+                                      H, W, slots, floats)
+                      : tiled_scratch(gpe_strang_macro_tiled_kernel<false>, false,
+                                      kGpeTiledPlanes, H, W, slots, floats));
+}
+
+// Launches K5 on `stream`: at 64^2 and below the tensor-core kernel when
+// round_bf16 (bf16 matrices), the FMA kernel otherwise; above, the tiled
+// kernel of that type, on min(B, n_slots) blocks with `scratch` as
+// gpe_strang_macro_scratch sizes it (unused at 64^2).  ch16 .. icw16 are the
+// matrices as bf16 (read by the tiled tensor-core kernel alone; may be null
+// otherwise).  y (B, H, W, 2) and ctrl (B, H, W) in, y_out (B, H, W, 2) out;
+// stats == nullptr runs the plain macro, otherwise stats (B, 3) and obs (B,
+// H, W) are written too.  Returns a cudaError_t value.
 int gpe_strang_macro_launch(const float* y, const float* ctrl, const float* V,
                             const float* ch, const float* cw, const float* ich,
-                            const float* icw, const float* cos_full,
+                            const float* icw, const void* ch16, const void* cw16,
+                            const void* ich16, const void* icw16, const float* cos_full,
                             const float* sin_full, const float* cos_half,
                             const float* sin_half, float* out, float* stats,
                             unsigned char* obs, const float* weight, float obs_scale,
+                            float* scratch, int n_slots,
                             int B, int H, int W, int n_steps, float g, float dt,
                             float dx2, int phase_poly, int round_bf16, void* stream) {
-  if (bad_grid(B, H, W, n_steps) || (stats != nullptr && weight == nullptr))
+  const bool big = tiled(H, W);
+  if ((big ? bad_tiled_grid(B, H, W, n_steps) : bad_grid(B, H, W, n_steps)) ||
+      (stats != nullptr && weight == nullptr) ||
+      (big && (scratch == nullptr || n_slots < 1 ||
+               (round_bf16 != 0 && bad_mats16(ch16, cw16, ich16, icw16)))))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tables tab{cos_full, sin_full, cos_half, sin_half};
   const GpeEpilogue ep{stats, obs, weight, obs_scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int resident = 0;
   cudaError_t err;
-  if (round_bf16 != 0) {
+  if (big && round_bf16 != 0) {
+    return static_cast<int>(launch_tiled(gpe_strang_macro_tiled_kernel<true>, true, B, n_slots,
+                                         st, y, ctrl, V, B16(ch16), B16(cw16), B16(ich16),
+                                         B16(icw16), tab, out, scratch, B, H, W, n_steps, g, dt,
+                                         dx2, phase_poly != 0, ep));
+  } else if (big) {
+    return static_cast<int>(launch_tiled(gpe_strang_macro_tiled_kernel<false>, false, B, n_slots,
+                                         st, y, ctrl, V, ch, cw, ich, icw, tab, out, scratch, B,
+                                         H, W, n_steps, g, dt, dx2, phase_poly != 0, ep));
+  } else if (round_bf16 != 0) {
     if ((err = resident_blocks(gpe_strang_macro_wg_kernel, &resident, kGpeWgSmemBytes)) !=
         cudaSuccess)
       return static_cast<int>(err);

@@ -28,16 +28,17 @@ Each macro has two implementations of the same function:
 :func:`ch_cas_macro_cuda` (the hand-written Hopper kernel
 ``csrc/ch_cas_macro.cu``; what CUDA tensors run).  So has its backward:
 :func:`ch_cas_macro_bwd_plain` and :func:`ch_cas_macro_bwd_cuda` (kernel
-K3, in the same source).  The CUDA forward takes grids up to 256² and K3 up
-to 128²: above 64² they run the tiled kernels (``csrc/cas_tiled.cuh``),
-whose per-block scratch the wrappers allocate.  The macros are ``torch.autograd.Function``s
+K3, in the same source).  Both take grids up to 256²: above 64² they run
+the tiled kernels (``csrc/cas_tiled.cuh``), whose per-block scratch the
+wrappers allocate.  The macros are ``torch.autograd.Function``s
 whose backward is the JAX package's custom VJP: re-run the forward, then
 sweep back through the same transforms, rounding where the forward rounds.
 There is no fallback from one implementation to the other.
 
 The Allen-Cahn macro (:func:`make_ac_cas_fused_macro`, kernel K4 in
-``csrc/ac_cas_macro.cu``) runs on the same transforms and epilogue; its
-backward is the VJP of the checkpointed FFT oracle, as in the JAX package.
+``csrc/ac_cas_macro.cu``, tiled above 64² as well) runs on the same
+transforms and epilogue; its backward is the VJP of the checkpointed FFT
+oracle, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -77,12 +78,12 @@ __all__ = [
 ch_cas_macro_reference = ch_sif_macro_reference
 
 MAX_MU_DEGREE = 7
-# The largest H, W each CUDA macro takes: the CH forward (K1/K2) runs tiled
-# kernels above 64^2, K3 up to 128^2; every other family holds one env's 64 x
-# 64 tiles in a block.  Larger grids are ROADMAP.md queue 1 item 4.
+# The largest H, W each CUDA macro takes: the CH macros (K1-K3), AC (K4) and
+# GPE (K5) run tiled kernels above 64^2, up to MAX_GRID_TILED; every other
+# family holds one env's 64 x 64 tiles in a block.  Larger grids are
+# ROADMAP.md queue 1 item 4.
 MAX_GRID = 64
-MAX_GRID_CH = 256
-MAX_GRID_CH_BWD = 128
+MAX_GRID_TILED = 256
 
 
 class PolynomialMu:
@@ -367,8 +368,8 @@ def _check_cuda(name, t, shape, dtype, device):
 def _check_grid(u, ndim: int = 3, cap: int = MAX_GRID):
     """Raise on a state the CUDA kernels do not take: ``(B, H, W)`` (with
     ``ndim=4`` ``(B, H, W, 2)``), B >= 1, H and W multiples of 8 up to
-    ``cap`` (the family's: :data:`MAX_GRID`, :data:`MAX_GRID_CH` or
-    :data:`MAX_GRID_CH_BWD`).  Returns ``(B, H, W)``."""
+    ``cap`` (the family's: :data:`MAX_GRID` or :data:`MAX_GRID_TILED`).
+    Returns ``(B, H, W)``."""
     if u.ndim != ndim or (ndim == 4 and u.shape[-1] != 2):
         want = "(B, H, W)" if ndim == 3 else "(B, H, W, 2)"
         raise ValueError(f"the state must be {want}, got shape {tuple(u.shape)}")
@@ -393,23 +394,35 @@ def _check_macro_args(u, kappa, consts, mu_fn, cap: int = MAX_GRID):
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("kappa", kappa, (B,), torch.float32, dev)
-    for name, shape in (("ch", (H, H)), ("cw", (W, W)), ("ich", (H, H)),
-                        ("icw", (W, W)), ("lam", (H, W)), ("lam2", (H, W))):
-        _check_cuda(name, getattr(consts, name), shape, torch.float32, dev)
-    for name, shape in (("ch16", (H, H)), ("cw16", (W, W)), ("ich16", (H, H)),
-                        ("icw16", (W, W))):
-        if getattr(consts, name) is not None:
-            _check_cuda(name, getattr(consts, name), shape, torch.bfloat16, dev)
+    for name in ("lam", "lam2"):
+        _check_cuda(name, getattr(consts, name), (H, W), torch.float32, dev)
+    _check_mats(consts, H, W, dev)
     return B, H, W
+
+
+def _check_mats(consts, H: int, W: int, dev):
+    """Raise unless ``consts`` holds the cas matrices ``ch, cw, ich, icw``
+    (f32) on ``dev`` for an (H, W) grid, and their bf16 copies ``ch16`` ..
+    ``icw16`` where it has them."""
+    for name, shape in (("ch", (H, H)), ("cw", (W, W)), ("ich", (H, H)), ("icw", (W, W))):
+        _check_cuda(name, getattr(consts, name), shape, torch.float32, dev)
+        if getattr(consts, name + "16") is not None:
+            _check_cuda(name + "16", getattr(consts, name + "16"), shape, torch.bfloat16, dev)
+
+
+def _mats_ptrs(consts):
+    """The pointers of ``ch, cw, ich, icw, ch16 .. icw16`` as the launches
+    take them, null where there is no bf16 copy (f32 matrices: a launch
+    refuses a grid whose kernel reads one)."""
+    return tuple(None if m is None else m.data_ptr()
+                 for m in (consts.ch, consts.cw, consts.ich, consts.icw, consts.ch16,
+                           consts.cw16, consts.ich16, consts.icw16))
 
 
 def _mat_ptrs(consts: CasConstants):
     """The pointers of ``ch, cw, ich, icw, ch16 .. icw16, lam, lam2`` as the
-    CH launches take them, null where there is no bf16 copy (the launch
-    refuses a grid whose kernel reads one)."""
-    return tuple(None if m is None else m.data_ptr()
-                 for m in (consts.ch, consts.cw, consts.ich, consts.icw, consts.ch16,
-                           consts.cw16, consts.ich16, consts.icw16, consts.lam, consts.lam2))
+    CH launches take them (:func:`_mats_ptrs`, then the symbols)."""
+    return (*_mats_ptrs(consts), consts.lam.data_ptr(), consts.lam2.data_ptr())
 
 
 def _c_coeffs(mu: PolynomialMu):
@@ -417,29 +430,36 @@ def _c_coeffs(mu: PolynomialMu):
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch(device_index: int, bwd: bool, round_bf16: bool, H: int, W: int,
-             n_steps: int):
-    """``(slots, floats)``: the scratch a launch of the kernel that the grid
-    and ``round_bf16`` pick needs on one device, one slot of ``floats`` f32
-    for each block resident at once (``ch_cas_macro_scratch``; ``(0, 0)``
-    for the 64² forward)."""
+def _scratch(library: Callable, query: str, device_index: int, *args: int):
+    """``(slots, floats)``: the scratch a launch needs on one device, one
+    slot of ``floats`` f32 for each block resident at once, as the
+    library's ``query`` (``ch_cas_macro_scratch``, ``ac_cas_macro_scratch``
+    or ``gpe_strang_macro_scratch``) gives it for ``args``; ``(0, 0)`` where
+    the kernel takes none."""
     n, floats = ctypes.c_int(0), ctypes.c_longlong(0)
     with torch.cuda.device(device_index):
-        rc = _library().ch_cas_macro_scratch(int(bwd), int(round_bf16), H, W, int(n_steps),
-                                             ctypes.byref(n), ctypes.byref(floats))
-    _raise_if(rc, "ch_cas_macro_scratch")
+        rc = getattr(library(), query)(*args, ctypes.byref(n), ctypes.byref(floats))
+    if rc != 0:
+        raise RuntimeError(f"{query} failed with CUDA error {rc}")
     return n.value, floats.value
 
 
-def _alloc_scratch(dev, B, bwd, round_bf16, H, W, n_steps):
+def _alloc_scratch(dev, B, library, query, *args):
     """``(scratch, slots)`` for a launch of ``B`` envs: ``min(B, slots)``
-    slots, allocated with ``torch.empty`` (``(None, 0)`` where the kernel
-    takes none)."""
-    slots, floats = _scratch(dev.index, bool(bwd), bool(round_bf16), H, W, int(n_steps))
+    slots as :func:`_scratch` sizes them, allocated with ``torch.empty``
+    (``(None, 0)`` where the kernel takes none).  Raises ``RuntimeError``
+    naming the size where the card cannot hold it (K3 at 256² keeps n + 5
+    planes of 256 KB a slot: 14 MB at 50 substeps)."""
+    slots, floats = _scratch(library, query, dev.index, *(int(a) for a in args))
     if floats == 0:
         return None, 0
     slots = min(B, slots)
-    return torch.empty((slots * floats,), dtype=torch.float32, device=dev), slots
+    try:
+        return torch.empty((slots * floats,), dtype=torch.float32, device=dev), slots
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"{query}{tuple(args)}: {slots} scratch slots of {floats * 4 / 2**20:.1f} MiB do "
+            f"not fit on {dev}; run fewer substeps a call") from e
 
 
 def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants,
@@ -449,12 +469,12 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
 
     Launches ``csrc/ch_cas_macro.cu`` on the current stream (K1 with an
     epilogue, K2 without; with ``round_bf16`` on the tensor cores, else f32
-    FMA) and counts the launch.  H and W up to :data:`MAX_GRID_CH`: above
-    64² the tiled kernel runs, with a scratch of three H x W planes for
-    each resident block, allocated here.  Raises on anything the kernel
+    FMA) and counts the launch.  H and W up to :data:`MAX_GRID_TILED`:
+    above 64² the tiled kernel runs, with a scratch of three H x W planes
+    for each resident block, allocated here.  Raises on anything the kernel
     does not take.
     """
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_CH)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_TILED)
     dev = u.device
     out = torch.empty_like(u)
     stats = obs = None
@@ -465,7 +485,8 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
         stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
         obs = torch.empty((B, H // ds, W // ds), dtype=torch.uint8, device=dev)
     coeffs, n_coeffs = _c_coeffs(mu_fn)
-    scratch, slots = _alloc_scratch(dev, B, False, round_bf16, H, W, n_steps)
+    scratch, slots = _alloc_scratch(dev, B, _library, "ch_cas_macro_scratch", 0, round_bf16,
+                                    H, W, n_steps)
     with torch.cuda.device(dev):
         rc = _library().ch_cas_macro_launch(
             u.data_ptr(), kappa.data_ptr(), *_mat_ptrs(consts), out.data_ptr(),
@@ -498,17 +519,19 @@ def ch_cas_macro_bwd_cuda(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
     resident block re-runs its envs' forward into its own slot of a
     device-memory scratch, allocated here: ``n_steps`` H x W f32 planes a
     slot at 64² and below (43 MB at 64², 10 substeps on an H100: 264
-    slots), ``n_steps + 5`` above (the tiled kernel's planes), H and W up to
-    :data:`MAX_GRID_CH_BWD`.  Launches on the current stream and counts the
-    launch; raises on anything the kernel does not take.
+    slots), ``n_steps + 5`` above (the tiled kernel's planes: 3.8 MB a slot
+    at 256², 10 substeps), H and W up to :data:`MAX_GRID_TILED`.  Launches
+    on the current stream and counts the launch; raises on anything the
+    kernel does not take.
     """
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_CH_BWD)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_TILED)
     dev = u.device
     _check_cuda("g", g, (B, H, W), torch.float32, dev)
     n_steps = int(n_steps)
     du = torch.empty_like(u)
     dkappa = torch.empty((B,), dtype=torch.float32, device=dev)
-    scratch, slots = _alloc_scratch(dev, B, True, round_bf16, H, W, n_steps)
+    scratch, slots = _alloc_scratch(dev, B, _library, "ch_cas_macro_scratch", 1, round_bf16,
+                                    H, W, n_steps)
     coeffs, n_coeffs = _c_coeffs(mu_fn)
     dcoeffs, n_dcoeffs = _c_coeffs(mu_fn.derivative())
     with torch.cuda.device(dev):
@@ -757,14 +780,18 @@ def _bind_ac_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ac_cas_macro_launch.argtypes = [
-        p, p, p, p, p, p, p,             # u, kappa, ch, cw, ich, icw, lam
-        p, p, p,                         # out, stats, obs
+        p, p, p, p, p, p,                # u, kappa, ch, cw, ich, icw
+        p, p, p, p, p,                   # ch16 .. icw16, lam
+        p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
         i, i, i, i, f, f,                # B, H, W, n_steps, dt, A*dt
         p, i, p, i,                      # mu coeffs, n, R coeffs, n (0: R == 1)
         i, i, f, f, f,                   # round_bf16, ds, obs_scale, obs_offset, center
         p,                               # stream
     ]
     lib.ac_cas_macro_launch.restype = ctypes.c_int
+    lib.ac_cas_macro_scratch.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_longlong)]
+    lib.ac_cas_macro_scratch.restype = ctypes.c_int
     lib.ac_cas_error_string.argtypes = [ctypes.c_int]
     lib.ac_cas_error_string.restype = ctypes.c_char_p
     return lib
@@ -783,15 +810,18 @@ def ac_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
 
     Launches ``csrc/ac_cas_macro.cu`` on the current stream and counts the
     launch (``ac_cas_macro_ep`` with an epilogue, ``ac_cas_macro``
-    without).  ``mu`` must be a :class:`PolynomialMu`, and so must ``R``
-    unless ``r_identity``; raises on anything the kernel does not take.
+    without).  H and W up to :data:`MAX_GRID_TILED`: above 64² the tiled
+    kernel runs, with a scratch of three H x W planes for each resident
+    block, allocated here.  ``mu`` must be a :class:`PolynomialMu`, and so
+    must ``R`` unless ``r_identity``; raises on anything the kernel does not
+    take.
     """
     if not r_identity and not isinstance(R_fn, PolynomialMu):
         raise ValueError(
             "the CUDA AC macro evaluates a non-identity R from polynomial "
             f"coefficients: pass a PolynomialMu, got {R_fn!r}"
         )
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_TILED)
     dev = u.device
     out = torch.empty_like(u)
     stats = obs = None
@@ -804,13 +834,15 @@ def ac_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     mu_c, n_mu = _c_coeffs(mu_fn)
     r_c, n_r = (None, 0) if r_identity else _c_coeffs(R_fn)
     lib = _ac_library()
+    scratch, slots = _alloc_scratch(dev, B, _ac_library, "ac_cas_macro_scratch", round_bf16,
+                                    H, W)
     with torch.cuda.device(dev):
         rc = lib.ac_cas_macro_launch(
-            u.data_ptr(), kappa.data_ptr(), consts.ch.data_ptr(),
-            consts.cw.data_ptr(), consts.ich.data_ptr(), consts.icw.data_ptr(),
+            u.data_ptr(), kappa.data_ptr(), *_mats_ptrs(consts),
             consts.lam.data_ptr(), out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             obs.data_ptr() if obs is not None else None,
+            scratch.data_ptr() if scratch is not None else None, slots,
             B, H, W, int(n_steps), float(dt), float(A) * float(dt),
             mu_c, n_mu, r_c, n_r, int(bool(round_bf16)),
             epilogue.ds if epilogue else 1,

@@ -17,7 +17,8 @@ constant within the macro-step:
 
 :func:`gpe_strang_macro_plain` is the plain-torch version (what CPU tensors
 run) and :func:`gpe_strang_macro_cuda` kernel K5 (``csrc/gpe_strang_macro.cu``,
-what CUDA tensors run); there is no fallback from one to the other.  The
+what CUDA tensors run; grids up to 256², tiled above 64²); there is no
+fallback from one to the other.  The
 macros are ``torch.autograd.Function``s whose backward is the VJP of the
 checkpointed FFT oracle :func:`gpe_strang_fast_reference`, as in the JAX
 package.  The optional env epilogue emits per env ``[sum(w rho), sum(rho),
@@ -36,7 +37,17 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .cas_spectral import _cas_mat, _check_cuda, _check_grid, _OracleMacro, _transforms
+from .cas_spectral import (
+    MAX_GRID_TILED,
+    _alloc_scratch,
+    _cas_mat,
+    _check_cuda,
+    _check_grid,
+    _check_mats,
+    _mats_ptrs,
+    _OracleMacro,
+    _transforms,
+)
 from .kernels import count_launch, load_library
 
 __all__ = [
@@ -104,7 +115,9 @@ class GpeConstants(NamedTuple):
     the cas matrices (``ch``, ``cw``) and their inverses (``ich``, ``icw``,
     ``C/N``), rounded to ``mats_dtype``, and the kinetic phase tables
     ``cos``/``sin`` of ``phi dt`` (``*_full``) and ``phi dt/2``
-    (``*_half``) on the (H, W) grid."""
+    (``*_half``) on the (H, W) grid.  With bf16 matrices, ``ch16`` ..
+    ``icw16`` are the four matrices as bf16 tensors (exact copies), which
+    the tiled tensor-core kernel reads; ``None`` with f32 matrices."""
 
     ch: torch.Tensor
     cw: torch.Tensor
@@ -114,6 +127,10 @@ class GpeConstants(NamedTuple):
     sin_full: torch.Tensor
     cos_half: torch.Tensor
     sin_half: torch.Tensor
+    ch16: Optional[torch.Tensor] = None
+    cw16: Optional[torch.Tensor] = None
+    ich16: Optional[torch.Tensor] = None
+    icw16: Optional[torch.Tensor] = None
 
 
 @functools.lru_cache(maxsize=32)
@@ -128,9 +145,12 @@ def gpe_constants(H: int, W: int, dx: float, dt: float, mats_dtype: torch.dtype,
         return torch.from_numpy(a).to(device, torch.float32).contiguous()
 
     phi = _phi(H, W, dx)
+    mats = {"ch": mat(_cas_mat(H)), "cw": mat(_cas_mat(W)),
+            "ich": mat(_cas_mat(H) / H), "icw": mat(_cas_mat(W) / W)}
+    if mats_dtype == torch.bfloat16:
+        mats.update({f"{n}16": m.to(torch.bfloat16) for n, m in list(mats.items())})
     return GpeConstants(
-        ch=mat(_cas_mat(H)), cw=mat(_cas_mat(W)),
-        ich=mat(_cas_mat(H) / H), icw=mat(_cas_mat(W) / W),
+        **mats,
         cos_full=f32(np.cos(phi * dt)), sin_full=f32(np.sin(phi * dt)),
         cos_half=f32(np.cos(phi * 0.5 * dt)), sin_half=f32(np.sin(phi * 0.5 * dt)),
     )
@@ -205,14 +225,18 @@ def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gpe_strang_macro_launch.argtypes = [
         p, p, p,                         # y, ctrl, V
-        p, p, p, p,                      # ch, cw, ich, icw
+        p, p, p, p, p, p, p, p,          # ch, cw, ich, icw, ch16 .. icw16
         p, p, p, p,                      # cos/sin full, cos/sin half
         p, p, p, p, f,                   # out, stats, obs, weight, obs_scale
+        p, i,                            # scratch, n_slots
         i, i, i, i, f, f, f,             # B, H, W, n_steps, g, dt, dx^2
         i, i,                            # phase_poly, round_bf16
         p,                               # stream
     ]
     lib.gpe_strang_macro_launch.restype = ctypes.c_int
+    lib.gpe_strang_macro_scratch.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int),
+                                             ctypes.POINTER(ctypes.c_longlong)]
+    lib.gpe_strang_macro_scratch.restype = ctypes.c_int
     lib.gpe_strang_error_string.argtypes = [ctypes.c_int]
     lib.gpe_strang_error_string.restype = ctypes.c_char_p
     return lib
@@ -231,18 +255,17 @@ def gpe_strang_macro_cuda(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
 
     Launches ``csrc/gpe_strang_macro.cu`` on the current stream and counts
     the launch (``gpe_strang_macro_ep`` with an epilogue,
-    ``gpe_strang_macro`` without); raises on anything the kernel does not
-    take.
+    ``gpe_strang_macro`` without).  H and W up to :data:`MAX_GRID_TILED`:
+    above 64² the tiled kernel runs, with a scratch of five H x W planes for
+    each resident block, allocated here.  Raises on anything the kernel
+    does not take.
     """
-    B, H, W = _check_grid(y, ndim=4)
+    B, H, W = _check_grid(y, ndim=4, cap=MAX_GRID_TILED)
     dev = y.device
     _check_cuda("y", y, (B, H, W, 2), torch.float32, dev)
     _check_cuda("ctrl", ctrl, (B, H, W), torch.float32, dev)
     _check_cuda("V", V, (H, W), torch.float32, dev)
-    for name in ("ch", "ich"):
-        _check_cuda(name, getattr(consts, name), (H, H), torch.float32, dev)
-    for name in ("cw", "icw"):
-        _check_cuda(name, getattr(consts, name), (W, W), torch.float32, dev)
+    _check_mats(consts, H, W, dev)
     for name in ("cos_full", "sin_full", "cos_half", "sin_half"):
         _check_cuda(name, getattr(consts, name), (H, W), torch.float32, dev)
     out = torch.empty_like(y)
@@ -252,16 +275,18 @@ def gpe_strang_macro_cuda(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
         stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
         obs = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
     lib = _library()
+    scratch, slots = _alloc_scratch(dev, B, _library, "gpe_strang_macro_scratch",
+                                    round_bf16, H, W)
     with torch.cuda.device(dev):
         rc = lib.gpe_strang_macro_launch(
-            y.data_ptr(), ctrl.data_ptr(), V.data_ptr(),
-            consts.ch.data_ptr(), consts.cw.data_ptr(), consts.ich.data_ptr(),
-            consts.icw.data_ptr(), consts.cos_full.data_ptr(), consts.sin_full.data_ptr(),
+            y.data_ptr(), ctrl.data_ptr(), V.data_ptr(), *_mats_ptrs(consts),
+            consts.cos_full.data_ptr(), consts.sin_full.data_ptr(),
             consts.cos_half.data_ptr(), consts.sin_half.data_ptr(), out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             obs.data_ptr() if obs is not None else None,
             epilogue.weight.data_ptr() if epilogue is not None else None,
             float(epilogue.obs_scale) if epilogue is not None else 0.0,
+            scratch.data_ptr() if scratch is not None else None, slots,
             B, H, W, int(n_steps), float(g), float(dt), float(dx) * float(dx),
             int(bool(phase_poly)), int(bool(round_bf16)),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -315,7 +340,7 @@ def make_gpe_strang_cas_macro(
         V_trap: static (H, W) trap potential, array or tensor.  Pass a tensor
             on the fleet's device to keep the macro free of host copies.
         g: interaction strength.
-        H, W: grid (multiples of 8; the CUDA kernel takes up to 64).
+        H, W: grid (multiples of 8; the CUDA kernel takes up to 256).
         dx: grid spacing (square cells).
         dt: substep size; real-time propagation.
         n_steps: substeps per macro-step (merged-half-step scheme).

@@ -130,8 +130,8 @@ def main():
                 cs._library = lambda lib=lib: lib
                 cs._scratch.cache_clear()
                 for cap in (None, sms):
-                    def capped(dev_, B_, bwd, rb, H, W, n, cap=cap):
-                        scratch, slots = alloc(dev_, B_, bwd, rb, H, W, n)
+                    def capped(dev_, B_, library_, query, *args, cap=cap):
+                        scratch, slots = alloc(dev_, B_, library_, query, *args)
                         return scratch, slots if cap is None else min(slots, cap)
 
                     cs._alloc_scratch = capped

@@ -136,6 +136,39 @@ def test_macro_matches_jax(mats, general, ep):
         _assert_epilogue(tout[1].numpy(), tout[2].numpy(), jout[1], jout[2])
 
 
+# Grids above 64², where the card runs the tiled K4: 128² (the AC fleet at
+# bench.py's run_ch128 shape) and a non-square grid that is no multiple of
+# 64.  f32 matrices throughout (tight: the JAX macro at HIGHEST precision,
+# interpret mode), one case in bf16 (the JAX kernel's bf16 gap).
+BIG_CASES = [(H, W, "f32", general, ep) for H, W in [(128, 128), (96, 136)]
+             for general in (False, True) for ep in (False, True)]
+BIG_CASES.append((128, 128, "bf16", False, True))
+
+
+@pytest.mark.parametrize("H,W,mats,general,ep", BIG_CASES)
+def test_macro_above_64_matches_jax(H, W, mats, general, ep):
+    """The plain K4 (R == 1 and the polynomial R, epilogue off and on)
+    against the JAX macro in interpret mode, 2 envs x 2 substeps."""
+    B, n = 2, 2
+    u, kap = _inputs(B, H, seed=H + W + 2 * general + ep, W=W)
+    jnp, jmake, _ = _jax()
+    cfg = {"obs_scale": 127.5, "obs_offset": 127.5} if ep else None
+    jout = jmake(MU_J, R_J if general else None, H, W, HX, HY, A, DT, n,
+                 mats_dtype=getattr(jnp, MATS[mats][0]), epilogue=cfg, interpret=True)(
+        jnp.asarray(u), jnp.asarray(kap))
+    tout = tmake(MU_T, R_T if general else None, H, W, HX, HY, A, DT, n,
+                 mats_dtype=MATS[mats][1], epilogue=cfg)(torch.from_numpy(u),
+                                                         torch.from_numpy(kap))
+    if not ep:
+        jout, tout = (jout,), (tout,)
+    assert tout[0].shape == (B, H, W) and tout[0].dtype == torch.float32
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0,
+                               atol=TOL_U[mats])
+    if ep:
+        assert tout[2].dtype == torch.uint8 and tout[2].shape == (B, H, W)
+        _assert_epilogue(tout[1].numpy(), tout[2].numpy(), jout[1], jout[2])
+
+
 def test_macro_pooled_epilogue_matches_jax():
     B, H = 4, 16
     u, kap = _inputs(B, H, seed=12)
@@ -340,6 +373,37 @@ def test_env_step_matches_jax(solve, atol):
         ts.y.copy_(torch.from_numpy(np.array(js.y)))
 
 
+def test_env_step_at_128_matches_jax():
+    """One step of the preset at grid_size=128 (the fused bf16 macro, as
+    users call it; the tiled K4's grid on the card), 2 envs x 10 substeps,
+    from the same numpy state and actions as the JAX preset: field within
+    the bf16 bound 1e-3, obs within 1 LSB, reward to rtol 1e-3."""
+    import jax
+    import jax.numpy as jnp
+
+    from pde_opt_tpu.envs.presets import make_allen_cahn_control_env as jpreset
+    from pde_opt_tpu.envs.vector_env import EnvState as JState
+
+    B, H = 2, 128
+    kw = dict(num_envs=B, grid_size=H)
+    jenv, tenv = jpreset(**kw), tpreset(device="cpu", **kw)
+    arrs = _np_state(B, H, 8)
+    js = JState(y=jnp.asarray(arrs["y"]), t=jnp.asarray(arrs["t"]),
+                control_value=jnp.asarray(arrs["control_value"]),
+                key=jax.random.split(jax.random.PRNGKey(0), B),
+                step_count=jnp.asarray(arrs["step_count"]), done=jnp.asarray(arrs["done"]))
+    ts = env_state_from_numpy(arrs, "cpu")
+    tenv.reset(torch.Generator().manual_seed(0))
+    a = np.random.default_rng(9).uniform(-1, 1, (B, 1)).astype(np.float32)
+    js, jo, jr, jt, _, _ = jenv.step(js, jnp.asarray(a))
+    ts, to, tr, tt, _, _ = tenv.step(ts, torch.from_numpy(a))
+    np.testing.assert_allclose(ts.y.numpy(), np.asarray(js.y), rtol=0, atol=TOL_U["bf16"])
+    d = np.abs(to.numpy().astype(np.int32) - np.asarray(jo).astype(np.int32))
+    assert to.shape == (B, 1, H, H) and d.max() <= 1
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-3)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
 def test_env_state_round_trip():
     """The JAX AC state, (B, H, W) field and (B,) kappa, through
     ``env_state_from_numpy`` and back."""
@@ -485,7 +549,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,W", [(16, 16), (64, 64), (24, 40), (8, 8)])
+@pytest.mark.parametrize("H,W", [(16, 16), (64, 64), (24, 40), (8, 8), (128, 128),
+                                 (96, 136)])
 @pytest.mark.parametrize("mats", ["f32", "bf16"])
 @pytest.mark.parametrize("general", [False, True])
 @pytest.mark.parametrize("ds", [0, 1, 4])

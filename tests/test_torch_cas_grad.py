@@ -306,7 +306,8 @@ TOL_REL = {"f32": (1e-5, 1e-4), "bf16": (1e-2, 1e-2)}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,n_steps", [(3, 16, 3), (5, 40, 4), (300, 64, 10), (7, 64, 0),
-                                         (300, 128, 3), (7, 128, 0)])
+                                         (300, 128, 3), (7, 128, 0), (300, 256, 3),
+                                         (7, 256, 0)])
 @pytest.mark.parametrize("mats", ["f32", "bf16"])
 def test_k3_matches_plain_on_card(cuda_device, B, H, n_steps, mats):
     u, kap, w = (torch.from_numpy(a).to(cuda_device) for a in _inputs(B, H, seed=B))

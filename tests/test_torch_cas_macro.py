@@ -246,11 +246,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         ch_cas_macro_cuda(u, kap, consts, **kw)
     with pytest.raises(ValueError, match="PolynomialMu"):
         ch_cas_macro_cuda(u, kap, consts, **{**kw, "mu_fn": MU_J})
-    # The CH forward takes grids up to 256² (tiled above 64²), K3 up to 128².
+    # The CH forward and K3 take grids up to 256² (tiled above 64²).
     with pytest.raises(ValueError, match="up to 256.*ROADMAP"):
         ch_cas_macro_cuda(torch.zeros(2, 264, 264), kap, consts, **kw)
-    with pytest.raises(ValueError, match="up to 128.*ROADMAP"):
-        ch_cas_macro_bwd_cuda(torch.zeros(2, 256, 256), kap, torch.zeros(2, 256, 256),
+    with pytest.raises(ValueError, match="up to 256.*ROADMAP"):
+        ch_cas_macro_bwd_cuda(torch.zeros(2, 264, 264), kap, torch.zeros(2, 264, 264),
                               consts, **kw)
     # A gradient through the macro on CPU tensors runs the plain backward:
     # it launches no kernel, K3 included.
@@ -260,8 +260,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     assert kernels.launch_counts() == before
 
 
-def _other_family_launch(family):
-    """A launch of another family's CUDA wrapper on a 128² state (CPU
+def _other_family_launch(family, N):
+    """A launch of another family's CUDA wrapper on an N² state (CPU
     tensors; the grid check comes first)."""
     from pde_opt_tpu_torch.envs.presets import BV_J0, BV_MU
     from pde_opt_tpu_torch.ops.bv_cas import bv_cc_macro_cuda
@@ -269,12 +269,12 @@ def _other_family_launch(family):
     from pde_opt_tpu_torch.ops.gpe_cas import gpe_strang_macro_cuda
     from pde_opt_tpu_torch.ops.sbm_bv import sbm_bv_macro_cuda
 
-    u, k = torch.zeros(2, 128, 128), torch.zeros(2)
+    u, k = torch.zeros(2, N, N), torch.zeros(2)
     if family == "ac":
         return ac_cas_macro_cuda(u, k, None, mu_fn=MU_T, R_fn=None, r_identity=True, dt=DT,
                                  A=A, n_steps=1, round_bf16=True)
     if family == "gpe":
-        return gpe_strang_macro_cuda(torch.zeros(2, 128, 128, 2), u, u[0], None, g=1.0, dt=DT,
+        return gpe_strang_macro_cuda(torch.zeros(2, N, N, 2), u, u[0], None, g=1.0, dt=DT,
                                      dx=0.1, n_steps=1, round_bf16=True, phase_poly=True)
     if family == "bv":
         return bv_cc_macro_cuda(u, k, None, mu_fn=BV_MU, j0_fn=BV_J0, kappa=5e-4, cell=1e-4,
@@ -289,12 +289,14 @@ def _other_family_launch(family):
 
 @pytest.mark.parametrize("family", ["ac", "gpe", "bv", "sbm", "ch_dft", "ac_dft"])
 def test_other_families_refuse_grids_above_64(family):
-    """K4 (AC), K5 (GPE), K6 (BV), K7 (SBM) and K9a/K9b (algo="dft") keep
-    their 64² cap: a 128² state raises, naming ROADMAP, and launches nothing
-    (no fallback to the plain version)."""
+    """K6 (BV), K7 (SBM) and K9a/K9b (algo="dft") keep their 64² cap: a
+    128² state raises, naming ROADMAP, and launches nothing (no fallback to
+    the plain version).  K4 (AC) and K5 (GPE) run tiled kernels up to 256²,
+    as the CH macros do: a 264² state raises so."""
     before = kernels.launch_counts()
-    with pytest.raises(ValueError, match="up to 64.*ROADMAP"):
-        _other_family_launch(family)
+    cap = 256 if family in ("ac", "gpe") else 64
+    with pytest.raises(ValueError, match=f"up to {cap}.*ROADMAP"):
+        _other_family_launch(family, 264 if cap == 256 else 128)
     assert kernels.launch_counts() == before
 
 

@@ -17,9 +17,9 @@ ownership, epilogue and barriers of the tensor-core (bf16) kernels, the FMA
 (f32) kernels, K7's tiles and K8's row and plane marches run here on CPU
 tensors; only the card's
 reading of the descriptors, the real ``wgmma`` and ``cp.async`` are left to
-the ``cuda`` tests.  The test rewrites the two
-constructs C++ has no grammar for: the ``<<<...>>>`` launch and ``extern
-__shared__``.
+the ``cuda`` tests.  The test rewrites, in the sources and the headers, the
+two constructs C++ has no grammar for: the ``<<<...>>>`` launch and
+``extern __shared__``.
 
 Three envs on one block (the stub's device holds one block), so the block
 walks the envs by grid stride and K3's three envs share one trajectory slot;
@@ -27,8 +27,13 @@ two substeps (K3 also none); (H, W) in {(16, 16), (24, 40), (64, 64)}.  The
 tiled K1/K2 above 64² (a cp.async ring, which the stub's stand-in copies at
 once) at 128², 96 x 136 and 256², bf16 and f32 matrices, epilogue off and at
 ds 1 and 4, two envs through one slot; the tiled K3 at 128² with 2, 1 and 0
-substeps; a NaN env in each; one bf16 substep at 128² against the unrounded
-control.
+substeps and at 256² with one; a NaN env in each; one bf16 substep at 128²
+against the unrounded control.  The tiled K4 (R == 1 and a polynomial R,
+epilogue off and at ds 1) and K5 (phase polynomials on and off, epilogue
+off and on, and from a state at 1.5 x unit norm) at 128² and 96 x 136, bf16
+and f32 matrices, two envs through one slot, with a NaN env and one bf16
+substep at 128² against the unrounded control (K4 at ``test_torch_ac.py``'s
+TOL_SITE).
 K7 (f32, field 1e-5, stats to rtol 1e-4 as ``test_torch_sbm_bv.py``'s card
 test) there too, epilogue on and off, with a NaN env and with no substep.
 K8 2D: three envs at 64^2, and at 16 x 24, W = 33, 70 and 256 (one, two,
@@ -86,6 +91,7 @@ from pde_opt_tpu_torch.ops.cas_spectral import (
     _bind_ch_library,
     _c_coeffs,
     _mat_ptrs,
+    _mats_ptrs,
     ac_cas_macro_plain,
     cas_constants,
     ch_cas_macro_bwd_plain,
@@ -130,6 +136,7 @@ R_POLY = PolynomialMu((1.0, 0.0, 0.5))            # 1 + 0.5 c**2
 AC_DT, AC_A = 1e-3, 1.0
 BV_KAPPA, BV_DT = 5e-4, 5e-4
 TOL_AC = {True: 1e-3, False: 1e-5}                # by round_bf16
+TOL_AC_SITE = {False: 2e-6, True: 6e-6}           # one bf16 substep: R == 1, general
 TOL_BV = {True: 1e-4, False: 1e-5}
 CH_DT, CH_A = 1e-3, 1.0
 TOL_CH = {True: 1e-3, False: 1e-5}
@@ -169,7 +176,7 @@ def libs(tmp_path_factory):
     build = tmp_path_factory.mktemp("cuda_cpu_build")
     for header in CSRC.glob("*.cuh"):
         if not (STUB / header.name).exists():      # the stub's stand-ins come first
-            shutil.copy(header, build)
+            (build / header.name).write_text(_cpu_source(header.read_text()))
     procs = {}
     for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro", "gpe_strang_macro", "ch_rhs_fd",
                  "ch_sif_macro", "ac_sif_macro", "sbm_bv_macro"):
@@ -206,30 +213,43 @@ def _outputs(u, ep):
             torch.empty((Bn, H // ep.ds, W // ep.ds), dtype=torch.uint8))
 
 
-def _ac_inputs(H, W, seed):
+def _ac_inputs(H, W, seed, n=B):
     rng = np.random.default_rng(seed)
-    u = torch.from_numpy((0.1 * rng.standard_normal((B, H, W))).astype(np.float32))
-    return u, torch.from_numpy(np.linspace(1e-4, 1e-3, B).astype(np.float32))
+    u = torch.from_numpy((0.1 * rng.standard_normal((n, H, W))).astype(np.float32))
+    return u, torch.from_numpy(np.linspace(1e-4, 1e-3, n).astype(np.float32))
 
 
-def _ac_kernel(lib, u, kap, consts, R, ep, bf16):
+def _scratch(lib, query, *args):
+    """``(scratch, slots)`` as the library's scratch ``query`` sizes them
+    (``(None, 0)`` where the kernel takes none): the stub's SM holds one
+    block, so one slot that every env reuses."""
+    slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    assert getattr(lib, query)(*args, ctypes.byref(slots), ctypes.byref(floats)) == 0
+    if floats.value == 0:
+        return None, 0
+    assert slots.value == 1
+    return torch.empty(slots.value * floats.value), slots.value
+
+
+def _ac_kernel(lib, u, kap, consts, R, ep, bf16, n_steps=N_STEPS):
     Bn, H, W = u.shape
     out, stats, obs = _outputs(u, ep)
     mu_c, n_mu = _c_coeffs(MU)
     r_c, n_r = (None, 0) if r_is_identity(R) else _c_coeffs(R)
+    scratch, slots = _scratch(lib, "ac_cas_macro_scratch", int(bf16), H, W)
     rc = lib.ac_cas_macro_launch(
-        u.data_ptr(), kap.data_ptr(), consts.ch.data_ptr(), consts.cw.data_ptr(),
-        consts.ich.data_ptr(), consts.icw.data_ptr(), consts.lam.data_ptr(), out.data_ptr(),
-        _ptr(stats), _ptr(obs), Bn, H, W, N_STEPS, AC_DT, AC_A * AC_DT, mu_c, n_mu, r_c, n_r,
-        int(bf16), ep.ds if ep else 1, ep.obs_scale if ep else 0.0,
-        ep.obs_offset if ep else 0.0, ep.center if ep else 0.0, None)
+        u.data_ptr(), kap.data_ptr(), *_mats_ptrs(consts), consts.lam.data_ptr(),
+        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps, AC_DT,
+        AC_A * AC_DT, mu_c, n_mu, r_c, n_r, int(bf16), ep.ds if ep else 1,
+        ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0, ep.center if ep else 0.0,
+        None)
     assert rc == 0
     return out if ep is None else (out, stats, obs)
 
 
-def _ac_plain(u, kap, consts, R, ep, bf16):
+def _ac_plain(u, kap, consts, R, ep, bf16, n_steps=N_STEPS):
     return ac_cas_macro_plain(u, kap, consts, mu_fn=MU, R_fn=R, r_identity=r_is_identity(R),
-                              dt=AC_DT, A=AC_A, n_steps=N_STEPS, round_bf16=bf16, epilogue=ep)
+                              dt=AC_DT, A=AC_A, n_steps=n_steps, round_bf16=bf16, epilogue=ep)
 
 
 def _bv_inputs(H, W, seed):
@@ -281,24 +301,11 @@ def _ch_kw(n_steps, bf16):
     return dict(mu_fn=MU, dt=CH_DT, A=CH_A, n_steps=n_steps, round_bf16=bf16)
 
 
-def _ch_scratch(lib, bwd, bf16, H, W, n_steps):
-    """``(scratch, slots)`` as ``ch_cas_macro_scratch`` sizes them (``(None,
-    0)`` for the 64^2 forward): the stub's SM holds one block, so one slot
-    that every env reuses."""
-    slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
-    assert lib.ch_cas_macro_scratch(int(bwd), int(bf16), H, W, n_steps, ctypes.byref(slots),
-                                    ctypes.byref(floats)) == 0
-    if floats.value == 0:
-        return None, 0
-    assert slots.value == 1
-    return torch.empty(slots.value * floats.value), slots.value
-
-
 def _ch_kernel(lib, u, kap, consts, ep, bf16, n_steps=N_STEPS):
     Bn, H, W = u.shape
     out, stats, obs = _outputs(u, ep)
     mu_c, n_mu = _c_coeffs(MU)
-    scratch, slots = _ch_scratch(lib, False, bf16, H, W, n_steps)
+    scratch, slots = _scratch(lib, "ch_cas_macro_scratch", 0, int(bf16), H, W, n_steps)
     rc = lib.ch_cas_macro_launch(
         u.data_ptr(), kap.data_ptr(), *_mat_ptrs(consts), out.data_ptr(), _ptr(stats),
         _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps, CH_DT, CH_A * CH_DT, mu_c, n_mu, int(bf16),
@@ -314,7 +321,7 @@ def _ch_bwd(lib, u, kap, consts, bf16, n_steps):
     Bn, H, W = u.shape
     kw = _ch_kw(n_steps, bf16)
     g = 2.0 * ch_cas_macro_plain(u, kap, consts, **kw)
-    scratch, slots = _ch_scratch(lib, True, bf16, H, W, n_steps)
+    scratch, slots = _scratch(lib, "ch_cas_macro_scratch", 1, int(bf16), H, W, n_steps)
     du, dk = torch.empty_like(u), torch.empty(Bn)
     mu_c, n_mu = _c_coeffs(MU)
     dmu_c, n_dmu = _c_coeffs(MU.derivative())
@@ -350,7 +357,7 @@ def _assert_ac_epilogue(got, want):
     assert int((got[2].int() - want[2].int()).abs().max()) <= 1
 
 
-def _gpe_inputs(H, W, seed):
+def _gpe_inputs(H, W, seed, n=B):
     """The GPE fleet's fields on an H x W grid of the 16-wide box: a
     Gaussian with complex noise at unit norm, the harmonic trap, and a spot
     control per env in the control range [0, 50]."""
@@ -358,10 +365,10 @@ def _gpe_inputs(H, W, seed):
     dx = GPE_BOX / H
     X, Y = np.meshgrid((np.arange(H) - H / 2) * dx, (np.arange(W) - W / 2) * dx, indexing="ij")
     psi = np.exp(-(X**2 + Y**2) / 4)[None] * (
-        1 + 0.1 * rng.standard_normal((B, H, W)) + 0.1j * rng.standard_normal((B, H, W)))
+        1 + 0.1 * rng.standard_normal((n, H, W)) + 0.1j * rng.standard_normal((n, H, W)))
     psi /= np.sqrt((np.abs(psi) ** 2).sum((-2, -1), keepdims=True) * dx * dx)
     spot = np.exp(-((X - 1) ** 2 + Y**2)).astype(np.float32)
-    ctrl = (rng.uniform(0, 50, (B, 1, 1)) * spot).astype(np.float32)
+    ctrl = (rng.uniform(0, 50, (n, 1, 1)) * spot).astype(np.float32)
     return (torch.from_numpy(np.stack([psi.real, psi.imag], -1).astype(np.float32)),
             torch.from_numpy(ctrl), torch.from_numpy((0.5 * (X**2 + Y**2)).astype(np.float32)),
             torch.from_numpy(spot), dx)
@@ -373,20 +380,22 @@ def _gpe_kernel(lib, y, ctrl, V, consts, ep, dx, n_steps, bf16, poly):
     stats = obs = None
     if ep is not None:
         stats, obs = torch.empty((Bn, 3)), torch.empty((Bn, H, W), dtype=torch.uint8)
+    scratch, slots = _scratch(lib, "gpe_strang_macro_scratch", int(bf16), H, W)
     rc = lib.gpe_strang_macro_launch(
-        y.data_ptr(), ctrl.data_ptr(), V.data_ptr(), consts.ch.data_ptr(), consts.cw.data_ptr(),
-        consts.ich.data_ptr(), consts.icw.data_ptr(), consts.cos_full.data_ptr(),
-        consts.sin_full.data_ptr(), consts.cos_half.data_ptr(), consts.sin_half.data_ptr(),
-        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(ep.weight if ep else None),
-        ep.obs_scale if ep else 0.0, Bn, H, W, n_steps, GPE_G, GPE_DT, dx * dx, int(poly),
-        int(bf16), None)
+        y.data_ptr(), ctrl.data_ptr(), V.data_ptr(), *_mats_ptrs(consts),
+        consts.cos_full.data_ptr(), consts.sin_full.data_ptr(), consts.cos_half.data_ptr(),
+        consts.sin_half.data_ptr(), out.data_ptr(), _ptr(stats), _ptr(obs),
+        _ptr(ep.weight if ep else None), ep.obs_scale if ep else 0.0, _ptr(scratch), slots,
+        Bn, H, W, n_steps, GPE_G, GPE_DT, dx * dx, int(poly), int(bf16), None)
     assert rc == 0
     return out if ep is None else (out, stats, obs)
 
 
-def _gpe_case(lib, H, W, bf16, poly, ep, seed, n_steps=N_STEPS, nan=False):
-    """K5 and its plain version on the same inputs: ``(got, want)``."""
-    y, ctrl, V, spot, dx = _gpe_inputs(H, W, seed)
+def _gpe_case(lib, H, W, bf16, poly, ep, seed, n_steps=N_STEPS, nan=False, n=B, amp=1.0):
+    """K5 and its plain version on the same inputs (the state at ``amp``
+    times unit norm): ``(got, want, spot)``."""
+    y, ctrl, V, spot, dx = _gpe_inputs(H, W, seed, n)
+    y *= amp
     if nan:
         y[0, 3, 7, 0] = float("nan")
     consts = gpe_constants(H, W, dx, GPE_DT, torch.bfloat16 if bf16 else torch.float32,
@@ -565,6 +574,137 @@ def test_ch_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
         return float(d.double().pow(2).mean().sqrt())
 
     assert rms(got - want) <= TOL_CH_SITE < rms(ctl - want)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_ch_tiled_bwd_256_matches_plain(libs, bf16):
+    """K3 at 256² on the tiled kernel, one substep, two envs through one
+    slot."""
+    u, kap = _ch_inputs(256, 256, seed=31, n=2)
+    _assert_bwd(*_ch_bwd(libs[2], u, kap, _ch_consts(256, 256, bf16), bf16, 1), bf16)
+
+
+def _ac_tiled_case(lib, H, W, bf16, R, ep, seed, n_steps=N_STEPS, nan=False):
+    """The tiled K4 and its plain version on two envs through the stub's one
+    slot (spacings 0.01): ``(got, want, consts, u, kap)``."""
+    u, kap = _ac_inputs(H, W, seed, n=2)
+    if nan:
+        u[0, 3, 7] = float("nan")
+    consts = cas_constants(H, W, 0.01, 0.01, torch.bfloat16 if bf16 else torch.float32,
+                           torch.device("cpu"))
+    got = _ac_kernel(lib, u, kap, consts, R, ep, bf16, n_steps)
+    want = _ac_plain(u, kap, consts, R, ep, bf16, n_steps)
+    return got, want, consts, u, kap
+
+
+@pytest.mark.parametrize("H,W", TILED_SHAPES[:2])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("ds", [0, 1])
+def test_ac_tiled_kernel_matches_plain(libs, H, W, bf16, general, ds):
+    """K4 above 64² on the tiled kernel (tensor cores with bf16 matrices,
+    FMA with f32), the R == 1 path (3 transforms a substep) and the
+    polynomial R (4), epilogue off and at ds 1."""
+    ep = Epilogue(127.5, 127.5, 0.0, ds) if ds else None
+    got, want, *_ = _ac_tiled_case(libs[0], H, W, bf16, R_POLY if general else AC_R, ep,
+                                   seed=H + W + 2 * general + ds)
+    if ep is None:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_AC[bf16])
+    if ep is not None:
+        _assert_ac_epilogue(got, want)
+
+
+@pytest.mark.parametrize("bf16,general", [(True, False), (False, True)])
+def test_ac_tiled_nan_env_stays_in_its_env(libs, bf16, general):
+    """One NaN pixel in the first env at 96 x 136 with the epilogue: the
+    second env, which reuses its slot, still equals plain."""
+    ep = Epilogue(127.5, 127.5, 0.0, 1)
+    got, want, *_ = _ac_tiled_case(libs[0], 96, 136, bf16, R_POLY if general else AC_R, ep,
+                                   seed=9, nan=True)
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_AC[bf16])
+    assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < 96 * 136
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_ac_tiled_bf16_kernel_rounds_where_plain_rounds(libs, general):
+    """One substep at 128² with bf16 matrices: the RMS of kernel - plain
+    sits below the card's bound (``test_torch_ac.py``'s TOL_SITE), which
+    the unrounded plain version (the control) exceeds."""
+    R = R_POLY if general else AC_R
+    got, want, consts, u, kap = _ac_tiled_case(libs[0], 128, 128, True, R, None, seed=21,
+                                               n_steps=1)
+    ctl = _ac_plain(u, kap, consts, R, None, False, 1)
+
+    def rms(d):
+        return float(d.double().pow(2).mean().sqrt())
+
+    assert rms(got - want) <= TOL_AC_SITE[general] < rms(ctl - want)
+
+
+@pytest.mark.parametrize("H,W", TILED_SHAPES[:2])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("poly", [True, False])
+@pytest.mark.parametrize("ep", [False, True])
+def test_gpe_tiled_kernel_matches_plain(libs, H, W, bf16, poly, ep):
+    """K5 above 64² on the tiled kernel, two envs through one slot: B-phase
+    polynomials on and off, with and without the epilogue (held against
+    the kernel's own final state), every emitted env at unit norm."""
+    got, want, spot = _gpe_case(libs[3], H, W, bf16, poly, ep, seed=H + W + ep, n=2)
+    if not ep:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_GPE[bf16])
+    rho = got[0][..., 0] ** 2 + got[0][..., 1] ** 2
+    torch.testing.assert_close(rho.sum((-2, -1)) * (GPE_BOX / H) ** 2, torch.ones(2),
+                               rtol=1e-5, atol=0)
+    if ep:
+        torch.testing.assert_close(got[1][:, 0], (rho * spot).sum((-2, -1)), rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[1][:, 1], rho.sum((-2, -1)), rtol=1e-5, atol=0)
+        assert bool((got[1][:, 2] == H * W).all())
+        obs = torch.clamp(rho * 2550.0, 0, 255).to(torch.uint8)
+        assert int((got[2].int() - obs.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_gpe_tiled_renormalises_a_state_off_unit_norm(libs, bf16):
+    """A state at 1.5 times unit norm at 128²: the first B phase takes theta
+    from the unscaled field, every later one from the field its
+    propagation's renormalisation scaled, as plain does; every emitted env
+    at unit norm."""
+    got, want, _ = _gpe_case(libs[3], 128, 128, bf16, True, False, seed=13, n=2, amp=1.5)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL_GPE[bf16])
+    rho = got[..., 0] ** 2 + got[..., 1] ** 2
+    torch.testing.assert_close(rho.sum((-2, -1)) * (GPE_BOX / 128) ** 2, torch.ones(2),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("bf16,poly", [(True, True), (False, False)])
+def test_gpe_tiled_nan_env_stays_in_its_env(libs, bf16, poly):
+    """One NaN pixel in the first env at 96 x 136 with the epilogue: its
+    renorm makes the whole env NaN, as plain's; the second env, which
+    reuses its slot, still equals plain."""
+    got, want, _ = _gpe_case(libs[3], 96, 136, bf16, poly, True, seed=5, nan=True, n=2)
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_GPE[bf16])
+    assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < 96 * 136
+
+
+def test_gpe_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
+    """One substep at 128² with bf16 matrices: the RMS of kernel - plain
+    below the bound, the unrounded plain version above it."""
+    got, want, _ = _gpe_case(libs[3], 128, 128, True, True, False, seed=7, n_steps=1, n=2)
+    y, ctrl, V, _, dx = _gpe_inputs(128, 128, 7, n=2)
+    control = gpe_strang_macro_plain(
+        y, ctrl, V, gpe_constants(128, 128, dx, GPE_DT, torch.bfloat16, torch.device("cpu")),
+        g=GPE_G, dt=GPE_DT, dx=dx, n_steps=1, round_bf16=False, phase_poly=True)
+
+    def rms(d):
+        return float(d.double().pow(2).mean().sqrt())
+
+    assert rms(got - want) <= TOL_GPE_SITE < rms(control - want)
 
 
 @pytest.mark.parametrize("H,W", SHAPES)
