@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Nineteen paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Twenty-two paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -30,6 +30,10 @@ to the net's parameters).  Above 64^2 on the tiled K4, K5 and K3: the GPE
 fleet of ``run_gpe128`` (BASELINE config 5: 256 envs x 128^2), the AC fleet
 at ``run_ch128``'s shape (1024 envs x 128^2) and the value and gradient of
 ``sum(macro(u, kappa)^2)`` at ``run_ch256``'s shape (256 envs x 256^2).
+The inverse-problem layer at the JAX package's examples' sizes: the 32^3
+Legendre mu and D fit by Levenberg-Marquardt (``examples/optimize_3d.py``),
+the 128^2 NN-mu fit by L-BFGS (``examples/optimize_nn.py --grid 128``) and
+an adaptive Allen-Cahn solve (Tsit5 under a PID controller).
 Phases (each passes or raises; nothing is
 caught):
 
@@ -169,9 +173,26 @@ caught):
    and K3 once a call).  The GPE fleet's fused and fft rates in turns; each
    kernel against plain at its path's shape (K4, K5 also where a block walks
    several envs through its slot) and timed beside plain and its bound.
+11. The inverse-problem layer, with the launch counts reset just before and
+   read just after (none of K1-K9 may launch; no kernel of the port lies on
+   this path, as no Pallas kernel does in JAX): (a) the 32^3 fit of
+   ``examples/optimize_3d.py`` (Legendre mu and D from zeros,
+   ``PDEModel.train(method="least_squares")``, f32): its Jacobian at theta0
+   against the CPU's in f64, the loss falling 100x, the coefficients within
+   2e-2 of the truth; the LM steps, seconds, ms an iteration and a Jacobian.
+   (b) ``examples/optimize_nn.py``'s data at 128^2 with a seeded
+   ``PeriodicCNN`` mu and 5 L-BFGS steps of ``train(method="mse")``: the
+   first loss and gradient against the CPU's in f64, a loss that falls, ms
+   a step.  (c) ``Mixer2d`` on 128^2 fields: output and input gradient
+   against the CPU's in f64.  (d) a 2D Allen-Cahn ``PDEModel.solve`` with
+   ``Tsit5`` and ``PIDController(1e-4, 1e-6)`` in f64 and f32 against the
+   CPU's f64 saves, the accepted and rejected step counts.  Every tensor
+   the phase makes lies on the card.
 
-Every rollout and update runs under ``torch.cuda.set_sync_debug_mode("error")``: a
-step that waits for the device fails the run.  The last two lines are a
+Every rollout and update of phases 4-10 runs under
+``torch.cuda.set_sync_debug_mode("error")``: a step that waits for the device
+fails the run.  Phase 11's loops read a value each step by design (LM's loss,
+the adaptive controller's error norm).  The last two lines are a
 JSON object per kernel and the JSON result line.
 """
 
@@ -401,6 +422,32 @@ GPE128_ENVS, GPE128_GRID, GPE128_DT, GPE128_FFT_STEPS = 256, 128, 2e-3, 10
 AC128_ENVS, AC128_GRID = 1024, 128
 VG256_CALLS = 3
 WALK_ENVS = 1024
+# The inverse-problem layer (phase 11), at the JAX package's examples' own
+# sizes (pde_opt_tpu_torch/bench/inverse.py).  (a) examples/optimize_3d.py:
+# 32^3, L = 0.32, kappa 0.002, the SIF stepper with A 0.5 on the FD rhs, dt0
+# 2.5e-4, saves at linspace(0, 0.004, 9), windows [[0, 2, 4], [4, 6, 8]],
+# truth mu [0, 1, 0.5] and D [0.3, 0.2], both fitted from zeros by LM
+# (train(method="least_squares"), at most FIT3D_STEPS steps), f32; the
+# initial field from numpy seed 0.  Its Jacobian at theta0 against the CPU's
+# in f64 (relative Frobenius error TOL_FIT_JAC), the loss falling by
+# FIT3D_LOSS_DROP, the coefficients within TOL_FIT_COEF of the truth (the
+# atol of tests/test_3d.py:138).  (b) examples/optimize_nn.py --grid 128: the
+# same dynamics in 2D with the Flory-Huggins mu, a PeriodicCNN(1,
+# NNFIT_HIDDEN, 1, 3) mu, NNFIT_STEPS L-BFGS steps of train(method="mse");
+# its first loss and gradient against the CPU's in f64 (relative TOL_NNFIT),
+# and a loss that falls.  (c) Mixer2d (patch 8, hidden 64, token and channel
+# MLPs 256 wide, 4 blocks) on MIXER_BATCH 128^2 fields: output and input
+# gradient against the CPU's in f64 (relative TOL_MIXER).  (d) a 2D
+# Allen-Cahn PDEModel.solve with Tsit5 under PIDController(1e-4, 1e-6) at
+# 128^2 from a field of amplitude 0.1: in f64 on the card, the CPU's f64
+# saves within TOL_ADAPT and the same step counts; in f32, the CPU's final
+# save (a step end) within TOL_ADAPT.
+FIT3D_GRID, FIT3D_STEPS, FIT3D_JAC_REPS = 32, 60, 3
+FIT3D_LOSS_DROP, TOL_FIT_JAC, TOL_FIT_COEF = 100.0, 1e-3, 2e-2
+NNFIT_GRID, NNFIT_HIDDEN, NNFIT_STEPS, TOL_NNFIT = 128, (16, 16), 5, 1e-3
+MIXER_GRID, MIXER_ARGS, MIXER_BATCH, MIXER_REPS, TOL_MIXER = 128, (8, 64, 256, 256, 4), 8, 10, 1e-4
+ADAPT_GRID, ADAPT_KAPPA, ADAPT_T_END, ADAPT_SAVES, ADAPT_DT0, ADAPT_TOL, TOL_ADAPT = (
+    128, 0.002, 0.05, 6, 1e-4, (1e-4, 1e-6), 1e-4)
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -2896,6 +2943,204 @@ def _drive_tiled(torch, kernels, dev, gen, card):
     return g_counts, a_counts, v_counts
 
 
+def _on_card(dev, what, *tensors):
+    """Every tensor of phase 11 lies on the run's device (the card)."""
+    bad = [tuple(t.shape) for t in tensors if t.device.type != dev.type]
+    _check(not bad, f"{what}: tensors of shapes {bad} are not on {dev.type}")
+
+
+def _rel(got, want):
+    """||got - want|| / ||want||, in f64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _logged(fn):
+    """``fn()``'s result, its host seconds (``fn`` ends in a
+    synchronisation) and the lines it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, time.perf_counter() - t0, buf.getvalue().splitlines()
+
+
+def _drive_inverse(torch, kernels, dev, card):
+    """Phase 11: the inverse-problem layer on the card, through
+    ``PDEModel.train``/``solve``, with the launch counts reset just before
+    and read just after (no K1-K9 launch): (a) the reference's 32^3
+    Legendre mu and D fit by Levenberg-Marquardt, its Jacobian at theta0
+    against the CPU's in f64; (b) the NN-mu fit at 128^2 (a PeriodicCNN mu,
+    L-BFGS), its first loss and gradient against the CPU's in f64; (c)
+    Mixer2d's forward and input gradient at 128^2 against the CPU's in f64;
+    (d) an adaptive Allen-Cahn solve (Tsit5, PIDController) against the
+    CPU's in f64."""
+    import copy
+
+    import numpy as np
+
+    from pde_opt_tpu_torch.bench.inverse import legendre_fit_3d, nn_mu_fit_2d
+    from pde_opt_tpu_torch.grid import Domain
+    from pde_opt_tpu_torch.models.allen_cahn import AllenCahn2DPeriodic
+    from pde_opt_tpu_torch.models.functions import Mixer2d
+    from pde_opt_tpu_torch.models.pde_model import PDEModel
+    from pde_opt_tpu_torch.ops.integrate import PIDController, integrate_adaptive
+    from pde_opt_tpu_torch.ops.steppers import Tsit5
+
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+
+    def sync():
+        torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+
+    # -- (a) examples/optimize_3d.py: Legendre mu and D at 32^3 by LM ----------
+    fit3 = legendre_fit_3d(dev, f32, FIT3D_GRID)
+    fit3_cpu = legendre_fit_3d(cpu, f64, FIT3D_GRID, ys=fit3.ys)
+    _check(all(bool(torch.isfinite(y).all()) for y in fit3.ys), "3D fit data: not finite")
+    jac = fit3.jacobian()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(FIT3D_JAC_REPS):
+        jac = fit3.jacobian()
+    sync()
+    jac_ms = (time.perf_counter() - t0) / FIT3D_JAC_REPS * 1e3
+    jac_err = _rel(jac, fit3_cpu.jacobian())
+    _on_card(dev, "3D fit", *fit3.ys, jac)
+    line = (f"check fit3d: Jacobian at theta0 {tuple(jac.shape)} on the card (f32) vs the "
+            f"CPU (f64): rel Frobenius err {jac_err:.3e}")
+    _check(jac_err <= TOL_FIT_JAC, f"{line} > {TOL_FIT_JAC}")
+    print(line, flush=True)
+
+    fit, secs, log = _logged(lambda: (fit3.train("least_squares", FIT3D_STEPS, verbose=True),
+                                      sync())[0])
+    steps = sum(ln.startswith("[LM] step=") for ln in log)
+    got = {k: fit[k].expansion.params for k in ("mu", "D")}
+    _on_card(dev, "3D fit result", *got.values())
+    with torch.no_grad():
+        loss0 = float(0.5 * fit3.residuals(fit3.start())[0].pow(2).sum())
+        loss1 = float(0.5 * fit3.residuals({k: fit[k] for k in got})[0].pow(2).sum())
+    err = {k: (got[k] - fit3.truth[k].expansion.params).abs().max().item() for k in got}
+    line = (f"fit3d: {FIT3D_GRID}^3 x 2 windows, Legendre mu and D from zeros, LM (f32): "
+            f"{steps} steps in {secs:.4f} s, {secs / steps * 1e3:.4f} ms an iteration, a "
+            f"Jacobian {jac_ms:.4f} ms; loss {loss0:.6e} -> {loss1:.6e} ({loss0 / loss1:.3e}x); "
+            + "; ".join(f"{k} {[round(v, 6) for v in got[k].tolist()]} (err {err[k]:.3e})"
+                        for k in got)
+            + f"; last: {log[-1] if log else '-'}")
+    _check(loss1 * FIT3D_LOSS_DROP <= loss0, f"{line}: loss fell less than {FIT3D_LOSS_DROP}x")
+    _check(max(err.values()) <= TOL_FIT_COEF, f"{line}: coefficients off by > {TOL_FIT_COEF}")
+    print(f"{line} [{card}]", flush=True)
+
+    # -- (b) examples/optimize_nn.py --grid 128: a PeriodicCNN mu by L-BFGS ----
+    nn = nn_mu_fit_2d(dev, f32, NNFIT_GRID, NNFIT_HIDDEN)
+    cnn = nn.start()["mu"]
+    nn_cpu = nn_mu_fit_2d(cpu, f64, NNFIT_GRID, ys=nn.ys, cnn=copy.deepcopy(cnn).to(cpu, f64))
+
+    def mse_grad(problem):
+        net = problem.start()["mu"]
+        res, _ = problem.residuals({"mu": net}, adjoint="checkpoint")
+        loss = res.pow(2).mean()
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        return loss.detach(), torch.cat([gr.reshape(-1) for gr in grads])
+
+    loss_c, grad_c = mse_grad(nn)
+    loss_h, grad_h = mse_grad(nn_cpu)
+    _on_card(dev, "NN fit", *nn.ys, loss_c, grad_c, *cnn.parameters())
+    l_err, g_err = _rel(loss_c, loss_h), _rel(grad_c, grad_h)
+    line = (f"check nnfit: first loss and gradient ({grad_c.numel()} parameters) on the card "
+            f"(f32) vs the CPU (f64): rel err {l_err:.3e}, {g_err:.3e}")
+    _check(max(l_err, g_err) <= TOL_NNFIT, f"{line} > {TOL_NNFIT}")
+    print(line, flush=True)
+
+    nfit, nsecs, nlog = _logged(lambda: (nn.train("mse", NNFIT_STEPS, verbose=True), sync())[0])
+    nsteps = sum(ln.startswith("[LBFGS] step=") for ln in nlog)
+    _on_card(dev, "NN fit result", *nfit["mu"].parameters())
+    with torch.no_grad():
+        loss_last = float(nn.residuals({"mu": nfit["mu"]})[0].pow(2).mean())
+    line = (f"nnfit: {NNFIT_GRID}^2 x 2 windows, PeriodicCNN(1, {NNFIT_HIDDEN}, 1, 3) mu, "
+            f"train(method='mse') (f32): {nsteps} L-BFGS steps in {nsecs:.4f} s, "
+            f"{nsecs / nsteps * 1e3:.4f} ms a step; loss {float(loss_c):.6e} -> {loss_last:.6e}")
+    _check(nsteps >= 1 and loss_last < float(loss_c), f"{line}: the loss did not fall")
+    print(f"{line} [{card}]", flush=True)
+
+    # -- (c) Mixer2d on 128^2 fields ------------------------------------------
+    mixer = Mixer2d((1, MIXER_GRID, MIXER_GRID), *MIXER_ARGS,
+                    generator=torch.Generator().manual_seed(2), device=dev)
+    rng = np.random.default_rng(3)
+    mx = rng.standard_normal((MIXER_BATCH, MIXER_GRID, MIXER_GRID))
+    mw = rng.standard_normal((MIXER_BATCH, MIXER_GRID, MIXER_GRID))
+
+    def mixer_pair(net, device, dtype):
+        x = torch.tensor(mx, dtype=dtype, device=device).requires_grad_(True)
+        out = net(x)
+        (gx,) = torch.autograd.grad((torch.tensor(mw, dtype=dtype, device=device) * out).sum(),
+                                    [x])
+        return out.detach(), gx
+
+    out_c, gx_c = mixer_pair(mixer, dev, f32)
+    out_h, gx_h = mixer_pair(copy.deepcopy(mixer).to(cpu, f64), cpu, f64)
+    _on_card(dev, "Mixer2d", out_c, gx_c, *mixer.parameters())
+    o_err, x_err = _rel(out_c, out_h), _rel(gx_c, gx_h)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(MIXER_REPS):
+        mixer_pair(mixer, dev, f32)
+    sync()
+    mix_ms = (time.perf_counter() - t0) / MIXER_REPS * 1e3
+    line = (f"check mixer2d: {MIXER_BATCH} x {MIXER_GRID}^2, patch {MIXER_ARGS[0]}, hidden "
+            f"{MIXER_ARGS[1]}, {MIXER_ARGS[4]} blocks, card (f32) vs CPU (f64): output rel err "
+            f"{o_err:.3e}, input gradient {x_err:.3e}; forward + input gradient {mix_ms:.4f} ms")
+    _check(max(o_err, x_err) <= TOL_MIXER, f"{line} > {TOL_MIXER}")
+    print(f"{line} [{card}]", flush=True)
+
+    # -- (d) an adaptive Allen-Cahn solve: Tsit5 under a PIDController --------
+    a = ADAPT_GRID
+    ay0 = 0.1 * np.random.default_rng(4).standard_normal((a, a))
+    ats = np.linspace(0.0, ADAPT_T_END, ADAPT_SAVES)
+    ac_params = {"kappa": ADAPT_KAPPA, "mu": lambda c: c**3 - c, "R": torch.ones_like,
+                 "derivs": "fd"}
+
+    def adaptive(device, dtype):
+        dom = Domain((a, a), ((-0.005 * a, 0.005 * a),) * 2, dtype=dtype)
+        y0_ = torch.tensor(ay0, dtype=dtype, device=device)
+        ctl = PIDController(*ADAPT_TOL)
+        out = PDEModel(AllenCahn2DPeriodic, dom, Tsit5).solve(
+            {**ac_params, "device": device}, y0_, ats, dt0=ADAPT_DT0, stepsize_controller=ctl)
+        eq = AllenCahn2DPeriodic(dom, **ac_params, device=device)
+        again, stats = integrate_adaptive(Tsit5(), eq.rhs, y0_, ats, ADAPT_DT0, *ADAPT_TOL,
+                                          return_stats=True)
+        _check(torch.equal(out, again), "adaptive: solve and integrate_adaptive differ")
+        return out, stats
+
+    sol_h, st_h = adaptive(cpu, f64)
+    for dtype in (f64, f32):
+        (sol_c, st_c), asecs, _ = _logged(lambda: (adaptive(dev, dtype), sync())[0])
+        _on_card(dev, "adaptive solve", sol_c)
+        errs = (sol_c.double().cpu() - sol_h).abs().amax(dim=(1, 2))
+        line = (f"check adaptive: AllenCahn2DPeriodic {a}^2, Tsit5, PIDController{ADAPT_TOL}, "
+                f"{ADAPT_SAVES} saves to t = {ADAPT_T_END}: card ({str(dtype)[6:]}) "
+                f"{st_c['accepted_steps']} accepted / {st_c['rejected_steps']} rejected steps, "
+                f"CPU (float64) {st_h['accepted_steps']} / {st_h['rejected_steps']}; saves "
+                f"max_abs_err {errs.max().item():.3e}, at t_end {errs[-1].item():.3e}; solve + "
+                f"integrate_adaptive {asecs:.4f} s")
+        if dtype == f64:
+            _check(st_c == st_h and errs.max().item() <= TOL_ADAPT,
+                   f"{line}: steps differ or > {TOL_ADAPT}")
+        else:
+            # f32's error estimate has a rounding floor (~1e-10) that f64's has
+            # not, so the controller may place its steps elsewhere and the saves
+            # between step ends carry another O(dt^2) interpolation error.
+            _check(errs[-1].item() <= TOL_ADAPT, f"{line}: at t_end > {TOL_ADAPT}")
+        print(f"{line} [{card}]", flush=True)
+
+    counts = kernels.launch_counts()
+    _check(not any(counts.values()), f"phase 11 launched a kernel: {counts}")
+    print(f"phase 11: no launch of K1-K9 ({len(counts)} counters at 0)", flush=True)
+
+
 def main():
     import torch
 
@@ -3546,6 +3791,9 @@ def main():
     tiled_err = _check_tiled(torch, dev, gen)
     print(f"tiled K4, K5, K3 (256^2): largest bf16 errors: {tiled_err}", flush=True)
     tiled_counts = _drive_tiled(torch, kernels, dev, gen, card)
+
+    # ---- 11. the inverse-problem layer: LM, the coefficient nets, adaptive --
+    _drive_inverse(torch, kernels, dev, card)
 
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err

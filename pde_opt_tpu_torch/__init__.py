@@ -15,7 +15,11 @@ path (``CahnHilliard3DPeriodic``, ``FusedSemiImplicitSpectral3D``,
 fused FD rhs, which also serves ``derivs="pallas"``.  The fused CH and AC
 steppers also take ``algo="dft"``, the packed-DFT macros.  The RL learners
 (``rl``: PPO, DQN and DDPG with their nets) train on the fleets' device,
-and the fleets take discrete action spaces.  On CUDA tensors
+and the fleets take discrete action spaces.  The inverse-problem layer:
+``PDEModel.train`` by Levenberg-Marquardt (``optim.lm``), the coefficient
+nets (``PeriodicCNN``, ``Mixer2d``, the Legendre expansions in 1D and 2D)
+and adaptive solves (``Tsit5`` under a ``PIDController``,
+``integrate_adaptive``).  On CUDA tensors
 the macros, the fused rhs and the CH backward run hand-written Hopper
 kernels (``csrc/*.cu``): every Pallas kernel of the JAX package has its
 counterpart.  The entry points build on
@@ -35,11 +39,31 @@ from .envs import (
 )
 from .grid import Domain, Grid
 from .models import CahnHilliard3DPeriodic, PDEModel
-from .ops import FusedMobilitySpectral, FusedSemiImplicitSpectral3D, integrate
+from .models.functions import (
+    ChemicalPotentialLegendrePolynomials,
+    DiffusionLegendrePolynomials,
+    LegendrePolynomialExpansion,
+    LegendrePolynomialExpansion2D,
+    Mixer2d,
+    PeriodicCNN,
+)
+from .ops import (
+    FusedMobilitySpectral,
+    FusedSemiImplicitSpectral3D,
+    PIDController,
+    Tsit5,
+    integrate,
+    integrate_adaptive,
+)
+from .optim import least_squares_lm, least_squares_lm_jitted
 
 __all__ = [
     "envs", "models", "ops", "optim", "rl", "utils",
-    "Domain", "Grid", "PDEModel", "integrate",
+    "Domain", "Grid", "PDEModel", "integrate", "integrate_adaptive", "Tsit5",
+    "PIDController", "least_squares_lm", "least_squares_lm_jitted",
+    "PeriodicCNN", "Mixer2d", "LegendrePolynomialExpansion",
+    "LegendrePolynomialExpansion2D", "DiffusionLegendrePolynomials",
+    "ChemicalPotentialLegendrePolynomials",
     "CahnHilliard3DPeriodic", "FusedSemiImplicitSpectral3D", "FusedMobilitySpectral",
     "EnvState", "VectorPDEEnv", "make_cahn_hilliard_control_env",
     "make_allen_cahn_control_env", "make_gpe_control_env",

@@ -18,9 +18,14 @@ import torch
 __all__ = ["Domain", "Grid"]
 
 
+_NUMPY_DTYPES = {torch.float16: np.float16, torch.float32: np.float32, torch.float64: np.float64}
+
+
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy dtype of a real torch dtype."""
-    return torch.empty((), dtype=dtype).numpy().dtype
+    """The numpy dtype of a real torch dtype (by table: a tensor made to ask
+    would have no storage under a :mod:`torch.func` transform, where an
+    equation may be built first)."""
+    return np.dtype(_NUMPY_DTYPES[dtype])
 
 
 @dataclasses.dataclass

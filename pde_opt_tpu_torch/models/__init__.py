@@ -13,7 +13,10 @@ from .functions import (
     ChemicalPotentialLegendrePolynomials,
     DiffusionLegendrePolynomials,
     LegendrePolynomialExpansion,
+    LegendrePolynomialExpansion2D,
     LegendrePolynomials,
+    Mixer2d,
+    PeriodicCNN,
     legendre_from_numpy,
 )
 from .gross_pitaevskii import GPE2DTSControl
@@ -26,10 +29,13 @@ __all__ = [
     "CahnHilliard3DPeriodic",
     "functions",
     "LegendrePolynomialExpansion",
+    "LegendrePolynomialExpansion2D",
     "DiffusionLegendrePolynomials",
     "ChemicalPotentialLegendrePolynomials",
     "LegendrePolynomials",
     "legendre_from_numpy",
+    "PeriodicCNN",
+    "Mixer2d",
     "AllenCahn2DPeriodic",
     "AllenCahn2DPeriodicButlerVolmer",
     "AllenCahn2DPeriodicButlerVolmerConstantCurrent",

@@ -1,8 +1,9 @@
 """Legendre-polynomial coefficient functions (PyTorch port of
 :mod:`pde_opt_tpu.models.functions.legendre`).
 
-``LegendrePolynomialExpansion`` (Σ pₙ·Pₙ(x)), ``DiffusionLegendrePolynomials``
-(exp of the expansion at 2u − 1, positive for a mobility) and
+``LegendrePolynomialExpansion`` (Σ pₙ·Pₙ(x)), ``LegendrePolynomialExpansion2D``
+(Σ p_mn·P_m(x)·P_n(y)), ``DiffusionLegendrePolynomials`` (exp of the
+expansion at 2u − 1, positive for a mobility) and
 ``ChemicalPotentialLegendrePolynomials`` (the expansion at 2u − 1 plus an
 optional fixed prior) are :class:`torch.nn.Module`\\ s whose coefficients are
 one :class:`torch.nn.Parameter`; ``LegendrePolynomials`` is the
@@ -26,11 +27,23 @@ from torch import nn
 __all__ = [
     "legval",
     "LegendrePolynomialExpansion",
+    "LegendrePolynomialExpansion2D",
     "DiffusionLegendrePolynomials",
     "ChemicalPotentialLegendrePolynomials",
     "LegendrePolynomials",
     "legendre_from_numpy",
 ]
+
+
+def _legendre_basis(v: torch.Tensor, degree: int) -> torch.Tensor:
+    """``[P_0(v), ..., P_degree(v)]`` stacked along a new leading axis, by
+    Bonnet's recursion ``(n+1)·P_{n+1} = (2n+1)·v·P_n − n·P_{n−1}``."""
+    basis = [torch.ones_like(v)]
+    if degree >= 1:
+        basis.append(v)
+    for n in range(1, degree):
+        basis.append(((2 * n + 1) * v * basis[n] - n * basis[n - 1]) / (n + 1))
+    return torch.stack(basis, dim=0)
 
 
 def legval(params, x: torch.Tensor, max_degree: int) -> torch.Tensor:
@@ -66,6 +79,22 @@ class LegendrePolynomialExpansion(nn.Module):
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         return legval(self.params, inputs, self.max_degree)
+
+
+class LegendrePolynomialExpansion2D(nn.Module):
+    """Tensor-product expansion Σ_{mn} params[m,n]·P_m(x)·P_n(y); inputs
+    assumed in [-1, 1], ``x`` and ``y`` of one shape."""
+
+    def __init__(self, params):
+        super().__init__()
+        self.params = nn.Parameter(torch.as_tensor(params))
+        self.max_degree_x = self.params.shape[0] - 1
+        self.max_degree_y = self.params.shape[1] - 1
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        px = _legendre_basis(x, self.max_degree_x)
+        py = _legendre_basis(y, self.max_degree_y)
+        return torch.einsum("mn,m...,n...->...", self.params, px, py)
 
 
 class DiffusionLegendrePolynomials(nn.Module):
@@ -110,6 +139,7 @@ class LegendrePolynomials:
 
 _KINDS = {
     "expansion": LegendrePolynomialExpansion,
+    "expansion_2d": LegendrePolynomialExpansion2D,
     "diffusion": DiffusionLegendrePolynomials,
     "chemical_potential": ChemicalPotentialLegendrePolynomials,
 }
@@ -117,8 +147,8 @@ _KINDS = {
 
 def legendre_from_numpy(kind: str, params, device):
     """The port's Legendre module of ``kind`` (``"expansion"``,
-    ``"diffusion"`` or ``"chemical_potential"``, without a prior) with the
-    coefficients of a JAX module (``module.params``, or
+    ``"expansion_2d"``, ``"diffusion"`` or ``"chemical_potential"``, without
+    a prior) with the coefficients of a JAX module (``module.params``, or
     ``module.expansion.params``, as a numpy array or anything with
     ``__array__``) on ``device``, in their own dtype."""
     if kind not in _KINDS:

@@ -2,18 +2,21 @@
 (PyTorch port of :mod:`pde_opt_tpu.models.pde_model`).
 
 Rollouts are fixed-step integrations (:func:`pde_opt_tpu_torch.ops.integrate.integrate`),
-reverse-differentiable through checkpointed save segments; a whole batch of
-initial conditions integrates as one batched rollout.  The optimizers are
-``torch.optim`` L-BFGS and Adam (:mod:`pde_opt_tpu_torch.optim.minimize`).
+forward-differentiable for Levenberg-Marquardt and reverse-differentiable
+through checkpointed save segments, or adaptive ones
+(:func:`~pde_opt_tpu_torch.ops.integrate.integrate_adaptive`, under a
+``PIDController``); a whole batch of initial conditions integrates as one
+batched rollout.  The optimizers are Levenberg-Marquardt
+(:mod:`pde_opt_tpu_torch.optim.lm`, Jacobians by :func:`torch.func.jacfwd`)
+and ``torch.optim`` L-BFGS and Adam (:mod:`pde_opt_tpu_torch.optim.minimize`).
 On the fused macro stepper each segment is one launch of the macro kernel
-forward and one of its backward kernel K3 in the backward pass.
+forward and one of its backward kernel K3 in the backward pass; the macros
+have no forward-mode rule, so Levenberg-Marquardt runs the roll-chain and
+FFT steppers, as in the JAX package.
 
-A parameter that is an :class:`torch.nn.Module` (the Legendre coefficient
-modules of ``models/functions``) trains through its parameters, as the JAX
+A parameter that is an :class:`torch.nn.Module` (the coefficient modules
+of ``models/functions``) trains through its parameters, as the JAX
 package's pytree modules do (:mod:`pde_opt_tpu_torch.utils.ptree`).
-
-Not ported yet: the adaptive integrator behind ``PIDController`` and
-Levenberg-Marquardt (``train(method="least_squares")``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from .. import grid as domains
-from ..ops.integrate import ConstantStepSize, integrate
+from ..ops.integrate import ConstantStepSize, PIDController, integrate, integrate_adaptive
+from ..optim.lm import least_squares_lm, least_squares_lm_jitted
 from ..optim.minimize import minimize_adam, minimize_lbfgs
 from ..utils import ptree
 from ..utils.compat import check_equation_solver_compatibility, prepare_solver_params
@@ -75,13 +79,18 @@ class PDEModel:
 
         ``y0`` may carry leading batch axes: the whole batch integrates in
         one rollout.  ``adjoint``: ``"forward"`` or ``"checkpoint"``.
-        Fixed steps only (``None`` or :class:`ConstantStepSize`; the
-        adaptive :class:`PIDController` is not ported yet).
+        ``stepsize_controller``: ``None``/:class:`ConstantStepSize` for fixed
+        steps, or a :class:`PIDController` for the adaptive integrator
+        (single-instance solves; it syncs once a step).
         """
+        equation, solver = self._build(parameters, solver_parameters or {})
+        if isinstance(stepsize_controller, PIDController):
+            return integrate_adaptive(solver, equation.rhs, torch.as_tensor(y0), ts, dt0,
+                                      rtol=stepsize_controller.rtol,
+                                      atol=stepsize_controller.atol, max_steps=max_steps)
         if not (stepsize_controller is None
                 or isinstance(stepsize_controller, ConstantStepSize)):
             raise ValueError(f"unknown stepsize_controller: {stepsize_controller!r}")
-        equation, solver = self._build(parameters, solver_parameters or {})
         ts_np = np.asarray(ts, dtype=np.float64)
         n_total = int(np.sum(np.maximum(1, np.round(np.diff(ts_np) / dt0))))
         if n_total > max_steps:
@@ -159,17 +168,16 @@ class PDEModel:
         initial condition and the remaining indices as its observations;
         all trajectories share the time offsets of ``inds[0]``.
 
-        ``method``: ``"mse"`` (L-BFGS) or ``"adam"``, both reverse-mode
-        through checkpointed rollouts.  ``"least_squares"`` (the JAX
-        package's default) needs Levenberg-Marquardt, not ported yet.
+        ``method``: ``"least_squares"`` (Levenberg-Marquardt over the flat
+        parameter vector, forward mode through ``adjoint="forward"``
+        rollouts: small parameter vectors), ``"least_squares_jit"``, ``"mse"``
+        (L-BFGS) or ``"adam"`` (both reverse mode through checkpointed
+        rollouts).  As in the JAX package, ``"least_squares"`` runs the
+        jitted variant unless ``verbose=True`` and ``"least_squares_jit"``
+        always does; in the port both variants run the same host loop, the
+        first printing each iteration.
         """
-        if method in ("least_squares", "least_squares_jit"):
-            raise NotImplementedError(
-                f"train(method={method!r}) needs Levenberg-Marquardt "
-                "(pde_opt_tpu/optim/lm.py), which is not ported yet; use "
-                "method='mse' or 'adam'"
-            )
-        if method not in ("mse", "adam"):
+        if method not in ("least_squares", "least_squares_jit", "mse", "adam"):
             raise ValueError(f"unknown train method: {method!r}")
         ys = data["ys"]
         y0s = torch.stack([torch.as_tensor(ys[ind[0]]) for ind in inds])
@@ -181,6 +189,23 @@ class PDEModel:
             float(data["ts"][inds[0][i]]) - float(data["ts"][inds[0][0]])
             for i in range(len(inds[0]))
         ])
+
+        if method in ("least_squares", "least_squares_jit"):
+            flat0, unravel = ptree.ravel_params(opt_parameters)
+
+            def residuals_flat(theta, y0s_, values_):
+                return self.residuals(
+                    {**unravel(theta), **other_parameters}, (y0s_, values_),
+                    solver_parameters, ts, weights, lambda_reg, adjoint="forward", dt0=dt0,
+                )
+
+            lm_kw = dict(args=(y0s, values), max_steps=max_steps, rtol=1e-8, atol=1e-8)
+            if method == "least_squares_jit" or not verbose:
+                sol = least_squares_lm_jitted(residuals_flat, flat0.to(values.device), **lm_kw)
+            else:
+                sol = least_squares_lm(residuals_flat, flat0.to(values.device),
+                                       verbose=verbose, **lm_kw)
+            return {**unravel(sol.params), **other_parameters}
 
         opt_params, opt_static = ptree.partition(opt_parameters)
         opt_params = ptree.as_arrays(opt_params)

@@ -22,7 +22,7 @@ from .fused_spectral import (
     make_ch_sif_fused_macro,
 )
 from .gpe_cas import gpe_strang_fast_reference, make_gpe_strang_cas_macro
-from .integrate import ConstantStepSize, PIDController, evolve, integrate
+from .integrate import ConstantStepSize, PIDController, evolve, integrate, integrate_adaptive
 from .sbm_bv import make_sbm_bv_fused_macro, sbm_bv_reference
 from .steppers import (
     RK4,
@@ -37,6 +37,7 @@ from .steppers import (
     SemiImplicitFourierSpectral,
     Heun,
     StrangSplitting,
+    Tsit5,
 )
 
 __all__ = [
@@ -66,6 +67,7 @@ __all__ = [
     "gpe_strang_fast_reference",
     "evolve",
     "integrate",
+    "integrate_adaptive",
     "ConstantStepSize",
     "PIDController",
     "FusedSemiImplicitSpectral",
@@ -78,6 +80,7 @@ __all__ = [
     "Euler",
     "Heun",
     "RK4",
+    "Tsit5",
     "FusedButlerVolmer",
     "FusedSBMButlerVolmer",
 ]

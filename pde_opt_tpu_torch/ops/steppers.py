@@ -1,5 +1,5 @@
-"""Time steppers (PyTorch port of the explicit, CH (2D and 3D, unit and
-general mobility), AC, Butler-Volmer and GPE subset of
+"""Time steppers (PyTorch port of the explicit (Tsit5 included), CH (2D
+and 3D, unit and general mobility), AC, Butler-Volmer and GPE subset of
 :mod:`pde_opt_tpu.ops.steppers`).
 
 Each stepper exposes ``step(rhs, y, t, dt) -> (y1, y_err)``; the fused
@@ -30,6 +30,7 @@ __all__ = [
     "Euler",
     "Heun",
     "RK4",
+    "Tsit5",
     "SemiImplicitFourierSpectral",
     "FusedSemiImplicitSpectral",
     "FusedSemiImplicitSpectral3D",
@@ -109,6 +110,50 @@ class RK4(AbstractStepper):
         k3 = rhs(y + 0.5 * dt * k2, t + 0.5 * dt)
         k4 = rhs(y + dt * k3, t + dt)
         return y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4), None
+
+
+# Tsitouras 5(4) coefficients (Tsitouras, Comput. Math. Appl. 62 (2011)),
+# the tables of the JAX package's Tsit5.
+_TSIT5_C = (0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0)
+_TSIT5_A = (
+    (0.161,),
+    (-0.008480655492356989, 0.335480655492357),
+    (2.8971530571054935, -6.359448489975075, 4.3622954328695815),
+    (5.325864828439257, -11.748883564062828, 7.4955393428898365, -0.09249506636175525),
+    (5.86145544294642, -12.92096931784711, 8.159367898576159, -0.071584973281401, -0.028269050394068383),
+    (0.09646076681806523, 0.01, 0.4798896504144996, 1.379008574103742, -3.290069515436081, 2.324710524099774),
+)
+# 5th-order weights are the last A row (FSAL); error weights b - bhat:
+_TSIT5_BTILDE = (
+    -0.00178001105222577714,
+    -0.0008164344596567469,
+    0.007880878010261995,
+    -0.1447110071732629,
+    0.5823571654525552,
+    -0.45808210592918697,
+    0.015151515151515152,
+)
+
+
+class Tsit5(AbstractStepper):
+    """Tsitouras 5(4) explicit Runge-Kutta with embedded 4th-order error."""
+
+    order = 5
+
+    def step(self, rhs, y, t, dt):
+        k = [rhs(y, t)]
+        for ci, ai in zip(_TSIT5_C, _TSIT5_A):
+            yi = y
+            for aij, kj in zip(ai, k):
+                yi = yi + dt * aij * kj
+            k.append(rhs(yi, t + ci * dt))
+        y1 = y
+        for aij, kj in zip(_TSIT5_A[-1], k):
+            y1 = y1 + dt * aij * kj
+        y_err = dt * _TSIT5_BTILDE[0] * k[0]
+        for bt, kj in zip(_TSIT5_BTILDE[1:], k[1:]):
+            y_err = y_err + dt * bt * kj
+        return y1, y_err
 
 
 class SemiImplicitFourierSpectral(AbstractStepper):

@@ -1,8 +1,8 @@
-"""Optimizers (PyTorch port): L-BFGS and Adam over parameter trees.
+"""Optimizers (PyTorch port): L-BFGS and Adam over parameter trees,
+Levenberg-Marquardt over a flat parameter vector."""
 
-Levenberg-Marquardt (``optim/lm.py`` in the JAX package) is not ported yet.
-"""
-
+from .lm import LMResult, least_squares_lm, least_squares_lm_jitted
 from .minimize import MinimizeResult, minimize_adam, minimize_lbfgs
 
-__all__ = ["minimize_lbfgs", "minimize_adam", "MinimizeResult"]
+__all__ = ["minimize_lbfgs", "minimize_adam", "MinimizeResult", "least_squares_lm",
+           "least_squares_lm_jitted", "LMResult"]

@@ -18,6 +18,7 @@ tensors (gradients flow into them).  The caller's module is never changed.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Any, Callable, List
 
 import numpy as np
@@ -32,6 +33,8 @@ __all__ = [
     "combine",
     "as_arrays",
     "from_numpy",
+    "tree_size",
+    "ravel_params",
 ]
 
 
@@ -112,14 +115,84 @@ def from_numpy(tree: Any, device=None) -> Any:
     Array leaves (numpy arrays and scalars, or any other object with
     ``__array__``, such as a JAX array) become tensors of the same dtype on
     ``device``; tensors, a module's parameters included, move to ``device``;
+    the JAX package's coefficient modules (the Legendre expansions,
+    ``PeriodicCNN``, ``Mixer2d``) become the port's modules with the same
+    numbers (:func:`pde_opt_tpu_torch.models.functions.function_from_numpy`);
     python numbers, other callables and ``None`` are kept as they are.
     """
+    from ..models.functions import function_from_numpy
 
     def leaf(x):
         if isinstance(x, torch.Tensor):
             return x.to(device) if device is not None else x
         if isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__"):
             return torch.as_tensor(np.array(x), device=device)
+        if not isinstance(x, nn.Module):
+            module = function_from_numpy(x, device)
+            if module is not None:
+                return module
         return x
 
     return tree_map(leaf, tree)
+
+
+def tree_size(tree: Any) -> int:
+    """Total number of scalar elements across the array leaves (tensors,
+    numpy arrays and python numbers), a module's parameters included."""
+    return sum(x.numel() if isinstance(x, torch.Tensor) else int(np.size(x))
+               for x in tree_leaves(tree)
+               if isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float, complex)))
+
+
+def ravel_params(tree: Any):
+    """Flatten the inexact leaves of ``tree`` into one 1D tensor.
+
+    Returns ``(vector, unravel)``.  ``vector`` is a new tensor, detached
+    from the leaves, in the dtype the tensor leaves promote to (python
+    floats take part as weak scalars, as in the JAX package; a tree of
+    python floats alone gives torch's default dtype) on the first tensor
+    leaf's device.  ``unravel(vec)`` rebuilds the whole tree, the static
+    leaves included: each inexact leaf becomes the matching slice of
+    ``vec``, reshaped and cast to the leaf's own dtype (a python float
+    stays in ``vec``'s dtype); a module comes back as a :func:`_module_map`
+    copy whose parameter slots hold those slices, never rebuilt through
+    its constructor, so a tangent or a gradient on ``vec`` reaches it
+    (under :mod:`torch.func` transforms too).  The flat layout is the leaf
+    order of :func:`tree_leaves`.
+    """
+    dynamic, static = partition(tree)
+    leaves = tree_leaves(dynamic)
+    leaves = [torch.from_numpy(np.array(x)) if isinstance(x, (np.ndarray, np.generic)) else x
+              for x in leaves]
+    tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+    dtype = functools.reduce(torch.promote_types, [x.dtype for x in tensors]) if tensors \
+        else torch.get_default_dtype()
+    device = tensors[0].device if tensors else None
+    specs = []                      # (shape, dtype; None for a python number)
+    parts = []
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            specs.append((tuple(x.shape), x.dtype))
+            parts.append(x.detach().reshape(-1).to(device=device, dtype=dtype))
+        else:
+            specs.append(((), None))
+            parts.append(torch.tensor([x], dtype=dtype, device=device))
+    flat = torch.cat(parts) if parts else torch.zeros((0,), dtype=dtype, device=device)
+
+    def unravel(vec: torch.Tensor):
+        it = iter(specs)
+        offset = 0
+
+        def take(x):
+            nonlocal offset
+            if x is None:
+                return None
+            shape, leaf_dtype = next(it)
+            n = int(np.prod(shape, dtype=np.int64))
+            piece = vec[offset:offset + n].reshape(shape)
+            offset += n
+            return piece if leaf_dtype is None else piece.to(leaf_dtype)
+
+        return combine(tree_map(take, dynamic), static)
+
+    return flat, unravel
