@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Twenty-two paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Twenty-six paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -33,7 +33,11 @@ at ``run_ch128``'s shape (1024 envs x 128^2) and the value and gradient of
 The inverse-problem layer at the JAX package's examples' sizes: the 32^3
 Legendre mu and D fit by Levenberg-Marquardt (``examples/optimize_3d.py``),
 the 128^2 NN-mu fit by L-BFGS (``examples/optimize_nn.py --grid 128``) and
-an adaptive Allen-Cahn solve (Tsit5 under a PID controller).
+an adaptive Allen-Cahn solve (Tsit5 under a PID controller).  The
+rotating-frame GPE at the JAX bench's ``run_gpe_rot`` (512 fields of 64^2,
+50 imaginary-time substeps a call, the batched-matmul ADI and the FFT ADI)
+and its stirring fleet (1024 envs x 64^2 x 10), and the SBM fleet (1024
+envs) on a level set from the ``Shape`` smoothing flow.
 Phases (each passes or raises; nothing is
 caught):
 
@@ -188,11 +192,21 @@ caught):
    ``Tsit5`` and ``PIDController(1e-4, 1e-6)`` in f64 and f32 against the
    CPU's f64 saves, the accepted and rejected step counts.  Every tensor
    the phase makes lies on the card.
+12. The rotating-frame GPE and the smoothed-boundary geometry (the
+   constants ``ROT_*`` and ``TOL_SHAPE`` say how): (a) ``run_gpe_rot``, the
+   matmul ADI macro against ``DirectionalSplitting`` on the card and both
+   against the CPU's f64, their field-substeps/s, the sweeps' layout timed,
+   the vortex census against the CPU's; (b) the stirring fleet: a rollout,
+   its auto-reset, fused against fft from one state (12a-b launch none of
+   K1-K9); (c) the SBM fleet with ``smooth_geometry=True``: the construction
+   seconds and Tsit5 step counts, psi against the CPU's f64 ``Shape`` (run
+   by a child process from the start of the script), K7 against plain at
+   that psi, the charge balance, and the fleet's rollout (K7 once a step).
 
-Every rollout and update of phases 4-10 runs under
+Every rollout and update of phases 4-10 and 12 runs under
 ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for the device
-fails the run.  Phase 11's loops read a value each step by design (LM's loss,
-the adaptive controller's error norm).  The last two lines are a
+fails the run.  Phase 11's loops and phase 12's smoothing flow read a value
+each step by design (LM's loss, the adaptive controller's error norm).  The last two lines are a
 JSON object per kernel and the JSON result line.
 """
 
@@ -448,6 +462,32 @@ NNFIT_GRID, NNFIT_HIDDEN, NNFIT_STEPS, TOL_NNFIT = 128, (16, 16), 5, 1e-3
 MIXER_GRID, MIXER_ARGS, MIXER_BATCH, MIXER_REPS, TOL_MIXER = 128, (8, 64, 256, 256, 4), 8, 10, 1e-4
 ADAPT_GRID, ADAPT_KAPPA, ADAPT_T_END, ADAPT_SAVES, ADAPT_DT0, ADAPT_TOL, TOL_ADAPT = (
     128, 0.002, 0.05, 6, 1e-4, (1e-4, 1e-6), 1e-4)
+# The rotating-frame GPE and the smoothed-boundary geometry (phase 12), at
+# bench.py's shapes.  (a) run_gpe_rot: ROT_ENVS fields of 64^2, box 20, k
+# 500, e 0, Omega 0.9, dt 2e-4, ROT_SUBSTEPS substeps a call in imaginary
+# time, from initialize_Psi(64, width=14, vortexnumber=1) normalised; the
+# matmul ADI macro (FusedRotatingSplitting's) against DirectionalSplitting
+# on the card, and both against the CPU's f64 DirectionalSplitting on the
+# first ROT_CPU_FIELDS fields, by density within TOL_ROT of the largest
+# density (3.2e-5 to 5.2e-5 of it measured on an H100); the FFT path
+# timed over ROT_FFT_CALLS calls and the matmul path over ROT_MM_CALLS;
+# the ground state's vortex census at 0.05 max|psi| against the CPU's
+# census of the same field.  (b) make_gpe_rot_control_env(1024, 64, 10):
+# ROT_FLEET_STEPS steps (bench.py's 25) under sync debug mode "error",
+# then a fleet with end_time ROT_RESET_END (11-step episodes on the f32
+# clock) across two episode ends; the fused
+# and fft paths from one shared state, one step: obs within 1 LSB, density
+# within TOL_ROT_FLEET (the JAX env test's 5e-5).  (c) the SBM fleet on a
+# Shape psi: make_sbm_butler_volmer_control_env(1024, 64,
+# smooth_geometry=True), its psi against the CPU's f64 Shape of the same
+# mask (computed in a child process while phases 2-11 run) within
+# TOL_SHAPE (f32 against f64 on the CPU: 1.2e-4), K7 against plain at this
+# psi (_check_sbm), the charge balance, STEPS + FLEET_STEPS_NO_EP steps.
+# Phases 12a-b launch no K1-K9 kernel; 12c launches K7 once a step.
+ROT_ENVS, ROT_GRID, ROT_BOX, ROT_K, ROT_OMEGA, ROT_DT, ROT_SUBSTEPS = 512, 64, 20.0, 500.0, 0.9, 2e-4, 50
+ROT_FFT_CALLS, ROT_MM_CALLS, ROT_CPU_FIELDS, TOL_ROT = 3, 8, 8, 1e-4
+ROT_FLEET_ENVS, ROT_FLEET_STEPS, ROT_RESET_END, TOL_ROT_FLEET = 1024, 25, 0.1, 5e-5
+TOL_SHAPE = 1e-3
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -3141,7 +3181,306 @@ def _drive_inverse(torch, kernels, dev, card):
     print(f"phase 11: no launch of K1-K9 ({len(counts)} counters at 0)", flush=True)
 
 
+# The SBM preset's Shape of its disk at GRID^2, in f64 on the CPU, computed
+# by a child process (no card) while phases 2-11 run: it prints the step
+# counts and seconds, then psi, as two .npy blobs on its stdout.
+_SHAPE_REF_CODE = """
+import sys, time
+import numpy as np
+import torch
+from pde_opt_tpu_torch import grid as gridmod
+from pde_opt_tpu_torch.geometry import Shape
+torch.set_num_threads(1)
+torch.set_default_dtype(torch.float64)
+n = int(sys.argv[1])
+dom = gridmod.Domain((n, n), ((-0.5, 0.5), (-0.5, 0.5)), dtype=torch.float32)
+X, Y = dom.mesh()
+t0 = time.perf_counter()
+shape = Shape((np.sqrt(X**2 + Y**2) < 0.35).astype(X.dtype), dx=dom.dx,
+              smooth_epsilon=4.0 * float(dom.dx[0]), device="cpu")
+st = shape.smooth_stats
+np.save(sys.stdout.buffer, np.array([st["accepted_steps"], st["rejected_steps"],
+                                     time.perf_counter() - t0]))
+np.save(sys.stdout.buffer, shape.smooth.numpy())
+"""
+
+
+class _CpuShape:
+    """The child process that computes the CPU's f64 Shape (phase 12c's
+    reference); ``stop`` ends it if it still runs."""
+
+    def __init__(self, n):
+        import os
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _SHAPE_REF_CODE, str(n)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def result(self, timeout):
+        """(psi, [accepted, rejected, seconds]) as numpy."""
+        import io
+
+        import numpy as np
+
+        out, err = self.proc.communicate(timeout=timeout)
+        _check(self.proc.returncode == 0, f"the CPU's Shape failed: {err.decode()[-2000:]}")
+        buf = io.BytesIO(out)
+        stats = np.load(buf)
+        return np.load(buf), stats
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _density_err(torch, got, want, peak):
+    """max |(|got|^2 - |want|^2)| over ``peak``, in f64 on the CPU."""
+    got, want = got.detach().cpu().to(torch.complex128), want.detach().cpu().to(torch.complex128)
+    return ((got.abs() ** 2 - want.abs() ** 2).abs().max() / peak).item()
+
+
+def _rot_bound(B, N, n):
+    """One macro call's least time, ms: the packed products (3n + 1 sweeps,
+    each 2 (2N)^2 N = 8 N^3 operations a field) at the f32 peak against the
+    bytes (the complex64 state in and out, the three block tensors)."""
+    ops = B * 8 * N**3 * (3 * n + 1)
+    nbytes = B * N * N * 8 * 2 + 3 * N * (2 * N) ** 2 * 4
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops
+
+
+def _drive_rotating(torch, kernels, dev, card):
+    """Phase 12a-b: bench.py's run_gpe_rot (the matmul ADI macro and the FFT
+    DirectionalSplitting in imaginary time, checked against each other and
+    the CPU's f64 DirectionalSplitting, timed; the sweeps' layout timed; the
+    vortex census against the CPU's) and the stirring fleet
+    make_gpe_rot_control_env (ROT_FLEET_STEPS steps under sync debug mode
+    "error", its auto-reset, fused against fft).  Launches no K1-K9."""
+    from pde_opt_tpu_torch.envs.presets import make_gpe_rot_control_env
+    from pde_opt_tpu_torch.envs.vector_env import EnvState
+    from pde_opt_tpu_torch.grid import Domain
+    from pde_opt_tpu_torch.models.gross_pitaevskii import GPE2DTSRot
+    from pde_opt_tpu_torch.ops.gpe_rot_fast import _sweep_mats, make_rot_adi_macro
+    from pde_opt_tpu_torch.ops.integrate import evolve
+    from pde_opt_tpu_torch.ops.steppers import DirectionalSplitting
+    from pde_opt_tpu_torch.utils import density, initialize_Psi
+    from pde_opt_tpu_torch.utils.rl import detect_vortices, vortex_winding
+
+    _check(torch.get_float32_matmul_precision() == "highest",
+           "TF32 is on: the ADI products must run in true f32")
+    kernels.reset_launch_counts()
+    B, N, n = ROT_ENVS, ROT_GRID, ROT_SUBSTEPS
+    box = ((-ROT_BOX / 2, ROT_BOX / 2),) * 2
+
+    def setup(device, dtype):
+        dom = Domain((N, N), box, dtype=dtype)
+        eq = GPE2DTSRot(dom, ROT_K, 0.0, ROT_OMEGA, device=device)
+        return dom, eq, DirectionalSplitting(eq.A_terms, eq.B_terms, dom.dx[0], time_scale=-1j)
+
+    dom, eq, stepper = setup(dev, torch.float32)
+    dx = float(dom.dx[0])
+    psi0 = initialize_Psi(N, width=14, vortexnumber=1, device=dev)
+    psi0 = psi0 / torch.sqrt(density(psi0).sum() * dx * dx)
+    y0 = psi0.expand(B, N, N).contiguous()
+    macro = make_rot_adi_macro(eq.A_terms, eq.B_terms, dx, N, N, ROT_DT, n, time_scale=-1j)
+
+    def fft_run(y):
+        return evolve(stepper, None, y, 0.0, ROT_DT, n)
+
+    # -- (a) checks: the two paths on the card, and the CPU's f64 oracle -----
+    y_mm, y_fft = macro(y0), fft_run(y0)
+    _, _, cstepper = setup(torch.device("cpu"), torch.float64)
+    y_cpu = evolve(cstepper, None, y0[:ROT_CPU_FIELDS].cpu().to(torch.complex128), 0.0, ROT_DT, n)
+    peak = (y_cpu.abs() ** 2).max().item()
+    e_mf = _density_err(torch, y_mm, y_fft, peak)
+    e_mc = _density_err(torch, y_mm[:ROT_CPU_FIELDS], y_cpu, peak)
+    e_fc = _density_err(torch, y_fft[:ROT_CPU_FIELDS], y_cpu, peak)
+    line = (f"check gpe_rot {B}x{N}^2x{n} imaginary time (Omega {ROT_OMEGA}, k {ROT_K}): density "
+            f"max_abs_err / max density: matmul ADI vs fft {e_mf:.3e}; vs the CPU's f64 "
+            f"DirectionalSplitting ({ROT_CPU_FIELDS} fields) matmul {e_mc:.3e}, fft {e_fc:.3e}")
+    _check(max(e_mf, e_mc, e_fc) <= TOL_ROT, f"{line} > {TOL_ROT}")
+    print(line, flush=True)
+
+    # -- (a) rates, as bench.py's run_gpe_rot takes them ----------------------
+    def rate(run, calls):
+        y = run(y0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            y = run(y)
+        torch.cuda.synchronize()
+        return B * n * calls / (time.perf_counter() - t0), y
+
+    fft_rate, _ = rate(fft_run, ROT_FFT_CALLS)
+    mm_rate, y = rate(macro, ROT_MM_CALLS)
+    _check(bool(torch.isfinite(y).all()), "gpe_rot: the matmul path's state is not finite")
+    mm_ms = _time_ms(torch, lambda: macro(y0), reps=5, warmup=1)
+    fft_ms = _time_ms(torch, lambda: fft_run(y0), reps=3, warmup=1)
+    bound_ms, bound_by, ops = _rot_bound(B, N, n)
+    print(f"gpe_rot rates: fft {fft_rate:.1f} field-substeps/s ({ROT_FFT_CALLS} calls), matmul ADI "
+          f"{mm_rate:.1f} ({ROT_MM_CALLS} calls), {mm_rate / fft_rate:.2f}x; a call (CUDA events) "
+          f"matmul {mm_ms:.4f} ms, fft {fft_ms:.4f} ms; matmul bound {bound_ms:.4f} ms "
+          f"({bound_by}: {ops:.4e} product operations at {PEAK_F32 / 1e12:.0f} TFLOP/s f32), "
+          f"{bound_ms / mm_ms:.1%} of it [{card}]", flush=True)
+
+    # The sweeps' layout: state (H, 2, W, B); y-sweep a contiguous batched
+    # product, x-sweep on strided views (no copy), against the x-sweep through
+    # a permuted copy each way.
+    mats = _sweep_mats(*eq.A_terms(None, 0.0), ROT_DT, -1j, torch.float32, dev)
+    p = torch.randn((N, 2, N, B), device=dev)
+    q = torch.empty_like(p)
+
+    def lines(buf):
+        return buf.permute(2, 0, 1, 3).view(N, 2 * N, B)
+
+    def sweep_x_copy():
+        lines(q).copy_(torch.bmm(mats.Mxh, lines(p).contiguous()))
+
+    t_y = _time_ms(torch, lambda: torch.bmm(mats.Myh, p.view(N, 2 * N, B),
+                                            out=q.view(N, 2 * N, B)), reps=20)
+    t_x = _time_ms(torch, lambda: torch.bmm(mats.Mxh, lines(p), out=lines(q)), reps=20)
+    t_xc = _time_ms(torch, sweep_x_copy, reps=20)
+    sweep_ops = B * 8 * N**3
+    sweeps = (3 * n + 1) * (t_x + t_y) / 2
+    print(f"gpe_rot sweeps at {B}x{N}^2: y-sweep {t_y:.4f} ms ({sweep_ops / t_y / 1e9:.2f} "
+          f"TFLOP/s), x-sweep on strided views {t_x:.4f} ms ({sweep_ops / t_x / 1e9:.2f}), x-sweep "
+          f"through permuted copies {t_xc:.4f} ms; a {n}-substep call's {3 * n + 1} sweeps "
+          f"{sweeps:.4f} ms of {mm_ms:.4f} ({sweeps / mm_ms:.1%}), the B phases and the "
+          f"relayouts the rest [{card}]", flush=True)
+
+    g = y[0]
+    thresh = 0.05 * float(g.abs().max())
+    n_card = int((vortex_winding(g, amp_thresh=thresh) != 0).sum())
+    census = detect_vortices(g.cpu(), amp_thresh=thresh)
+    line = (f"gpe_rot ground state after {(ROT_MM_CALLS + 1) * n} substeps: {n_card} vortices "
+            f"on the card at amp_thresh 0.05 max|psi|, {census['num_vortices']} on the CPU "
+            f"(total charge {census['total_topological_charge']})")
+    _check(n_card == census["num_vortices"], f"{line}: the census differs")
+    print(line, flush=True)
+
+    # -- (b) the stirring fleet -------------------------------------------------
+    def fleet(**kw):
+        return make_gpe_rot_control_env(num_envs=ROT_FLEET_ENVS, grid_size=ROT_GRID,
+                                        substeps=SUBSTEPS, device=dev, **kw)
+
+    def policy(obs, g):
+        return env.sample_actions(g)
+
+    env, renv = fleet(), fleet(end_time=ROT_RESET_END)
+    gen = torch.Generator(device=dev).manual_seed(95)
+    for e in (env, renv):           # warm: the sweep matrices, the env glue
+        st, _ = e.reset(gen)
+        e.make_rollout(policy, 2)(st, gen)
+    state, _ = env.reset(gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    state, rewards, terms = env.make_rollout(policy, ROT_FLEET_STEPS)(state, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    fleet_rate = ROT_FLEET_ENVS * ROT_FLEET_STEPS / (time.perf_counter() - t0)
+    _check(rewards.shape == (ROT_FLEET_STEPS, ROT_FLEET_ENVS)
+           and bool(torch.isfinite(rewards).all()), "stirring fleet: rewards")
+    _check(not bool(terms.any()) and bool(torch.isfinite(state.y).all()), "stirring fleet: state")
+
+    rstate, _ = renv.reset(gen)
+    end_step = _end_step(torch, renv)
+    torch.cuda.set_sync_debug_mode("error")
+    rstate, rrew, rterms = renv.make_rollout(policy, ROT_FLEET_STEPS)(rstate, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    early, episodes, since = _episode_ends(torch, rterms, end_step)
+    norms = density(rstate.y).sum((-2, -1)) * dx * dx
+    _check(early == 0 and episodes == (ROT_FLEET_STEPS // end_step) * ROT_FLEET_ENVS
+           and torch.equal(rstate.step_count.cpu().long(), since)
+           and bool(torch.isfinite(rrew).all())
+           and (norms - 1.0).abs().max().item() < 1e-4, "stirring fleet: auto-reset")
+
+    # Fused and fft from one shared state, one step, the same actions.
+    fenv = fleet(spectral_solve="fft")
+    fenv.reset(gen)
+    a = env.sample_actions(gen)
+    s1, o1, r1, *_ = env.step(EnvState(*(t.clone() for t in state)), a)
+    s2, o2, r2, *_ = fenv.step(EnvState(*(t.clone() for t in state)), a)
+    lsb = (o1.int() - o2.int()).abs().max().item()
+    drho = (density(s1.y) - density(s2.y)).abs().max().item()
+    drew = (r1 - r2).abs().max().item()
+    line = (f"stirring fleet: {ROT_FLEET_ENVS} envs x {ROT_GRID}^2 x {SUBSTEPS} substeps, "
+            f"{ROT_FLEET_STEPS} steps under sync debug mode 'error': {fleet_rate:.1f} env-steps/s; "
+            f"with {end_step}-step episodes {episodes} ended and reset; fused vs fft, one step "
+            f"from a shared state: obs max_lsb {lsb}, density max_abs_err {drho:.3e}, reward "
+            f"max_abs_err {drew:.3e}")
+    _check(lsb <= 1 and drho <= TOL_ROT_FLEET and drew <= 1e-4, f"{line}: fused and fft differ")
+    print(f"{line} [{card}]", flush=True)
+    counts = kernels.launch_counts()
+    _check(not any(counts.values()), f"phase 12a-b launched a kernel: {counts}")
+    print(f"phase 12a-b: no launch of K1-K9 ({len(counts)} counters at 0)", flush=True)
+
+
+def _drive_shape_sbm(torch, kernels, dev, gen, card, shape_ref, sbm_rate):
+    """Phase 12c: the SBM fleet on the Shape psi (smooth_geometry=True),
+    built before any sync debug mode; its psi against the CPU's f64 Shape,
+    K7 against plain at this psi, the charge balance, the fleet's STEPS +
+    FLEET_STEPS_NO_EP steps (K7 once a step).  Returns the launch counts."""
+    from pde_opt_tpu_torch.envs.presets import BV_J0, BV_MU, make_sbm_butler_volmer_control_env
+    from pde_opt_tpu_torch.envs.vector_env import VectorPDEEnv
+    from pde_opt_tpu_torch.ops.sbm_bv import SbmEpilogue, sbm_bv_macro_cuda, sbm_bv_macro_plain
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env = make_sbm_butler_volmer_control_env(num_envs=SBM_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                             smooth_geometry=True, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = env.shape.smooth_stats
+    psi = env.static_equation_parameters["psi"]
+    ref, ref_stats = shape_ref.result(timeout=900)
+    err = (psi.double().cpu() - torch.from_numpy(ref)).abs().max().item()
+    band = int(((psi > 0.2) & (psi < 0.8)).sum())
+    line = (f"phase 12c: Shape of the {GRID}^2 disk (eps 4 dx, smooth_dt 0.1) on the card "
+            f"({str(env.shape.smooth.dtype)[6:]}): {st['accepted_steps']} accepted / "
+            f"{st['rejected_steps']} rejected steps, the fleet built in {secs:.4f} s; the CPU's "
+            f"f64: {int(ref_stats[0])} / {int(ref_stats[1])} in {ref_stats[2]:.4f} s; psi "
+            f"max_abs_err {err:.3e}, {band} interface pixels (0.2 < psi < 0.8)")
+    _check(err <= TOL_SHAPE and band > 0 and st["accepted_steps"] > 0, f"{line} > {TOL_SHAPE}")
+    print(f"{line} [{card}]", flush=True)
+
+    print("phase 12c: K7 at the Shape psi:", flush=True)
+    u, cr, consts, _ = _check_sbm(torch, dev, gen, env)
+    timings = {}
+    kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=BV_DT, n_steps=SUBSTEPS,
+              epilogue=SbmEpilogue(255.0, CENTER))
+    _time_pair(torch, timings, "sbm_bv_macro_ep (Shape psi)",
+               lambda: sbm_bv_macro_plain(u, cr, consts, **kw),
+               lambda: sbm_bv_macro_cuda(u, cr, consts, **kw),
+               f"{SBM_ENVS}x{GRID}^2x{SUBSTEPS}, the Shape psi", card)
+    _check_charging(torch, env, gen, "SBM (Shape psi)")
+    env0 = VectorPDEEnv(**{**{a: getattr(env, a) for a in _ENV_ARGS}, "fused_epilogue": None},
+                        action_space_config=env.action_space_config)
+    _, counts, rate = _drive_fleet(torch, kernels, env, env0, gen, "SBM (Shape psi)", 1e-4,
+                                   may_diverge=True)
+    _check(counts["sbm_bv_macro_ep"] == STEPS and counts["sbm_bv_macro"] == FLEET_STEPS_NO_EP
+           and sum(counts.values()) == STEPS + FLEET_STEPS_NO_EP, f"phase 12c launches {counts}")
+    print(f"SBM (Shape psi) rollout: {rate:.1f} env-steps/s vs {sbm_rate:.1f} on the analytic psi "
+          f"({STEPS} steps, {SBM_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps, fused epilogue) "
+          f"[{card}]", flush=True)
+    return counts
+
+
 def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
+    shape_ref = _CpuShape(GRID)
+    try:
+        return _main(shape_ref)
+    finally:
+        shape_ref.stop()
+
+
+def _main(shape_ref):
     import torch
 
     from pde_opt_tpu_torch.envs.presets import (
@@ -3795,12 +4134,16 @@ def main():
     # ---- 11. the inverse-problem layer: LM, the coefficient nets, adaptive --
     _drive_inverse(torch, kernels, dev, card)
 
+    # ---- 12. the rotating-frame GPE and the smoothed-boundary geometry -------
+    _drive_rotating(torch, kernels, dev, card)
+    shape_counts = _drive_shape_sbm(torch, kernels, dev, gen, card, shape_ref, sbm_rate)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
                                       dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
-                                      ddpg_counts, *big_counts, *tiled_counts))
+                                      ddpg_counts, *big_counts, *tiled_counts, shape_counts))
                 for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()

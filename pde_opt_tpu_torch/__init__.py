@@ -19,12 +19,16 @@ and the fleets take discrete action spaces.  The inverse-problem layer:
 ``PDEModel.train`` by Levenberg-Marquardt (``optim.lm``), the coefficient
 nets (``PeriodicCNN``, ``Mixer2d``, the Legendre expansions in 1D and 2D)
 and adaptive solves (``Tsit5`` under a ``PIDController``,
-``integrate_adaptive``).  On CUDA tensors
-the macros, the fused rhs and the CH backward run hand-written Hopper
-kernels (``csrc/*.cu``): every Pallas kernel of the JAX package has its
-counterpart.  The entry points build on
-the card unless the caller passes ``device="cpu"``.  The package imports
-torch and numpy, never jax.
+``integrate_adaptive``).  The rotating-frame GPE (``GPE2DTSRot``, the FFT
+``DirectionalSplitting`` and its batched-matmul ADI
+``FusedRotatingSplitting``, the stirring fleet ``make_gpe_rot_control_env``
+with its vortex census) and smoothed-boundary geometry (``Shape``, the
+smoothed-boundary Allen-Cahn, Cahn-Hilliard and Butler-Volmer equations,
+``AdvectionDiffusion2D``).  On CUDA tensors the macros, the fused rhs and
+the CH backward run hand-written Hopper kernels (``csrc/*.cu``): every
+Pallas kernel of the JAX package has its counterpart.  The entry points
+build on the card unless the caller passes ``device="cpu"``.  The package
+imports torch and numpy, never jax.
 """
 
 from . import envs, models, ops, optim, rl, utils
@@ -35,10 +39,27 @@ from .envs import (
     make_butler_volmer_control_env,
     make_cahn_hilliard_control_env,
     make_gpe_control_env,
+    make_gpe_rot_control_env,
     make_sbm_butler_volmer_control_env,
 )
+from .geometry import Shape
 from .grid import Domain, Grid
-from .models import CahnHilliard3DPeriodic, PDEModel
+from .models import (
+    AdvectionDiffusion2D,
+    AllenCahn2DPeriodic,
+    AllenCahn2DPeriodicButlerVolmer,
+    AllenCahn2DPeriodicButlerVolmerConstantCurrent,
+    AllenCahn2DSmoothedBoundary,
+    AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
+    BaseEquation,
+    CahnHilliard2DPeriodic,
+    CahnHilliard2DSmoothedBoundary,
+    CahnHilliard3DPeriodic,
+    GPE2DTSControl,
+    GPE2DTSRot,
+    PDEModel,
+    TimeSplittingEquation,
+)
 from .models.functions import (
     ChemicalPotentialLegendrePolynomials,
     DiffusionLegendrePolynomials,
@@ -47,11 +68,20 @@ from .models.functions import (
     Mixer2d,
     PeriodicCNN,
 )
+from .models.pde_model import OptimizationModel
 from .ops import (
+    RK4,
+    DirectionalSplitting,
+    Euler,
     FusedMobilitySpectral,
+    FusedRotatingSplitting,
     FusedSemiImplicitSpectral3D,
+    Heun,
     PIDController,
+    SemiImplicitFourierSpectral,
+    StrangSplitting,
     Tsit5,
+    evolve,
     integrate,
     integrate_adaptive,
 )
@@ -59,13 +89,27 @@ from .optim import least_squares_lm, least_squares_lm_jitted
 
 __all__ = [
     "envs", "models", "ops", "optim", "rl", "utils",
-    "Domain", "Grid", "PDEModel", "integrate", "integrate_adaptive", "Tsit5",
-    "PIDController", "least_squares_lm", "least_squares_lm_jitted",
-    "PeriodicCNN", "Mixer2d", "LegendrePolynomialExpansion",
-    "LegendrePolynomialExpansion2D", "DiffusionLegendrePolynomials",
-    "ChemicalPotentialLegendrePolynomials",
-    "CahnHilliard3DPeriodic", "FusedSemiImplicitSpectral3D", "FusedMobilitySpectral",
-    "EnvState", "VectorPDEEnv", "make_cahn_hilliard_control_env",
-    "make_allen_cahn_control_env", "make_gpe_control_env",
-    "make_butler_volmer_control_env", "make_sbm_butler_volmer_control_env",
+    # Core classes
+    "PDEModel", "OptimizationModel", "EnvState", "VectorPDEEnv",
+    # Equations
+    "BaseEquation", "TimeSplittingEquation", "AdvectionDiffusion2D",
+    "AllenCahn2DPeriodic", "AllenCahn2DSmoothedBoundary",
+    "AllenCahn2DPeriodicButlerVolmer", "AllenCahn2DPeriodicButlerVolmerConstantCurrent",
+    "AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent",
+    "CahnHilliard2DPeriodic", "CahnHilliard3DPeriodic", "CahnHilliard2DSmoothedBoundary",
+    "GPE2DTSControl", "GPE2DTSRot",
+    # Domains and shapes
+    "Domain", "Grid", "Shape",
+    # Functions
+    "PeriodicCNN", "LegendrePolynomialExpansion", "LegendrePolynomialExpansion2D",
+    "DiffusionLegendrePolynomials", "ChemicalPotentialLegendrePolynomials", "Mixer2d",
+    # Solvers / integration
+    "Euler", "Heun", "RK4", "Tsit5", "SemiImplicitFourierSpectral", "StrangSplitting",
+    "DirectionalSplitting", "FusedRotatingSplitting", "FusedSemiImplicitSpectral3D",
+    "FusedMobilitySpectral", "evolve", "integrate", "integrate_adaptive", "PIDController",
+    "least_squares_lm", "least_squares_lm_jitted",
+    # Env fleets
+    "make_cahn_hilliard_control_env", "make_allen_cahn_control_env", "make_gpe_control_env",
+    "make_gpe_rot_control_env", "make_butler_volmer_control_env",
+    "make_sbm_butler_volmer_control_env",
 ]

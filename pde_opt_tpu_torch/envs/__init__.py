@@ -5,6 +5,7 @@ from .presets import (
     make_butler_volmer_control_env,
     make_cahn_hilliard_control_env,
     make_gpe_control_env,
+    make_gpe_rot_control_env,
     make_sbm_butler_volmer_control_env,
 )
 from .vector_env import EnvState, VectorPDEEnv, env_state_from_numpy, env_state_to_numpy
@@ -17,6 +18,7 @@ __all__ = [
     "make_cahn_hilliard_control_env",
     "make_allen_cahn_control_env",
     "make_gpe_control_env",
+    "make_gpe_rot_control_env",
     "make_butler_volmer_control_env",
     "make_sbm_butler_volmer_control_env",
 ]

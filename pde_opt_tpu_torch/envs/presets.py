@@ -1,6 +1,6 @@
 """Preset environment configurations (PyTorch port of the Cahn-Hilliard,
-Allen-Cahn, Gross-Pitaevskii and Butler-Volmer presets of
-:mod:`pde_opt_tpu.envs.presets`).
+Allen-Cahn, Gross-Pitaevskii (plain and rotating-frame) and Butler-Volmer
+presets of :mod:`pde_opt_tpu.envs.presets`).
 
 Every preset builds its fleet on the card unless ``device`` names another
 device; without CUDA, ``device="cpu"`` must be passed."""
@@ -11,32 +11,37 @@ import numpy as np
 import torch
 
 from .. import grid as gridmod
+from ..geometry import Shape
 from ..models.allen_cahn import (
     AllenCahn2DPeriodic,
     AllenCahn2DPeriodicButlerVolmerConstantCurrent,
     AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
 )
 from ..models.cahn_hilliard import CahnHilliard2DPeriodic
-from ..models.gross_pitaevskii import GPE2DTSControl
+from ..models.gross_pitaevskii import GPE2DTSControl, GPE2DTSRot
 from ..ops.bv_cas import LogRatioMu, SqrtJ0
 from ..ops.cas_spectral import PolynomialMu
 from ..ops.steppers import (
     RK4,
+    DirectionalSplitting,
     FusedAllenCahnSpectral,
     FusedButlerVolmer,
     FusedSBMButlerVolmer,
+    FusedRotatingSplitting,
     FusedSemiImplicitSpectral,
     FusedStrangControl,
     SemiImplicitFourierSpectral,
     StrangSplitting,
 )
 from ..utils.device import resolve_device
+from ..utils.rl import vortex_winding
 from .vector_env import VectorPDEEnv
 
 __all__ = [
     "make_cahn_hilliard_control_env",
     "make_allen_cahn_control_env",
     "make_gpe_control_env",
+    "make_gpe_rot_control_env",
     "make_butler_volmer_control_env",
     "make_sbm_butler_volmer_control_env",
     "CH_MU",
@@ -382,6 +387,118 @@ def make_gpe_control_env(
     )
 
 
+def make_gpe_rot_control_env(
+    num_envs: int = 512,
+    grid_size: int = 64,
+    substeps: int = 10,
+    end_time: float = 1.0,
+    step_dt: float = 0.01,
+    dtype: torch.dtype = torch.float32,
+    auto_reset: bool = True,
+    k_interaction: float = 500.0,
+    omega: float = 0.8,
+    box_size: float = 20.0,
+    stir_radius: float = 2.5,
+    stir_width: float = 1.0,
+    amp_max: float = 10.0,
+    action_gain: float = 1.0,
+    vortex_weight: float = 1.0,
+    lz_weight: float = 10.0,
+    spectral_solve: str = "fused",
+    device="cuda",
+) -> VectorPDEEnv:
+    """Rotating-frame GPE stirring fleet: the agent nucleates vortices.
+
+    The control is each env's intensity of an off-center Gaussian stirring
+    beam (a static spot in the rotating frame is a co-rotating stirrer),
+    entering the Hamiltonian through the ``lights`` potential.  The state is
+    the complex ``(B, H, W)`` wavefunction.  Reward: ``vortex_weight`` times
+    the amplitude-gated plaquette vortex census
+    (:func:`pde_opt_tpu_torch.utils.rl.vortex_winding`, each env scaled by
+    its own peak density) plus ``lz_weight``·⟨L_z⟩.  One RL step is
+    ``substeps`` ADI substeps with L² renormalisation.
+    ``spectral_solve="fused"`` runs
+    :class:`~pde_opt_tpu_torch.ops.steppers.FusedRotatingSplitting` (batched
+    matrix products); ``"fft"`` runs
+    :class:`~pde_opt_tpu_torch.ops.steppers.DirectionalSplitting`.
+    """
+    device = resolve_device(device)
+    if spectral_solve == "fused":
+        solver_type = FusedRotatingSplitting
+    elif spectral_solve == "fft":
+        solver_type = DirectionalSplitting
+    else:
+        raise ValueError(f"unknown spectral_solve: {spectral_solve!r}")
+    L = box_size
+    domain = gridmod.Domain(
+        (grid_size, grid_size), ((-L / 2, L / 2), (-L / 2, L / 2)),
+        "dimensionless", dtype=dtype,
+    )
+    X, Y = (torch.from_numpy(m).to(device) for m in domain.mesh())
+    spot = torch.exp(-((X - stir_radius) ** 2 + Y**2) / (stir_width**2))   # (H, W)
+    psi0 = torch.exp(-(X**2 + Y**2) / 16.0)
+    dx = float(domain.dx[0])
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+
+    def reset_func(domain_, generator, n):
+        noise = 0.05 * torch.randn((n, *domain_.points), generator=generator,
+                                   dtype=dtype, device=generator.device)
+        psi = (psi0 * (1.0 + noise)).to(cdtype)
+        norm = torch.sqrt((psi.real**2 + psi.imag**2).sum((-2, -1), keepdim=True) * dx * dx)
+        return psi / norm
+
+    def make_lights(amp):
+        # amp (B,) -> lights(t, x, y) giving (B, 1, 1) * (H, W).
+        def lights(t, x, y):
+            return amp[..., None, None] * spot
+
+        return lights
+
+    def reward_fn(psi):
+        # Per env: the gated vortex census at the env's own peak density,
+        # plus the angular momentum.
+        rho = psi.real**2 + psi.imag**2
+        scale = torch.rsqrt(rho.amax((-2, -1), keepdim=True) + 1e-12)
+        w = vortex_winding(psi * scale, amp_thresh=0.05)
+        n_vortices = w.abs().sum((-2, -1)).to(dtype)
+        dpsi_dx = (torch.roll(psi, -1, -2) - torch.roll(psi, 1, -2)) / (2 * dx)
+        dpsi_dy = (torch.roll(psi, -1, -1) - torch.roll(psi, 1, -1)) / (2 * dx)
+        lz = (psi.conj() * (X * dpsi_dy - Y * dpsi_dx)).imag.sum((-2, -1)) * dx * dx
+        return vortex_weight * n_vortices + lz_weight * lz.to(dtype)
+
+    return VectorPDEEnv(
+        equation_type=GPE2DTSRot,
+        domain=domain,
+        solver_type=solver_type,
+        end_time=end_time,
+        step_dt=step_dt,
+        numeric_dt=step_dt / substeps,
+        state_to_observation_func=lambda y: torch.clamp(
+            (y.real**2 + y.imag**2) * 2550.0, 0, 255
+        ).to(torch.uint8)[..., None, :, :],
+        reward_function=reward_fn,
+        reset_func=reset_func,
+        reset_control_value=0.0,
+        update_control_value=lambda off, old: torch.clamp(
+            old + action_gain * off[..., 0], 0.0, amp_max
+        ),
+        update_control_parameter=lambda old, new: make_lights(new),
+        action_space_config={"type": "continuous", "shape": (1,)},
+        static_equation_parameters={
+            "k": k_interaction,
+            "e": 0.0,
+            "omega": omega,
+            "device": device,
+        },
+        control_equation_parameter_name="lights",
+        solver_parameters={"time_scale": 1.0, "normalize": True},
+        num_envs=num_envs,
+        auto_reset=auto_reset,
+        vectorized_control=True,
+        device=device,
+    )
+
+
 def _bv_solver(method: str, fused):
     if method == "fused":
         return fused
@@ -516,22 +633,27 @@ def make_sbm_butler_volmer_control_env(
     is ``substeps`` RK4 substeps.  ``method="fused"`` runs the fused macro
     (on CUDA, kernel K7) with the ψ-weighted epilogue fused in by default;
     ``"rk4"`` steps :class:`~pde_opt_tpu_torch.ops.steppers.RK4`.
-    ψ is the analytic tanh profile (:func:`sbm_disk_psi`);
-    ``smooth_geometry=True`` (ψ from the ``Shape`` smoothing flow) is not
-    ported.
+    ψ is the analytic tanh profile (:func:`sbm_disk_psi`), or with
+    ``smooth_geometry=True`` the ``Shape`` smoothing flow run on the binary
+    disk mask (the reference pipeline: adaptive Tsit5 at construction, one
+    host sync a step, in ``torch.get_default_dtype()``); the fleet keeps
+    that :class:`~pde_opt_tpu_torch.geometry.Shape` as ``env.shape``.
     """
-    if smooth_geometry:
-        raise NotImplementedError(
-            "smooth_geometry=True derives psi with geometry.Shape, which is not "
-            "ported yet; see ROADMAP.md"
-        )
     device = resolve_device(device)
     solver_type = _bv_solver(method, FusedSBMButlerVolmer)
     domain = gridmod.Domain((grid_size, grid_size), ((-0.5, 0.5), (-0.5, 0.5)),
                             "dimensionless", dtype=dtype)
-    psi_np = sbm_disk_psi(domain, particle_radius, interface_width)
-    psi = torch.from_numpy(psi_np).to(device)
-    psi_sum = float(psi_np.sum())
+    shape = None
+    if smooth_geometry:
+        X, Y = domain.mesh()
+        shape = Shape((np.sqrt(X**2 + Y**2) < particle_radius).astype(X.dtype), dx=domain.dx,
+                      smooth_epsilon=4.0 * float(domain.dx[0]), device=device)
+        psi = shape.smooth.to(dtype)
+        psi_sum = float(psi.sum())
+    else:
+        psi_np = sbm_disk_psi(domain, particle_radius, interface_width)
+        psi = torch.from_numpy(psi_np).to(device)
+        psi_sum = float(psi_np.sum())
 
     def psi_mean(y):
         return (psi * y).sum((-2, -1)) / psi_sum
@@ -560,7 +682,7 @@ def make_sbm_butler_volmer_control_env(
             "reward_from_stats": _sbm_reward,
             "obs_transform": lambda o: o[..., None, :, :],
         }
-    return VectorPDEEnv(
+    env = VectorPDEEnv(
         equation_type=AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
         domain=domain,
         solver_type=solver_type,
@@ -587,3 +709,5 @@ def make_sbm_butler_volmer_control_env(
         device=device,
         **_bv_control(),
     )
+    env.shape = shape
+    return env

@@ -36,7 +36,9 @@ class Domain:
         points: number of collocation points per dimension.
         box: ``((lo, hi), ...)`` physical bounds per dimension.
         units: human-readable length unit label.
-        geometry: optional smoothed-boundary shape (not ported yet).
+        geometry: optional smoothed-boundary
+            :class:`~pde_opt_tpu_torch.geometry.Shape`; the smoothed-boundary
+            equations read their level set ψ from ``geometry.smooth``.
         dtype: real torch dtype of the derived meshes (default float32).
     """
 

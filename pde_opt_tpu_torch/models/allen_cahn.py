@@ -8,10 +8,10 @@ or the C-rate may be a per-env tensor of shape ``(B, 1, 1)``.  The
 constant-current closures reduce over the trailing axes with ``keepdim``,
 so a batched state yields one overpotential per env.
 
-``AllenCahn2DSmoothedBoundary`` (``allen_cahn.py:98``) is not ported: it
-reads ψ from ``domain.geometry``, whose ``Shape`` needs the adaptive
-integrator (see ``ROADMAP.md``).  For the same reason the smoothed-boundary
-Butler-Volmer class takes ``psi`` explicitly.
+The smoothed-boundary classes read their level set ψ from
+``domain.geometry.smooth`` (a :class:`~pde_opt_tpu_torch.geometry.Shape`),
+on that tensor's device; the Butler-Volmer one also takes ``psi``
+explicitly.
 """
 
 from __future__ import annotations
@@ -27,10 +27,11 @@ from ..ops import stencils as st
 from ..ops.spectral import make_fft_pair, make_rfft_pair
 from ..utils.device import resolve_device
 from .base import BaseEquation
-from .cahn_hilliard import _wavenumbers
+from .cahn_hilliard import _SmoothedBoundary, _cos, _wavenumbers
 
 __all__ = [
     "AllenCahn2DPeriodic",
+    "AllenCahn2DSmoothedBoundary",
     "AllenCahn2DPeriodicButlerVolmer",
     "AllenCahn2DPeriodicButlerVolmerConstantCurrent",
     "AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent",
@@ -107,6 +108,40 @@ class AllenCahn2DPeriodic(BaseEquation, _Spectral2D):
     def rhs_fd(self, state, t):
         hx, hy = self.domain.dx
         mu = self.mu(state) - self.kappa * st.lap_2nd_2d(state, hx, hy)
+        return -self.R(state) * mu
+
+
+class AllenCahn2DSmoothedBoundary(BaseEquation, _SmoothedBoundary):
+    """Allen-Cahn with the smoothed-boundary contact-angle term:
+    ``∂u/∂t = −R(u)·μ``, ``μ = μ_h(u) − (κ/ψ) div(ψ_face grad u) −
+    √κ·|∇ψ|/ψ·√(2f(u))·cos θ(t)·m``, with ``m`` the contact mask (by
+    default the first ``contact_cols`` columns, the reference's hardcoded
+    100).  ψ is ``domain.geometry.smooth``, on its device."""
+
+    def __init__(self, domain: Domain, kappa, f: Callable, mu: Callable,
+                 R: Callable, theta: Callable, derivs: str = "fd",
+                 contact_cols: int = 100, contact_mask=None):
+        if derivs != "fd":
+            raise ValueError(f"Invalid derivative type: {derivs}")
+        self.domain = domain
+        self.kappa = kappa
+        self.f = f
+        self.mu = mu
+        self.R = R
+        self.theta = theta
+        self.derivs = derivs
+        self._init_sbm(domain)
+        self.sqrt_kappa = float(np.sqrt(kappa))
+        if contact_mask is None:
+            contact_mask = torch.zeros_like(self.psi)
+            contact_mask[:, :contact_cols] = 1.0
+        self.left_half = torch.as_tensor(contact_mask, device=self.device)
+        self.rhs = self.rhs_fd
+
+    def rhs_fd(self, state, t):
+        mu = (self.mu(state) - (self.kappa / self.psi) * self._sbm_div(state)
+              - self.sqrt_kappa * self.norm_grad_psi * torch.sqrt(2.0 * self.f(state))
+              * _cos(self.theta(t)) * self.left_half)
         return -self.R(state) * mu
 
 
@@ -204,19 +239,18 @@ class AllenCahn2DPeriodicButlerVolmerConstantCurrent(BaseEquation):
         return v.squeeze(-1).squeeze(-1)
 
 
-class AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent(BaseEquation):
+class AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent(BaseEquation, _SmoothedBoundary):
     """Galvanostatic Butler-Volmer Allen-Cahn on a smoothed-boundary (SBM)
     geometry: ψ-face-weighted flux divergence ``div(ψ_face·grad c)/ψ`` and
     ψ-weighted constraint integrals.  The contact-angle term is off, as in
     the reference.
 
-    ``psi`` is the (H, W) level set, required: the JAX default
-    (``domain.geometry.smooth``) needs ``geometry.Shape``, which is not
-    ported (see ``ROADMAP.md``).  ``device`` places ψ (default: ψ's device
-    if it is a tensor, else CUDA).  The derived fields ``psi_avgx``,
-    ``psi_avgy``, ``norm_grad_psi`` and ``left_half`` are built on first
-    use, so an equation rebuilt every env step for the fused stepper (which
-    reads only ``psi``) launches nothing for them.
+    ``psi`` is the (H, W) level set, by default ``domain.geometry.smooth``.
+    ``device`` places ψ (default: ψ's device if it is a tensor, else CUDA).
+    The derived fields ``psi_avgx``, ``psi_avgy``, ``norm_grad_psi`` and
+    ``left_half`` are built on first use, so an equation rebuilt every env
+    step for the fused stepper (which reads only ``psi``) launches nothing
+    for them.
     """
 
     # Class-level placeholders so solver-compat checks (which inspect the
@@ -235,11 +269,6 @@ class AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent(BaseEquation):
                  device: Optional[torch.device] = None):
         if derivs != "fd":
             raise ValueError(f"Invalid derivative type: {derivs}")
-        if psi is None:
-            raise NotImplementedError(
-                "pass psi: its default, domain.geometry.smooth, needs "
-                "geometry.Shape, which is not ported yet; see ROADMAP.md"
-            )
         self.domain = domain
         self.kappa = kappa
         self.f = f
@@ -249,26 +278,9 @@ class AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent(BaseEquation):
         self.Crate = Crate
         self.derivs = derivs
         self.contact_cols = contact_cols
-        if device is None:
-            device = psi.device if torch.is_tensor(psi) else "cuda"
-        self.device = resolve_device(device)
-        self.psi = torch.as_tensor(psi, device=self.device)
+        self._init_sbm(domain, psi, device)
         self.sqrt_kappa = float(np.sqrt(kappa))
-        self.hx, self.hy = domain.dx
         self.rhs = self.rhs_fd
-
-    @functools.cached_property
-    def psi_avgx(self):
-        return st.avg_c2f(self.psi, -2)
-
-    @functools.cached_property
-    def psi_avgy(self):
-        return st.avg_c2f(self.psi, -1)
-
-    @functools.cached_property
-    def norm_grad_psi(self):
-        return torch.sqrt(st.grad_c(self.psi, self.hx, -2) ** 2
-                          + st.grad_c(self.psi, self.hy, -1) ** 2) / self.psi
 
     @functools.cached_property
     def left_half(self):
@@ -277,10 +289,7 @@ class AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent(BaseEquation):
         return mask
 
     def _mu_and_v(self, state):
-        mu = self.mu(state) - (self.kappa / self.psi) * (
-            st.div_f2c(self.psi_avgx * st.grad_c2f(state, self.hx, -2), self.hx, -2)
-            + st.div_f2c(self.psi_avgy * st.grad_c2f(state, self.hy, -1), self.hy, -1)
-        )
+        mu = self.mu(state) - (self.kappa / self.psi) * self._sbm_div(state)
         j0v = self.j0(state)
         cell = self.hx * self.hy
         int_plus = (j0v * torch.exp(0.5 * mu) * self.psi).sum((-2, -1), keepdim=True) * cell

@@ -5,11 +5,14 @@
 Batch-transparent: stencils and FFTs act on the trailing spatial axes (two
 in 2D, three in 3D), so one ``rhs`` evaluation serves a whole env fleet, and
 κ may be a per-env tensor of shape ``(B, 1, 1)`` (``(B, 1, 1, 1)`` in 3D).
+``CahnHilliard2DSmoothedBoundary`` reads its level set ψ from
+``domain.geometry.smooth``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -22,7 +25,7 @@ from ..ops.spectral import make_fft_pair, make_rfft_pair
 from ..utils.device import resolve_device
 from .base import BaseEquation
 
-__all__ = ["CahnHilliard2DPeriodic", "CahnHilliard3DPeriodic"]
+__all__ = ["CahnHilliard2DPeriodic", "CahnHilliard3DPeriodic", "CahnHilliard2DSmoothedBoundary"]
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -200,3 +203,92 @@ class CahnHilliard3DPeriodic(BaseEquation):
             F = st.avg_c2f(Du, axis) * st.grad_c2f(mu, h, axis)
             out = out + st.div_f2c(F, h, axis)
         return out
+
+
+def _cos(theta):
+    """cos of a contact angle: a tensor's on its device, a number's in f64."""
+    return torch.cos(theta) if torch.is_tensor(theta) else math.cos(theta)
+
+
+class _SmoothedBoundary:
+    """Shared smoothed-boundary set-up: ψ from ``domain.geometry.smooth``
+    (or given), the flux divergence ``div(ψ_face grad ·)``, ψ's face
+    averages and ``|∇ψ|/ψ`` (built on first use)."""
+
+    def _init_sbm(self, domain: Domain, psi=None, device=None):
+        if psi is None:
+            if domain.geometry is None:
+                raise ValueError("no psi given and domain.geometry is None: pass a "
+                                 "Domain with geometry=Shape(...) or psi")
+            psi = domain.geometry.smooth
+        if device is None:
+            device = psi.device if torch.is_tensor(psi) else "cuda"
+        self.device = resolve_device(device)
+        self.psi = torch.as_tensor(psi, device=self.device)
+        self.hx, self.hy = domain.dx
+
+    def _sbm_div(self, state):
+        """``div(ψ_face · grad state)`` (face fluxes, periodic)."""
+        return (st.div_f2c(self.psi_avgx * st.grad_c2f(state, self.hx, -2), self.hx, -2)
+                + st.div_f2c(self.psi_avgy * st.grad_c2f(state, self.hy, -1), self.hy, -1))
+
+    @functools.cached_property
+    def psi_avgx(self):
+        return st.avg_c2f(self.psi, -2)
+
+    @functools.cached_property
+    def psi_avgy(self):
+        return st.avg_c2f(self.psi, -1)
+
+    @functools.cached_property
+    def norm_grad_psi(self):
+        return torch.sqrt(st.grad_c(self.psi, self.hx, -2) ** 2
+                          + st.grad_c(self.psi, self.hy, -1) ** 2) / self.psi
+
+
+class CahnHilliard2DSmoothedBoundary(BaseEquation, _SmoothedBoundary):
+    """Cahn-Hilliard with the smoothed-boundary method (SBM) on irregular
+    domains:
+
+        ∂u/∂t = (1/ψ) ∇·(ψ D(u) ∇μ) + (|∇ψ|/ψ) J_n(t),
+        μ = μ_h(u) − (κ/ψ) ∇·(ψ ∇u) − √κ·|∇ψ|/ψ·√(2f(u))·cos θ(t)·(2m − 1),
+
+    with the contact mask ``m`` (by default the first ``contact_rows`` rows,
+    the reference's hardcoded 50) and ``flux(t) = J_n``.  ψ is
+    ``domain.geometry.smooth``, on its device.
+    """
+
+    def __init__(self, domain: Domain, kappa, f: Callable, mu: Callable,
+                 D: Callable, theta: Callable, flux: Callable,
+                 derivs: str = "fd", contact_rows: int = 50, contact_mask=None):
+        if derivs != "fd":
+            raise ValueError(f"Invalid derivative type: {derivs}")
+        self.domain = domain
+        self.kappa = kappa
+        self.f = f
+        self.mu = mu
+        self.D = D
+        self.theta = theta
+        self.flux = flux
+        self.derivs = derivs
+        self._init_sbm(domain)
+        self.sqrt_kappa = float(np.sqrt(kappa))
+        if contact_mask is None:
+            contact_mask = torch.zeros_like(self.psi)
+            contact_mask[:contact_rows, :] = 1.0
+        self.left_half = torch.as_tensor(contact_mask, device=self.device)
+        self.rhs = self.rhs_fd
+
+    def rhs_fd(self, state, t):
+        cos_theta = _cos(self.theta(t))
+        inner = (
+            self.mu(state)
+            - (self.kappa / self.psi) * self._sbm_div(state)
+            - self.sqrt_kappa * self.norm_grad_psi * torch.sqrt(2.0 * self.f(state))
+            * (cos_theta * self.left_half - cos_theta * (1.0 - self.left_half))
+        )
+        Du = self.D(state)
+        Fx = self.psi_avgx * st.avg_c2f(Du, -2) * st.grad_c2f(inner, self.hx, -2)
+        Fy = self.psi_avgy * st.avg_c2f(Du, -1) * st.grad_c2f(inner, self.hy, -1)
+        return ((st.div_f2c(Fx, self.hx, -2) + st.div_f2c(Fy, self.hy, -1)) / self.psi
+                + self.norm_grad_psi * self.flux(t))

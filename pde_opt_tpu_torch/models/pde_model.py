@@ -34,7 +34,7 @@ from ..utils import ptree
 from ..utils.compat import check_equation_solver_compatibility, prepare_solver_params
 from .base import BaseEquation
 
-__all__ = ["PDEModel"]
+__all__ = ["PDEModel", "OptimizationModel"]
 
 
 class PDEModel:
@@ -268,3 +268,7 @@ class PDEModel:
         else:
             raise ValueError(f"unknown optimize method: {method!r}")
         return {**ptree.combine(sol.params, opt_static), **other_parameters}
+
+
+# The JAX package's legacy name for PDEModel.
+OptimizationModel = PDEModel

@@ -22,15 +22,18 @@ from .fused_spectral import (
     make_ch_sif_fused_macro,
 )
 from .gpe_cas import gpe_strang_fast_reference, make_gpe_strang_cas_macro
+from .gpe_rot_fast import build_sweep_tensors, make_rot_adi_macro
 from .integrate import ConstantStepSize, PIDController, evolve, integrate, integrate_adaptive
 from .sbm_bv import make_sbm_bv_fused_macro, sbm_bv_reference
 from .steppers import (
     RK4,
+    DirectionalSplitting,
     Euler,
     FusedAllenCahnSpectral,
     FusedButlerVolmer,
     FusedSBMButlerVolmer,
     FusedMobilitySpectral,
+    FusedRotatingSplitting,
     FusedSemiImplicitSpectral,
     FusedSemiImplicitSpectral3D,
     FusedStrangControl,
@@ -50,6 +53,8 @@ __all__ = [
     "make_ch_sif_fused_macro",
     "make_ac_sif_fused_macro",
     "make_gpe_strang_cas_macro",
+    "make_rot_adi_macro",
+    "build_sweep_tensors",
     "make_bv_cc_fused_macro",
     "make_sbm_bv_fused_macro",
     "make_ch_rhs_fd_fused",
@@ -83,4 +88,6 @@ __all__ = [
     "Tsit5",
     "FusedButlerVolmer",
     "FusedSBMButlerVolmer",
+    "DirectionalSplitting",
+    "FusedRotatingSplitting",
 ]

@@ -144,8 +144,12 @@ def integrate_adaptive(stepper: AbstractStepper, rhs: Callable, y0, ts, dt0: flo
     The I-controller diffrax's default ``PIDController`` reduces to: a step
     is accepted when the RMS-scaled error (:func:`_rms_norm`) is at most 1,
     and the next step is ``dt·clip(safety·err^(−1/(order+1)), factor_min,
-    factor_max)``.  ``stepper.step`` must return an error estimate.  Save
-    points inside an accepted step are written by linear interpolation
+    factor_max)``.  A non-finite error norm (a step that overflowed) is a
+    rejection, and the next step is ``dt·factor_min``: the one place where
+    this loop departs from the JAX integrator, whose step size turns NaN
+    there and never recovers.  ``stepper.step`` must return an error
+    estimate.  Save points inside an accepted step are written by linear
+    interpolation
     between its ends.  Times are kept on the host in the time dtype of
     ``ts`` (at least float32), with a tolerance of ``32·eps·max(|ts|, 1)``
     for capturing save points and ending the loop; the state keeps
@@ -182,8 +186,13 @@ def integrate_adaptive(stepper: AbstractStepper, rhs: Callable, y0, ts, dt0: flo
                              "integrate_adaptive needs one (Heun, Tsit5)")
         y1 = y1.to(y.dtype)
         err = E(_rms_norm(y_err, y, y1, rtol, atol, batch_ndim).item())
-        factor = np.clip(E(safety) * np.power(np.maximum(err, E(1e-16)), exponent),
-                         E(factor_min), E(factor_max))
+        if np.isfinite(err):
+            factor = np.clip(E(safety) * np.power(np.maximum(err, E(1e-16)), exponent),
+                             E(factor_min), E(factor_max))
+        else:
+            # A step that overflowed: reject it and shrink by factor_min.  (The
+            # JAX integrator's factor is NaN here, and so is every later dt.)
+            factor = E(factor_min)
         if err <= 1.0:
             t_new = T(t + dt)
             while save_idx < n_save and ts[save_idx] <= T(t_new + T(2.0) * time_tol):

@@ -8,6 +8,7 @@ from .initialization import (
     random_uniform_field,
     step_interface,
 )
+from .rl import density, detect_vortices, vortex_winding
 
 __all__ = [
     "ptree",
@@ -17,4 +18,7 @@ __all__ = [
     "add_vortex_to_wavefunction",
     "random_uniform_field",
     "step_interface",
+    "density",
+    "detect_vortices",
+    "vortex_winding",
 ]

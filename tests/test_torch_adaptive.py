@@ -374,3 +374,60 @@ def test_tsit5_wiring_and_rejections():
                     dt0=1e-4, stepsize_controller="pid")
     ctl = PIDController(1e-5, 1e-7)
     assert (ctl.rtol, ctl.atol) == (1e-5, 1e-7)
+
+
+# ---- a first step that overflows (the port's one departure from JAX) -------
+
+def _smoothing_flow(stencils, where, N=16):
+    """The smoothing flow of ``geometry.Shape`` on a disk mask of N² (ε =
+    4/N, the SBM preset's): ``(rhs, y0)`` for one package's stencils."""
+    h = 1.0 / N
+    eps = 4.0 * h
+    x = (np.arange(N) + 0.5) * h - 0.5
+    y0 = (np.hypot(*np.meshgrid(x, x, indexing="ij")) < 0.35).astype(np.float64)
+
+    def rhs(u, t):
+        gx, gy = stencils.grad_c(u, h, -2), stencils.grad_c(u, h, -1)
+        uxx, uyy = stencils.grad2_c(u, h, -2), stencils.grad2_c(u, h, -1)
+        uxy = stencils.grad2_cross_c(u, h, h, -2, -1)
+        mag2 = where(gx * gx + gy * gy < 1e-7, 1.0, gx * gx + gy * gy)
+        along_normal = (uxx * gx * gx + uyy * gy * gy + 2.0 * uxy * gx * gy) / mag2
+        return 2.0 * along_normal - 18.0 / eps * u * (1.0 - u) * (1.0 - 2.0 * u) / eps
+
+    return rhs, y0
+
+
+def test_non_finite_error_is_a_rejection():
+    """From dt0 = 0.1 the first Tsit5 step of the smoothing flow overflows
+    and its error norm is NaN.  The port rejects it and shrinks dt by
+    factor_min until a step is finite, then converges to the run started at
+    dt0 = 1e-5 (within the controller's tolerance).  The JAX integrator's
+    next dt is NaN there: capped at 100 attempts (max_steps) it accepts
+    none and returns the initial mask."""
+    jnp, jp = _jax()
+    from pde_opt_tpu.ops import stencils as jst
+    from pde_opt_tpu.ops.integrate import integrate_adaptive as jintegrate_adaptive
+    from pde_opt_tpu_torch.ops import stencils as tst
+
+    trhs, y0 = _smoothing_flow(tst, torch.where)
+    jrhs, _ = _smoothing_flow(jst, jnp.where)
+    ts, tol = np.array([0.0, 0.05]), dict(rtol=1e-4, atol=1e-6)
+    y1, err = Tsit5().step(trhs, torch.from_numpy(y0), torch.tensor(0.0), torch.tensor(0.1))
+    assert not bool(torch.isfinite(err).all())
+    got, st = integrate_adaptive(Tsit5(), trhs, torch.from_numpy(y0), ts, 0.1,
+                                 return_stats=True, **tol)
+    ref, st_ref = integrate_adaptive(Tsit5(), trhs, torch.from_numpy(y0), ts, 1e-5,
+                                     return_stats=True, **tol)
+    assert st["accepted_steps"] > 0 and st["rejected_steps"] >= 5
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got[-1].numpy(), ref[-1].numpy(), rtol=0, atol=1e-3)
+    # The run from dt0 = 1e-5 meets no non-finite error: JAX's, step for step.
+    jys, jst_ref = jintegrate_adaptive(jp.Tsit5(), jrhs, jnp.asarray(y0), jnp.asarray(ts), 1e-5,
+                                       return_stats=True, **tol)
+    assert st_ref == {k: int(v) for k, v in jst_ref.items()}
+    np.testing.assert_allclose(ref.numpy(), np.asarray(jys), rtol=0, atol=1e-10)
+    # JAX from dt0 = 0.1, capped: every attempt rejected.
+    jys, jst = jintegrate_adaptive(jp.Tsit5(), jrhs, jnp.asarray(y0), jnp.asarray(ts), 0.1,
+                                   return_stats=True, max_steps=100, **tol)
+    assert int(jst["accepted_steps"]) == 0 and int(jst["rejected_steps"]) == 100
+    np.testing.assert_array_equal(np.asarray(jys)[-1], y0)

@@ -27,6 +27,8 @@ and skip without one; JAX is imported inside the tests that use it.
 
 import os
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -196,9 +198,13 @@ def test_sbm_bv_psi_one_reduces_to_periodic():
 
 
 def test_psi_is_required():
+    """psi, or a domain whose geometry gives it (``geometry.smooth``)."""
     domain = tgrid.Domain((16, 16), ((-0.5, 0.5), (-0.5, 0.5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="geometry is None"):
         TSBM(domain, KAPPA, f=F, mu=BV_MU, j0=BV_J0, alpha=0.5, Crate=1.0)
+    geom = types.SimpleNamespace(smooth=torch.full((16, 16), 0.5))
+    with_geometry = tgrid.Domain((16, 16), ((-0.5, 0.5), (-0.5, 0.5)), geometry=geom)
+    assert TSBM(with_geometry, KAPPA, f=F, mu=BV_MU, j0=BV_J0, alpha=0.5, Crate=1.0).psi is geom.smooth
     with pytest.raises(ValueError, match="derivative"):
         TSBM(domain, KAPPA, f=F, mu=BV_MU, j0=BV_J0, alpha=0.5, Crate=1.0,
              psi=np.ones((16, 16)), derivs="fourier")
@@ -502,8 +508,11 @@ def test_poisoned_env_and_unported_options():
     assert bool(info["diverged"][3]) and int(info["diverged"].sum()) == 1
     assert bool(terminated[3]) and float(reward[3]) == 0.0
     assert bool(torch.isfinite(state.y).all()) and int(state.step_count[3]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpreset(num_envs=2, grid_size=16, smooth_geometry=True, device="cpu")
+    # smooth_geometry=True: psi from the Shape smoothing flow of the disk.
+    smooth = tpreset(num_envs=2, grid_size=16, substeps=2, smooth_geometry=True, device="cpu")
+    psi = smooth.static_equation_parameters["psi"]
+    assert torch.equal(psi, smooth.shape.smooth.float()) and smooth.shape.smooth_stats["accepted_steps"] > 0
+    assert env.shape is None
 
 
 # ---- on the card ------------------------------------------------------------------
