@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Twenty-six paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Twenty-eight paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -37,7 +37,9 @@ an adaptive Allen-Cahn solve (Tsit5 under a PID controller).  The
 rotating-frame GPE at the JAX bench's ``run_gpe_rot`` (512 fields of 64^2,
 50 imaginary-time substeps a call, the batched-matmul ADI and the FFT ADI)
 and its stirring fleet (1024 envs x 64^2 x 10), and the SBM fleet (1024
-envs) on a level set from the ``Shape`` smoothing flow.
+envs) on a level set from the ``Shape`` smoothing flow.  Above 64^2 on the
+tiled K6 and K7: the BV charging fleet at 512 envs x 128^2 and the SBM
+fleet at 256 envs x 128^2 (analytic psi).
 Phases (each passes or raises; nothing is
 caught):
 
@@ -202,8 +204,22 @@ caught):
    seconds and Tsit5 step counts, psi against the CPU's f64 ``Shape`` (run
    by a child process from the start of the script), K7 against plain at
    that psi, the charge balance, and the fleet's rollout (K7 once a step).
+13. The BV and SBM macros above 64^2 (the tiled K6 and K7; the constants
+   ``BVBIG_*``, ``*128*`` say how).  (a) K6 (f32 and bf16 matrices) and K7
+   (the preset's analytic psi) against their plain versions at 128^2, 96 x
+   136 and 256^2, epilogue off and on, on more envs than resident blocks
+   and with a NaN env that must stay in its env, at phase 3's bounds; at
+   128^2 against the roll-stencil oracles, and one bf16 K6 substep at the
+   rounding sites.  (b) The BV 128^2 fleet (512 envs, K6 alone, once a
+   step) and (c) the SBM 128^2 fleet (256 envs, K7 alone), each with its
+   launch counts reset just before and read just after, under sync debug
+   mode "error": STEPS steps across the episode end and FLEET_STEPS_NO_EP
+   without the epilogue, rewards, episode ends, a poisoned env, the charge
+   balance, one step of the fused fleet against the RK4 fleet from one
+   state.  (d) Their env-steps/s, and K6 and K7 at these shapes against
+   plain, timed beside plain and their bounds.
 
-Every rollout and update of phases 4-10 and 12 runs under
+Every rollout and update of phases 4-10, 12 and 13 runs under
 ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for the device
 fails the run.  Phase 11's loops and phase 12's smoothing flow read a value
 each step by design (LM's loss, the adaptive controller's error norm).  The last two lines are a
@@ -488,6 +504,28 @@ ROT_ENVS, ROT_GRID, ROT_BOX, ROT_K, ROT_OMEGA, ROT_DT, ROT_SUBSTEPS = 512, 64, 2
 ROT_FFT_CALLS, ROT_MM_CALLS, ROT_CPU_FIELDS, TOL_ROT = 3, 8, 8, 1e-4
 ROT_FLEET_ENVS, ROT_FLEET_STEPS, ROT_RESET_END, TOL_ROT_FLEET = 1024, 25, 0.1, 5e-5
 TOL_SHAPE = 1e-3
+# The BV and SBM macros above 64^2 (the tiled K6 and K7, phase 13).  Kernel
+# against plain at BIG_GRIDS on BVBIG_CHECK_ENVS envs, more than the resident
+# blocks, so each block walks two or three envs through its scratch slot,
+# with env BIG_NAN_ENV NaN: K6 with f32 and bf16 matrices, K7 on the
+# preset's analytic psi of that grid, epilogue off and on, at phase 3's
+# bounds (TOL_BV; stats to rtol 1e-4, obs 1 LSB); at 128^2 also against the
+# roll-stencil oracles (TOL_BV_ORACLE, f32) and one bf16 substep of K6 at the
+# rounding sites (TOL_SITE["bv"]).  Then the fleets, at the presets' widths
+# (box 1, h = 1/128, 10 substeps, 40-step episodes):
+# make_butler_volmer_control_env(BV128_ENVS) (512 x 128^2, the 64^2 fleet's
+# 2048 x 64^2 pixels; K6) and make_sbm_butler_volmer_control_env(SBM128_ENVS)
+# on the analytic psi (K7), each over STEPS steps across the episode end and
+# FLEET_STEPS_NO_EP without the epilogue, the charge balance (TOL_CHARGE), and
+# one step of the fused fleet against the RK4 fleet from one state on
+# BIG_RK4_ENVS envs: K7 and K6 with f32 matrices at TOL_BV_ORACLE, the
+# path's bf16 K6 at TOL_BV_RK4_BF16 (the JAX preset tests' bound for the
+# fused env against RK4 with bf16 matrices; 2.0e-5 measured on the CPU at
+# 128^2 after one step).  The 128^2 Shape psi is left out: its flow would
+# take about 16 times the 64^2 flow's 68-91 s.
+BVBIG_CHECK_ENVS = 600
+BV128_ENVS, SBM128_ENVS, BVSBM128_GRID, BIG_RK4_ENVS = 512, 256, 128, 8
+TOL_BV_RK4_BF16 = 5e-5
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -689,11 +727,11 @@ def _bounds():
     return out
 
 
-def _bv_inputs(torch, dev, gen, B):
+def _bv_inputs(torch, dev, gen, B, H=GRID, W=GRID):
     """Charging fields: the preset's reset field (0.05 + 0.005 N(0, 1)) with
     each env filled further by up to 0.4, and a C-rate per env in the
     control range [0.2, 3]."""
-    u = torch.clamp(0.05 + 0.005 * torch.randn((B, GRID, GRID), generator=gen, device=dev),
+    u = torch.clamp(0.05 + 0.005 * torch.randn((B, H, W), generator=gen, device=dev),
                     0.01, 0.99)
     u = (u + 0.4 * torch.rand((B, 1, 1), generator=gen, device=dev)).contiguous()
     return u, 0.2 + 2.8 * torch.rand((B,), generator=gen, device=dev)
@@ -1006,17 +1044,14 @@ def _bwd_errs(got, want):
     return tuple(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
 
 
-def _bwd_f64_accumulated(torch, u, kap, g, consts, kw, tensor_cores=False):
-    """The plain CH backward with every product accumulated in f64 and
-    rounded once to f32: a second correct bf16 backward, at the same
-    rounding sites, whose distance from the plain version is the control of
-    K3's bf16 check.  With ``tensor_cores`` a third: every product on the
-    TF32 tensor cores instead, whose operands (bf16 values) TF32 holds
-    exactly, so the products are exact and summed in the tensor cores' f32,
-    the arithmetic of the kernel's wgmma."""
-    from unittest import mock
-
-    from pde_opt_tpu_torch.ops import cas_spectral
+def _control_transforms(torch, tensor_cores):
+    """``_transforms`` of the cas macros with bf16 matrices, the rounding
+    sites kept, every product accumulated in f64 and rounded once to f32;
+    with ``tensor_cores`` every product on the TF32 tensor cores instead,
+    whose operands (bf16 values) TF32 holds exactly, so the products are
+    exact and summed in the tensor cores' f32, the arithmetic of the
+    kernels' wgmma.  Either is a second correct bf16 macro whose distance
+    from the plain version is a control of a bf16 kernel's bound."""
 
     def mm(a, b):
         return a @ b if tensor_cores else torch.matmul(a.double(), b.double()).float()
@@ -1031,13 +1066,30 @@ def _bwd_f64_accumulated(torch, u, kap, g, consts, kw, tensor_cores=False):
 
         return (lambda z: tr(z, c.ch, c.cw), lambda z: tr(z, c.ich, c.icw))
 
+    return transforms
+
+
+def _with_control_transforms(torch, module, tensor_cores, fn, *args, **kw):
+    """``fn(*args, **kw)`` with ``module``'s ``_transforms`` replaced by
+    :func:`_control_transforms` (TF32 on for the tensor-core control)."""
+    from unittest import mock
+
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tensor_cores
     try:
-        with mock.patch.object(cas_spectral, "_transforms", transforms):
-            return cas_spectral.ch_cas_macro_bwd_plain(u, kap, g, consts, **kw)
+        with mock.patch.object(module, "_transforms", _control_transforms(torch, tensor_cores)):
+            return fn(*args, **kw)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _bwd_f64_accumulated(torch, u, kap, g, consts, kw, tensor_cores=False):
+    """The plain CH backward on :func:`_control_transforms`: the control of
+    K3's bf16 check."""
+    from pde_opt_tpu_torch.ops import cas_spectral
+
+    return _with_control_transforms(torch, cas_spectral, tensor_cores,
+                                    cas_spectral.ch_cas_macro_bwd_plain, u, kap, g, consts, **kw)
 
 
 def _check_bwd_bf16(torch, line, got, want, alt, alt_tc=None):
@@ -3468,6 +3520,260 @@ def _drive_shape_sbm(torch, kernels, dev, gen, card, shape_ref, sbm_rate):
     return counts
 
 
+def _check_bv_big(torch, line, got, want, tol, bad, keep, n_px):
+    """K6 or K7 against plain with the NaN env ``bad``: the field off plain
+    by at most ``tol`` on the other envs ``keep``; with the epilogue,
+    n_finite equal (the NaN env's below n_px), stats to rtol 1e-4 and obs
+    within 1 LSB.  Returns (the line, the field error)."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    err = (got[0][keep] - want[0][keep]).abs().max().item()
+    line += f": u1 max_abs_err {err:.3e}"
+    _check(err <= tol, f"{line} > {tol}")
+    _check_nan_env(torch, line, got[0], want[0], bad, keep)
+    if len(got) == 3:
+        e_st = ((got[1][keep, :2] - want[1][keep, :2]).abs()
+                / want[1][keep, :2].abs()).max().item()
+        lsb = (got[2].int() - want[2].int()).abs().max().item()
+        line += f", stats max_rel_err {e_st:.3e}, obs max_lsb {lsb}"
+        _check(torch.equal(got[1][:, 2], want[1][:, 2])
+               and (bad is None or float(got[1][bad, 2]) < n_px), f"{line}: n_finite")
+        _check(e_st <= 1e-4 and lsb <= 1, f"{line}: epilogue bounds")
+    return line, err
+
+
+def _sbm_psi(torch, H, W):
+    """The SBM preset's analytic disk psi on an H x W grid of the unit box."""
+    from pde_opt_tpu_torch import grid as gridmod
+    from pde_opt_tpu_torch.envs.presets import sbm_disk_psi
+
+    return sbm_disk_psi(gridmod.Domain((H, W), ((-0.5, 0.5), (-0.5, 0.5)), "dimensionless",
+                                       dtype=torch.float32))
+
+
+def _check_bv_sbm_big(torch, dev, gen):
+    """Phase 13a: the tiled K6 (f32 and bf16 matrices) and K7 (the preset's
+    analytic psi) at BIG_GRIDS against their plain versions on the card,
+    epilogue off and on, BVBIG_CHECK_ENVS envs (blocks walk several envs
+    through their slots) with one NaN env that must stay in its env; at
+    128^2 against the roll-stencil oracles, and one bf16 K6 substep at the
+    rounding sites.  Returns the largest bf16 K6 and f32 K7 field errors."""
+    from pde_opt_tpu_torch.envs.presets import BV_J0, BV_MU
+    from pde_opt_tpu_torch.ops import bv_cas, sbm_bv
+    from pde_opt_tpu_torch.ops.cas_spectral import Epilogue, _scratch, cas_constants
+
+    B, bad = BVBIG_CHECK_ENVS, BIG_NAN_ENV
+    keep = torch.arange(B, device=dev) != bad
+    errs = {}
+    for H, W in BIG_GRIDS:
+        u, cr = _bv_inputs(torch, dev, gen, B, H, W)
+        u[bad, 3, 7] = float("nan")
+        n_px, big = H * W, (H, W) == (128, 128)
+        for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            consts = cas_constants(H, W, 1.0 / H, 1.0 / W, mdt, dev)
+            slots = _scratch(bv_cas._library, "bv_cc_macro_scratch", u.device.index,
+                             int(mats == "bf16"), H, W)[0]
+            _check(B > slots, f"K6 {H}x{W}: {B} envs do not outnumber its {slots} slots")
+            kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, kappa=BV_KAPPA, cell=1.0 / n_px, dt=BV_DT,
+                      n_steps=SUBSTEPS, round_bf16=mats == "bf16")
+            tol, what = TOL_BV[mats], ""
+            if mats == "bf16":
+                # Two correct bf16 macros drift apart by bf16 ties that their
+                # sums' orders round apart, more as the grid grows: the bound
+                # is TOL_BV or twice the farther control, whichever is larger.
+                plain = bv_cas.bv_cc_macro_plain(u, cr, consts, **kw)
+                ctl = [(_with_control_transforms(torch, bv_cas, tc, bv_cas.bv_cc_macro_plain, u,
+                                                 cr, consts, **kw) - plain)[keep].abs().max().item()
+                       for tc in (False, True)]
+                tol = max(tol, 2.0 * max(ctl))
+                what = (f"; controls: f64-accumulated plain {ctl[0]:.3e}, tensor-core plain "
+                        f"{ctl[1]:.3e}; bound {tol:.3e}")
+            for ep in (None, Epilogue(255.0, 0.0, CENTER, 1)):
+                got = bv_cas.bv_cc_macro_cuda(u, cr, consts, epilogue=ep, **kw)
+                want = bv_cas.bv_cc_macro_plain(u, cr, consts, epilogue=ep, **kw)
+                torch.cuda.synchronize()
+                name = "bv_cc_macro_ep" if ep else "bv_cc_macro"
+                line, err = _check_bv_big(
+                    torch, f"check {name} mats={mats} {H}x{W} ({B} envs on {slots} slots, env "
+                    f"{bad} NaN{what})", got, want, tol, bad, keep, n_px)
+                print(line, flush=True)
+                if mats == "bf16":
+                    errs[name] = max(errs.get(name, 0.0), err)
+            if big and mats == "f32":
+                oracle = bv_cas.bv_cc_reference(BV_MU, BV_J0, BV_KAPPA, 1.0 / H, 1.0 / W, BV_DT,
+                                                SUBSTEPS, remat=False)(u[keep], cr[keep])
+                err = (bv_cas.bv_cc_macro_cuda(u[keep], cr[keep], consts, **kw)
+                       - oracle).abs().max().item()
+                print(f"check bv_cc_macro mats=f32 {H}x{W} vs roll-stencil oracle: max_abs_err "
+                      f"{err:.3e}", flush=True)
+                _check(err <= TOL_BV_ORACLE, f"K6 {H}x{W} vs oracle {err} > {TOL_BV_ORACLE}")
+            if big and mats == "bf16":
+                one = {**kw, "n_steps": 1}
+                uk, ck = u[keep], cr[keep]
+                _check_sites(f"bv_cc_macro mats=bf16 {H}x{W}",
+                             bv_cas.bv_cc_macro_cuda(uk, ck, consts, **one),
+                             bv_cas.bv_cc_macro_plain(uk, ck, consts, **one),
+                             bv_cas.bv_cc_macro_plain(uk, ck, consts,
+                                                      **{**one, "round_bf16": False}),
+                             TOL_SITE["bv"])
+        sconsts = sbm_bv.sbm_bv_constants(_sbm_psi(torch, H, W), BV_KAPPA, 1.0 / H, 1.0 / W, dev)
+        slots = _scratch(sbm_bv._library, "sbm_bv_macro_scratch", u.device.index, H, W)[0]
+        _check(B > slots, f"K7 {H}x{W}: {B} envs do not outnumber its {slots} slots")
+        kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=BV_DT, n_steps=SUBSTEPS)
+        for ep in (None, sbm_bv.SbmEpilogue(255.0, CENTER)):
+            got = sbm_bv.sbm_bv_macro_cuda(u, cr, sconsts, epilogue=ep, **kw)
+            want = sbm_bv.sbm_bv_macro_plain(u, cr, sconsts, epilogue=ep, **kw)
+            torch.cuda.synchronize()
+            name = "sbm_bv_macro_ep" if ep else "sbm_bv_macro"
+            line, err = _check_bv_big(
+                torch, f"check {name} {H}x{W} analytic psi ({B} envs on {slots} slots, env "
+                f"{bad} NaN)", got, want, TOL_BV["f32"], bad, keep, n_px)
+            print(line, flush=True)
+            errs[name] = max(errs.get(name, 0.0), err)
+        if big:
+            oracle = sbm_bv.sbm_bv_reference(BV_MU, BV_J0, BV_KAPPA, sconsts.psi, 1.0 / H,
+                                             1.0 / W, BV_DT, SUBSTEPS, remat=False)(u[keep],
+                                                                                   cr[keep])
+            err = (sbm_bv.sbm_bv_macro_cuda(u[keep], cr[keep], sconsts, **kw)
+                   - oracle).abs().max().item()
+            print(f"check sbm_bv_macro {H}x{W} vs roll-stencil oracle: max_abs_err {err:.3e}",
+                  flush=True)
+            _check(err <= TOL_BV_ORACLE, f"K7 {H}x{W} vs oracle {err} > {TOL_BV_ORACLE}")
+    return errs
+
+
+def _check_fused_vs_rk4(torch, env, rk4, gen, name, variants):
+    """One step of fused fleets against the same preset's RK4 fleet ``rk4``
+    from one state (``env`` driven 10 random-policy steps from a reset) and
+    the same actions; ``variants`` maps a label to (a fused env, its
+    bound)."""
+    from pde_opt_tpu_torch.envs.vector_env import EnvState
+
+    state, _ = env.reset(gen)
+    state, _, _ = env.make_rollout(lambda o, g: env.sample_actions(g), 10)(state, gen)
+    a = env.sample_actions(gen)
+
+    def step(e):
+        return e.step(EnvState(*(t.clone() for t in state)), a)[0].y
+
+    ref = step(rk4)
+    for label, (fused, tol) in variants.items():
+        err = (step(fused) - ref).abs().max().item()
+        line = (f"check {name} fused ({label}) vs RK4 fleet, one step from one state on "
+                f"{env.num_envs} envs: y max_abs_err {err:.3e}")
+        _check(err <= tol, f"{line} > {tol}")
+        print(line, flush=True)
+
+
+def _with_f32_mats(torch, env):
+    """``env`` with its fused stepper on f32 matrices."""
+    from pde_opt_tpu_torch.envs.vector_env import VectorPDEEnv
+
+    return VectorPDEEnv(**{**{a: getattr(env, a) for a in _ENV_ARGS},
+                           "solver_parameters": {**env.solver_parameters,
+                                                 "mats_dtype": torch.float32}},
+                        action_space_config=env.action_space_config)
+
+
+def _bvsbm_bounds():
+    """The bounds of the tiled K6 and K7 at phase 13's fleet shapes, counted
+    as _bounds() counts them at 64^2: K6 with the epilogue (8 transforms a
+    substep, bf16) at BV128_ENVS x 128^2, K7 with the epilogue at
+    SBM128_ENVS x 128^2."""
+    n, G = SUBSTEPS, BVSBM128_GRID
+    px = G * G
+    mats = 4 * 2 * G * G * 4
+
+    def ep_bytes(B):
+        return B * (px * 4 * 2 + 4 + px + 12)
+
+    return {
+        "bv_cc_macro_ep 128^2": _bound(8 * n, G, G, BV128_ENVS, "bf16",
+                                       (4 * 33 + 2) * px * n * BV128_ENVS,
+                                       ep_bytes(BV128_ENVS) + mats + px * 4),
+        "sbm_bv_macro_ep 128^2": _bound(0, G, G, SBM128_ENVS, "f32",
+                                        (4 * 44 + 2) * px * n * SBM128_ENVS,
+                                        ep_bytes(SBM128_ENVS) + 5 * px * 4),
+    }
+
+
+def _drive_bv_sbm_big(torch, kernels, dev, gen, card):
+    """Phase 13b-d: the BV 128^2 fleet (K6) and the SBM 128^2 fleet on the
+    analytic psi (K7) through their presets, each with its launch counts
+    reset just before and read just after, under sync debug mode "error";
+    the charge balance; the fused fleets against the RK4 fleets from one
+    state; then K6 and K7 held against plain and timed at the fleets'
+    shapes beside plain and their bounds.  Returns (each fleet's counts,
+    the timings, each fleet's env-steps/s)."""
+    from pde_opt_tpu_torch.envs.presets import (
+        BV_J0,
+        BV_MU,
+        make_butler_volmer_control_env,
+        make_sbm_butler_volmer_control_env,
+    )
+    from pde_opt_tpu_torch.ops import bv_cas, sbm_bv
+    from pde_opt_tpu_torch.ops.cas_spectral import Epilogue, cas_constants
+
+    G = BVSBM128_GRID
+    fleets, rates = [], {}
+    for name, make, B, kernel, diverge in (
+            ("BV 128^2", make_butler_volmer_control_env, BV128_ENVS, "bv_cc_macro", False),
+            ("SBM 128^2", make_sbm_butler_volmer_control_env, SBM128_ENVS, "sbm_bv_macro", True)):
+        env = make(num_envs=B, grid_size=G, substeps=SUBSTEPS, device=dev)
+        env0 = make(num_envs=B, grid_size=G, substeps=SUBSTEPS, fused_epilogue=False, device=dev)
+        _check(abs(float(env.domain.dx[0]) - 1.0 / G) < 1e-12, f"{name}: h is not 1/{G}")
+        _, counts, rate = _drive_fleet(torch, kernels, env, env0, gen, name, 1e-4,
+                                       may_diverge=diverge)
+        _check(counts[f"{kernel}_ep"] == STEPS and counts[kernel] == FLEET_STEPS_NO_EP
+               and sum(counts.values()) == STEPS + FLEET_STEPS_NO_EP, f"{name} launches {counts}")
+        print(f"{name}: {kernel} alone launched, once a step, no host sync: {counts}", flush=True)
+        _check_charging(torch, env, gen, name)
+        small, rk4 = (make(num_envs=BIG_RK4_ENVS, grid_size=G, substeps=SUBSTEPS,
+                           auto_reset=False, method=m, device=dev) for m in ("fused", "rk4"))
+        if kernel == "bv_cc_macro":
+            variants = {"bf16 matrices": (small, TOL_BV_RK4_BF16),
+                        "f32 matrices": (_with_f32_mats(torch, small), TOL_BV_ORACLE)}
+        else:
+            variants = {"f32": (small, TOL_BV_ORACLE)}
+        _check_fused_vs_rk4(torch, small, rk4, gen, name, variants)
+        fleets.append(counts)
+        rates[name] = rate
+        print(f"{name} fleet: {rate:.1f} env-steps/s ({B} envs x {G}^2 x {SUBSTEPS} substeps, "
+              f"{STEPS} steps, fused epilogue) [{card}]", flush=True)
+
+    # K6 and K7 at the fleets' shapes: against plain (blocks walk up to two
+    # envs through their slots at 512 envs), then timed beside plain and the bound.
+    bounds, timings = _bvsbm_bounds(), {}
+    u6, c6 = _bv_inputs(torch, dev, gen, BV128_ENVS, G, G)
+    consts = cas_constants(G, G, 1.0 / G, 1.0 / G, torch.bfloat16, dev)
+    kw6 = dict(mu_fn=BV_MU, j0_fn=BV_J0, kappa=BV_KAPPA, cell=1.0 / (G * G), dt=BV_DT,
+               n_steps=SUBSTEPS, round_bf16=True, epilogue=Epilogue(255.0, 0.0, CENTER, 1))
+    u7, c7 = _bv_inputs(torch, dev, gen, SBM128_ENVS, G, G)
+    sconsts = sbm_bv.sbm_bv_constants(_sbm_psi(torch, G, G), BV_KAPPA, 1.0 / G, 1.0 / G, dev)
+    kw7 = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=BV_DT, n_steps=SUBSTEPS,
+               epilogue=sbm_bv.SbmEpilogue(255.0, CENTER))
+    cases = (
+        ("bv_cc_macro_ep 128^2", f"{BV128_ENVS}x{G}^2x{SUBSTEPS} bf16", TOL_BV["bf16"],
+         lambda: bv_cas.bv_cc_macro_cuda(u6, c6, consts, **kw6),
+         lambda: bv_cas.bv_cc_macro_plain(u6, c6, consts, **kw6)),
+        ("sbm_bv_macro_ep 128^2", f"{SBM128_ENVS}x{G}^2x{SUBSTEPS}, analytic psi",
+         TOL_BV["f32"], lambda: sbm_bv.sbm_bv_macro_cuda(u7, c7, sconsts, **kw7),
+         lambda: sbm_bv.sbm_bv_macro_plain(u7, c7, sconsts, **kw7)),
+    )
+    for name, what, tol, kernel, plain in cases:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        B = len(got[0])
+        line, _ = _check_bv_big(torch, f"check {name} at {what}", got, want, tol, None,
+                                torch.ones(B, dtype=torch.bool, device=dev), G * G)
+        print(line, flush=True)
+        _time_pair(torch, timings, name, plain, kernel, what, card)
+        b_ms, b_by = bounds[name]
+        ms = timings[name][0]
+        print(f"bound {name}: {b_ms:.4f} ms ({b_by}); the kernel at {b_ms / ms:.1%} of it, "
+              f"plain {timings[name][1]:.4f} ms [{card}]", flush=True)
+    return fleets, timings, rates
+
+
 def main():
     import torch
 
@@ -4138,12 +4444,26 @@ def _main(shape_ref):
     _drive_rotating(torch, kernels, dev, card)
     shape_counts = _drive_shape_sbm(torch, kernels, dev, gen, card, shape_ref, sbm_rate)
 
+    # ---- 13. the BV and SBM macros above 64^2: the tiled K6 and K7 ------------
+    bvbig_err = _check_bv_sbm_big(torch, dev, gen)
+    print(f"tiled K6 (bf16), K7: largest field errors: {bvbig_err}", flush=True)
+    bvbig_counts, bvbig_times, bvbig_rates = _drive_bv_sbm_big(torch, kernels, dev, gen, card)
+    k6_64, k7_64 = timings["bv_cc_macro_ep"][0], timings["sbm_bv_macro_ep"][0]
+    k6_128, k7_128 = (bvbig_times[f"{k} 128^2"][0] for k in ("bv_cc_macro_ep", "sbm_bv_macro_ep"))
+    print(f"phase 13: BV 128^2 {bvbig_rates['BV 128^2']:.1f} env-steps/s vs {bv_rate:.1f} at "
+          f"64^2; SBM 128^2 {bvbig_rates['SBM 128^2']:.1f} vs {sbm_rate:.1f}; per env-substep "
+          f"K6 {k6_128 / (BV128_ENVS * SUBSTEPS) * 1e3:.4f} us at 128^2 vs "
+          f"{k6_64 / (BV_ENVS * SUBSTEPS) * 1e3:.4f} at 64^2, K7 "
+          f"{k7_128 / (SBM128_ENVS * SUBSTEPS) * 1e3:.4f} vs "
+          f"{k7_64 / (SBM_ENVS * SUBSTEPS) * 1e3:.4f} [{card}]", flush=True)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
                                       dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
-                                      ddpg_counts, *big_counts, *tiled_counts, shape_counts))
+                                      ddpg_counts, *big_counts, *tiled_counts, shape_counts,
+                                      *bvbig_counts))
                 for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()

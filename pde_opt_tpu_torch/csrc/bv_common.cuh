@@ -49,6 +49,32 @@ __device__ __forceinline__ float bv_reaction(float j, float em, float y) {
   return bv_reaction(j, em, __fdiv_rn(1.0f, em), y);
 }
 
+// Four consecutive floats, 16-byte aligned, to and from an array (the
+// tiled kernels' pixel groups); ldg4 through the read-only cache.
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void ldg4(const float* p, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ float4 pack4(const float (&v)[4]) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = pack4(v);
+}
+
 // RK4 stage constants: the stage inputs u + c k with c = dt/2, dt/2, dt, and
 // u1 = u + dt/6 (k1 + 2 k2 + 2 k3 + k4), each rounded to f32 on the host.
 struct Rk4 {

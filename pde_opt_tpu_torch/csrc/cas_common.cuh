@@ -271,9 +271,11 @@ cudaError_t allow_smem(Kernel kernel, int smem_bytes = kSmemBytes) {
                               smem_bytes);
 }
 
-// Blocks of `kernel` that fit on the current device at once.
+// Blocks of `kernel` (of `threads` threads) that fit on the current device
+// at once.
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int* blocks, int smem_bytes = kSmemBytes) {
+cudaError_t resident_blocks(Kernel kernel, int* blocks, int smem_bytes = kSmemBytes,
+                            int threads = kThreads) {
   cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -281,7 +283,7 @@ cudaError_t resident_blocks(Kernel kernel, int* blocks, int smem_bytes = kSmemBy
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
       cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                            smem_bytes)) != cudaSuccess)
     return err;
   *blocks = sms * (per_sm > 0 ? per_sm : 1);

@@ -1,5 +1,7 @@
 // The cas transform for grids above 64 x 64 (the tiled kernels of K1-K3 in
-// ch_cas_macro.cu, K4 in ac_cas_macro.cu and K5 in gpe_strang_macro.cu),
+// ch_cas_macro.cu, K4 in ac_cas_macro.cu, K5 in gpe_strang_macro.cu and K6
+// in bv_cc_macro.cu; K7 in sbm_bv_macro.cu takes its grid limits and
+// `tiled` from here),
 // where one env's fields, spectrum and intermediate no longer fit a block's
 // registers and shared memory (one f32 field is 64 KB at 128^2, 256 KB at
 // 256^2).

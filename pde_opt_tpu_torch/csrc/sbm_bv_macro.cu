@@ -58,9 +58,18 @@
 // about 200 SASS instructions a pixel, so the time sits near the issue
 // rate's floor for them: the accurate closure, not the barriers or the
 // memory, is what is left.
+//
+// Grids above 64 x 64 (any H and W that are multiples of 8 up to 256) run
+// sbm_bv_macro_tiled_kernel at the end of this file: an env's per-pixel
+// state no longer fits a block's registers (five floats a pixel cross the
+// reduction, 320 KB at 128^2) nor its constants shared memory (256 KB at
+// 128^2), so the state lives in planes in device memory and the constants
+// are read through the read-only cache.  The launch picks the kernel by
+// grid; the 64^2 kernel is unchanged.
 
 #include "bv_common.cuh"
 #include "cas_common.cuh"
+#include "cas_tiled.cuh"
 
 namespace {
 
@@ -124,7 +133,7 @@ __device__ __forceinline__ void store_obs(unsigned char* p, const unsigned char 
 // reads warp l's; fadd commutes, so every lane ends on the same bits).  The
 // caller alternates red between two buffers, so the write here never races
 // the previous reduction's reads.
-template <int N>
+template <int kNWarps, int N>
 __device__ __forceinline__ void block_sum(float (&a)[N], float (*red)[3]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -136,7 +145,7 @@ __device__ __forceinline__ void block_sum(float (&a)[N], float (*red)[3]) {
     for (int k = 0; k < N; ++k) red[warp][k] = a[k];
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < N; ++k) a[k] = lane < kSbmWarps ? red[lane][k] : 0.f;
+  for (int k = 0; k < N; ++k) a[k] = lane < kNWarps ? red[lane][k] : 0.f;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
@@ -243,7 +252,7 @@ sbm_bv_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ cr
             }
           }
         }
-        block_sum(sums, red[rb]);
+        block_sum<kSbmWarps>(sums, red[rb]);
         rb ^= 1;
         const float y = bv_root(C, sums[0], sums[1]);
         if (own) {
@@ -296,7 +305,164 @@ sbm_bv_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ cr
           store_obs(oe + r, q);
         }
       }
-      block_sum(sums, red[rb]);
+      block_sum<kSbmWarps>(sums, red[rb]);
+      rb ^= 1;
+      if (tid == 0) {
+        float* st = ep.stats + static_cast<size_t>(env) * 3;
+        st[0] = sums[0];
+        st[1] = sums[1];
+        st[2] = sums[2];
+      }
+    }
+  }
+}
+
+// ---- K7 above 64 x 64: the tiled kernel ------------------------------------
+//
+// One block owns one env at a time (grid-stride); the field lives in u_out,
+// the rest in this block's slot of a scratch that the wrapper allocates
+// (sbm_bv_macro_scratch): [z, acc, j, em], four H x W f32 planes (the stage
+// input, the RK sum, j0(z) and exp(m/2)).  A thread walks the env in groups
+// of four pixels along a row (float4 accesses; W is a multiple of 8), by
+// block stride, the same groups in every pass.  A stage:
+//
+//   pass 1, at each group: z of the group, of the rows above and below it
+//     (wrapped by index) and of the pixels left and right of it; the four
+//     faces of each pixel, each computed from the same z values and psi
+//     constants as the neighbour that shares it, in the same order, so both
+//     round alike; m, j0, em and 1/em; the group's share of the two
+//     integrals; j0 and em to their planes;
+//   one block reduction (block_sum, every thread the same bits), then y;
+//   pass 2, at each group: k (1/em recomputed from em: the same bits), the
+//     RK sum and the next stage input (after k4 the new u) into z; a barrier
+//     before the next pass 1 reads z at the neighbours.
+//
+// Pass 1's reads of z finish at the reduction's barrier, before pass 2
+// overwrites it.  psi_ax, psi_ay, kappa/psi and psi*cell (shared by every
+// env) come through the read-only cache.
+
+constexpr int kSbmTiledThreads = 512;
+constexpr int kSbmTiledWarps = kSbmTiledThreads / 32;
+constexpr int kSbmTiledPlanes = 4;
+constexpr int kG = 4;                                // pixels a group (ld4, st4)
+
+__global__ void __launch_bounds__(kSbmTiledThreads, 2)
+sbm_bv_macro_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ crate,
+                          const float* __restrict__ psi_ax, const float* __restrict__ psi_ay,
+                          const float* __restrict__ kop, const float* __restrict__ psic,
+                          const float* __restrict__ psi, float* u_out, float* scratch, int B,
+                          int H, int W, int n_steps, Rk4 rk, float inv_hx, float inv_hy,
+                          BvCoeffs bv, SbmEpilogue ep) {
+  __shared__ float red[2][kSbmTiledWarps][3];
+  const int tid = threadIdx.x, n = H * W;
+  float* z = scratch + static_cast<size_t>(blockIdx.x) * kSbmTiledPlanes * n;
+  float* acc = z + n;
+  float* jp = acc + n;
+  float* emp = jp + n;
+  int rb = 0;                                  // the block sum's buffer
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * n;
+    const float C = crate[env];
+    float* u = u_out + off;
+    for (int p = kG * tid; p < n; p += kG * kSbmTiledThreads) {
+      float v[kG];
+      ld4(u_in + off + p, v);
+      st4(u + p, v);
+      st4(z + p, v);
+    }
+    __syncthreads();                           // z complete
+
+    for (int s = 0; s < n_steps; ++s) {
+      for (int stage = 0; stage < 4; ++stage) {
+        float sums[2] = {0.f, 0.f};            // I+, I-
+        for (int p = kG * tid; p < n; p += kG * kSbmTiledThreads) {
+          const int i = p / W, c0 = p - i * W;
+          const int up = ((i == 0 ? H : i) - 1) * W + c0, dn = (i + 1 == H ? 0 : i + 1) * W + c0;
+          const int lf = i * W + (c0 == 0 ? W : c0) - 1;
+          const int rt = i * W + (c0 + kG == W ? 0 : c0 + kG);
+          float zc[kG], zu[kG], zd[kG], pax[kG], paxu[kG], pay[kG], kp[kG], pc[kG];
+          ld4(z + p, zc);
+          ld4(z + up, zu);
+          ld4(z + dn, zd);
+          ldg4(psi_ax + p, pax);
+          ldg4(psi_ax + up, paxu);
+          ldg4(psi_ay + p, pay);
+          ldg4(kop + p, kp);
+          ldg4(psic + p, pc);
+          // The face left of the group's first pixel.
+          float fyp = __fmul_rn(__fmul_rn(__ldg(psi_ay + lf), zc[0] - z[lf]), inv_hy);
+          const float z_rt = z[rt];
+          float jj[kG], ee[kG];
+#pragma unroll
+          for (int j = 0; j < kG; ++j) {
+            const float zr = j + 1 < kG ? zc[j + 1 < kG ? j + 1 : j] : z_rt;
+            const float fx = __fmul_rn(__fmul_rn(pax[j], zd[j] - zc[j]), inv_hx);
+            const float fxp = __fmul_rn(__fmul_rn(paxu[j], zc[j] - zu[j]), inv_hx);
+            const float fy = __fmul_rn(__fmul_rn(pay[j], zr - zc[j]), inv_hy);
+            const float div = __fadd_rn(__fmul_rn(fx - fxp, inv_hx), __fmul_rn(fy - fyp, inv_hy));
+            fyp = fy;
+            const float m = __fsub_rn(bv_mu(bv, zc[j]), __fmul_rn(kp[j], div));
+            jj[j] = bv_j0(bv, zc[j]);
+            ee[j] = expf(0.5f * m);
+            sums[0] += __fmul_rn(__fmul_rn(jj[j], ee[j]), pc[j]);
+            sums[1] += __fmul_rn(__fmul_rn(jj[j], __fdiv_rn(1.0f, ee[j])), pc[j]);
+          }
+          st4(jp + p, jj);
+          st4(emp + p, ee);
+        }
+        block_sum<kSbmTiledWarps>(sums, red[rb]);
+        rb ^= 1;
+        const float y = bv_root(C, sums[0], sums[1]);
+        const float c = rk.stage_coef(stage + 1);
+        for (int p = kG * tid; p < n; p += kG * kSbmTiledThreads) {
+          float jj[kG], ee[kG], uu[kG], a[kG] = {}, nx[kG];
+          ld4(jp + p, jj);
+          ld4(emp + p, ee);
+          ld4(u + p, uu);
+          if (stage > 0) ld4(acc + p, a);
+#pragma unroll
+          for (int j = 0; j < kG; ++j) {
+            const float k = bv_reaction(jj[j], ee[j], __fdiv_rn(1.0f, ee[j]), y);
+            a[j] = stage == 0 ? k : __fadd_rn(a[j], (stage == 3 ? 1.0f : 2.0f) * k);
+            if (stage == 3) {
+              uu[j] = __fadd_rn(uu[j], __fmul_rn(rk.sixth, a[j]));
+              nx[j] = uu[j];
+            } else {
+              nx[j] = __fadd_rn(uu[j], __fmul_rn(c, k));
+            }
+          }
+          if (stage < 3) st4(acc + p, a);      // k4 closes the sum: no store
+          else st4(u + p, uu);
+          st4(z + p, nx);
+        }
+        __syncthreads();                       // z complete
+      }
+    }
+
+    if (ep.stats != nullptr) {
+      float sums[3] = {0.f, 0.f, 0.f};         // sum w(u-c), sum w(u-c)^2, n_finite
+      unsigned char* oe = ep.obs + off;
+      for (int p = kG * tid; p < n; p += kG * kSbmTiledThreads) {
+        float uu[kG], pc[kG], ps[kG];
+        ld4(u + p, uu);
+        ldg4(psic + p, pc);
+        ldg4(psi + p, ps);
+        unsigned char q[kG];
+#pragma unroll
+        for (int j = 0; j < kG; ++j) {
+          const bool fin = isfinite(uu[j]);
+          const float uz = fin ? uu[j] - ep.center : 0.f;
+          const float wuz = __fmul_rn(pc[j], uz);
+          sums[0] += wuz;
+          sums[1] += __fmul_rn(wuz, uz);
+          sums[2] += fin ? 1.f : 0.f;
+          const float x = __fmul_rn(__fmul_rn(fin ? uu[j] : 0.f, ps[j]), ep.scale);
+          q[j] = static_cast<unsigned char>(fminf(fmaxf(x, 0.f), 255.f));
+        }
+        *reinterpret_cast<uchar4*>(oe + p) = make_uchar4(q[0], q[1], q[2], q[3]);
+      }
+      block_sum<kSbmTiledWarps>(sums, red[rb]);
       rb ^= 1;
       if (tid == 0) {
         float* st = ep.stats + static_cast<size_t>(env) * 3;
@@ -312,33 +478,52 @@ sbm_bv_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ cr
 
 extern "C" {
 
-// Launches K7 on `stream`.  stats == nullptr runs the plain macro; otherwise
-// stats and obs are written too.  dt_half, dt, dt_sixth are the RK4 stage
-// constants and inv_hx, inv_hy the inverse spacings, rounded to f32.
-// Returns a cudaError_t value, 0 on success.
+// The scratch a launch needs on the current device: `slots` blocks resident
+// at once of the kernel that the grid picks, each with a slot of `floats`
+// f32: none at 64^2 and below (0, 0), kSbmTiledPlanes H x W planes above.
+// Returns a cudaError_t value.
+int sbm_bv_macro_scratch(int H, int W, int* slots, long long* floats) {
+  *slots = 0;
+  *floats = 0;
+  if (!tiled(H, W)) return 0;
+  *floats = static_cast<long long>(kSbmTiledPlanes) * H * W;
+  return static_cast<int>(
+      resident_blocks(sbm_bv_macro_tiled_kernel, slots, 0, kSbmTiledThreads));
+}
+
+// Launches K7 on `stream`: at 64^2 and below the one-block-an-env kernel,
+// above the tiled kernel on min(B, n_slots) blocks with `scratch` as
+// sbm_bv_macro_scratch sizes it (unused at 64^2).  stats == nullptr runs the
+// plain macro; otherwise stats and obs are written too.  dt_half, dt,
+// dt_sixth are the RK4 stage constants and inv_hx, inv_hy the inverse
+// spacings, rounded to f32.  Returns a cudaError_t value, 0 on success.
 int sbm_bv_macro_launch(const float* u, const float* crate, const float* psi_ax,
                         const float* psi_ay, const float* kop, const float* psic,
-                        const float* psi, float* out, float* stats, unsigned char* obs, int B,
-                        int H, int W, int n_steps, float dt_half, float dt, float dt_sixth,
-                        float inv_hx, float inv_hy, float omega, float clip_lo,
-                        float clip_hi, float j0_floor, float obs_scale, float center,
-                        void* stream) {
-  if (bad_grid(B, H, W, n_steps)) return static_cast<int>(cudaErrorInvalidValue);
+                        const float* psi, float* out, float* stats, unsigned char* obs,
+                        float* scratch, int n_slots, int B, int H, int W, int n_steps,
+                        float dt_half, float dt, float dt_sixth, float inv_hx, float inv_hy,
+                        float omega, float clip_lo, float clip_hi, float j0_floor,
+                        float obs_scale, float center, void* stream) {
+  const bool big = tiled(H, W);
+  if (big ? bad_tiled_grid(B, H, W, n_steps) || scratch == nullptr || n_slots < 1
+          : bad_grid(B, H, W, n_steps))
+    return static_cast<int>(cudaErrorInvalidValue);
   const SbmEpilogue ep{stats, obs, obs_scale, center};
   const Rk4 rk{dt_half, dt, dt_sixth};
   const BvCoeffs bv{omega, clip_lo, clip_hi, j0_floor};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (big) {
+    sbm_bv_macro_tiled_kernel<<<B < n_slots ? B : n_slots, kSbmTiledThreads, 0, st>>>(
+        u, crate, psi_ax, psi_ay, kop, psic, psi, out, scratch, B, H, W, n_steps, rk, inv_hx,
+        inv_hy, bv, ep);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int smem = kSbmPlanes * H * W * static_cast<int>(sizeof(float));
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = allow_smem(sbm_bv_macro_kernel, smem)) != cudaSuccess ||
-      (err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sbm_bv_macro_kernel,
-                                                           kSbmThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  int resident = 0;
+  const cudaError_t err = resident_blocks(sbm_bv_macro_kernel, &resident, smem, kSbmThreads);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = B < resident ? B : resident;
-  sbm_bv_macro_kernel<<<grid, kSbmThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  sbm_bv_macro_kernel<<<grid, kSbmThreads, smem, st>>>(
       u, crate, psi_ax, psi_ay, kop, psic, psi, out, B, H, W, n_steps, rk, inv_hx, inv_hy,
       bv, ep);
   return static_cast<int>(cudaGetLastError());

@@ -20,7 +20,8 @@ functions); a kernel cannot call a Python function.
 
 :func:`bv_cc_macro_plain` is the plain-torch version (what CPU tensors run)
 and :func:`bv_cc_macro_cuda` kernel K6 (``csrc/bv_cc_macro.cu``, what CUDA
-tensors run); there is no fallback from one to the other.  The macro's
+tensors run; above 64² its tiled kernel on ``csrc/cas_tiled.cuh``, up to
+256²); there is no fallback from one to the other.  The macro's
 backward is reverse mode through the checkpointed roll-stencil oracle
 :func:`bv_cc_reference`, the JAX package's custom VJP.  The optional env
 epilogue is the CH macro's (``obs_downsample`` 1 only, as in JAX).
@@ -38,13 +39,17 @@ from torch.utils.checkpoint import checkpoint
 
 from . import stencils as st
 from .cas_spectral import (
+    MAX_GRID_TILED,
     CasConstants,
     Epilogue,
+    _alloc_scratch,
     _check_cuda,
     _check_grid,
+    _check_mats,
     _ep_fold_stats_cotangent,
     _epilogue_plain,
     _flatten_batch,
+    _mats_ptrs,
     _OracleMacro,
     _transforms,
     cas_constants,
@@ -234,8 +239,9 @@ def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bv_cc_macro_launch.argtypes = [
-        p, p, p, p, p, p, p,             # u, crate, ch, cw, ich, icw, lam
-        p, p, p,                         # out, stats, obs
+        p, p, p, p, p, p,                # u, crate, ch, cw, ich, icw
+        p, p, p, p, p,                   # ch16 .. icw16, lam
+        p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
         i, i, i, i,                      # B, H, W, n_steps
         f, f, f, f, f,                   # dt/2, dt, dt/6, kappa, cell
         f, f, f, f,                      # mu omega, clip lo, clip hi, j0 floor
@@ -243,6 +249,9 @@ def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                               # stream
     ]
     lib.bv_cc_macro_launch.restype = ctypes.c_int
+    lib.bv_cc_macro_scratch.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int),
+                                        ctypes.POINTER(ctypes.c_longlong)]
+    lib.bv_cc_macro_scratch.restype = ctypes.c_int
     lib.bv_cc_error_string.argtypes = [ctypes.c_int]
     lib.bv_cc_error_string.restype = ctypes.c_char_p
     return lib
@@ -260,17 +269,19 @@ def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants,
     """Kernel K6: same contract as :func:`bv_cc_macro_plain`.
 
     Launches ``csrc/bv_cc_macro.cu`` on the current stream and counts the
-    launch (``bv_cc_macro_ep`` with an epilogue, ``bv_cc_macro`` without);
-    raises on anything the kernel does not take.
+    launch (``bv_cc_macro_ep`` with an epilogue, ``bv_cc_macro``
+    without).  H and W up to :data:`MAX_GRID_TILED`: above 64² the tiled
+    kernel runs, with a scratch of five H x W planes for each resident
+    block, allocated here (with bf16 matrices it reads ``consts``' bf16
+    copies).  Raises on anything the kernel does not take.
     """
     coeffs = check_bv_coefficients(mu_fn, j0_fn)
-    B, H, W = _check_grid(u)
+    B, H, W = _check_grid(u, cap=MAX_GRID_TILED)
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("crate", crate, (B,), torch.float32, dev)
-    for name, shape in (("ch", (H, H)), ("cw", (W, W)), ("ich", (H, H)),
-                        ("icw", (W, W)), ("lam", (H, W))):
-        _check_cuda(name, getattr(consts, name), shape, torch.float32, dev)
+    _check_cuda("lam", consts.lam, (H, W), torch.float32, dev)
+    _check_mats(consts, H, W, dev)
     out = torch.empty_like(u)
     stats = obs = None
     if epilogue is not None:
@@ -279,13 +290,14 @@ def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants,
         stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
         obs = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
     lib = _library()
+    scratch, slots = _alloc_scratch(dev, B, _library, "bv_cc_macro_scratch", round_bf16, H, W)
     with torch.cuda.device(dev):
         rc = lib.bv_cc_macro_launch(
-            u.data_ptr(), crate.data_ptr(), consts.ch.data_ptr(), consts.cw.data_ptr(),
-            consts.ich.data_ptr(), consts.icw.data_ptr(), consts.lam.data_ptr(),
+            u.data_ptr(), crate.data_ptr(), *_mats_ptrs(consts), consts.lam.data_ptr(),
             out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             obs.data_ptr() if obs is not None else None,
+            scratch.data_ptr() if scratch is not None else None, slots,
             B, H, W, int(n_steps), *rk4_constants(dt), float(kappa), float(cell), *coeffs,
             int(bool(round_bf16)),
             epilogue.obs_scale if epilogue else 0.0,
@@ -326,8 +338,10 @@ def make_bv_cc_fused_macro(
     ``clip(u*scale + offset)``.  CPU tensors run :func:`bv_cc_macro_plain`,
     CUDA tensors kernel K6, where ``mu_fn`` must be a :class:`LogRatioMu` and
     ``j0_fn`` a :class:`SqrtJ0`.  Gradients with respect to ``u`` and
-    ``crate`` come from the checkpointed :func:`bv_cc_reference`.  The JAX
-    macro's ``block_envs``/``interpret`` (TPU tiling) have no counterpart.
+    ``crate`` come from the checkpointed :func:`bv_cc_reference`.  H and W
+    are multiples of 8; on CUDA tensors up to :data:`MAX_GRID_TILED` (above
+    64² kernel K6 runs its tiled form).  The JAX macro's
+    ``block_envs``/``interpret`` (TPU tiling) have no counterpart.
     """
     if H % 8 or W % 8:
         raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")

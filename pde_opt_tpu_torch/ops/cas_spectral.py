@@ -78,10 +78,10 @@ __all__ = [
 ch_cas_macro_reference = ch_sif_macro_reference
 
 MAX_MU_DEGREE = 7
-# The largest H, W each CUDA macro takes: the CH macros (K1-K3), AC (K4) and
-# GPE (K5) run tiled kernels above 64^2, up to MAX_GRID_TILED; every other
-# family holds one env's 64 x 64 tiles in a block.  Larger grids are
-# ROADMAP.md queue 1 item 4.
+# The largest H, W each CUDA macro takes: the CH macros (K1-K3), AC (K4),
+# GPE (K5), BV (K6) and SBM (K7) run tiled kernels above 64^2, up to
+# MAX_GRID_TILED; the packed-DFT macros K9a/K9b alone hold one env's 64 x 64
+# tiles in a block.  Their larger grids are ROADMAP.md queue 1 item 4.
 MAX_GRID = 64
 MAX_GRID_TILED = 256
 
@@ -377,7 +377,8 @@ def _check_grid(u, ndim: int = 3, cap: int = MAX_GRID):
     if B < 1 or H % 8 or W % 8 or not (8 <= H <= cap and 8 <= W <= cap):
         raise ValueError(
             f"the CUDA macro takes B >= 1 envs and H, W multiples of 8 up to "
-            f"{cap}; got {(B, H, W)} (larger grids: ROADMAP.md queue 1 item 4)"
+            f"{cap}; got {(B, H, W)} (the packed-DFT macros K9a/K9b, the last "
+            f"family held at 64²: ROADMAP.md queue 1 item 4)"
         )
     return B, H, W
 
@@ -433,9 +434,10 @@ def _c_coeffs(mu: PolynomialMu):
 def _scratch(library: Callable, query: str, device_index: int, *args: int):
     """``(slots, floats)``: the scratch a launch needs on one device, one
     slot of ``floats`` f32 for each block resident at once, as the
-    library's ``query`` (``ch_cas_macro_scratch``, ``ac_cas_macro_scratch``
-    or ``gpe_strang_macro_scratch``) gives it for ``args``; ``(0, 0)`` where
-    the kernel takes none."""
+    library's ``query`` (``ch_cas_macro_scratch``, ``ac_cas_macro_scratch``,
+    ``gpe_strang_macro_scratch``, ``bv_cc_macro_scratch`` or
+    ``sbm_bv_macro_scratch``) gives it for ``args``; ``(0, 0)`` where the
+    kernel takes none."""
     n, floats = ctypes.c_int(0), ctypes.c_longlong(0)
     with torch.cuda.device(device_index):
         rc = getattr(library(), query)(*args, ctypes.byref(n), ctypes.byref(floats))

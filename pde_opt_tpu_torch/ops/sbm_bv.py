@@ -17,7 +17,8 @@ same bits.
 
 :func:`sbm_bv_macro_plain` is the plain-torch version (what CPU tensors
 run) and :func:`sbm_bv_macro_cuda` kernel K7 (``csrc/sbm_bv_macro.cu``, what
-CUDA tensors run); there is no fallback from one to the other.  The
+CUDA tensors run; above 64² its tiled kernel, up to 256²); there is no
+fallback from one to the other.  The
 backward is reverse mode through the checkpointed roll-stencil oracle
 :func:`sbm_bv_reference`.  The optional env epilogue is ψ-weighted:
 ``[sum(w (u-c)), sum(w (u-c)^2), n_finite]`` with ``w = ψ·cell`` over finite
@@ -41,7 +42,14 @@ from .bv_cas import (
     rk4_constants,
     rk4_fused,
 )
-from .cas_spectral import _check_cuda, _check_grid, _flatten_batch, _OracleMacro
+from .cas_spectral import (
+    MAX_GRID_TILED,
+    _alloc_scratch,
+    _check_cuda,
+    _check_grid,
+    _flatten_batch,
+    _OracleMacro,
+)
 from .kernels import count_launch, load_library
 
 __all__ = [
@@ -176,7 +184,7 @@ def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sbm_bv_macro_launch.argtypes = [
         p, p, p, p, p, p, p,             # u, crate, psi_ax, psi_ay, kop, psic, psi
-        p, p, p,                         # out, stats, obs
+        p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
         i, i, i, i,                      # B, H, W, n_steps
         f, f, f, f, f,                   # dt/2, dt, dt/6, 1/hx, 1/hy
         f, f, f, f,                      # mu omega, clip lo, clip hi, j0 floor
@@ -184,6 +192,9 @@ def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                               # stream
     ]
     lib.sbm_bv_macro_launch.restype = ctypes.c_int
+    lib.sbm_bv_macro_scratch.argtypes = [i, i, ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_longlong)]
+    lib.sbm_bv_macro_scratch.restype = ctypes.c_int
     lib.sbm_bv_error_string.argtypes = [ctypes.c_int]
     lib.sbm_bv_error_string.restype = ctypes.c_char_p
     return lib
@@ -201,10 +212,12 @@ def sbm_bv_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstants
 
     Launches ``csrc/sbm_bv_macro.cu`` on the current stream and counts the
     launch (``sbm_bv_macro_ep`` with an epilogue, ``sbm_bv_macro``
-    without); raises on anything the kernel does not take.
+    without).  H and W up to :data:`MAX_GRID_TILED`: above 64² the tiled
+    kernel runs, with a scratch of four H x W planes for each resident
+    block, allocated here.  Raises on anything the kernel does not take.
     """
     coeffs = check_bv_coefficients(mu_fn, j0_fn)
-    B, H, W = _check_grid(u)
+    B, H, W = _check_grid(u, cap=MAX_GRID_TILED)
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("crate", crate, (B,), torch.float32, dev)
@@ -216,6 +229,7 @@ def sbm_bv_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstants
         stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
         obs = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
     lib = _library()
+    scratch, slots = _alloc_scratch(dev, B, _library, "sbm_bv_macro_scratch", H, W)
     with torch.cuda.device(dev):
         rc = lib.sbm_bv_macro_launch(
             u.data_ptr(), crate.data_ptr(), consts.psi_ax.data_ptr(),
@@ -223,6 +237,7 @@ def sbm_bv_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstants
             consts.psi.data_ptr(), out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             obs.data_ptr() if obs is not None else None,
+            scratch.data_ptr() if scratch is not None else None, slots,
             B, H, W, int(n_steps), *rk4_constants(dt), consts.inv_hx, consts.inv_hy, *coeffs,
             epilogue.obs_scale if epilogue else 0.0,
             epilogue.center if epilogue else 0.0,
@@ -273,8 +288,10 @@ def make_sbm_bv_fused_macro(
     :class:`~pde_opt_tpu_torch.ops.bv_cas.LogRatioMu` and ``j0_fn`` a
     :class:`~pde_opt_tpu_torch.ops.bv_cas.SqrtJ0`.  Gradients with respect
     to ``u`` and ``crate`` come from the checkpointed
-    :func:`sbm_bv_reference`.  The JAX macro's ``block_envs``/``interpret``
-    (TPU tiling) have no counterpart.
+    :func:`sbm_bv_reference`.  H and W are multiples of 8; on CUDA tensors
+    up to :data:`MAX_GRID_TILED` (above 64² kernel K7 runs its tiled form).
+    The JAX macro's ``block_envs``/``interpret`` (TPU tiling) have no
+    counterpart.
     """
     H, W = tuple(psi.shape)
     if H % 8 or W % 8:

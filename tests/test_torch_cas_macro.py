@@ -289,12 +289,12 @@ def _other_family_launch(family, N):
 
 @pytest.mark.parametrize("family", ["ac", "gpe", "bv", "sbm", "ch_dft", "ac_dft"])
 def test_other_families_refuse_grids_above_64(family):
-    """K6 (BV), K7 (SBM) and K9a/K9b (algo="dft") keep their 64² cap: a
-    128² state raises, naming ROADMAP, and launches nothing (no fallback to
-    the plain version).  K4 (AC) and K5 (GPE) run tiled kernels up to 256²,
-    as the CH macros do: a 264² state raises so."""
+    """K9a/K9b (algo="dft") keep their 64² cap: a 128² state raises, naming
+    ROADMAP, and launches nothing (no fallback to the plain version).  K4
+    (AC), K5 (GPE), K6 (BV) and K7 (SBM) run tiled kernels up to 256², as
+    the CH macros do: a 264² state raises so."""
     before = kernels.launch_counts()
-    cap = 256 if family in ("ac", "gpe") else 64
+    cap = 256 if family in ("ac", "gpe", "bv", "sbm") else 64
     with pytest.raises(ValueError, match=f"up to {cap}.*ROADMAP"):
         _other_family_launch(family, 264 if cap == 256 else 128)
     assert kernels.launch_counts() == before

@@ -36,6 +36,10 @@ substep at 128² against the unrounded control (K4 at ``test_torch_ac.py``'s
 TOL_SITE).
 K7 (f32, field 1e-5, stats to rtol 1e-4 as ``test_torch_sbm_bv.py``'s card
 test) there too, epilogue on and off, with a NaN env and with no substep.
+The tiled K6 (bf16 and f32 matrices, epilogue off and on) at 128², 96 x 136
+and 256², two envs through one slot, with a NaN env and one bf16 substep at
+128² against the unrounded control; the tiled K7 at the same shapes, with a
+NaN env and with no substep.
 K8 2D: three envs at 64^2, and at 16 x 24, W = 33, 70 and 256 (one, two,
 four and eight columns a lane, a last lane that owns fewer), H = 1 and 2
 (a row its own neighbour), with the stub's SM holding 1, 8 or 30 blocks of
@@ -138,6 +142,7 @@ BV_KAPPA, BV_DT = 5e-4, 5e-4
 TOL_AC = {True: 1e-3, False: 1e-5}                # by round_bf16
 TOL_AC_SITE = {False: 2e-6, True: 6e-6}           # one bf16 substep: R == 1, general
 TOL_BV = {True: 1e-4, False: 1e-5}
+TOL_BV_SITE = 2e-7                                # one bf16 substep (test_torch_bv.py)
 CH_DT, CH_A = 1e-3, 1.0
 TOL_CH = {True: 1e-3, False: 1e-5}
 TOL_BWD = {True: (1e-5, 1e-2), False: (5e-6, 1e-4)}   # du, dkappa over their maxima
@@ -252,10 +257,10 @@ def _ac_plain(u, kap, consts, R, ep, bf16, n_steps=N_STEPS):
                               dt=AC_DT, A=AC_A, n_steps=n_steps, round_bf16=bf16, epilogue=ep)
 
 
-def _bv_inputs(H, W, seed):
+def _bv_inputs(H, W, seed, n=B):
     rng = np.random.default_rng(seed)
-    u = np.clip(0.1 + 0.01 * rng.standard_normal((B, H, W)), 0.01, 0.99).astype(np.float32)
-    return torch.from_numpy(u), torch.from_numpy(np.linspace(0.5, 2.0, B).astype(np.float32))
+    u = np.clip(0.1 + 0.01 * rng.standard_normal((n, H, W)), 0.01, 0.99).astype(np.float32)
+    return torch.from_numpy(u), torch.from_numpy(np.linspace(0.5, 2.0, n).astype(np.float32))
 
 
 def _bv_consts(H, W, bf16):
@@ -263,24 +268,24 @@ def _bv_consts(H, W, bf16):
                          torch.device("cpu"))
 
 
-def _bv_kernel(lib, u, cr, consts, ep, bf16):
+def _bv_kernel(lib, u, cr, consts, ep, bf16, n_steps=N_STEPS):
     Bn, H, W = u.shape
     out, stats, obs = _outputs(u, ep)
+    scratch, slots = _scratch(lib, "bv_cc_macro_scratch", int(bf16), H, W)
     rc = lib.bv_cc_macro_launch(
-        u.data_ptr(), cr.data_ptr(), consts.ch.data_ptr(), consts.cw.data_ptr(),
-        consts.ich.data_ptr(), consts.icw.data_ptr(), consts.lam.data_ptr(), out.data_ptr(),
-        _ptr(stats), _ptr(obs), Bn, H, W, N_STEPS, *rk4_constants(BV_DT), BV_KAPPA,
-        1 / (H * W), *check_bv_coefficients(BV_MU, BV_J0), int(bf16),
-        ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0, ep.center if ep else 0.0,
-        None)
+        u.data_ptr(), cr.data_ptr(), *_mats_ptrs(consts), consts.lam.data_ptr(),
+        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps,
+        *rk4_constants(BV_DT), BV_KAPPA, 1 / (H * W), *check_bv_coefficients(BV_MU, BV_J0),
+        int(bf16), ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0,
+        ep.center if ep else 0.0, None)
     assert rc == 0
     return out if ep is None else (out, stats, obs)
 
 
-def _bv_plain(u, cr, consts, ep, bf16):
+def _bv_plain(u, cr, consts, ep, bf16, n_steps=N_STEPS):
     H, W = u.shape[-2:]
     return bv_cc_macro_plain(u, cr, consts, mu_fn=BV_MU, j0_fn=BV_J0, kappa=BV_KAPPA,
-                             cell=1 / (H * W), dt=BV_DT, n_steps=N_STEPS, round_bf16=bf16,
+                             cell=1 / (H * W), dt=BV_DT, n_steps=n_steps, round_bf16=bf16,
                              epilogue=ep)
 
 
@@ -847,6 +852,66 @@ def test_nan_env_stays_in_its_env(libs, kernel):
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < H * W
 
 
+# ---- K6 above 64², the tiled kernel ---------------------------------------------
+
+def _bv_tiled_case(lib, H, W, bf16, ep, seed, n_steps=N_STEPS, nan=False):
+    """The tiled K6 and its plain version on two envs through the stub's one
+    slot (box 1, h = 1/H, 1/W): ``(got, want, consts, u, cr)``."""
+    u, cr = _bv_inputs(H, W, seed, n=2)
+    if nan:
+        u[0, 3, 7] = float("nan")
+    consts = _bv_consts(H, W, bf16)
+    epi = Epilogue(255.0, 0.0, 0.5, 1) if ep else None
+    got = _bv_kernel(lib, u, cr, consts, epi, bf16, n_steps)
+    want = _bv_plain(u, cr, consts, epi, bf16, n_steps)
+    return got, want, consts, u, cr
+
+
+@pytest.mark.parametrize("H,W", TILED_SHAPES)
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("ep", [False, True])
+def test_bv_tiled_kernel_matches_plain(libs, H, W, bf16, ep):
+    """K6 above 64² on the tiled kernel (tensor cores with bf16 matrices,
+    FMA with f32), epilogue off and on: per RK stage two transforms, the
+    closure's integrals in lap's epilogue, one block reduction and a pass
+    over the slot's planes."""
+    got, want, *_ = _bv_tiled_case(libs[1], H, W, bf16, ep, seed=H + W + ep)
+    if not ep:
+        got, want = (got,), (want,)
+    assert float((got[0] - _bv_inputs(H, W, H + W + ep, n=2)[0]).abs().max()) > 1e-4
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_BV[bf16])
+    if ep:
+        assert torch.equal(got[1][:, 2], want[1][:, 2])
+        torch.testing.assert_close(got[1][:, :2], want[1][:, :2], rtol=1e-4, atol=0)
+        assert int((got[2].int() - want[2].int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_bv_tiled_nan_env_stays_in_its_env(libs, bf16):
+    """One NaN pixel in the first env at 96 x 136 with the epilogue: the
+    closure spreads it over that env alone; the second env, which reuses
+    its slot, still equals plain."""
+    got, want, *_ = _bv_tiled_case(libs[1], 96, 136, bf16, True, seed=9, nan=True)
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert bool(torch.isnan(got[0][0]).all()) and not bool(torch.isnan(got[0][1:]).any())
+    torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_BV[bf16])
+    assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) == 0.0
+
+
+def test_bv_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
+    """One substep at 128² with bf16 matrices: the RMS of kernel - plain
+    sits below the card's bound (``test_torch_bv.py``'s TOL_SITE), which
+    the unrounded plain version (the control) exceeds."""
+    got, want, consts, u, cr = _bv_tiled_case(libs[1], 128, 128, True, False, seed=21,
+                                              n_steps=1)
+    ctl = _bv_plain(u, cr, consts, None, False, 1)
+
+    def rms(d):
+        return float(d.double().pow(2).mean().sqrt())
+
+    assert rms(got - want) <= TOL_BV_SITE < rms(ctl - want)
+
+
 # ---- K9a and K9b, the packed-DFT macros ----------------------------------------
 
 def _sif_case(libs, kind, H, W, half, bf16, R=None, n_steps=N_STEPS, seed=0, nan=False):
@@ -942,21 +1007,23 @@ def _sbm_psi(H, W, width=0.06):
     return np.where(psi > 0.99, 1.0, psi).astype(np.float32)
 
 
-def _sbm_case(lib, H, W, ep, seed, nan=False, n_steps=N_STEPS):
-    """K7 from the stub build and its plain version on charging fields:
-    ``(got, want)``, each ``u1`` or ``(u1, stats, obs)``."""
-    u, cr = _bv_inputs(H, W, seed)
+def _sbm_case(lib, H, W, ep, seed, nan=False, n_steps=N_STEPS, n=B):
+    """K7 from the stub build and its plain version on ``n`` charging
+    fields: ``(got, want)``, each ``u1`` or ``(u1, stats, obs)``."""
+    u, cr = _bv_inputs(H, W, seed, n)
     if nan:
         u[0, 3, 7] = float("nan")
     consts = sbm_bv_constants(_sbm_psi(H, W), SBM_KAPPA, 1 / H, 1 / W, torch.device("cpu"))
     epi = SbmEpilogue(255.0, 0.5) if ep else None
     out, stats, obs = torch.empty_like(u), None, None
     if ep:
-        stats, obs = torch.empty((B, 3)), torch.empty((B, H, W), dtype=torch.uint8)
+        stats, obs = torch.empty((n, 3)), torch.empty((n, H, W), dtype=torch.uint8)
+    scratch, slots = _scratch(lib, "sbm_bv_macro_scratch", H, W)
     rc = lib.sbm_bv_macro_launch(
         u.data_ptr(), cr.data_ptr(), *(getattr(consts, k).data_ptr() for k in
                                        ("psi_ax", "psi_ay", "kop", "psic", "psi")),
-        out.data_ptr(), _ptr(stats), _ptr(obs), B, H, W, n_steps, *rk4_constants(SBM_DT),
+        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(scratch), slots, n, H, W, n_steps,
+        *rk4_constants(SBM_DT),
         consts.inv_hx, consts.inv_hy, *check_bv_coefficients(BV_MU, BV_J0),
         epi.obs_scale if epi else 0.0, epi.center if epi else 0.0, None)
     assert rc == 0
@@ -971,12 +1038,14 @@ def _assert_sbm_epilogue(got, want):
     assert int((got[2].int() - want[2].int()).abs().max()) <= 1
 
 
-@pytest.mark.parametrize("H,W", SHAPES)
+@pytest.mark.parametrize("H,W", SHAPES + TILED_SHAPES)
 @pytest.mark.parametrize("ep", [False, True])
 def test_sbm_kernel_matches_plain(libs, H, W, ep):
     """K7 at 16^2, 24 x 40 and 64^2, with and without the psi-weighted
     epilogue: three envs through one block (grid stride), each tile's
-    fluxes from its neighbours' stage input in shared memory."""
+    fluxes from its neighbours' stage input in shared memory; above 64^2
+    the tiled kernel, the three envs through the stub's one scratch slot,
+    each group's faces from its neighbours' z in the slot's plane."""
     got, want = _sbm_case(libs[7], H, W, ep, seed=H + W)
     if not ep:
         got, want = (got,), (want,)
@@ -1004,6 +1073,31 @@ def test_sbm_no_substep_copies_the_field(libs):
     """n_steps = 0: the field comes back as it went in, and the epilogue
     reads it."""
     got, want = _sbm_case(libs[7], 16, 16, True, seed=1, n_steps=0)
+    assert torch.equal(got[0], want[0])
+    _assert_sbm_epilogue(got, want)
+
+
+# ---- K7 above 64², the tiled kernel ---------------------------------------------
+
+@pytest.mark.parametrize("ep", [False, True])
+def test_sbm_tiled_nan_env_stays_in_its_env(libs, ep):
+    """One NaN pixel in the first env at 96 x 136: its reduction poisons
+    that env only; the second env, which reuses the slot, equals plain."""
+    got, want = _sbm_case(libs[7], 96, 136, ep, seed=5, nan=True, n=2)
+    if not ep:
+        got, want = (got,), (want,)
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert bool(torch.isnan(got[0][0]).all()) and not bool(torch.isnan(got[0][1:]).any())
+    torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_SBM)
+    if ep:
+        assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) == 0.0
+        torch.testing.assert_close(got[1][1:, :2], want[1][1:, :2], rtol=1e-4, atol=0)
+
+
+def test_sbm_tiled_no_substep_copies_the_field(libs):
+    """n_steps = 0 at 128²: the field comes back as it went in, and the
+    epilogue reads it."""
+    got, want = _sbm_case(libs[7], 128, 128, True, seed=1, n_steps=0, n=2)
     assert torch.equal(got[0], want[0])
     _assert_sbm_epilogue(got, want)
 

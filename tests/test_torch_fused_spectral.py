@@ -414,6 +414,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(kind):
     assert kernels.launch_counts() == before
     with pytest.raises(ValueError, match="multiples of 8"):
         make_ch_sif_fused_macro(MU_T, 12, 16, HX, HY, 1.0, 1e-3, 2)
+    # K9a/K9b are the one family still held at 64² (checked before the
+    # device); the message names the ROADMAP item that takes them past it.
+    big = torch.zeros((2, 128, 128))
+    with pytest.raises(ValueError, match=r"up to 64;.*K9a/K9b.*ROADMAP.md queue 1 item 4"):
+        cuda(big, kap, consts, **kw)
 
 
 # ---- on the card ---------------------------------------------------------------------

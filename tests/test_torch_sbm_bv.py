@@ -247,6 +247,35 @@ def test_macro_matches_jax(ep):
         assert tout[2].dtype == torch.uint8 and d.max() <= 1
 
 
+@pytest.mark.parametrize("H,W", [(128, 128), (96, 136)])
+@pytest.mark.parametrize("ep", [False, True])
+def test_macro_above_64_matches_jax(H, W, ep):
+    """The plain K7 against the JAX macro in interpret mode above 64², where
+    the card runs the tiled K7: 128² (the 128² SBM fleet) and a non-square
+    grid that is no multiple of 64; 2 envs x 2 substeps."""
+    jnp, jmu, jj0 = _jax_coeffs()
+    from pde_opt_tpu.ops.sbm_bv import make_sbm_bv_fused_macro as jmake
+
+    B, n = 2, 2
+    u, cr, psi = _inputs(B, H, seed=H + W + ep, W=W)
+    hx, hy = 1.0 / H, 1.0 / W
+    cfg = EP_CFG if ep else None
+    jout = jmake(jmu, jj0, KAPPA, psi, hx, hy, DT, n, interpret=True, epilogue=cfg)(
+        jnp.asarray(u), jnp.asarray(cr))
+    tout = tmake(BV_MU, BV_J0, KAPPA, psi, hx, hy, DT, n, epilogue=cfg)(*_t(u, cr))
+    if not ep:
+        jout, tout = (jout,), (tout,)
+    assert tout[0].shape == (B, H, W) and tout[0].dtype == torch.float32
+    assert float((tout[0] - torch.from_numpy(u)).abs().max()) > 1e-4
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0, atol=1e-6)
+    if ep:
+        st, jst = tout[1].numpy(), np.asarray(jout[1])
+        np.testing.assert_array_equal(st[:, 2], jst[:, 2])
+        np.testing.assert_allclose(st[:, :2], jst[:, :2], rtol=1e-5)
+        d = np.abs(tout[2].numpy().astype(int) - np.asarray(jout[2]).astype(int))
+        assert tout[2].dtype == torch.uint8 and d.max() <= 1
+
+
 def test_macro_matches_reference():
     jnp, jmu, jj0 = _jax_coeffs()
     from pde_opt_tpu.ops.sbm_bv import sbm_bv_reference as jref
@@ -386,6 +415,11 @@ def test_cpu_refusals_and_no_launches():
     tmake(BV_MU, BV_J0, KAPPA, psi, 1 / 16, 1 / 16, DT, 2)(ut, 1.0).sum().backward()
     assert ut.grad is not None
     assert kernels.launch_counts() == before
+    # The grid cap is checked before the device: 256² is the tiled kernel's
+    # largest grid, so a 264² state is refused on any device.
+    big = torch.full((1, 264, 264), 0.1)
+    with pytest.raises(ValueError, match="multiples of 8 up to 256"):
+        sbm_bv_macro_cuda(big, torch.ones(1), consts, **kw)
 
 
 # ---- the preset ----------------------------------------------------------------
@@ -435,6 +469,40 @@ def test_env_steps_match_jax(method):
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
         np.testing.assert_allclose(ts.control_value.numpy(), np.asarray(js.control_value),
                                    rtol=2e-7)
+
+
+def test_env_step_at_128_matches_jax():
+    """One fused env step of the preset at grid_size=128 (the 128² fleet's
+    grid: the disk's interface 5 cells wide, box 1, h = 1/128) on three
+    envs, against the JAX preset: ψ first, then fields, obs, rewards and
+    terminations as in test_env_steps_match_jax."""
+    import jax
+
+    from pde_opt_tpu.envs.presets import make_sbm_butler_volmer_control_env as jpreset
+    from pde_opt_tpu.envs.vector_env import EnvState as JState
+
+    jnp = jax.numpy
+    B, H = 3, 128
+    kw = dict(num_envs=B, grid_size=H, substeps=4, method="fused", auto_reset=False)
+    jenv, tenv = jpreset(**kw), tpreset(device="cpu", **kw)
+    assert tenv.domain.dx[0] == pytest.approx(1 / H) and tenv.fused_epilogue is not None
+    np.testing.assert_allclose(tenv.static_equation_parameters["psi"].numpy(),
+                               np.asarray(jenv.static_equation_parameters["psi"]),
+                               rtol=0, atol=1e-6)
+    arrs = _np_state(B, H, 5)
+    js = JState(y=jnp.asarray(arrs["y"]), t=jnp.asarray(arrs["t"]),
+                control_value=jnp.asarray(arrs["control_value"]),
+                key=jax.random.split(jax.random.PRNGKey(0), B),
+                step_count=jnp.asarray(arrs["step_count"]), done=jnp.asarray(arrs["done"]))
+    a = np.random.default_rng(2).uniform(-1, 1, (B, 1)).astype(np.float32)
+    js, jo, jr, jt, _, _ = jenv.step(js, jnp.asarray(a))
+    ts, to, tr, tt, _, _ = tenv.step(env_state_from_numpy(arrs, "cpu"), torch.from_numpy(a))
+    assert float((ts.y - torch.from_numpy(arrs["y"])).abs().max()) > 1e-4
+    np.testing.assert_allclose(ts.y.numpy(), np.asarray(js.y), rtol=0, atol=1e-6)
+    d = np.abs(to.numpy().astype(np.int32) - np.asarray(jo).astype(np.int32))
+    assert to.shape == (B, 1, H, H) and d.max() <= 1
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-4)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
 
 def test_fused_env_matches_rk4_env():
@@ -525,7 +593,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,W", [(16, 16), (64, 64), (24, 40)])
+@pytest.mark.parametrize("H,W", [(16, 16), (64, 64), (24, 40), (128, 128), (96, 136),
+                                 (256, 256)])
 @pytest.mark.parametrize("ep", [False, True])
 def test_kernel_matches_plain_on_card(cuda_device, H, W, ep):
     u, cr, psi = _inputs(300, H, seed=H, W=W)
