@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Twenty-eight paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
+Thirty-four paths run at full width.  Serving: the flagship Cahn-Hilliard (CH)
 control fleet, 4096 envs on a 64x64 periodic grid, 10 semi-implicit
 substeps per RL step, per-env kappa control, reward -var, uint8
 observation, auto-reset on.  Training: gradients through the same macro at
@@ -39,7 +39,11 @@ rotating-frame GPE at the JAX bench's ``run_gpe_rot`` (512 fields of 64^2,
 and its stirring fleet (1024 envs x 64^2 x 10), and the SBM fleet (1024
 envs) on a level set from the ``Shape`` smoothing flow.  Above 64^2 on the
 tiled K6 and K7: the BV charging fleet at 512 envs x 128^2 and the SBM
-fleet at 256 envs x 128^2 (analytic psi).
+fleet at 256 envs x 128^2 (analytic psi).  Above 64^2 on the tiled K9a and
+K9b: the CH and AC fleets with ``algo="dft"`` at 1024 envs x 128^2, K9a at
+``run_ch256``'s shape and a value+grad through K9a at 1024 x 128^2.  The CH
+fleet with ``spectral_solve="dense"`` (the dense spectral solve, 4096 x
+64^2) and one backward-Euler solve by Newton-GMRES (``ImplicitEuler``).
 Phases (each passes or raises; nothing is
 caught):
 
@@ -218,8 +222,25 @@ caught):
    balance, one step of the fused fleet against the RK4 fleet from one
    state.  (d) Their env-steps/s, and K6 and K7 at these shapes against
    plain, timed beside plain and their bounds.
+14. The packed-DFT macros above 64^2 (the tiled K9a and K9b; the constants
+   ``DFT128_*``, ``K9_VG_*`` say how), the dense solve and implicit Euler.
+   (a) K9a, K9b (R == 1 and a polynomial R) against their plain versions
+   at 128^2, 96 x 136 and 256^2, f32 and bf16 tables, half and full
+   spectrum, a NaN env in each launch, bf16 also against two correct plain
+   controls; at 128^2 one bf16 substep at the rounding sites and, with f32
+   tables, against the FFT oracles and the tiled K2 / K4.  (b) The CH and AC
+   dft fleets at 1024 x 128^2 (K9a, K9b alone, once a step; their rates
+   beside phases 9 and 10's cas fleets at that shape), K9a at 256 x 256^2
+   (chained calls, field-substeps/s), a value+grad through K9a at 1024 x
+   128^2 (K9a once a call; f32 tables against the CPU on a few envs); K9a
+   and K9b timed at these shapes beside plain and their bounds.  (c) The CH
+   fleet with ``spectral_solve="dense"`` at 4096 x 64^2 x 10 (no K1-K9
+   launch, rewards finite, its rate beside the fused fleet's, the product
+   route named), one substep of its stepper against the CPU's.  (d) One
+   ``ImplicitEuler.solve_step`` on the card against the CPU's (f64).
 
-Every rollout and update of phases 4-10, 12 and 13 runs under
+Every rollout and update of phases 4-10, 12, 13 and 14 (but 14b's
+value+grad) runs under
 ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for the device
 fails the run.  Phase 11's loops and phase 12's smoothing flow read a value
 each step by design (LM's loss, the adaptive controller's error norm).  The last two lines are a
@@ -526,6 +547,33 @@ TOL_SHAPE = 1e-3
 BVBIG_CHECK_ENVS = 600
 BV128_ENVS, SBM128_ENVS, BVSBM128_GRID, BIG_RK4_ENVS = 512, 256, 128, 8
 TOL_BV_RK4_BF16 = 5e-5
+# The packed-DFT macros above 64^2 (the tiled K9a and K9b, phase 14).  Kernel
+# against plain at BIG_GRIDS on BIG_CHECK_ENVS envs with env BIG_NAN_ENV NaN:
+# K9a, K9b with R == 1 and with R = 1 + 0.5 u^2, f32 and bf16 tables, half
+# and full spectrum, at phase 3's bounds (TOL_U, TOL_AC); bf16 at the larger
+# of those and twice the farther of two correct plain controls (products
+# accumulated in f64; on the TF32 tensor cores), as phase 13 holds K6 at
+# 256^2; one bf16 substep of each at 128^2 at the rounding sites (TOL_SITE);
+# with f32 tables on K9_ORACLE_ENVS envs at 128^2 against the FFT oracles and
+# K9a against the tiled K2, K9b against the tiled K4 (the same semantics on
+# the cas transform), both at TOL_K9_ORACLE.  Then the paths, uncut: the CH
+# fleet with "algo": "dft" at run_ch128's shape (DFT128_ENVS x 128^2 x 10,
+# K9a) and the AC fleet at phase 10's AC 128^2 shape (K9b), STEPS steps
+# across the episode end; K9a at run_ch256's shape (BIG256_ENVS x 256^2 x 10,
+# BIG256_CALLS chained calls); a value+grad of sum(macro(u, kappa)^2) through
+# K9a (the checkpointed FFT oracle's backward) at DFT128_ENVS x 128^2 x 10,
+# K9_VG_CALLS calls, and with f32 tables on K9_VG_CHECK_ENVS envs against the
+# CPU (phase 6's bounds); the CH fleet with spectral_solve="dense" at the
+# flagship's NUM_ENVS x 64^2 x 10 (DENSE_STEPS steps, no K1-K9 launch), one
+# substep of its stepper on DENSE_CHECK_ENVS envs against the CPU's (the
+# increment within TOL_DENSE of its largest entry: the half-solved field
+# rounds to bf16 at ties that other sums round apart); one
+# ImplicitEuler.solve_step on a stiff nonlinear rhs at IE_SHAPE in f64 on the
+# card against the CPU's (TOL_IE).
+DFT128_ENVS, DFT128_GRID = 1024, 128
+K9_VG_CALLS, K9_VG_CHECK_ENVS = 3, 4
+DENSE_STEPS, DENSE_CHECK_ENVS, TOL_DENSE = 30, 8, 1e-2
+IE_SHAPE, TOL_IE = (4, 64, 64), 1e-10
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1875,17 +1923,19 @@ def _check_k9(torch, dev, gen, u, kap, u_ac, kap_ac):
     return max_err
 
 
-def _drive_dft_fleet(torch, kernels, make_env, name, kernel, card):
+def _drive_dft_fleet(torch, kernels, make_env, name, kernel, card, num_envs=None, grid=GRID):
     """A preset fleet on the packed-DFT macro: ``spectral_solve="fused"``,
     no fused epilogue, and ``"algo": "dft"`` in the env's solver_parameters
-    (read at every step).  With the launch counts reset just before, a
-    STEPS-step random-policy rollout across the episode end and its
-    auto-reset under sync debug mode "error"; the counts are read just
-    after: one launch of ``kernel`` a step and nothing else.  Returns
-    (launch counts, env-steps/s)."""
-    env = make_env(num_envs=NUM_ENVS if name == "CH" else AC_ENVS, grid_size=GRID,
-                   substeps=SUBSTEPS, spectral_solve="fused", fused_epilogue=False,
-                   device=torch.device("cuda"))
+    (read at every step); ``num_envs`` (default: the CH or AC fleet's) envs
+    of ``grid``^2.  With the launch counts reset just before, a STEPS-step
+    random-policy rollout across the episode end and its auto-reset under
+    sync debug mode "error"; the counts are read just after: one launch of
+    ``kernel`` a step and nothing else.  Returns (launch counts,
+    env-steps/s)."""
+    if num_envs is None:
+        num_envs = NUM_ENVS if name == "CH" else AC_ENVS
+    env = make_env(num_envs=num_envs, grid_size=grid, substeps=SUBSTEPS, spectral_solve="fused",
+                   fused_epilogue=False, device=torch.device("cuda"))
     env.solver_parameters["algo"] = "dft"
     gen = torch.Generator(device="cuda").manual_seed(70)
 
@@ -1906,7 +1956,7 @@ def _drive_dft_fleet(torch, kernels, make_env, name, kernel, card):
     torch.cuda.synchronize()
     rate = env.num_envs * STEPS / (time.perf_counter() - t0)
     counts = kernels.launch_counts()
-    print(f"{name} fleet algo=dft: {STEPS}-step rollout of {env.num_envs} envs x {GRID}^2 x "
+    print(f"{name} fleet algo=dft: {STEPS}-step rollout of {env.num_envs} envs x {grid}^2 x "
           f"{SUBSTEPS} substeps, {rate:.1f} env-steps/s; episode end at step {end_step}; "
           f"launches {counts} [{card}]", flush=True)
     _check(counts[kernel] == STEPS and sum(counts.values()) == STEPS,
@@ -2627,7 +2677,7 @@ def _drive_big(torch, kernels, dev, gen, card):
                   f"bit for bit", flush=True)
         else:
             _check_fwd_bf16(torch, line, got, want)
-    return fleet_counts, m256_counts, nn_counts
+    return (fleet_counts, m256_counts, nn_counts), fleet_rate
 
 
 def _tiled_bounds():
@@ -2882,7 +2932,7 @@ def _drive_tiled(torch, kernels, dev, gen, card):
     with its launch counts reset just before and read just after, under sync
     debug mode "error"; the GPE fleet's fft mode timed beside its fused one;
     then the tiled kernels held against plain and timed at these shapes.
-    Returns each path's counts."""
+    Returns (each path's counts, the AC 128^2 fleet's env-steps/s)."""
     from pde_opt_tpu_torch.envs.presets import (
         AC_MU,
         AC_R,
@@ -3032,7 +3082,7 @@ def _drive_tiled(torch, kernels, dev, gen, card):
         print(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of the kernel's time) at {what} bf16 "
               f"[{card}]", flush=True)
-    return g_counts, a_counts, v_counts
+    return (g_counts, a_counts, v_counts), a_rate
 
 
 def _on_card(dev, what, *tensors):
@@ -3774,6 +3824,423 @@ def _drive_bv_sbm_big(torch, kernels, dev, gen, card):
     return fleets, timings, rates
 
 
+def _dft_control_transforms(torch, tensor_cores):
+    """``_dft_transforms`` of the packed-DFT macros with bf16 tables, the
+    rounding sites kept, every product accumulated in f64 and rounded once
+    to f32, or with ``tensor_cores`` on the TF32 tensor cores (exact
+    products of bf16 values, f32 sums): a second correct bf16 macro, as
+    :func:`_control_transforms` is for the cas macros."""
+
+    def mm(a, b):
+        return a @ b if tensor_cores else torch.matmul(a.double(), b.double()).float()
+
+    def transforms(c, round_bf16):
+        def rnd(z):
+            return z.to(torch.bfloat16).to(torch.float32)
+
+        wr_hT, wi_hT, vr_hT, vi_hT = c.wr_h.T, c.wi_h.T, c.vr_h.T, c.vi_h.T
+
+        def fwd(x):
+            x = rnd(x)
+            ar, ai = rnd(mm(x, c.wr_w)), rnd(mm(x, c.wi_w))
+            return mm(wr_hT, ar) - mm(wi_hT, ai), mm(wi_hT, ar) + mm(wr_hT, ai)
+
+        def inv(zr, zi):
+            zr, zi = rnd(zr), rnd(zi)
+            cr = rnd(mm(vr_hT, zr) - mm(vi_hT, zi))
+            ci = rnd(mm(vi_hT, zr) + mm(vr_hT, zi))
+            return mm(cr, c.vr_w) - mm(ci, c.vi_w)
+
+        return fwd, inv
+
+    return transforms
+
+
+def _with_dft_controls(torch, fn, *args, **kw):
+    """``fn(*args, **kw)`` on each of the two :func:`_dft_control_transforms`
+    (TF32 on for the tensor-core one): ``[f64-accumulated, tensor-core]``."""
+    from unittest import mock
+
+    from pde_opt_tpu_torch.ops import fused_spectral
+
+    out = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for tc in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tc
+        try:
+            with mock.patch.object(fused_spectral, "_dft_transforms",
+                                   _dft_control_transforms(torch, tc)):
+                out.append(fn(*args, **kw))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def _k9_cases(torch, dev, gen, B, H, W):
+    """K9a, K9b (R == 1) and K9b (R = 1 + 0.5 u^2) on B fields of H x W at
+    the CH and AC fleets' amplitudes and kappa ranges: a list of (label,
+    launch-count name, cuda, plain, u, kappa, keyword arguments less the
+    tables' and the substeps', bound of the field, rounding-site bound)."""
+    from pde_opt_tpu_torch.envs.presets import AC_MU, AC_R, CH_MU
+    from pde_opt_tpu_torch.ops.cas_spectral import PolynomialMu
+    from pde_opt_tpu_torch.ops.fused_spectral import (
+        ac_sif_macro_cuda,
+        ac_sif_macro_plain,
+        ch_sif_macro_cuda,
+        ch_sif_macro_plain,
+    )
+
+    u = 0.45 + 0.05 * torch.randn((B, H, W), generator=gen, device=dev)
+    kap = 2e-3 + 8e-3 * torch.rand((B,), generator=gen, device=dev)
+    u_ac = 0.1 * torch.randn((B, H, W), generator=gen, device=dev)
+    kap_ac = 1e-4 + 9e-4 * torch.rand((B,), generator=gen, device=dev)
+    r_gen = PolynomialMu(AC_R_GENERAL)
+    ac = dict(mu_fn=AC_MU, hx=HX, hy=HY, dt=DT, A=A)
+    return [("ch_sif_macro", "ch_sif_macro", ch_sif_macro_cuda, ch_sif_macro_plain, u, kap,
+             dict(mu_fn=CH_MU, dt=DT, A=A), TOL_U, TOL_SITE["ch_sif"]),
+            ("ac_sif_macro R=1", "ac_sif_macro", ac_sif_macro_cuda, ac_sif_macro_plain, u_ac,
+             kap_ac, dict(ac, R_fn=AC_R, r_identity=True), TOL_AC, TOL_SITE["ac_sif"]),
+            ("ac_sif_macro R=1+0.5u^2", "ac_sif_macro", ac_sif_macro_cuda, ac_sif_macro_plain,
+             u_ac, kap_ac, dict(ac, R_fn=r_gen, r_identity=False), TOL_AC, TOL_SITE["ac_sif"])]
+
+
+def _check_k9_big(torch, dev, gen):
+    """Phase 14a: the tiled K9a and K9b at BIG_GRIDS against their plain
+    versions on BIG_CHECK_ENVS envs with env BIG_NAN_ENV NaN, f32 and bf16
+    tables, half and full spectrum; bf16 also against two correct plain
+    controls; at 128^2 one bf16 substep at the rounding sites, and with f32
+    tables against the FFT oracles and the tiled K2 / K4.  Returns the
+    largest bf16 field errors."""
+    from pde_opt_tpu_torch.envs.presets import AC_MU, CH_MU
+    from pde_opt_tpu_torch.ops.cas_spectral import (
+        ac_cas_macro_cuda,
+        cas_constants,
+        ch_cas_macro_cuda,
+    )
+    from pde_opt_tpu_torch.ops.fused_spectral import (
+        ac_sif_macro_reference,
+        ch_sif_macro_reference,
+        sif_constants,
+    )
+
+    B, bad = BIG_CHECK_ENVS, BIG_NAN_ENV
+    keep = torch.arange(B, device=dev) != bad
+    errs = {}
+    for H, W in BIG_GRIDS:
+        cases = _k9_cases(torch, dev, gen, B, H, W)
+        for label, name, cuda, plain, u, kap, kw0, tol, site in cases:
+            x = u.clone()
+            x[bad, 3, 7] = float("nan")
+            for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                for half in (True, False):
+                    consts = sif_constants(H, W, HX, HY, mdt, half, dev)
+                    kw = dict(kw0, n_steps=SUBSTEPS, round_bf16=mats == "bf16")
+                    got, want = cuda(x, kap, consts, **kw), plain(x, kap, consts, **kw)
+                    torch.cuda.synchronize()
+                    err = (got[keep] - want[keep]).abs().max().item()
+                    bound, what = tol[mats], ""
+                    if mats == "bf16":
+                        # Two correct bf16 macros drift apart at bf16 ties that
+                        # their sums' orders round apart: the bound is the field
+                        # bound or twice the farther control, whichever is larger.
+                        ctl = [(c - want)[keep].abs().max().item()
+                               for c in _with_dft_controls(torch, plain, x, kap, consts, **kw)]
+                        bound = max(bound, 2.0 * max(ctl))
+                        what = (f"; controls: f64-accumulated plain {ctl[0]:.3e}, tensor-core "
+                                f"plain {ctl[1]:.3e}; bound {bound:.3e}")
+                    line = (f"check {label} {B}x{H}x{W}x{SUBSTEPS} mats={mats} "
+                            f"{'half' if half else 'full'} spectrum, env {bad} NaN: u1 "
+                            f"max_abs_err {err:.3e}{what}")
+                    _check_nan_env(torch, line, got, want, bad, keep)
+                    _check(err <= bound, f"{line} > {bound}")
+                    print(line, flush=True)
+                    if mats == "bf16":
+                        errs[name] = max(errs.get(name, 0.0), err)
+            if (H, W) != (128, 128):
+                continue
+            one = dict(kw0, n_steps=1, round_bf16=True)
+            consts = sif_constants(H, W, HX, HY, torch.bfloat16, True, dev)
+            _check_sites(f"{label} {B}x{H}x{W} mats=bf16", cuda(u, kap, consts, **one),
+                         plain(u, kap, consts, **one),
+                         plain(u, kap, consts, **{**one, "round_bf16": False}), site)
+            # f32 tables: against the FFT oracle and the tiled cas macro.
+            n = K9_ORACLE_ENVS
+            consts = sif_constants(H, W, HX, HY, torch.float32, True, dev)
+            kw = dict(kw0, n_steps=SUBSTEPS, round_bf16=False)
+            got = cuda(u[:n], kap[:n], consts, **kw)
+            if name == "ch_sif_macro":
+                oracle = ch_sif_macro_reference(CH_MU, HX, HY, A, DT, SUBSTEPS)
+                other = ch_cas_macro_cuda(u[:n], kap[:n],
+                                          cas_constants(H, W, HX, HY, torch.float32, dev),
+                                          mu_fn=CH_MU, dt=DT, A=A, n_steps=SUBSTEPS,
+                                          round_bf16=False)
+            else:
+                oracle = ac_sif_macro_reference(AC_MU, kw0["R_fn"], HX, HY, A, DT, SUBSTEPS)
+                other = ac_cas_macro_cuda(u[:n], kap[:n],
+                                          cas_constants(H, W, HX, HY, torch.float32, dev),
+                                          mu_fn=AC_MU, R_fn=kw0["R_fn"],
+                                          r_identity=kw0["r_identity"], dt=DT, A=A,
+                                          n_steps=SUBSTEPS, round_bf16=False)
+            e_o = (got - oracle(u[:n], kap[:n])).abs().max().item()
+            e_c = (got - other).abs().max().item()
+            line = (f"check {label} {n}x{H}x{W}x{SUBSTEPS} mats=f32: vs FFT oracle max_abs_err "
+                    f"{e_o:.3e}, vs the tiled {'K2' if name == 'ch_sif_macro' else 'K4'} "
+                    f"{e_c:.3e}")
+            _check(e_o <= TOL_K9_ORACLE and e_c <= TOL_K9_ORACLE, f"{line} > {TOL_K9_ORACLE}")
+            print(line, flush=True)
+    return errs
+
+
+def _k9big_bounds():
+    """The bounds of the tiled K9a and K9b at phase 14's path shapes,
+    counted as _bounds() counts them at 64^2: K9a and K9b (R == 1) at
+    DFT128_ENVS x 128^2, K9a at BIG256_ENVS x 256^2, bf16 tables."""
+    n, out = SUBSTEPS, {}
+    for name, B, G in (("ch_sif_macro 128^2", DFT128_ENVS, DFT128_GRID),
+                       ("ac_sif_macro 128^2", DFT128_ENVS, DFT128_GRID),
+                       ("ch_sif_macro 256^2", BIG256_ENVS, BIG256_GRID)):
+        px, w2 = G * G, G // 2 + 1
+        tables = (4 * G * G + 4 * G * w2) * 4
+        field = B * px * 4 * 2 + B * 4
+        if name.startswith("ch"):
+            out[name] = _bound_ops((n + 0.5) * _dft_ops(G, G) * B, "bf16",
+                                   (18 * px + 20 * G * w2) * n * B, field + tables + G * w2 * 8)
+        else:
+            out[name] = _bound_ops(n * _dft_ops(G, G) * B, "bf16",
+                                   (29 * px + 11 * G * w2) * n * B, field + tables + G * w2 * 4)
+    return out
+
+
+def _drive_k9_big(torch, kernels, dev, gen, card, ch128_rate, ac128_rate):
+    """Phase 14b: the dft fleets at 128^2 (K9a, K9b), K9a at 256^2 and a
+    value+grad through K9a at 128^2, each with its launch counts reset just
+    before and read just after; then K9a and K9b timed at these shapes
+    beside plain and their bounds.  Returns (each path's counts, timings)."""
+    from pde_opt_tpu_torch.envs.presets import (
+        CH_MU,
+        make_allen_cahn_control_env,
+        make_cahn_hilliard_control_env,
+    )
+    from pde_opt_tpu_torch.ops.fused_spectral import make_ch_sif_fused_macro, sif_constants
+
+    G = DFT128_GRID
+    ch_counts, ch_rate = _drive_dft_fleet(torch, kernels, make_cahn_hilliard_control_env, "CH",
+                                          "ch_sif_macro", card, DFT128_ENVS, G)
+    ac_counts, ac_rate = _drive_dft_fleet(torch, kernels, make_allen_cahn_control_env, "AC",
+                                          "ac_sif_macro", card, DFT128_ENVS, G)
+    print(f"{G}^2 fleets, {DFT128_ENVS} envs: CH algo=dft {ch_rate:.1f} env-steps/s (K9a, no "
+          f"epilogue) vs cas {ch128_rate:.1f} (K1, derivs=pallas, fused epilogue); AC algo=dft "
+          f"{ac_rate:.1f} (K9b) vs cas {ac128_rate:.1f} (K4, fused epilogue) [{card}]",
+          flush=True)
+
+    # -- K9a at run_ch256's shape --
+    N = BIG256_GRID
+    macro = make_ch_sif_fused_macro(CH_MU, N, N, 0.01, 0.01, 1.0, BIG256_DT, SUBSTEPS)
+    u = 0.5 + 0.01 * torch.randn((BIG256_ENVS, N, N), generator=gen, device=dev)
+    k = torch.full((BIG256_ENVS,), 4e-3, device=dev)
+    out = macro(u, k)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for _ in range(BIG256_CALLS):
+        out = macro(out, k)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_256 = time.perf_counter() - t0
+    m256_counts = kernels.launch_counts()
+    _check(m256_counts["ch_sif_macro"] == BIG256_CALLS
+           and sum(m256_counts.values()) == BIG256_CALLS, f"K9a 256^2 launches {m256_counts}")
+    drift = (out.mean((-2, -1)) - u.mean((-2, -1))).abs().max().item()
+    _check(bool(torch.isfinite(out).all()) and drift < 1e-3,
+           f"K9a 256^2: non-finite field or per-env mean drift {drift}")
+    print(f"K9a 256^2 macro: {BIG256_CALLS} chained calls of {BIG256_ENVS} envs x {N}^2 x "
+          f"{SUBSTEPS} substeps (dt {BIG256_DT}), no host sync, launches {m256_counts}, per-env "
+          f"mean drift {drift:.3e}: {BIG256_ENVS * SUBSTEPS * BIG256_CALLS / t_256:.1f} "
+          f"field-substeps/s [{card}]", flush=True)
+
+    # -- a value+grad through K9a at 128^2 (the oracle's backward) --
+    u128 = 0.5 + 0.01 * torch.randn((DFT128_ENVS, G, G), generator=gen, device=dev)
+    k128 = 2e-3 + 8e-3 * torch.rand((DFT128_ENVS,), generator=gen, device=dev)
+    m128 = make_ch_sif_fused_macro(CH_MU, G, G, HX, HY, A, DT, SUBSTEPS)
+
+    def value_and_grad(m, uu, kk):
+        kk = kk.clone().requires_grad_()
+        v = (m(uu, kk) ** 2).sum()
+        v.backward()
+        return v.detach(), kk.grad
+
+    value_and_grad(m128, u128, k128)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vg = [value_and_grad(m128, u128, k128) for _ in range(K9_VG_CALLS)]
+    torch.cuda.synchronize()
+    t_vg = time.perf_counter() - t0
+    vg_counts = kernels.launch_counts()
+    _check(vg_counts["ch_sif_macro"] == K9_VG_CALLS and sum(vg_counts.values()) == K9_VG_CALLS,
+           f"K9a value+grad launches {vg_counts}")
+    _check(all(bool(torch.isfinite(v)) and bool(torch.isfinite(g).all()) for v, g in vg),
+           "K9a value+grad: non-finite value or gradient")
+    print(f"K9a value+grad (checkpointed FFT-oracle backward): {K9_VG_CALLS} calls of "
+          f"{DFT128_ENVS} envs x {G}^2 x {SUBSTEPS} substeps (bf16), launches {vg_counts}: "
+          f"{DFT128_ENVS * SUBSTEPS * K9_VG_CALLS / t_vg:.1f} grad-env-substeps/s, "
+          f"{t_vg / K9_VG_CALLS * 1e3:.4f} ms a call [{card}]", flush=True)
+    # f32 tables on a few envs: the card (the tiled FMA K9a) against the CPU.
+    n = K9_VG_CHECK_ENVS
+    w = torch.randn((n, G, G), generator=gen, device=dev)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        m32 = make_ch_sif_fused_macro(CH_MU, G, G, HX, HY, A, DT, SUBSTEPS,
+                                      mats_dtype=torch.float32)
+        kk = k128[:n].to(d).clone().requires_grad_()
+        v = (w.to(d) * m32(u128[:n].to(d), kk)).sum()
+        v.backward()
+        res.append((v.item(), kk.grad.cpu()))
+    (v_card, g_card), (v_cpu, g_cpu) = res
+    e_v = abs(v_card - v_cpu) / abs(v_cpu)
+    e_g = ((g_card - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    line = (f"check K9a value+grad wrt kappa on the card vs the CPU ({n} envs x {G}^2 x "
+            f"{SUBSTEPS} substeps, f32 tables): value rel_err {e_v:.3e}, grad max_err / "
+            f"max|grad| {e_g:.3e}")
+    _check(bool(torch.isfinite(g_card).all()) and e_v <= 1e-5 and e_g <= 5e-3,
+           f"{line} > (1e-5, 5e-3)")
+    print(line, flush=True)
+
+    # -- K9a and K9b at these shapes: against plain, timed beside plain and the bound --
+    bounds, timings = _k9big_bounds(), {}
+    for label, (B, H) in (("128^2", (DFT128_ENVS, G)), ("256^2", (BIG256_ENVS, N))):
+        cases = _k9_cases(torch, dev, gen, B, H, H)
+        consts = sif_constants(H, H, HX, HY, torch.bfloat16, True, dev)
+        for case_label, name, cuda, plain, uu, kk, kw0, tol, _ in cases[:2 if H == G else 1]:
+            key = f"{name} {label}"
+            kw = dict(kw0, n_steps=SUBSTEPS, round_bf16=True)
+            what = f"{B}x{H}^2x{SUBSTEPS} bf16"
+            got, want = cuda(uu, kk, consts, **kw), plain(uu, kk, consts, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            line = f"check {case_label} at {what}: u1 max_abs_err {err:.3e}"
+            _check(bool(torch.isfinite(got).all()) and err <= tol["bf16"],
+                   f"{line} > {tol['bf16']}")
+            print(line, flush=True)
+            _time_pair(torch, timings, key, lambda: plain(uu, kk, consts, **kw),
+                       lambda: cuda(uu, kk, consts, **kw), what, card)
+            b_ms, b_by = bounds[key]
+            ms = timings[key][0]
+            print(f"bound {key}: {b_ms:.4f} ms ({b_by}); the kernel at {b_ms / ms:.1%} of it, "
+                  f"plain {timings[key][1]:.4f} ms [{card}]", flush=True)
+    return (ch_counts, ac_counts, m256_counts, vg_counts), timings
+
+
+def _drive_dense(torch, kernels, dev, gen, card, fused_rate):
+    """Phase 14c: the CH fleet with spectral_solve="dense" at the flagship's
+    shape, launch counts reset just before and read just after (none of
+    K1-K9: the dense solve is a plain product in JAX too), under sync debug
+    mode "error"; one substep of its stepper on the card against the CPU's.
+    Returns its env-steps/s."""
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.ops.steppers import SemiImplicitDenseSolve
+
+    env = make_cahn_hilliard_control_env(num_envs=NUM_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+                                         spectral_solve="dense", device=dev)
+
+    def policy(obs, g):
+        return env.sample_actions(g)
+
+    st, _ = env.reset(gen)
+    t0 = time.perf_counter()
+    env.make_rollout(policy, 2)(st, gen)               # builds and copies the matrix once
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    state, _ = env.reset(gen)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    state, rewards, _ = env.make_rollout(policy, DENSE_STEPS)(state, gen)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rate = NUM_ENVS * DENSE_STEPS / (time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    _check(not any(counts.values()), f"dense fleet launched a kernel: {counts}")
+    _check(bool(torch.isfinite(rewards).all()) and bool(torch.isfinite(state.y).all()),
+           "dense fleet: non-finite rewards or field")
+    print(f"CH fleet spectral_solve=dense ({env.solver_parameters['dtype']}, products "
+          f"torch.mm(bf16, bf16, out_dtype=f32)): {DENSE_STEPS}-step rollout of {NUM_ENVS} envs x "
+          f"{GRID}^2 x {SUBSTEPS} substeps, no host sync, no K1-K9 launch, rewards finite: "
+          f"{rate:.1f} env-steps/s vs the fused fleet's {fused_rate:.1f} (K1); the first two "
+          f"steps with the matrix's build and copy {t_build:.4f} s [{card}]", flush=True)
+
+    # Where a step's time goes: one substep's solve (two bf16 products of
+    # NUM_ENVS x HW by HW x HW) and its FD rhs, CUDA events.
+    name = env.control_equation_parameter_name
+    eq = env.equation_type(domain=env.domain, **{
+        **env.static_equation_parameters,
+        name: env.update_control_parameter(state.control_value, state.control_value)})
+    solve = SemiImplicitDenseSolve(**env.solver_parameters)._solve_for_dt(env.dt_sub, dev)
+    f0 = eq.rhs(state.y, 0.0)
+    ms_solve = _time_ms(torch, lambda: solve(f0))
+    ms_rhs = _time_ms(torch, lambda: eq.rhs(state.y, 0.0))
+    hw = GRID * GRID
+    print(f"dense step split: the solve {ms_solve:.4f} ms a substep "
+          f"({2 * 2.0 * NUM_ENVS * hw * hw / (ms_solve * 1e-3) / 1e12:.1f} TFLOP/s), the FD rhs "
+          f"{ms_rhs:.4f} ms, of a {NUM_ENVS / rate * 1e3 / SUBSTEPS:.4f} ms substep (host clock) "
+          f"[{card}]", flush=True)
+
+    # One substep from the fleet's own fields, card against CPU.
+    n = DENSE_CHECK_ENVS
+    y, cv = state.y[:n], state.control_value[:n]
+    steps = []
+    for d in (dev, torch.device("cpu")):
+        params = {**env.static_equation_parameters, "device": d,
+                  env.control_equation_parameter_name: env.update_control_parameter(cv.to(d),
+                                                                                    cv.to(d))}
+        eq = env.equation_type(domain=env.domain, **params)
+        for dtype in ("bf16_sqrt", "f32"):
+            stp = SemiImplicitDenseSolve(**{**env.solver_parameters, "dtype": dtype})
+            steps.append(stp.step(eq.rhs, y.to(d), 0.0, env.dt_sub)[0].cpu() - y.cpu())
+    got, got32, want, ctl = steps
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    e32 = (got32 - ctl).abs().max().item() / ctl.abs().max().item()
+    line = (f"check dense substep card vs CPU ({n} envs x {GRID}^2): increment max_err "
+            f"{err:.3e} of max {scale:.3e} ({err / scale:.3e}; rms {_rms(got - want):.3e}, the "
+            f"f32 solve's {_rms(ctl - want):.3e}); f32 products {e32:.3e} of the largest")
+    _check(err <= TOL_DENSE * scale and _rms(got - want) <= 0.1 * _rms(ctl - want)
+           and e32 <= 1e-4, f"{line}: bounds {TOL_DENSE}, 0.1 of the f32 solve's rms, 1e-4")
+    print(line, flush=True)
+    return rate
+
+
+def _check_implicit_euler(torch, dev, card):
+    """Phase 14d: one ImplicitEuler.solve_step (Newton-GMRES) on a stiff
+    nonlinear rhs, f64, on the card against the CPU's: y1 within TOL_IE
+    (relative to its largest entry), the same iterations and flag."""
+    from pde_opt_tpu_torch import ImplicitEuler
+
+    def rhs(y, t):
+        lap = (torch.roll(y, 1, -1) + torch.roll(y, -1, -1) + torch.roll(y, 1, -2)
+               + torch.roll(y, -1, -2) - 4.0 * y)
+        return 40.0 * lap + y - y**3
+
+    y0 = torch.rand(IE_SHAPE, generator=torch.Generator().manual_seed(140),
+                    dtype=torch.float64) * 2.0 - 1.0
+    res = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        y1, stats = ImplicitEuler().solve_step(rhs, y0.to(d), 0.0, 0.05)
+        res.append((y1.cpu(), {k: v.item() for k, v in stats.items()},
+                    time.perf_counter() - t0))
+    (yc, sc, tc), (yh, sh, th) = res
+    err = ((yc - yh).abs().max() / yh.abs().max()).item()
+    line = (f"check ImplicitEuler.solve_step on the card vs the CPU ({IE_SHAPE}, f64): y1 "
+            f"max_err / max|y1| {err:.3e}; converged {sc['converged']} / {sh['converged']}, "
+            f"iterations {sc['iterations']} / {sh['iterations']}, residual "
+            f"{sc['residual_norm']:.3e} / {sh['residual_norm']:.3e}; {tc:.4f} s / {th:.4f} s "
+            f"[{card}]")
+    _check(err <= TOL_IE and sc["converged"] and sc["iterations"] == sh["iterations"], line)
+    print(line, flush=True)
+
+
 def main():
     import torch
 
@@ -4430,12 +4897,12 @@ def _main(shape_ref):
     # ---- 9. the CH macros above 64^2: the tiled K1-K3 -----------------------
     big_err = _check_big(torch, dev, gen)
     print(f"tiled kernels' largest bf16 field errors: {big_err}", flush=True)
-    big_counts = _drive_big(torch, kernels, dev, gen, card)
+    big_counts, ch128_rate = _drive_big(torch, kernels, dev, gen, card)
 
     # ---- 10. the AC and GPE macros above 64^2, K3 at 256^2: the tiled K4, K5, K3
     tiled_err = _check_tiled(torch, dev, gen)
     print(f"tiled K4, K5, K3 (256^2): largest bf16 errors: {tiled_err}", flush=True)
-    tiled_counts = _drive_tiled(torch, kernels, dev, gen, card)
+    tiled_counts, ac128_rate = _drive_tiled(torch, kernels, dev, gen, card)
 
     # ---- 11. the inverse-problem layer: LM, the coefficient nets, adaptive --
     _drive_inverse(torch, kernels, dev, card)
@@ -4457,13 +4924,28 @@ def _main(shape_ref):
           f"{k7_128 / (SBM128_ENVS * SUBSTEPS) * 1e3:.4f} vs "
           f"{k7_64 / (SBM_ENVS * SUBSTEPS) * 1e3:.4f} [{card}]", flush=True)
 
+    # ---- 14. the packed-DFT macros above 64^2 (the tiled K9a, K9b); the dense
+    # spectral solve, Newton-GMRES implicit Euler ----------------------------
+    k9big_err = _check_k9_big(torch, dev, gen)
+    print(f"tiled K9a, K9b: largest bf16 field errors: {k9big_err}", flush=True)
+    k9big_counts, k9big_times = _drive_k9_big(torch, kernels, dev, gen, card, ch128_rate,
+                                              ac128_rate)
+    k9a_64, k9b_64 = timings["ch_sif_macro"][0], timings["ac_sif_macro"][0]
+    k9a_128, k9b_128 = (k9big_times[f"{k} 128^2"][0] for k in ("ch_sif_macro", "ac_sif_macro"))
+    print(f"phase 14: per env-substep K9a {k9a_128 / (DFT128_ENVS * SUBSTEPS) * 1e3:.4f} us at "
+          f"128^2 vs {k9a_64 / (NUM_ENVS * SUBSTEPS) * 1e3:.4f} at 64^2, K9b "
+          f"{k9b_128 / (DFT128_ENVS * SUBSTEPS) * 1e3:.4f} vs "
+          f"{k9b_64 / (AC_ENVS * SUBSTEPS) * 1e3:.4f} [{card}]", flush=True)
+    _drive_dense(torch, kernels, dev, gen, card, rate)
+    _check_implicit_euler(torch, dev, card)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
                                       dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
                                       ddpg_counts, *big_counts, *tiled_counts, shape_counts,
-                                      *bvbig_counts))
+                                      *bvbig_counts, *k9big_counts))
                 for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()

@@ -77,6 +77,7 @@ from .ops import (
     FusedRotatingSplitting,
     FusedSemiImplicitSpectral3D,
     Heun,
+    ImplicitEuler,
     PIDController,
     SemiImplicitFourierSpectral,
     StrangSplitting,
@@ -106,7 +107,7 @@ __all__ = [
     # Solvers / integration
     "Euler", "Heun", "RK4", "Tsit5", "SemiImplicitFourierSpectral", "StrangSplitting",
     "DirectionalSplitting", "FusedRotatingSplitting", "FusedSemiImplicitSpectral3D",
-    "FusedMobilitySpectral", "evolve", "integrate", "integrate_adaptive", "PIDController",
+    "FusedMobilitySpectral", "ImplicitEuler", "evolve", "integrate", "integrate_adaptive", "PIDController",
     "least_squares_lm", "least_squares_lm_jitted",
     # Env fleets
     "make_cahn_hilliard_control_env", "make_allen_cahn_control_env", "make_gpe_control_env",

@@ -44,8 +44,14 @@
 //   shared memory, a 4 x 4 tile of the field a thread.
 //
 // Both: one block of 256 threads per env at a time (grid-stride).
+//
+// Grids above 64 x 64 (any H and W that are multiples of 8 up to 256) run
+// ac_sif_macro_tiled_kernel at the end of this file, bf16 and f32 alike
+// (sif_tiled.cuh, as K9a's tiled kernel).  The launch picks the kernel by
+// grid (cas_tiled.cuh's `tiled`); the 64^2 kernels are unchanged.
 
 #include "sif_common.cuh"
+#include "sif_tiled.cuh"
 #include "sif_wgmma.cuh"
 
 namespace {
@@ -224,23 +230,130 @@ ac_sif_macro_wg_kernel(const float* __restrict__ u_in, const float* __restrict__
   }
 }
 
+// ---- K9b above 64 x 64: the tiled kernel -----------------------------------
+//
+// One block owns one env at a time (grid-stride); the field lives in u_out,
+// the transforms' planes in this block's slot of a scratch that the wrapper
+// allocates (ac_sif_macro_scratch).  Each substep opens with a pass over the
+// pixel pairs that forms g = -R(u) (mu(u) - kappa lap) from the field in
+// u_out (its four neighbours, after a barrier) into the operand X; stage B's
+// epilogue multiplies the spectrum by dt / (1 + A dt kappa (-lam)) and
+// writes it as the inverse's operand; stage D's does u += y.
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+ac_sif_macro_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
+                          SifTiledTables<kBf16> g, float* u_out, float* scratch, int B,
+                          SifTiledDims d, int n_steps, float dt, float a_dt, float inv_hx2,
+                          float inv_hy2, MuPoly mu, MuPoly R, bool r_identity) {
+  extern __shared__ __align__(128) unsigned char smem_tl[];
+  const int tid = threadIdx.x, H = d.H, W = d.W, hw = H * W;
+  const SifSlot<kBf16> s = carve_sif_slot<kBf16>(
+      scratch + static_cast<size_t>(blockIdx.x) * sif_slot_floats(kBf16, d, false), d);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * hw;
+    const float k = kappa[env];
+    float* u = u_out + off;
+    __syncthreads();                 // the previous env's last epilogue is done with the planes
+    for (int p = 2 * tid; p < hw; p += 2 * kThreads) st2(u + p, ld2(u_in + off + p));
+    for (int step = 0; step < n_steps; ++step) {
+      __syncthreads();               // every write of u (the copy, the last inverse) complete
+      for (int p = 2 * tid; p < hw; p += 2 * kThreads) {
+        const int h = p / W, c = p % W;
+        const float* row = u + h * W;
+        const float2 x = ld2(row + c);
+        const float2 up = ld2(u + (h + 1 == H ? 0 : h + 1) * W + c);
+        const float2 dn = ld2(u + (h == 0 ? H - 1 : h - 1) * W + c);
+        const float left = row[c == 0 ? W - 1 : c - 1], right = row[c + 2 == W ? 0 : c + 2];
+        const float uu[2] = {x.x, x.y}, above[2] = {up.x, up.y}, below[2] = {dn.x, dn.y};
+        const float next[2] = {x.y, right}, prev[2] = {left, x.x};
+        float v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float c2 = __fmul_rn(2.f, uu[q]);
+          const float lx = __fadd_rn(__fsub_rn(above[q], c2), below[q]);
+          const float ly = __fadd_rn(__fsub_rn(next[q], c2), prev[q]);
+          const float lap = __fadd_rn(__fmul_rn(lx, inv_hx2), __fmul_rn(ly, inv_hy2));
+          const float m = __fsub_rn(mu_eval(mu, uu[q]), __fmul_rn(k, lap));
+          v[q] = r_identity ? -m : __fmul_rn(-mu_eval(R, uu[q]), m);
+        }
+        put_pair<kBf16>(s.x, h, c, H, W, make_float2(v[0], v[1]));
+      }
+      sif_tiled_forward<kBf16>(smem_tl, s, g, d, tid, [&](int c, int kh, float2 x) {
+        const int kw = c >= d.W2p ? c - d.W2p : c;
+        float2 z = make_float2(0.f, 0.f);
+        if (kw < d.W2) {                                             // dd F(g)
+          const float2 l = ld2(g.lam_t + kw * H + kh);
+          z.x = __fmul_rn(__fdiv_rn(dt, __fadd_rn(1.f, __fmul_rn(a_dt, __fmul_rn(k, -l.x)))),
+                          x.x);
+          z.y = __fmul_rn(__fdiv_rn(dt, __fadd_rn(1.f, __fmul_rn(a_dt, __fmul_rn(k, -l.y)))),
+                          x.y);
+        }
+        put_spec<kBf16>(s.zz, c, kh, d, z);
+      });
+      sif_tiled_inverse<kBf16>(smem_tl, s, g, d, tid, [&](int h, int w, float2 y) {
+        const int p = h * W + w;                                     // u += Re F^-1(.)
+        const float2 x = ld2(u + p);
+        st2(u + p, make_float2(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y)));
+      });
+    }
+  }
+}
+
+template <bool kBf16>
+cudaError_t launch_ac_sif_tiled(const float* u, const float* kappa, const void* const* t,
+                                float* out, float* scratch, int n_slots, int B,
+                                const SifTiledDims& d, int n_steps, float dt, float a_dt,
+                                float inv_hx2, float inv_hy2, const MuPoly& mu, const MuPoly& R,
+                                bool r1, cudaStream_t st) {
+  const SifTiledTables<kBf16> g{static_cast<const Op<kBf16>*>(t[0]),
+                                static_cast<const Op<kBf16>*>(t[1]),
+                                static_cast<const Op<kBf16>*>(t[2]),
+                                static_cast<const Op<kBf16>*>(t[3]),
+                                static_cast<const float*>(t[4]), static_cast<const float*>(t[5])};
+  return launch_tiled(ac_sif_macro_tiled_kernel<kBf16>, kBf16, B, n_slots, st, u, kappa, g, out,
+                      scratch, B, d, n_steps, dt, a_dt, inv_hx2, inv_hy2, mu, R, r1);
+}
+
 }  // namespace
 
 extern "C" {
 
+// The scratch a launch needs on the current device: `slots` blocks resident
+// at once of the kernel that the grid and round_bf16 pick, each with a slot
+// of `floats` f32: none at 64^2 and below (0, 0), sif_tiled.cuh's planes
+// above.  Returns a cudaError_t value.
+int ac_sif_macro_scratch(int round_bf16, int H, int W, int W2, int* slots, long long* floats) {
+  *slots = 0;
+  *floats = 0;
+  if (!tiled(H, W)) return 0;
+  const SifTiledDims d = sif_tiled_dims(H, W, W2);
+  return static_cast<int>(
+      round_bf16 != 0
+          ? sif_tiled_scratch(ac_sif_macro_tiled_kernel<true>, true, d, false, slots, floats)
+          : sif_tiled_scratch(ac_sif_macro_tiled_kernel<false>, false, d, false, slots, floats));
+}
+
 // Launches K9b on `stream`: u (B, H, W) -> out, the tables as SifTables
-// lists them (lam2 is not read); the tensor-core kernel when round_bf16
-// (bf16 tables), the FMA kernel otherwise.  n_r == 0 runs the R == 1 path;
-// otherwise R is the polynomial r_coeffs.  Returns a cudaError_t value, 0 on
-// success.
+// lists them (lam2 is not read); at 64^2 and below the tensor-core kernel
+// when round_bf16 (bf16 tables), the FMA kernel otherwise; above, the tiled
+// kernel of that type, with `scratch`, `n_slots` and `tiled_tables` as
+// ch_sif_macro_launch takes them (lam2_t is not read).  n_r == 0 runs the
+// R == 1 path; otherwise R is the polynomial r_coeffs.  Returns a
+// cudaError_t value, 0 on success.
 int ac_sif_macro_launch(const float* u, const float* kappa, const float* wr_w,
                         const float* wi_w, const float* wr_h, const float* wi_h,
                         const float* vr_h, const float* vi_h, const float* vr_w,
                         const float* vi_w, const float* lam, const float* lam2, float* out,
+                        const void* const* tiled_tables, float* scratch, int n_slots,
                         int B, int H, int W, int W2, int n_steps, float dt, float a_dt,
                         float inv_hx2, float inv_hy2, const float* mu_coeffs, int n_mu,
                         const float* r_coeffs, int n_r, int round_bf16, void* stream) {
-  if (bad_sif(B, H, W, W2, n_steps) || bad_poly(n_mu) || n_r < 0 || n_r > kMaxCoeffs)
+  const bool big = tiled(H, W);
+  if ((big ? bad_sif_tiled(B, H, W, W2, n_steps, scratch, n_slots, tiled_tables)
+           : bad_sif(B, H, W, W2, n_steps)) ||
+      bad_poly(n_mu) || n_r < 0 || n_r > kMaxCoeffs)
     return static_cast<int>(cudaErrorInvalidValue);
   const SifTables g{wr_w, wi_w, wr_h, wi_h, vr_h, vi_h, vr_w, vi_w, lam, lam2};
   const MuPoly mu = make_mu(mu_coeffs, n_mu);
@@ -248,7 +361,15 @@ int ac_sif_macro_launch(const float* u, const float* kappa, const float* wr_w,
   const bool r1 = n_r == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (round_bf16) {
+  if (big) {
+    const SifTiledDims d = sif_tiled_dims(H, W, W2);
+    err = round_bf16 ? launch_ac_sif_tiled<true>(u, kappa, tiled_tables, out, scratch, n_slots, B,
+                                                 d, n_steps, dt, a_dt, inv_hx2, inv_hy2, mu, R,
+                                                 r1, st)
+                     : launch_ac_sif_tiled<false>(u, kappa, tiled_tables, out, scratch, n_slots,
+                                                  B, d, n_steps, dt, a_dt, inv_hx2, inv_hy2, mu,
+                                                  R, r1, st);
+  } else if (round_bf16) {
     err = with_sif_width(W2, [&](auto width) {
       constexpr int N = decltype(width)::value;
       const auto kernel = ac_sif_macro_wg_kernel<N>;

@@ -39,8 +39,15 @@
 //   as f32 pairs in shared memory, a 4 x 4 tile of the field a thread.
 //
 // Both: one block of 256 threads per env at a time (grid-stride).
+//
+// Grids above 64 x 64 (any H and W that are multiples of 8 up to 256) run
+// ch_sif_macro_tiled_kernel at the end of this file, bf16 and f32 alike: an
+// env's planes live in device memory and each transform streams 64-wide
+// chunks through shared memory (sif_tiled.cuh).  The launch picks the kernel
+// by grid (cas_tiled.cuh's `tiled`); the 64^2 kernels are unchanged.
 
 #include "sif_common.cuh"
+#include "sif_tiled.cuh"
 #include "sif_wgmma.cuh"
 
 namespace {
@@ -183,27 +190,142 @@ ch_sif_macro_wg_kernel(const float* __restrict__ u_in, const float* __restrict__
   }
 }
 
+// ---- K9a above 64 x 64: the tiled kernel -----------------------------------
+//
+// One block owns one env at a time (grid-stride), as above; the field lives
+// in u_out, the rest in this block's slot of a scratch that the wrapper
+// allocates (ch_sif_macro_scratch: sif_tiled.cuh's planes and the carried
+// spectrum uh, f32 [c][kh]).  Stage B's epilogue forms incr = cm X - cu uh,
+// carries uh += incr and writes rnd(incr) as the inverse's operand; stage
+// D's does u += y and writes the next operand rnd(mu(u)).  cm and cu are
+// recomputed from lam where they are used, in the 64^2 kernels' order.
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+ch_sif_macro_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
+                          SifTiledTables<kBf16> g, float* u_out, float* scratch, int B,
+                          SifTiledDims d, int n_steps, float dt, float a_dt, MuPoly mu) {
+  extern __shared__ __align__(128) unsigned char smem_tl[];
+  const int tid = threadIdx.x, H = d.H, W = d.W, hw = H * W;
+  const SifSlot<kBf16> s = carve_sif_slot<kBf16>(
+      scratch + static_cast<size_t>(blockIdx.x) * sif_slot_floats(kBf16, d, true), d);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * hw;
+    const float k = kappa[env];
+    const float dtk = __fmul_rn(dt, k);
+    float* u = u_out + off;
+    __syncthreads();                 // the previous env's last epilogue is done with the planes
+    for (int p = 2 * tid; p < hw; p += 2 * kThreads) {
+      const float2 v = ld2(u_in + off + p);
+      st2(u + p, v);
+      put_pair<kBf16>(s.x, p / W, p % W, H, W, v);
+    }
+    sif_tiled_forward<kBf16>(smem_tl, s, g, d, tid, [&](int c, int kh, float2 v) {
+      st2(s.uh + c * H + kh, v);                                     // uh = F(u)
+    });
+    // X was last read by stage A, before stage B's opening barrier.
+    for (int p = 2 * tid; p < hw; p += 2 * kThreads)
+      put_pair<kBf16>(s.x, p / W, p % W, H, W, mu2(mu, ld2(u + p)));
+    for (int step = 0; step < n_steps; ++step) {
+      sif_tiled_forward<kBf16>(smem_tl, s, g, d, tid, [&](int c, int kh, float2 x) {
+        const int kw = c >= d.W2p ? c - d.W2p : c;
+        float2 z = make_float2(0.f, 0.f), h = z;
+        if (kw < d.W2) {                                             // incr = cm X - cu uh
+          const float2 l = ld2(g.lam_t + kw * H + kh), l2 = ld2(g.lam2_t + kw * H + kh);
+          h = ld2(s.uh + c * H + kh);
+          const float ls[2] = {l.x, l.y}, l2s[2] = {l2.x, l2.y}, xs[2] = {x.x, x.y};
+          float hs[2] = {h.x, h.y}, zs[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float den =
+                __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(a_dt, __fmul_rn(k, l2s[e]))));
+            const float cm = __fmul_rn(__fmul_rn(dt, ls[e]), den);
+            const float cu = __fmul_rn(__fmul_rn(dtk, l2s[e]), den);
+            zs[e] = __fsub_rn(__fmul_rn(cm, xs[e]), __fmul_rn(cu, hs[e]));
+            hs[e] = __fadd_rn(hs[e], zs[e]);
+          }
+          z = make_float2(zs[0], zs[1]);
+          h = make_float2(hs[0], hs[1]);
+        }
+        st2(s.uh + c * H + kh, h);
+        put_spec<kBf16>(s.zz, c, kh, d, z);
+      });
+      sif_tiled_inverse<kBf16>(smem_tl, s, g, d, tid, [&](int h, int w, float2 y) {
+        const int p = h * W + w;                                     // u += Re F^-1(incr)
+        float2 x = ld2(u + p);
+        x = make_float2(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y));
+        st2(u + p, x);
+        put_pair<kBf16>(s.x, h, w, H, W, mu2(mu, x));
+      });
+    }
+  }
+}
+
+template <bool kBf16>
+cudaError_t launch_ch_sif_tiled(const float* u, const float* kappa, const void* const* t,
+                                float* out, float* scratch, int n_slots, int B,
+                                const SifTiledDims& d, int n_steps, float dt, float a_dt,
+                                const MuPoly& mu, cudaStream_t st) {
+  const SifTiledTables<kBf16> g{static_cast<const Op<kBf16>*>(t[0]),
+                                static_cast<const Op<kBf16>*>(t[1]),
+                                static_cast<const Op<kBf16>*>(t[2]),
+                                static_cast<const Op<kBf16>*>(t[3]),
+                                static_cast<const float*>(t[4]), static_cast<const float*>(t[5])};
+  return launch_tiled(ch_sif_macro_tiled_kernel<kBf16>, kBf16, B, n_slots, st, u, kappa, g, out,
+                      scratch, B, d, n_steps, dt, a_dt, mu);
+}
+
 }  // namespace
 
 extern "C" {
 
+// The scratch a launch needs on the current device: `slots` blocks resident
+// at once of the kernel that the grid and round_bf16 pick, each with a slot
+// of `floats` f32: none at 64^2 and below (0, 0), sif_tiled.cuh's planes and
+// the carried spectrum above.  Returns a cudaError_t value.
+int ch_sif_macro_scratch(int round_bf16, int H, int W, int W2, int* slots, long long* floats) {
+  *slots = 0;
+  *floats = 0;
+  if (!tiled(H, W)) return 0;
+  const SifTiledDims d = sif_tiled_dims(H, W, W2);
+  return static_cast<int>(
+      round_bf16 != 0
+          ? sif_tiled_scratch(ch_sif_macro_tiled_kernel<true>, true, d, true, slots, floats)
+          : sif_tiled_scratch(ch_sif_macro_tiled_kernel<false>, false, d, true, slots, floats));
+}
+
 // Launches K9a on `stream`: u (B, H, W) -> out, the tables as SifTables
-// lists them (W2 = W/2 + 1 with the half spectrum, else W); the tensor-core
-// kernel when round_bf16 (bf16 tables), the FMA kernel otherwise.  Returns a
+// lists them (W2 = W/2 + 1 with the half spectrum, else W); at 64^2 and
+// below the tensor-core kernel when round_bf16 (bf16 tables), the FMA
+// kernel otherwise.  Above, the tiled kernel of that type on min(B,
+// n_slots) blocks, with `scratch` as ch_sif_macro_scratch sizes it and the
+// tables `tiled` [fw, fh, vh, vw, lam_t, lam2_t] in sif_tiled.cuh's layout
+// (bf16 or f32 by round_bf16; unused at 64^2, may be null there).  Returns a
 // cudaError_t value, 0 on success.
 int ch_sif_macro_launch(const float* u, const float* kappa, const float* wr_w,
                         const float* wi_w, const float* wr_h, const float* wi_h,
                         const float* vr_h, const float* vi_h, const float* vr_w,
                         const float* vi_w, const float* lam, const float* lam2, float* out,
+                        const void* const* tiled_tables, float* scratch, int n_slots,
                         int B, int H, int W, int W2, int n_steps, float dt, float a_dt,
                         const float* mu_coeffs, int n_mu, int round_bf16, void* stream) {
-  if (bad_sif(B, H, W, W2, n_steps) || bad_poly(n_mu))
+  const bool big = tiled(H, W);
+  if ((big ? bad_sif_tiled(B, H, W, W2, n_steps, scratch, n_slots, tiled_tables)
+           : bad_sif(B, H, W, W2, n_steps)) ||
+      bad_poly(n_mu))
     return static_cast<int>(cudaErrorInvalidValue);
   const SifTables g{wr_w, wi_w, wr_h, wi_h, vr_h, vi_h, vr_w, vi_w, lam, lam2};
   const MuPoly mu = make_mu(mu_coeffs, n_mu);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (round_bf16) {
+  if (big) {
+    const SifTiledDims d = sif_tiled_dims(H, W, W2);
+    err = round_bf16 ? launch_ch_sif_tiled<true>(u, kappa, tiled_tables, out, scratch, n_slots, B,
+                                                 d, n_steps, dt, a_dt, mu, st)
+                     : launch_ch_sif_tiled<false>(u, kappa, tiled_tables, out, scratch, n_slots,
+                                                  B, d, n_steps, dt, a_dt, mu, st);
+  } else if (round_bf16) {
     err = with_sif_width(W2, [&](auto width) {
       constexpr int N = decltype(width)::value;
       const auto kernel = ch_sif_macro_wg_kernel<N>;

@@ -30,6 +30,7 @@ from ..ops.steppers import (
     FusedRotatingSplitting,
     FusedSemiImplicitSpectral,
     FusedStrangControl,
+    SemiImplicitDenseSolve,
     SemiImplicitFourierSpectral,
     StrangSplitting,
 )
@@ -89,7 +90,9 @@ def make_cahn_hilliard_control_env(
     ``obs_downsample``); the reward is the negative variance.
     ``spectral_solve="fused"`` runs the cas macro (on CUDA, the Hopper
     kernel) with the env epilogue fused in by default; ``"fft"`` runs
-    :class:`SemiImplicitFourierSpectral`.  ``"dense"`` is not ported yet.
+    :class:`SemiImplicitFourierSpectral`; ``"dense"`` / ``"dense_bf16"``
+    run :class:`SemiImplicitDenseSolve` with the fixed symbol κ_max (2π|k|)⁴,
+    κ_max = 0.01 (sqrt-factored and flat bf16 products).
     ``derivs="pallas"`` makes the equation's rhs the fused FD rhs (on CUDA,
     kernel K8): the ``"fft"`` stepper calls it once a substep, the fused
     stepper not at all.
@@ -104,6 +107,7 @@ def make_cahn_hilliard_control_env(
         (grid_size, grid_size), ((-L / 2, L / 2), (-L / 2, L / 2)),
         "dimensionless", dtype=dtype,
     )
+    kappa_max = 0.01
     if spectral_solve == "fused":
         # A = 1 gives deadbeat high-k damping of bf16 rounding noise.
         solver_type = FusedSemiImplicitSpectral
@@ -112,10 +116,18 @@ def make_cahn_hilliard_control_env(
         solver_type = SemiImplicitFourierSpectral
         solver_parameters = {"A": 0.5}
     elif spectral_solve in ("dense", "dense_bf16"):
-        raise NotImplementedError(
-            "spectral_solve='dense' (SemiImplicitDenseSolve) is not ported "
-            "yet; see ROADMAP.md"
-        )
+        # Fixed-symbol semi-implicit step: the implicit damping uses
+        # kappa_max (an upper bound of the control range), so the spectral
+        # solve is one shared dense product for the whole fleet.
+        kx, ky = domain.fft_mesh()
+        symbol = kappa_max * ((2 * np.pi * kx) ** 2 + (2 * np.pi * ky) ** 2) ** 2
+        solver_type = SemiImplicitDenseSolve
+        solver_parameters = {
+            "A": 0.5,
+            "dense_symbol": symbol,
+            "points": domain.points,
+            "dtype": "bf16_sqrt" if spectral_solve == "dense" else "bf16",
+        }
     else:
         raise ValueError(f"unknown spectral_solve: {spectral_solve!r}")
     ds = int(obs_downsample)

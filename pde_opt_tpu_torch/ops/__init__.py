@@ -1,5 +1,6 @@
 """Stencils, transforms, steppers and the fused macro (PyTorch port)."""
 
+from . import boundary, dft, spectral, stencils
 from .bv_cas import LogRatioMu, SqrtJ0, bv_cc_reference, make_bv_cc_fused_macro
 from .cas3d import ch3d_sif_macro_reference, make_ch3d_cas_macro
 from .cas_mobility import (
@@ -39,11 +40,17 @@ from .steppers import (
     FusedStrangControl,
     SemiImplicitFourierSpectral,
     Heun,
+    ImplicitEuler,
+    SemiImplicitDenseSolve,
     StrangSplitting,
     Tsit5,
 )
 
 __all__ = [
+    "stencils",
+    "spectral",
+    "boundary",
+    "dft",
     "PolynomialMu",
     "LogRatioMu",
     "SqrtJ0",
@@ -81,6 +88,8 @@ __all__ = [
     "FusedAllenCahnSpectral",
     "FusedStrangControl",
     "SemiImplicitFourierSpectral",
+    "SemiImplicitDenseSolve",
+    "ImplicitEuler",
     "StrangSplitting",
     "Euler",
     "Heun",

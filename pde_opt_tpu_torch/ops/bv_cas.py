@@ -39,7 +39,6 @@ from torch.utils.checkpoint import checkpoint
 
 from . import stencils as st
 from .cas_spectral import (
-    MAX_GRID_TILED,
     CasConstants,
     Epilogue,
     _alloc_scratch,
@@ -276,7 +275,7 @@ def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants,
     copies).  Raises on anything the kernel does not take.
     """
     coeffs = check_bv_coefficients(mu_fn, j0_fn)
-    B, H, W = _check_grid(u, cap=MAX_GRID_TILED)
+    B, H, W = _check_grid(u)
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("crate", crate, (B,), torch.float32, dev)

@@ -78,11 +78,8 @@ __all__ = [
 ch_cas_macro_reference = ch_sif_macro_reference
 
 MAX_MU_DEGREE = 7
-# The largest H, W each CUDA macro takes: the CH macros (K1-K3), AC (K4),
-# GPE (K5), BV (K6) and SBM (K7) run tiled kernels above 64^2, up to
-# MAX_GRID_TILED; the packed-DFT macros K9a/K9b alone hold one env's 64 x 64
-# tiles in a block.  Their larger grids are ROADMAP.md queue 1 item 4.
-MAX_GRID = 64
+# The largest H, W each CUDA macro takes: every family (K1-K7, K9a/K9b) runs
+# tiled kernels above 64^2, up to MAX_GRID_TILED.
 MAX_GRID_TILED = 256
 
 
@@ -365,33 +362,31 @@ def _check_cuda(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_grid(u, ndim: int = 3, cap: int = MAX_GRID):
+def _check_grid(u, ndim: int = 3):
     """Raise on a state the CUDA kernels do not take: ``(B, H, W)`` (with
     ``ndim=4`` ``(B, H, W, 2)``), B >= 1, H and W multiples of 8 up to
-    ``cap`` (the family's: :data:`MAX_GRID` or :data:`MAX_GRID_TILED`).
-    Returns ``(B, H, W)``."""
+    :data:`MAX_GRID_TILED`.  Returns ``(B, H, W)``."""
     if u.ndim != ndim or (ndim == 4 and u.shape[-1] != 2):
         want = "(B, H, W)" if ndim == 3 else "(B, H, W, 2)"
         raise ValueError(f"the state must be {want}, got shape {tuple(u.shape)}")
     B, H, W = u.shape[:3]
+    cap = MAX_GRID_TILED
     if B < 1 or H % 8 or W % 8 or not (8 <= H <= cap and 8 <= W <= cap):
         raise ValueError(
             f"the CUDA macro takes B >= 1 envs and H, W multiples of 8 up to "
-            f"{cap}; got {(B, H, W)} (the packed-DFT macros K9a/K9b, the last "
-            f"family held at 64²: ROADMAP.md queue 1 item 4)"
+            f"{cap}; got {(B, H, W)}"
         )
     return B, H, W
 
 
-def _check_macro_args(u, kappa, consts, mu_fn, cap: int = MAX_GRID):
-    """Raise on what the CUDA kernels do not take (grids up to ``cap``);
-    return ``(B, H, W)``."""
+def _check_macro_args(u, kappa, consts, mu_fn):
+    """Raise on what the CUDA kernels do not take; return ``(B, H, W)``."""
     if not isinstance(mu_fn, PolynomialMu):
         raise ValueError(
             "the CUDA macro evaluates mu from polynomial coefficients: pass a "
             f"PolynomialMu, got {mu_fn!r}"
         )
-    B, H, W = _check_grid(u, cap=cap)
+    B, H, W = _check_grid(u)
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("kappa", kappa, (B,), torch.float32, dev)
@@ -476,7 +471,7 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     for each resident block, allocated here.  Raises on anything the kernel
     does not take.
     """
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_TILED)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
     dev = u.device
     out = torch.empty_like(u)
     stats = obs = None
@@ -526,7 +521,7 @@ def ch_cas_macro_bwd_cuda(u: torch.Tensor, kappa: torch.Tensor, g: torch.Tensor,
     on the current stream and counts the launch; raises on anything the
     kernel does not take.
     """
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_TILED)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
     dev = u.device
     _check_cuda("g", g, (B, H, W), torch.float32, dev)
     n_steps = int(n_steps)
@@ -823,7 +818,7 @@ def ac_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
             "the CUDA AC macro evaluates a non-identity R from polynomial "
             f"coefficients: pass a PolynomialMu, got {R_fn!r}"
         )
-    B, H, W = _check_macro_args(u, kappa, consts, mu_fn, cap=MAX_GRID_TILED)
+    B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
     dev = u.device
     out = torch.empty_like(u)
     stats = obs = None

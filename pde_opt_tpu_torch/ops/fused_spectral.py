@@ -31,7 +31,9 @@ rounds them; products accumulate in f32.
 Each macro has two implementations of the same function: a plain-torch
 version (``*_plain``, what CPU tensors run) and a hand-written Hopper kernel
 (``*_cuda``: ``csrc/ch_sif_macro.cu`` and ``csrc/ac_sif_macro.cu``, what
-CUDA tensors run), with no fallback from one to the other.  Gradients with
+CUDA tensors run; above 64² their tiled kernels on ``csrc/sif_tiled.cuh``,
+with the tables of :func:`tiled_tables`), with no fallback from one to the
+other.  Gradients with
 respect to the field and κ are the VJP of the checkpointed FFT oracle
 (:func:`ch_sif_macro_reference`, :func:`ac_sif_macro_reference` with
 ``remat=True``), as in the JAX package.
@@ -64,6 +66,7 @@ __all__ = [
     "ac_sif_macro_cuda",
     "make_ac_sif_fused_macro",
     "ac_sif_macro_reference",
+    "tiled_tables",
 ]
 
 
@@ -229,6 +232,7 @@ def _bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     for the CPU by the tests' stub build."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     common = [p, p, *[p] * len(SifConstants._fields), p,   # u, kappa, tables, out
+              ctypes.POINTER(p), p, i,                     # tiled tables, scratch, n_slots
               i, i, i, i, i, f, f]                         # B, H, W, W2, n_steps, dt, A*dt
     launch = getattr(lib, f"{name}_launch")
     if name == "ch_sif_macro":
@@ -236,6 +240,10 @@ def _bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     else:
         launch.argtypes = common + [f, f, p, i, p, i, i, p]  # 1/hx², 1/hy², mu, R, rnd, stream
     launch.restype = ctypes.c_int
+    scratch = getattr(lib, f"{name}_scratch")
+    scratch.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int),
+                        ctypes.POINTER(ctypes.c_longlong)]
+    scratch.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
@@ -246,11 +254,59 @@ def _library(name: str):
     return _bind_library(load_library(name), name)
 
 
-def _launch(name: str, u, kappa, consts: SifConstants, mu_fn, dt, A, n_steps,
+def _ch_library():
+    return _library("ch_sif_macro")
+
+
+def _ac_library():
+    return _library("ac_sif_macro")
+
+
+@functools.lru_cache(maxsize=32)
+def tiled_tables(consts: SifConstants, round_bf16: bool):
+    """The tables of the tiled kernels (grids above 64²), built once per
+    :func:`sif_constants` result: ``(fw, fh, vh, vw, lam_t, lam2_t)`` in
+    ``csrc/sif_tiled.cuh``'s layout, on the tables' device.
+
+    With ``W2p`` the kept width ``W2`` rounded up to a multiple of 8 and
+    ``K2 = 2 W2p`` (real part first, then imaginary): ``fw`` (K2, W) =
+    ``[Wr_w^T; Wi_w^T]``, ``fh`` (H, 2H) = ``[Wr_h^T | Wi_h^T]``, ``vh``
+    (H, 2H) = ``[Vr_h^T | Vi_h^T]``, ``vw`` (W, K2) = ``[Vr_w^T | -Vi_w^T]``,
+    zero beyond W2 in each part; bf16 (exact copies) when ``round_bf16``,
+    else f32 and each transposed (the FMA path reads [contraction][row]).
+    ``lam_t``/``lam2_t`` (W2p, H) f32 are ``lam``/``lam2`` transposed.
+    """
+    H = consts.wr_h.shape[0]
+    W, W2 = consts.wr_w.shape
+    W2p = (W2 + 7) // 8 * 8
+    dev = consts.wr_w.device
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    fw = zeros(2 * W2p, W)
+    fw[:W2], fw[W2p:W2p + W2] = consts.wr_w.T, consts.wi_w.T
+    vw = zeros(W, 2 * W2p)
+    vw[:, :W2], vw[:, W2p:W2p + W2] = consts.vr_w.T, -consts.vi_w.T
+    fh = torch.cat([consts.wr_h.T, consts.wi_h.T], dim=1)
+    vh = torch.cat([consts.vr_h.T, consts.vi_h.T], dim=1)
+    lam_t, lam2_t = zeros(W2p, H), zeros(W2p, H)
+    lam_t[:W2], lam2_t[:W2] = consts.lam.T, consts.lam2.T
+    mats = (fw, fh, vh, vw)
+    if round_bf16:
+        mats = tuple(m.to(torch.bfloat16).contiguous() for m in mats)
+    else:
+        mats = tuple(m.T.contiguous() for m in mats)
+    return (*mats, lam_t, lam2_t)
+
+
+def _launch(name: str, u, kappa, consts: SifConstants, mu_fn, dt, A, n_steps, round_bf16,
             before=(), after=()):
     """Check what K9a/K9b take, launch ``name`` on the current stream, raise
-    on a nonzero return code, count the launch; returns ``u1``.  ``before``
-    and ``after`` are the kernel's own arguments around mu's coefficients."""
+    on a nonzero return code, count the launch; returns ``u1``.  Above 64²
+    the tiled kernel runs, with :func:`tiled_tables` and a scratch of one
+    slot for each resident block, allocated here.  ``before`` and ``after``
+    are the kernel's own arguments around mu's coefficients."""
     if not isinstance(mu_fn, _cas.PolynomialMu):
         raise ValueError(
             "the CUDA macro evaluates mu from polynomial coefficients: pass a "
@@ -268,12 +324,19 @@ def _launch(name: str, u, kappa, consts: SifConstants, mu_fn, dt, A, n_steps,
                          torch.float32, dev)
     out = torch.empty_like(u)
     coeffs, n_coeffs = _cas._c_coeffs(mu_fn)
-    lib = _library(name)
+    library = _ch_library if name == "ch_sif_macro" else _ac_library
+    scratch, slots = _cas._alloc_scratch(dev, B, library, f"{name}_scratch", round_bf16, H, W,
+                                         W2)
+    tables = (None,) * 6 if scratch is None else tiled_tables(consts, bool(round_bf16))
+    table_ptrs = (ctypes.c_void_p * 6)(*(None if t is None else t.data_ptr() for t in tables))
+    lib = library()
     with torch.cuda.device(dev):
         rc = getattr(lib, f"{name}_launch")(
             u.data_ptr(), kappa.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
+            table_ptrs, None if scratch is None else scratch.data_ptr(), slots,
             B, H, W, W2, int(n_steps), float(dt), float(A) * float(dt), *before,
-            coeffs, n_coeffs, *after, torch.cuda.current_stream(dev).cuda_stream,
+            coeffs, n_coeffs, *after, int(bool(round_bf16)),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -287,11 +350,12 @@ def ch_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants
                       mu_fn: Callable, dt: float, A: float, n_steps: int,
                       round_bf16: bool) -> torch.Tensor:
     """Kernel K9a (``csrc/ch_sif_macro.cu``): same contract as
-    :func:`ch_sif_macro_plain`.  ``mu`` must be a
+    :func:`ch_sif_macro_plain`, H and W up to
+    :data:`~pde_opt_tpu_torch.ops.cas_spectral.MAX_GRID_TILED` (tiled above
+    64²).  ``mu`` must be a
     :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`; raises on
     anything the kernel does not take."""
-    return _launch("ch_sif_macro", u, kappa, consts, mu_fn, dt, A, n_steps,
-                   after=(int(bool(round_bf16)),))
+    return _launch("ch_sif_macro", u, kappa, consts, mu_fn, dt, A, n_steps, round_bf16)
 
 
 def ac_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants, *,
@@ -299,7 +363,9 @@ def ac_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants
                       hx: float, hy: float, dt: float, A: float, n_steps: int,
                       round_bf16: bool) -> torch.Tensor:
     """Kernel K9b (``csrc/ac_sif_macro.cu``): same contract as
-    :func:`ac_sif_macro_plain`.  ``mu`` must be a
+    :func:`ac_sif_macro_plain`, H and W up to
+    :data:`~pde_opt_tpu_torch.ops.cas_spectral.MAX_GRID_TILED` (tiled above
+    64²).  ``mu`` must be a
     :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`, and so must
     ``R`` unless ``r_identity``; raises on anything the kernel does not
     take."""
@@ -309,9 +375,8 @@ def ac_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants
             f"coefficients: pass a PolynomialMu, got {R_fn!r}"
         )
     r_c, n_r = (None, 0) if r_identity else _cas._c_coeffs(R_fn)
-    return _launch("ac_sif_macro", u, kappa, consts, mu_fn, dt, A, n_steps,
-                   before=(1.0 / (hx * hx), 1.0 / (hy * hy)),
-                   after=(r_c, n_r, int(bool(round_bf16))))
+    return _launch("ac_sif_macro", u, kappa, consts, mu_fn, dt, A, n_steps, round_bf16,
+                   before=(1.0 / (hx * hx), 1.0 / (hy * hy)), after=(r_c, n_r))
 
 
 def _check_config(H, W, mats_dtype, half_spectrum):

@@ -38,7 +38,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .cas_spectral import (
-    MAX_GRID_TILED,
     _alloc_scratch,
     _cas_mat,
     _check_cuda,
@@ -260,7 +259,7 @@ def gpe_strang_macro_cuda(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
     each resident block, allocated here.  Raises on anything the kernel
     does not take.
     """
-    B, H, W = _check_grid(y, ndim=4, cap=MAX_GRID_TILED)
+    B, H, W = _check_grid(y, ndim=4)
     dev = y.device
     _check_cuda("y", y, (B, H, W, 2), torch.float32, dev)
     _check_cuda("ctrl", ctrl, (B, H, W), torch.float32, dev)

@@ -29,13 +29,14 @@ cached (per symbols, ``dt``, ``time_scale``, matrix dtype and device).
 from __future__ import annotations
 
 import collections
-import contextlib
 import functools
 import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..utils.device import true_f32
 
 __all__ = ["make_rot_adi_macro", "build_sweep_tensors"]
 
@@ -131,21 +132,6 @@ def _sweep_mats(Ax: torch.Tensor, Ay: torch.Tensor, dt: float, time_scale, mats_
     while len(_SWEEP_CACHE) > _SWEEP_CACHE_SIZE:
         _SWEEP_CACHE.popitem(last=False)
     return mats
-
-
-@contextlib.contextmanager
-def _true_f32(device: torch.device):
-    """f32 products without TF32 on CUDA (the JAX macro's
-    ``Precision.HIGHEST``); restores the caller's setting."""
-    if device.type != "cuda":
-        yield
-        return
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 @functools.lru_cache(maxsize=8)
@@ -250,7 +236,7 @@ def make_rot_adi_macro(
         q = torch.empty_like(p)
         p[:, 0].copy_(flat.real.permute(1, 2, 0))
         p[:, 1].copy_(flat.imag.permute(1, 2, 0))
-        with _true_f32(device):
+        with true_f32(device):
             sweep_x(mats.Mxh, p, q)
             sweep_y(mats.Myh, q, p)
             for i in range(n_steps - 1):

@@ -43,7 +43,6 @@ from .bv_cas import (
     rk4_fused,
 )
 from .cas_spectral import (
-    MAX_GRID_TILED,
     _alloc_scratch,
     _check_cuda,
     _check_grid,
@@ -217,7 +216,7 @@ def sbm_bv_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstants
     block, allocated here.  Raises on anything the kernel does not take.
     """
     coeffs = check_bv_coefficients(mu_fn, j0_fn)
-    B, H, W = _check_grid(u, cap=MAX_GRID_TILED)
+    B, H, W = _check_grid(u)
     dev = u.device
     _check_cuda("u", u, (B, H, W), torch.float32, dev)
     _check_cuda("crate", crate, (B,), torch.float32, dev)

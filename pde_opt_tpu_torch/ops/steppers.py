@@ -13,14 +13,17 @@ equation.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .bv_cas import make_bv_cc_fused_macro
 from .cas3d import make_ch3d_cas_macro
 from .cas_mobility import make_ch3d_mobility_cas_macro, make_ch_mobility_cas_macro
 from .cas_spectral import make_ac_cas_fused_macro, make_ch_cas_fused_macro
+from .dft import make_dense_spectral_solve
 from .fused_spectral import make_ac_sif_fused_macro, make_ch_sif_fused_macro
 from .gpe_cas import make_gpe_strang_cas_macro
 from .gpe_rot_fast import make_rot_adi_macro
@@ -33,6 +36,7 @@ __all__ = [
     "RK4",
     "Tsit5",
     "SemiImplicitFourierSpectral",
+    "SemiImplicitDenseSolve",
     "FusedSemiImplicitSpectral",
     "FusedSemiImplicitSpectral3D",
     "FusedMobilitySpectral",
@@ -43,6 +47,8 @@ __all__ = [
     "FusedSBMButlerVolmer",
     "DirectionalSplitting",
     "FusedRotatingSplitting",
+    "ImplicitEuler",
+    "gmres",
 ]
 
 
@@ -183,6 +189,87 @@ class SemiImplicitFourierSpectral(AbstractStepper):
         y1 = y + dt * self.ifft(self.fft(f0) / denom).real
         euler_y1 = y + dt * f0
         return y1, y1 - euler_y1
+
+
+class SemiImplicitDenseSolve(AbstractStepper):
+    """Semi-implicit step with the spectral solve as ONE dense product.
+
+    Same family as :class:`SemiImplicitFourierSpectral` but the implicit
+    high-order damping uses a *fixed* reference symbol σ(k) (e.g.
+    κ_max(2π|k|)⁴ for a control env whose κ ≤ κ_max):
+
+        ``y1 = y0 + dt · Re ifft2( fft2(f0) / (1 + A·dt·σ) )``
+
+    For fixed σ and dt the whole solve is a real linear operator on the
+    field, built on the host as an (HW, HW) matrix
+    (:func:`~pde_opt_tpu_torch.ops.dft.make_dense_spectral_solve`) and
+    applied as one ``(B, HW) @ (HW, HW)`` product.  Any A·dt·σ
+    upper-bounding the true stiffness keeps the stabilization property, so
+    a per-env κ control works with one shared matrix.
+
+    ``dt`` must be a Python number (fixed-dt env loops; a tensor dt raises
+    ``TypeError``, as a traced dt does in JAX).  The solves are cached per
+    configuration, symbol, dt and device across instances
+    (:func:`_dense_solve`; an env builds a stepper every step, JAX builds
+    its matrix once, at trace time): the first step on a device builds the
+    matrix on the host and copies it, a sync.
+    """
+
+    required_equation_attrs = ()
+    order = 1
+
+    def __init__(self, A, dense_symbol, points, dtype: str = "bf16_sqrt"):
+        """Args:
+            A: splitting constant (as in the reference stepper).
+            dense_symbol: full-spectrum numpy symbol σ(k), shape ``points``.
+            points: grid shape (H, W).
+            dtype: "bf16_sqrt" (default; sqrt-factored two-stage bf16 —
+                fast AND stable in stiff loops), "bf16" (flat, fastest,
+                unstable feedback), or "f32" (exact, slow).
+        """
+        self.A = A
+        self.dense_symbol = np.asarray(dense_symbol)
+        self.points = tuple(points)
+        self.dtype = dtype
+        self._symbol_key = (np.ascontiguousarray(self.dense_symbol).tobytes(),
+                            self.dense_symbol.dtype.str)
+
+    def _solve_for_dt(self, dt: float, device: torch.device):
+        return _dense_solve(float(self.A), self.points, self.dtype, float(dt), device,
+                            *self._symbol_key)
+
+    def step(self, rhs, y, t, dt):
+        if isinstance(dt, torch.Tensor):
+            raise TypeError(
+                "SemiImplicitDenseSolve requires a Python-number dt (fixed-step "
+                "loops); use SemiImplicitFourierSpectral for adaptive dt."
+            )
+        solve = self._solve_for_dt(float(dt), y.device)
+        f0 = rhs(y, t)
+        y1 = y + dt * solve(f0)
+        return y1, y1 - (y + dt * f0)
+
+    def __hash__(self):
+        return hash((type(self), float(self.A), self.points, self.dtype))
+
+    def __eq__(self, other):
+        return (
+            type(self) is type(other)
+            and self.A == other.A
+            and self.points == other.points
+            and self.dtype == other.dtype
+            and bool((self.dense_symbol == other.dense_symbol).all())
+        )
+
+
+@functools.lru_cache(maxsize=8)  # a 64² matrix is 32 MB on the card in bf16
+def _dense_solve(A: float, points, dtype: str, dt: float, device: torch.device,
+                 symbol: bytes, symbol_dtype: str):
+    """SemiImplicitDenseSolve's solve for one configuration, dt and device;
+    the symbol comes as its bytes and numpy dtype, a hashable key."""
+    sym = np.frombuffer(symbol, dtype=symbol_dtype).reshape(points)
+    denom = 1.0 / (1.0 + A * dt * sym)
+    return make_dense_spectral_solve(points, np.real(denom), dtype=dtype, device=device)
 
 
 def _check_algo(algo: str) -> str:
@@ -779,3 +866,175 @@ class FusedRotatingSplitting(AbstractStepper):
 
     def step(self, rhs, y, t, dt):
         return self.evolve(rhs, y, t, dt, 1), None
+
+
+# ---- backward Euler by Newton-GMRES ------------------------------------------
+
+def _norm(z: torch.Tensor) -> torch.Tensor:
+    """|z|, with a finite gradient at z = 0 (the masked iterations of a
+    converged solve take norms of zero vectors)."""
+    s = torch.sum(z * z)
+    pos = s > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, s, torch.ones_like(s))),
+                       torch.zeros_like(s))
+
+
+def _safe_normalize(x: torch.Tensor, thresh=None):
+    """``(x / |x|, |x|)``, or ``(0, 0)`` where ``|x| <= thresh`` (default:
+    the machine epsilon of x's dtype)."""
+    norm = _norm(x)
+    if thresh is None:
+        thresh = torch.finfo(x.dtype).eps
+    use = norm > thresh
+    return (torch.where(use, x / torch.where(use, norm, torch.ones_like(norm)),
+                        torch.zeros_like(x)),
+            torch.where(use, norm, torch.zeros_like(norm)))
+
+
+def _gmres_cycle(matvec, b, x0, unit_residual, residual_norm, restart: int):
+    """One restart cycle of JAX's ``solve_method="batched"`` GMRES: build
+    ``restart`` Arnoldi vectors (one classical Gram-Schmidt pass each), then
+    solve the small least-squares problem through its normal equations.  A
+    breakdown (a new vector of norm 0) freezes the remaining iterations,
+    masked on the device instead of read back: their Hessenberg rows stay
+    the identity's and their vectors zero, as in JAX's early exit."""
+    dtype = b.dtype
+    eps = torch.finfo(dtype).eps
+    V = [unit_residual]                                   # orthonormal columns
+    rows = []                                             # Hessenberg rows, restart + 1 each
+    broken = torch.zeros((), dtype=torch.bool, device=b.device)
+    eye = torch.eye(restart, restart + 1, dtype=dtype, device=b.device)
+    for k in range(restart):
+        v = matvec(V[k])
+        _, v_norm_0 = _safe_normalize(v)
+        Q = torch.stack(V, dim=-1)                         # (n, k + 1)
+        h = Q.T @ v
+        v = v - Q @ h
+        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
+        h = torch.cat([h, v_norm_1.reshape(1), h.new_zeros(restart - k - 1)])
+        rows.append(torch.where(broken, eye[k], h))
+        V.append(torch.where(broken, torch.zeros_like(unit_v), unit_v))
+        broken = broken | (v_norm_1 == 0)
+    Hm = torch.stack(rows)                                # (restart, restart + 1)
+    beta = torch.zeros(restart + 1, dtype=dtype, device=b.device)
+    beta = beta.index_put((torch.tensor([0], device=b.device),), residual_norm.reshape(1))
+    # least squares min |Hm^T y - beta| by its normal equations (JAX's _lstsq)
+    y = torch.linalg.solve(Hm @ Hm.T, Hm @ beta)
+    x = x0 + torch.stack(V[:-1], dim=-1) @ y
+    return (x, *_safe_normalize(b - matvec(x)))
+
+
+def gmres(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
+          tol: float = 1e-5, atol: float = 0.0, restart: int = 20,
+          maxiter: Optional[int] = None) -> torch.Tensor:
+    """Solve ``matvec(x) = b`` by restarted GMRES, to the contract of
+    ``jax.scipy.sparse.linalg.gmres(..., solve_method="batched")``.
+
+    ``b`` is flattened (any shape; the solution has its shape).  ``restart``
+    Krylov vectors a cycle (at most ``b.numel()``), ``maxiter`` restart
+    cycles (not vectors; default ``10 b.numel()``), stopping once
+    ``|b - matvec(x)| <= max(tol |b|, atol)``: relative to ``|b|``.  The
+    stopping test is read on the host once a cycle.  Plain torch, so
+    autograd and :mod:`torch.func` go through the iterations.
+    """
+    shape = b.shape
+    b = b.reshape(-1)
+    size = b.numel()
+
+    def mv(v):
+        return matvec(v.reshape(shape)).reshape(-1)
+
+    x = torch.zeros_like(b) if x0 is None else x0.reshape(-1)
+    maxiter = 10 * size if maxiter is None else maxiter
+    restart = min(restart, size)
+    limit = torch.clamp(tol * _norm(b), min=atol)
+    unit, rnorm = _safe_normalize(b - mv(x))
+    k = 0
+    while k < maxiter and bool(rnorm > limit):
+        x, unit, rnorm = _gmres_cycle(mv, b, x, unit, rnorm, restart)
+        k += 1
+    return x.reshape(shape)
+
+
+class ImplicitEuler(AbstractStepper):
+    """Backward Euler via matrix-free Newton-Krylov (GMRES).
+
+    Solves ``g(y1) = y1 - y0 - dt*rhs(y1, t1) = 0`` by Newton from an
+    explicit Euler step; each Jacobian solve is :func:`gmres` on the
+    Jacobian action ``torch.func.jvp(g)``, with ``tol`` relative to
+    ``|g|``, ``gmres_iters`` restart cycles of 20 vectors (JAX's defaults).
+    Newton iterates until ``|g| <= atol + rtol·|y|`` or ``newton_iters``.
+
+    The default loop reads the residual on the host once an iteration, as
+    :func:`~pde_opt_tpu_torch.ops.integrate.integrate_adaptive` reads its
+    error norms (GMRES reads its own once a restart cycle).  With
+    ``differentiable=True`` it runs all ``newton_iters`` iterations and
+    freezes converged ones by ``torch.where`` (JAX's masked ``fori_loop``),
+    so reverse mode goes through every iteration.  :meth:`solve_step` also
+    returns convergence diagnostics (iterations used, final residual norm,
+    converged flag), so a caller pushing dt can detect a solve that did not
+    converge.
+    """
+
+    order = 1
+
+    def __init__(self, newton_iters: int = 12, gmres_iters: int = 20,
+                 tol: float = 1e-10, rtol: float = 1e-8, atol: float = 1e-10,
+                 differentiable: bool = False):
+        self.newton_iters = newton_iters
+        self.gmres_iters = gmres_iters
+        self.tol = tol
+        self.rtol = rtol
+        self.atol = atol
+        self.differentiable = differentiable
+
+    def solve_step(self, rhs, y, t, dt):
+        """One backward-Euler solve; returns ``(y1, stats)`` with
+        ``stats = {"iterations", "residual_norm", "converged"}`` (0-d
+        tensors on y's device)."""
+        t1 = t + dt
+        thresh = self.atol + self.rtol * _norm(y)
+
+        def g(z):
+            return z - y - dt * rhs(z, t1)
+
+        def newton_update(z):
+            gz = g(z)
+
+            def jvp_fn(v):
+                return torch.func.jvp(g, (z,), (v,))[1]
+
+            return z - gmres(jvp_fn, gz, tol=self.tol, maxiter=self.gmres_iters)
+
+        z = y + dt * rhs(y, t)
+        res = _norm(g(z))
+        iters = torch.zeros((), dtype=torch.int32, device=y.device)
+        if self.differentiable:
+            for _ in range(self.newton_iters):
+                done = res <= thresh
+                z = torch.where(done, z, newton_update(z))
+                res = torch.where(done, res, _norm(g(z)))
+                iters = iters + (~done).to(torch.int32)
+        else:
+            while bool(res > thresh) and int(iters) < self.newton_iters:
+                z = newton_update(z)
+                res = _norm(g(z))
+                iters = iters + 1
+        return z, {"iterations": iters, "residual_norm": res, "converged": res <= thresh}
+
+    def step(self, rhs, y, t, dt):
+        y1, _ = self.solve_step(rhs, y, t, dt)
+        return y1, y1 - (y + dt * rhs(y, t))
+
+    def __hash__(self):
+        return hash((type(self), self.newton_iters, self.gmres_iters,
+                     self.tol, self.rtol, self.atol, self.differentiable))
+
+    def __eq__(self, other):
+        return (
+            type(self) is type(other)
+            and (self.newton_iters, self.gmres_iters, self.tol, self.rtol,
+                 self.atol, self.differentiable)
+            == (other.newton_iters, other.gmres_iters, other.tol,
+                other.rtol, other.atol, other.differentiable)
+        )

@@ -8,9 +8,11 @@ a quiet move to the CPU: pass ``device="cpu"`` to run there.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "true_f32"]
 
 
 def resolve_device(device) -> torch.device:
@@ -23,3 +25,18 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+@contextlib.contextmanager
+def true_f32(device: torch.device):
+    """f32 products without TF32 on CUDA (the JAX package's
+    ``Precision.HIGHEST``); restores the caller's setting."""
+    if device.type != "cuda":
+        yield
+        return
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

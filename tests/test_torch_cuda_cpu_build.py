@@ -52,7 +52,12 @@ UBSan's alignment check, since the CPU, unlike the card, takes a misaligned
 8-byte access.  K9a/K9b: the tensor-core kernels (bf16 tables) at 64^2 with
 the half and the full spectrum, 16^2 and 24 x 40, R == 1 and a polynomial
 R, with a NaN env, and after one substep against the unrounded control;
-the FMA kernels (f32 tables) at 24 x 40 and 16^2 (full spectrum).
+the FMA kernels (f32 tables) at 24 x 40 and 16^2 (full spectrum).  The
+tiled K9a/K9b (``csrc/sif_tiled.cuh``) at 128² (half and full spectrum), 96
+x 136 and 256² (one substep), bf16 and f32 tables, R == 1 and a polynomial
+R, two envs through one slot; a NaN env at 96 x 136; one bf16 substep at
+128² against the unrounded control (TOL_SIF_TILED_SITE); a 264² launch
+refused before it runs.
 Bounds: the card tests' (``test_torch_cas_macro.py``, ``chip_smoke.py``: CH
 field 1e-3 with bf16 matrices, 1e-5 with f32, stats to rtol 1e-3; K3's du
 and dkappa relative to their maxima, ``TOL_BWD``, on the cotangent of
@@ -115,6 +120,7 @@ from pde_opt_tpu_torch.ops.fused_spectral import (
     ac_sif_macro_plain,
     ch_sif_macro_plain,
     sif_constants,
+    tiled_tables,
 )
 from pde_opt_tpu_torch.ops.sbm_bv import (
     SbmEpilogue,
@@ -914,29 +920,35 @@ def test_bv_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
 
 # ---- K9a and K9b, the packed-DFT macros ----------------------------------------
 
-def _sif_case(libs, kind, H, W, half, bf16, R=None, n_steps=N_STEPS, seed=0, nan=False):
+def _sif_case(libs, kind, H, W, half, bf16, R=None, n_steps=N_STEPS, seed=0, nan=False, n=B):
     """K9a (``kind`` "ch") or K9b ("ac"; ``R`` None for R == 1) from the stub
     build and its plain version on the same inputs, spacings 0.01 along H
     and 0.02 along W: ``(got, want, control)``, the control the plain
-    version with the rounding off."""
-    u, kap = (_ch_inputs if kind == "ch" else _ac_inputs)(H, W, seed)
+    version with the rounding off.  Above 64² the tiled kernel, its ``n``
+    envs through the stub's one scratch slot."""
+    u, kap = (_ch_inputs if kind == "ch" else _ac_inputs)(H, W, seed, n=n)
     if nan:
         u[0, 3, 7] = float("nan")
     consts = sif_constants(H, W, SIF_HX, SIF_HY, torch.bfloat16 if bf16 else torch.float32,
                            half, torch.device("cpu"))
     dt, A = (CH_DT, CH_A) if kind == "ch" else (AC_DT, AC_A)
+    lib = libs[5] if kind == "ch" else libs[6]
+    W2 = consts.wr_w.shape[-1]
+    scratch, slots = _scratch(lib, f"{kind}_sif_macro_scratch", int(bf16), H, W, W2)
+    tables = (None,) * 6 if scratch is None else tiled_tables(consts, bf16)
     out = torch.empty_like(u)
     mu_c, n_mu = _c_coeffs(MU)
     common = (u.data_ptr(), kap.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
-              u.shape[0], H, W, consts.wr_w.shape[-1], n_steps, dt, A * dt)
+              (ctypes.c_void_p * 6)(*(_ptr(t) for t in tables)), _ptr(scratch), slots,
+              u.shape[0], H, W, W2, n_steps, dt, A * dt)
     kw = dict(mu_fn=MU, dt=dt, A=A, n_steps=n_steps)
     if kind == "ch":
-        rc = libs[5].ch_sif_macro_launch(*common, mu_c, n_mu, int(bf16), None)
+        rc = lib.ch_sif_macro_launch(*common, mu_c, n_mu, int(bf16), None)
         plain = ch_sif_macro_plain
     else:
         r_c, n_r = (None, 0) if R is None else _c_coeffs(R)
-        rc = libs[6].ac_sif_macro_launch(*common, 1 / SIF_HX**2, 1 / SIF_HY**2, mu_c, n_mu, r_c,
-                                         n_r, int(bf16), None)
+        rc = lib.ac_sif_macro_launch(*common, 1 / SIF_HX**2, 1 / SIF_HY**2, mu_c, n_mu, r_c,
+                                     n_r, int(bf16), None)
         plain = ac_sif_macro_plain
         kw.update(R_fn=R, r_identity=R is None, hx=SIF_HX, hy=SIF_HY)
     assert rc == 0
@@ -951,6 +963,9 @@ SIF_IDS = ["ch", "ac_r1", "ac_poly"]
 # tables; one substep's RMS, TOL_SITE["ch_sif"] and ["ac_sif"].
 TOL_SIF = {("ch", True): 1e-3, ("ac", True): 5e-4, ("ch", False): 1e-5, ("ac", False): 1e-5}
 TOL_SIF_SITE = {"ch": 2e-5, "ac": 1e-6}
+# The tiled kernels' one substep at 128²: the unrounded AC control sits at
+# 7.0e-7 there, below the 64² bound, so K9b is held at 2e-7.
+TOL_SIF_TILED_SITE = {"ch": 2e-5, "ac": 2e-7}
 
 
 @pytest.mark.parametrize("H,W,half", [(64, 64, True), (64, 64, False), (16, 16, True),
@@ -994,6 +1009,71 @@ def test_sif_nan_env_stays_in_its_env(libs, kind, R):
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert bool(torch.isnan(got[0]).any()) and not bool(torch.isnan(got[1:]).any())
     torch.testing.assert_close(got[1:], want[1:], rtol=0, atol=TOL_SIF[kind, True])
+
+
+@pytest.mark.parametrize("H,W,half", [(128, 128, True), (96, 136, True), (128, 128, False),
+                                      (256, 256, True)],
+                         ids=["128-half", "96x136", "128-full", "256-half"])
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind,R", SIF_KINDS, ids=SIF_IDS)
+def test_sif_tiled_kernel_matches_plain(libs, kind, R, bf16, H, W, half):
+    """K9a/K9b above 64² on the tiled kernel (sif_tiled.cuh: tensor cores
+    with bf16 tables, FMA with f32), two envs through one scratch slot:
+    the half spectrum at 128² (W2 65 in a stacked width of 144), 96 x 136
+    (W2 69) and 256² (W2 129), the full one at 128².  One substep at 256²."""
+    got, want, _ = _sif_case(libs, kind, H, W, half, bf16, R, n=2,
+                             n_steps=1 if H == 256 else N_STEPS, seed=H + W + half)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL_SIF[kind, bf16])
+
+
+@pytest.mark.parametrize("kind,R", SIF_KINDS, ids=SIF_IDS)
+def test_sif_tiled_bf16_kernel_rounds_where_plain_rounds(libs, kind, R):
+    """One substep with bf16 tables at 128² on the tiled kernel: the RMS of
+    kernel - plain below TOL_SIF_TILED_SITE, the unrounded plain version
+    above it."""
+    got, want, control = _sif_case(libs, kind, 128, 128, True, True, R, n_steps=1, seed=17, n=1)
+
+    def rms(d):
+        return float(d.double().pow(2).mean().sqrt())
+
+    assert rms(got - want) <= TOL_SIF_TILED_SITE[kind] < rms(control - want)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind,R", SIF_KINDS, ids=SIF_IDS)
+def test_sif_tiled_nan_env_stays_in_its_env(libs, kind, R, bf16):
+    """One NaN pixel in the first env at 96 x 136 on the tiled kernel: the
+    other two envs, which reuse its scratch slot, still equal plain."""
+    got, want, _ = _sif_case(libs, kind, 96, 136, True, bf16, R, seed=5, nan=True)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[0]).any()) and not bool(torch.isnan(got[1:]).any())
+    torch.testing.assert_close(got[1:], want[1:], rtol=0, atol=TOL_SIF[kind, bf16])
+
+
+@pytest.mark.parametrize("kind", ["ch", "ac"])
+def test_sif_launch_refuses_264(libs, kind):
+    """A 264² state is past the tiled kernels' 256: the launch returns an
+    error before it runs anything (the wrapper refuses it before the launch
+    and counts none, test_torch_fused_spectral.py)."""
+    lib = libs[5] if kind == "ch" else libs[6]
+    H = W = 264
+    W2 = W // 2 + 1
+    slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    assert getattr(lib, f"{kind}_sif_macro_scratch")(1, H, W, W2, ctypes.byref(slots),
+                                                     ctypes.byref(floats)) == 0
+    u = torch.zeros((1, H, W))
+    out = torch.full_like(u, 7.0)
+    scratch = torch.zeros(max(floats.value, 1))
+    tables = (ctypes.c_void_p * 6)(*([scratch.data_ptr()] * 6))
+    common = (u.data_ptr(), u.data_ptr(), *([u.data_ptr()] * 10), out.data_ptr(), tables,
+              scratch.data_ptr(), 1, 1, H, W, W2, 1, 1e-3, 1e-3)
+    mu_c, n_mu = _c_coeffs(MU)
+    if kind == "ch":
+        rc = lib.ch_sif_macro_launch(*common, mu_c, n_mu, 1, None)
+    else:
+        rc = lib.ac_sif_macro_launch(*common, 1.0, 1.0, mu_c, n_mu, None, 0, 1, None)
+    assert rc != 0
+    assert bool((out == 7.0).all())
 
 
 # ---- K7, the SBM Butler-Volmer macro -------------------------------------------

@@ -258,8 +258,11 @@ def test_pooled_obs_and_unported_options():
     state, obs0 = env.reset(gen)
     _, obs, *_ = env.step(state, env.sample_actions(gen))
     assert obs0.shape == obs.shape == (4, 1, 4, 4)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tpreset(device="cpu", num_envs=4, grid_size=16, spectral_solve="dense")
+    # spectral_solve="dense" is ported: its fleet builds and steps.
+    denv = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=5, spectral_solve="dense")
+    dstate, _ = denv.reset(gen)
+    dstate, _, dr, *_ = denv.step(dstate, denv.sample_actions(gen))
+    assert bool(torch.isfinite(dstate.y).all()) and bool(torch.isfinite(dr).all())
     with pytest.raises(NotImplementedError, match="vmapped"):
         tpreset(device="cpu", num_envs=4, grid_size=16, vectorized_control=False)
     # A discrete space with no mapping: five actions, all a zero offset.

@@ -9,8 +9,8 @@ import pytest
 import pde_opt_tpu as jp
 import pde_opt_tpu_torch as tp
 
-# Names of the JAX package not ported yet (ROADMAP.md, queue 1 items 5-6).
-UNPORTED = {"PDEEnv", "ImplicitEuler"}
+# Names of the JAX package not ported yet (ROADMAP.md, queue 1 item 6).
+UNPORTED = {"PDEEnv"}
 
 
 def test_all_holds_the_jax_names_less_the_unported():
