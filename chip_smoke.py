@@ -44,6 +44,10 @@ K9b: the CH and AC fleets with ``algo="dft"`` at 1024 envs x 128^2, K9a at
 ``run_ch256``'s shape and a value+grad through K9a at 1024 x 128^2.  The CH
 fleet with ``spectral_solve="dense"`` (the dense spectral solve, 4096 x
 64^2) and one backward-Euler solve by Newton-GMRES (``ImplicitEuler``).
+Per-env stepping (the JAX env's default mode) of the CH and AC fleets at
+4096 x 64^2 x 10 through K2, K9a, K8, the dense solve, K4 and K9b, against
+their batched twins; a time-dependent advection-diffusion fleet; the gym
+adapter's core; checkpoint and resume of the flagship fleet.
 Phases (each passes or raises; nothing is
 caught):
 
@@ -238,8 +242,24 @@ caught):
    launch, rewards finite, its rate beside the fused fleet's, the product
    route named), one substep of its stepper against the CPU's.  (d) One
    ``ImplicitEuler.solve_step`` on the card against the CPU's (f64).
+15. Per-env stepping (``vectorized_control=False``, the JAX env's default:
+   ``torch.func.vmap`` of one env's macro-step), with PyTorch's
+   batching-fallback warning as an error (the constants ``PE_*`` say how).
+   (a) The CH fleets (fused K2, fused ``algo="dft"`` K9a, fft with
+   ``derivs="pallas"`` K8, dense) and the AC fleets (fused K4, ``algo="dft"``
+   K9b) per env at 4096 x 64^2 x 10, across an episode end under sync debug
+   mode "error", launch counts reset just before and read just after: one
+   launch a step (SUBSTEPS of K8, none for dense) and nothing else; each
+   against its batched twin from one state, generator and action list
+   (fields bit for bit on the one-launch paths), their rates side by side.
+   (b) An advection-diffusion fleet whose velocity depends on each env's
+   own time, from staggered times, against the CPU's f64.  (c) The gym
+   adapter's step core on one env against env 0 of a per-env fleet.  (d) A
+   checkpoint of the flagship fleet (K1) with its generator and a PPO net
+   with its Adam state, restored into fresh objects and resumed bit for
+   bit; ``max_to_keep``.
 
-Every rollout and update of phases 4-10, 12, 13 and 14 (but 14b's
+Every rollout and update of phases 4-10, 12, 13, 14 and 15a (but 14b's
 value+grad) runs under
 ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for the device
 fails the run.  Phase 11's loops and phase 12's smoothing flow read a value
@@ -574,6 +594,28 @@ DFT128_ENVS, DFT128_GRID = 1024, 128
 K9_VG_CALLS, K9_VG_CHECK_ENVS = 3, 4
 DENSE_STEPS, DENSE_CHECK_ENVS, TOL_DENSE = 30, 8, 1e-2
 IE_SHAPE, TOL_IE = (4, 64, 64), 1e-10
+# Per-env stepping (phase 15): the JAX env's default mode,
+# vectorized_control=False, by torch.func.vmap of one env's macro-step.
+# (a) Six per-env fleets at the flagship's width (4096 envs, AC_ENVS for
+# AC) x 64^2 x 10 substeps, PE_STEPS random-policy steps across the episode
+# end at PE_END: one K2, K9a, K4 or K9b launch a step (SUBSTEPS K8 launches
+# for the fft stepper with derivs="pallas", none for the dense solve) and
+# nothing else, each against its batched twin (vectorized_control=True,
+# fused_epilogue=False, the same stepper) from one state, generator and
+# action list: fields bit for bit on the one-launch paths, within
+# TOL_PE_OTHER elsewhere; rewards to TOL_PE_REWARD of the largest.  (b) An
+# advection-diffusion fleet whose velocity control also depends on t
+# (PE_AD_ENVS x 64^2, RK4), started at staggered times, against the CPU's
+# f64 for PE_AD_CHECK envs after PE_AD_STEPS steps, to TOL_PE_AD.  (c) The
+# gym adapter's core (envs.vector_env.macro_step) on one env against env 0
+# of a per-env fleet, PE_GYM_STEPS steps, bit for bit.  (d) Checkpoint and
+# resume of the flagship fused-epilogue fleet (K1) with a PPO net and its
+# Adam state, PE_RESUME_STEPS steps again bit for bit; max_to_keep.
+PE_STEPS, PE_END = 30, 0.2
+TOL_PE_OTHER, TOL_PE_REWARD = 1e-6, 1e-6
+PE_AD_ENVS, PE_AD_STEPS, PE_AD_CHECK, TOL_PE_AD = 1024, 3, 4, 1e-5
+PE_GYM_STEPS, PE_GYM_ENVS = 3, 64
+PE_RESUME_AT, PE_RESUME_STEPS = 10, 20
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -4241,6 +4283,335 @@ def _check_implicit_euler(torch, dev, card):
     print(line, flush=True)
 
 
+def _pe_fleets(torch, dev):
+    """Phase 15a's six fleets: (name, the per-env env, its batched twin,
+    the kernel of a step or None, its launches a step)."""
+    from pde_opt_tpu_torch.envs.presets import (
+        make_allen_cahn_control_env,
+        make_cahn_hilliard_control_env,
+    )
+
+    cases = (
+        ("CH fused (K2)", make_cahn_hilliard_control_env, NUM_ENVS,
+         dict(spectral_solve="fused"), {}, "ch_cas_macro", 1),
+        ("CH fused algo=dft (K9a)", make_cahn_hilliard_control_env, NUM_ENVS,
+         dict(spectral_solve="fused"), {"algo": "dft"}, "ch_sif_macro", 1),
+        ("CH fft derivs=pallas (K8)", make_cahn_hilliard_control_env, NUM_ENVS,
+         dict(spectral_solve="fft", derivs="pallas"), {}, "ch_rhs_fd", SUBSTEPS),
+        ("CH dense", make_cahn_hilliard_control_env, NUM_ENVS,
+         dict(spectral_solve="dense"), {}, None, 0),
+        ("AC fused (K4)", make_allen_cahn_control_env, AC_ENVS,
+         dict(spectral_solve="fused"), {}, "ac_cas_macro", 1),
+        ("AC fused algo=dft (K9b)", make_allen_cahn_control_env, AC_ENVS,
+         dict(spectral_solve="fused"), {"algo": "dft"}, "ac_sif_macro", 1),
+    )
+    for name, make, n, kw, extra, kernel, per_step in cases:
+        pair = []
+        for vc in (False, True):
+            env = make(num_envs=n, grid_size=GRID, substeps=SUBSTEPS, end_time=PE_END,
+                       vectorized_control=vc, fused_epilogue=False, device=dev, **kw)
+            env.solver_parameters.update(extra)
+            pair.append(env)
+        yield (name, *pair, kernel, per_step)
+
+
+def _pe_run(torch, env, state, gen, actions):
+    """``env`` stepped through ``actions`` from ``state`` (in place) with
+    auto-resets drawn from ``gen``: (state, rewards, terminations, host
+    seconds to a trailing synchronize)."""
+    env.set_generator(gen)
+    rewards, terms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for a in actions:
+        state, _, r, te, _, _ = env.step(state, a)
+        rewards.append(r)
+        terms.append(te)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return state, torch.stack(rewards), torch.stack(terms), time.perf_counter() - t0
+
+
+def _drive_per_env(torch, kernels, dev, card):
+    """Phase 15a: each per-env fleet of :func:`_pe_fleets` against its
+    batched twin.  Returns (the per-env runs' summed launch counts, the
+    rates)."""
+    from pde_opt_tpu_torch.envs.vector_env import EnvState
+
+    total = {n: 0 for n in KERNELS}
+    rates = {}
+    for name, penv, benv, kernel, per_step in _pe_fleets(torch, dev):
+        gen = torch.Generator(device=dev).manual_seed(150)
+        for e in (penv, benv):                   # warm the glue and the cached tables
+            st, _ = e.reset(gen)
+            e.step(st, e.sample_actions(gen))
+        end_step = _end_step(torch, penv)
+        _check(end_step < PE_STEPS, "the per-env rollout must cross the episode end")
+        state, _ = penv.reset(gen)
+        start = EnvState(*(t.clone() for t in state))
+        g_state = gen.get_state()
+        agen = torch.Generator(device=dev).manual_seed(151)
+        actions = [penv.sample_actions(agen) for _ in range(PE_STEPS)]
+        kernels.reset_launch_counts()
+        state, rew, terms, t_pe = _pe_run(torch, penv, state, gen, actions)
+        counts = kernels.launch_counts()
+        bstate, brew, bterms, t_b = _pe_run(
+            torch, benv, EnvState(*(t.clone() for t in start)),
+            torch.Generator(device=dev).set_state(g_state), actions)
+        want = {n: 0 for n in counts}
+        if kernel is not None:
+            want[kernel] = per_step * PE_STEPS
+        _check(counts == want, f"per-env {name}: launches {counts}, expected {want}")
+        for n in total:
+            total[n] += counts[n]
+        _check(bool(torch.isfinite(rew).all()) and bool(torch.isfinite(state.y).all()),
+               f"per-env {name}: non-finite rewards or field")
+        _check(bool(terms[end_step - 1].all()), f"per-env {name}: no episode end")
+        _check(torch.equal(terms, bterms), f"per-env {name}: terminations differ")
+        gap = (state.y - bstate.y).abs().max().item()
+        rgap = ((rew - brew).abs().max() / brew.abs().max()).item()
+        same = torch.equal(state.y, bstate.y)
+        for f in ("t", "control_value", "step_count", "done"):
+            _check(torch.equal(getattr(state, f), getattr(bstate, f)),
+                   f"per-env {name}: {f} differs from the batched fleet's")
+        n, B = penv.num_envs, PE_STEPS
+        rates[name] = (n * B / t_pe, n * B / t_b)
+        line = (f"per-env {name}: {B} steps of {n} envs x {GRID}^2 x {SUBSTEPS} substeps across "
+                f"the episode end at step {end_step}, launches {dict((k, v) for k, v in counts.items() if v)}; "
+                f"field vs the batched fleet: max gap {gap:.3e} (bit for bit: {same}), reward "
+                f"max gap {rgap:.3e} of the largest; {rates[name][0]:.1f} env-steps/s per env vs "
+                f"{rates[name][1]:.1f} batched [{card}]")
+        _check(same if per_step == 1 else gap <= TOL_PE_OTHER, line)
+        _check(rgap <= TOL_PE_REWARD, line)
+        print(line, flush=True)
+    return total, rates
+
+
+def _check_per_env_time(torch, dev, card):
+    """Phase 15b: a fleet of AdvectionDiffusion-v0's dynamics (RK4, a
+    2-vector velocity control) whose velocity also depends on each env's
+    own time, started at staggered times, against the CPU's f64."""
+    import numpy as np
+
+    from pde_opt_tpu_torch import grid as gridmod
+    from pde_opt_tpu_torch.envs.vector_env import (
+        VectorPDEEnv,
+        env_state_from_numpy,
+        env_state_to_numpy,
+    )
+    from pde_opt_tpu_torch.models.advection_diffusion import AdvectionDiffusion2D
+    from pde_opt_tpu_torch.ops.steppers import RK4
+
+    def make(d, n, dtype):
+        return VectorPDEEnv(
+            equation_type=AdvectionDiffusion2D,
+            domain=gridmod.Domain((GRID, GRID), ((-0.5, 0.5), (-0.5, 0.5)), dtype=dtype),
+            solver_type=RK4, end_time=1.0, step_dt=0.01, numeric_dt=0.0025,
+            state_to_observation_func=lambda y: torch.clamp(y * 255.0, 0, 255).to(
+                torch.uint8)[..., None, :, :],
+            reward_function=lambda y: -y.var(),
+            reset_func=lambda domain, g, b: torch.rand((b, *domain.points), generator=g,
+                                                       device=g.device, dtype=dtype),
+            reset_control_value=np.zeros(2, np.float32),
+            update_control_value=lambda off, old: old + 0.1 * off,
+            update_control_parameter=lambda old, new: (
+                lambda t, X, Y: (new[0] * torch.cos(6.0 * t), new[1] + t)),
+            action_space_config={"type": "continuous", "shape": (2,)},
+            static_equation_parameters={"diffusion_coeff": 0.01, "device": d},
+            control_equation_parameter_name="velocity",
+            solver_parameters={}, num_envs=n, device=d)
+
+    rng = np.random.default_rng(152)
+    n = PE_AD_ENVS
+    xs = np.linspace(-0.5, 0.5, GRID, endpoint=False)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    phase = rng.uniform(0, 2 * np.pi, (n, 1, 1))
+    arrs = {"y": (0.5 + 0.3 * np.sin(2 * np.pi * X + phase) * np.cos(2 * np.pi * Y)),
+            "t": (0.01 * rng.integers(0, 50, n)).astype(np.float32),
+            "control_value": rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+            "step_count": np.zeros(n, np.int32), "done": np.zeros(n, bool)}
+    acts = rng.uniform(-1, 1, (PE_AD_STEPS, n, 2)).astype(np.float32)
+    env = make(dev, n, torch.float32)
+    env.set_generator(torch.Generator(device=dev).manual_seed(153))
+    state = env_state_from_numpy({**arrs, "y": arrs["y"].astype(np.float32)}, dev)
+    for a in acts:
+        state, *_ = env.step(state, torch.from_numpy(a).to(dev))
+    got = env_state_to_numpy(state)
+    k = PE_AD_CHECK
+    ref = make("cpu", k, torch.float64)
+    ref.set_generator(torch.Generator().manual_seed(153))
+    rstate = env_state_from_numpy({f: v[:k] for f, v in arrs.items()}, "cpu")
+    for a in acts:
+        rstate, *_ = ref.step(rstate, torch.from_numpy(a[:k]))
+    want = env_state_to_numpy(rstate)
+    err = np.abs(got["y"][:k] - want["y"]).max()
+    moved = np.abs(want["y"] - arrs["y"][:k]).max()
+    # Each env at its own time: the same envs started all at t = 0 end
+    # elsewhere, by far more than the tolerance.
+    r0 = make("cpu", k, torch.float64)
+    r0.set_generator(torch.Generator().manual_seed(153))
+    zstate = env_state_from_numpy({**{f: v[:k] for f, v in arrs.items()},
+                                   "t": np.zeros(k, np.float32)}, "cpu")
+    for a in acts:
+        zstate, *_ = r0.step(zstate, torch.from_numpy(a[:k]))
+    t_effect = np.abs(env_state_to_numpy(zstate)["y"] - want["y"]).max()
+    line = (f"per-env time: advection-diffusion fleet ({n} envs x {GRID}^2, RK4, velocity of "
+            f"the control and t), {PE_AD_STEPS} steps from staggered t in "
+            f"[{arrs['t'].min():.2f}, {arrs['t'].max():.2f}]: {k} envs vs the CPU's f64 max_err "
+            f"{err:.3e} (the field moved {moved:.3e}; from t = 0 it would end {t_effect:.3e} "
+            f"away) [{card}]")
+    _check(err <= TOL_PE_AD and t_effect > 100 * TOL_PE_AD and np.array_equal(
+        got["t"][:k], want["t"]), line)
+    print(line, flush=True)
+
+
+def _check_gym_core(torch, kernels, dev, card):
+    """Phase 15c: the gym adapter's step core
+    (:func:`~pde_opt_tpu_torch.envs.vector_env.macro_step`, one env, 0-d
+    control and time tensors) against env 0 of a per-env fleet (K2), from
+    one start and action list, bit for bit."""
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.envs.vector_env import macro_step
+
+    env = make_cahn_hilliard_control_env(
+        num_envs=PE_GYM_ENVS, grid_size=GRID, substeps=SUBSTEPS,
+        end_time=PE_GYM_STEPS * 0.01, vectorized_control=False, spectral_solve="fused",
+        auto_reset=False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(154)
+    state, _ = env.reset(gen)
+    y, cv, t = state.y[0].clone(), state.control_value[0].clone(), state.t[0].clone()
+    actions = [env.sample_actions(gen) for _ in range(PE_GYM_STEPS)]
+    kernels.reset_launch_counts()
+    for a in actions:
+        new_cv = env.update_control_value(a[0], cv)
+        y = macro_step(env, y, cv, new_cv, t)
+        cv, t = new_cv, t + env.step_dt
+    gym_counts = kernels.launch_counts()
+    for a in actions:
+        state, _, _, term, _, _ = env.step(state, a)
+    torch.cuda.synchronize()
+    same = torch.equal(y, state.y[0])
+    line = (f"gym core: {PE_GYM_STEPS}-step episode of one env at {GRID}^2 through macro_step "
+            f"({gym_counts['ch_cas_macro']} K2 launches) vs env 0 of a {PE_GYM_ENVS}-env per-env "
+            f"fleet: max gap {(y - state.y[0]).abs().max().item():.3e}, bit for bit: {same}; "
+            f"episode ended {bool(term[0])} [{card}]")
+    _check(same and torch.equal(cv, state.control_value[0]) and bool(term.all())
+           and gym_counts["ch_cas_macro"] == PE_GYM_STEPS, line)
+    print(line, flush=True)
+
+
+def _check_checkpoint(torch, kernels, dev, card):
+    """Phase 15d: save the flagship fused-epilogue fleet (K1) mid-rollout
+    with its auto-reset generator and a PPO actor-critic with its Adam
+    state; restore into fresh objects and run the same PE_RESUME_STEPS
+    steps again, bit for bit; max_to_keep.  Returns K1's launches."""
+    import os
+    import tempfile
+
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.rl import ActorCriticMLP, PPOConfig, Sampler, make_ppo_train_step
+    from pde_opt_tpu_torch.utils.checkpoint import (
+        latest_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    def fleet():
+        return make_cahn_hilliard_control_env(NUM_ENVS, GRID, SUBSTEPS, spectral_solve="fused",
+                                              obs_downsample=4, end_time=PE_END, device=dev)
+
+    def net_and_opt(seed, env):
+        net = ActorCriticMLP(1, (GRID // 4) ** 2, widths=(256,), features=64,
+                             compute_dtype=torch.bfloat16,
+                             generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+        train_step, optimizer = make_ppo_train_step(
+            env, PPOConfig(rollout_steps=4, epochs=1, minibatches=2, lr=3e-4))
+        return net, optimizer(net.parameters()), train_step
+
+    env = fleet()
+    net, opt, train_step = net_and_opt(155, env)
+    gen = torch.Generator(device=dev).manual_seed(156)
+    state, _ = env.reset(gen)
+    kernels.reset_launch_counts()
+    state, _ = train_step(net, opt, state, Sampler(torch.Generator(device=dev).manual_seed(157)))
+    for a in [env.sample_actions(gen) for _ in range(PE_RESUME_AT - 4)]:
+        state, *_ = env.step(state, a)
+    agen = torch.Generator(device=dev).manual_seed(158)
+    actions = [env.sample_actions(agen) for _ in range(PE_RESUME_STEPS)]
+    tree = {"env": state, "generator": gen.get_state(),
+            "ppo": {"params": net.state_dict(), "adam": opt.adam.state_dict()}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(root, "run"), PE_RESUME_AT, tree)
+        t_save = time.perf_counter() - t0
+        saved_params = {k: v.clone() for k, v in net.state_dict().items()}
+        state, rew, terms, _ = _pe_run(torch, env, state, gen, actions)
+        counts = kernels.launch_counts()
+
+        env2 = fleet()
+        net2, opt2, _ = net_and_opt(159, env2)
+        template_state, _ = env2.reset(torch.Generator(device=dev).manual_seed(160))
+        t0 = time.perf_counter()
+        back = restore_checkpoint(os.path.join(root, "run"), template={
+            "env": template_state, "generator": torch.Generator().get_state(),
+            "ppo": {"params": net2.state_dict()}})
+        adam = restore_checkpoint(os.path.join(root, "run"))["ppo"]["adam"]
+        t_restore = time.perf_counter() - t0
+        net2.load_state_dict(back["ppo"]["params"])
+        opt2.adam.load_state_dict(adam)
+        for k, v in net2.state_dict().items():
+            _check(torch.equal(v, saved_params[k]) and v.dtype == saved_params[k].dtype
+                   and v.device == saved_params[k].device, f"checkpoint: parameter {k}")
+        for (k, s1), s2 in zip(opt.adam.state_dict()["state"].items(),
+                               opt2.adam.state_dict()["state"].values()):
+            for f, v in s1.items():
+                _check(torch.equal(v, s2[f]) and v.dtype == s2[f].dtype
+                       and v.device == s2[f].device, f"checkpoint: Adam state {k} {f}")
+        gen2 = torch.Generator(device=dev).set_state(back["generator"])
+        state2, rew2, terms2, _ = _pe_run(torch, env2, back["env"], gen2, actions)
+        ok = (torch.equal(rew, rew2) and torch.equal(terms, terms2)
+              and all(torch.equal(a, b) for a, b in zip(state, state2)))
+        size = os.path.getsize(os.path.join(root, "run", f"ckpt_{PE_RESUME_AT}.pt"))
+        line = (f"checkpoint: the {NUM_ENVS}-env fused-epilogue fleet at step {PE_RESUME_AT} "
+                f"with its generator, a PPO actor-critic and its Adam state ({size / 2**20:.1f} "
+                f"MiB, save {t_save:.3f} s, restore {t_restore:.3f} s): parameters and Adam "
+                f"state bit for bit on {dev}; {PE_RESUME_STEPS} steps again from the restored "
+                f"state ({int(terms.sum())} episode ends) bit for bit: {ok} [{card}]")
+        _check(ok and bool(terms.any()), line)
+        print(line, flush=True)
+        keep = os.path.join(root, "keep")
+        for step in (1, 2, 3, 4):
+            save_checkpoint(keep, step, {"x": torch.full((2,), float(step), device=dev)},
+                            max_to_keep=3)
+        names = sorted(os.listdir(keep))
+        _check(names == ["ckpt_2.pt", "ckpt_3.pt", "ckpt_4.pt"] and latest_step(keep) == 4
+               and float(restore_checkpoint(keep)["x"][0]) == 4.0,
+               f"checkpoint max_to_keep: {names}")
+        print(f"checkpoint: steps 1-4 saved with max_to_keep=3 keep {names}, latest 4", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def _drive_phase15(torch, kernels, dev, card):
+    """Phase 15 with PyTorch's batching-fallback warning as an error: a
+    per-sample loop cannot hide.  Returns (the main paths' launch counts,
+    the per-env and batched rates)."""
+    import warnings
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*batching rule.*")
+        counts, rates = _drive_per_env(torch, kernels, dev, card)
+        _check_per_env_time(torch, dev, card)
+        _check_gym_core(torch, kernels, dev, card)
+        ck_counts = _check_checkpoint(torch, kernels, dev, card)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return counts, ck_counts, rates
+
+
 def main():
     import torch
 
@@ -4939,13 +5310,19 @@ def _main(shape_ref):
     _drive_dense(torch, kernels, dev, gen, card, rate)
     _check_implicit_euler(torch, dev, card)
 
+    # ---- 15. per-env stepping (vectorized_control=False): the six fleets
+    # against their batched twins, per-env time, the gym core, checkpoints --
+    pe_counts, ck_counts, pe_rates = _drive_phase15(torch, kernels, dev, card)
+    print("phase 15: per-env vs batched env-steps/s: " + "; ".join(
+        f"{k} {v[0]:.1f} vs {v[1]:.1f}" for k, v in pe_rates.items()) + f" [{card}]", flush=True)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
                                       dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
                                       ddpg_counts, *big_counts, *tiled_counts, shape_counts,
-                                      *bvbig_counts, *k9big_counts))
+                                      *bvbig_counts, *k9big_counts, pe_counts, ck_counts))
                 for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()

@@ -28,7 +28,12 @@ smoothed-boundary Allen-Cahn, Cahn-Hilliard and Butler-Volmer equations,
 the CH backward run hand-written Hopper kernels (``csrc/*.cu``): every
 Pallas kernel of the JAX package has its counterpart.  The entry points
 build on the card unless the caller passes ``device="cpu"``.  The package
-imports torch and numpy, never jax.
+imports torch and numpy, never jax.  The vector envs also step per env
+(``vectorized_control=False``, the default, as in the JAX package), and
+the edges are ported: the Gymnasium adapters ``PDEEnv`` and
+``AdvectionDiffusionEnv`` (which import gymnasium when first touched),
+checkpointing (``utils.checkpoint``) and the sympy MMS twins
+(``models.symbolic``, ``utils.testing``; sympy is needed only there).
 """
 
 from . import envs, models, ops, optim, rl, utils
@@ -91,7 +96,8 @@ from .optim import least_squares_lm, least_squares_lm_jitted
 __all__ = [
     "envs", "models", "ops", "optim", "rl", "utils",
     # Core classes
-    "PDEModel", "OptimizationModel", "EnvState", "VectorPDEEnv",
+    "PDEModel", "OptimizationModel", "EnvState", "VectorPDEEnv", "PDEEnv",
+    "AdvectionDiffusionEnv",
     # Equations
     "BaseEquation", "TimeSplittingEquation", "AdvectionDiffusion2D",
     "AllenCahn2DPeriodic", "AllenCahn2DSmoothedBoundary",
@@ -114,3 +120,11 @@ __all__ = [
     "make_gpe_rot_control_env", "make_butler_volmer_control_env",
     "make_sbm_butler_volmer_control_env",
 ]
+
+
+def __getattr__(name):
+    # The Gymnasium adapters, imported when first touched (they need
+    # gymnasium; the rest of the package does not).
+    if name in envs._GYM_NAMES:
+        return getattr(envs, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,11 +6,20 @@ The whole fleet is one batched state and two functions:
     ``reset(generator)        -> (EnvState, obs)``
     ``step(state, actions)    -> (EnvState, obs, reward, terminated, truncated, info)``
 
-A step advances every env through ONE batch-transparent equation (the JAX
-package's ``vectorized_control`` path); with the fused epilogue the macro
-kernel itself emits the per-env statistics and the observation.  PyTorch
-runs eagerly, so ``make_rollout`` is a Python loop of steps that never
-synchronises with the device.
+A step advances the fleet one of two ways, as in the JAX package:
+
+* ``vectorized_control=False`` (the default): per env, by
+  :func:`torch.func.vmap` of one env's macro-step (control update, control
+  parameter, equation, solver, substeps), each env from its own time
+  ``state.t``.  The fused macros, the fused rhs and the dense solve's
+  product fold the vmapped axis into their env axis, so a fleet step is
+  still one kernel launch (one a substep for the fused rhs).
+* ``vectorized_control=True``: every env through ONE batch-transparent
+  equation; with the fused epilogue the macro kernel itself emits the
+  per-env statistics and the observation.
+
+PyTorch runs eagerly, so ``make_rollout`` is a Python loop of steps that
+never synchronises with the device.
 
 Differences from the JAX env, each forced by eager PyTorch:
 
@@ -24,6 +33,9 @@ Differences from the JAX env, each forced by eager PyTorch:
   selects it with ``torch.where`` for the envs that terminated.  The JAX
   ``lax.cond(terminated.any())`` would need a device-to-host sync per step
   in eager PyTorch; per-env results are the same either way.
+* A run resumes its auto-reset stream from a checkpoint of
+  ``generator.get_state()``: :meth:`VectorPDEEnv.set_generator` hands the
+  env a generator without drawing a fleet (the JAX state carries its keys).
 """
 
 from __future__ import annotations
@@ -39,6 +51,31 @@ from ..utils.compat import check_equation_solver_compatibility, prepare_solver_p
 from ..utils.device import resolve_device
 
 __all__ = ["EnvState", "VectorPDEEnv", "env_state_from_numpy", "env_state_to_numpy"]
+
+
+def _equation_and_solver(env, old_cv, new_cv):
+    control_param = env.update_control_parameter(old_cv, new_cv)
+    eq = env.equation_type(
+        domain=env.domain,
+        **{**env.static_equation_parameters, env.control_equation_parameter_name: control_param},
+    )
+    solver = env.solver_type(**prepare_solver_params(env.solver_type, env.solver_parameters, eq))
+    return eq, solver
+
+
+def macro_step(env, y, old_cv, new_cv, t0):
+    """One RL macro-step of one env, or of a fleet through batch-transparent
+    callables: control parameter, equation, solver, then ``env.n_substeps``
+    substeps of ``env.dt_sub`` from time ``t0``.  Returns the new field.
+
+    ``env`` is anything with the attributes :class:`VectorPDEEnv` and
+    :class:`~pde_opt_tpu_torch.envs.gym_adapter.PDEEnv` keep from their
+    constructors.  The per-env step of the vector env vmaps this over the
+    fleet, and the gymnasium adapter calls it on one env: the body of the
+    JAX package's ``_advance_single`` and ``PDEEnv``'s ``_step_core``.
+    """
+    eq, solver = _equation_and_solver(env, old_cv, new_cv)
+    return evolve(solver, eq.rhs, y, t0, env.dt_sub, env.n_substeps)
 
 
 class EnvState(NamedTuple):
@@ -83,26 +120,40 @@ class VectorPDEEnv:
     """Batched PDE control environment.
 
     Args mirror the JAX ``VectorPDEEnv``, with these contracts for the
-    callables (the port has no ``vmap``, so they see the whole fleet):
+    callables.  Whatever the mode:
 
         reset_func: ``(domain, generator, n) -> (n, *points)`` field, drawn
-            on ``generator.device``.
-        reward_function: ``(B, *points) -> (B,)``.
-        state_to_observation_func: ``(B, *points) -> obs``.
-        update_control_value / update_control_parameter: as in the JAX env,
-            batch-aware.
+            on ``generator.device`` (the fleet's draw; the JAX env vmaps a
+            per-env ``(domain, key)``).
+        state_to_observation_func: ``(B, *points) -> obs``, the fleet.
         fused_epilogue: the JAX env's config (``obs_scale``, ``obs_offset``,
             ``obs_downsample``, ``stats_center``, ``reward_from_stats``,
-            optional ``obs_transform`` and ``n_px``).
+            optional ``obs_transform`` and ``n_px``); needs
+            ``vectorized_control=True``, as in JAX.
         device: where the fleet lives.
+
+    With ``vectorized_control=False`` (the default, as in JAX) the step
+    vmaps one env's macro-step, and these see ONE env:
+
+        update_control_value: ``(offset (*action), cv) -> cv``.
+        update_control_parameter: ``(old cv, new cv) -> parameter`` of one
+            env, e.g. a scalar κ or a ``velocity(t, X, Y)`` callable; the
+            equation, the stepper and ``rhs(y, t)`` see that env's field
+            ``(*points)`` and its own time ``t`` (a 0-d tensor).
+        reward_function: ``(*points) -> ()``.
+
+    With ``vectorized_control=True`` they see the whole fleet, and must be
+    batch-aware: ``update_control_value`` keeps the ``(B, ...)`` control's
+    shape, ``update_control_parameter`` returns a parameter that broadcasts
+    against ``(B, *points)`` fields (e.g. ``new[..., None, None]``), and
+    ``reward_function`` maps ``(B, *points) -> (B,)``.  Each env's time is
+    not passed: the equation must be time-autonomous.
 
     ``action_space_config`` is continuous (``{"type": "continuous",
     "shape", "low", "high"}``) or discrete (``{"type": "discrete",
     "num_actions", "action_mapping"}``: action ``i`` becomes the control
-    offset ``action_mapping[i]``, looked up on the device; no mapping gives
-    zero offsets).  Only the batch-transparent stepping of the JAX env's
-    ``vectorized_control=True`` is ported; per-env stepping raises
-    ``NotImplementedError``.
+    offset ``action_mapping[i]``, looked up on the device for the whole
+    fleet; no mapping gives zero offsets).
     """
 
     def __init__(
@@ -125,15 +176,12 @@ class VectorPDEEnv:
         solver_parameters: Dict[str, Any],
         num_envs: int = 1,
         auto_reset: bool = True,
-        vectorized_control: bool = True,
+        vectorized_control: bool = False,
         fused_epilogue: Optional[Dict[str, Any]] = None,
         device="cuda",
     ):
-        if not vectorized_control:
-            raise NotImplementedError(
-                "the port steps the whole fleet through one batch-transparent "
-                "equation; per-env (vmapped) stepping is not ported"
-            )
+        if fused_epilogue is not None and not vectorized_control:
+            raise ValueError("fused_epilogue requires vectorized_control")
         self.equation_type = equation_type
         self.domain = domain
         self.solver_type = solver_type
@@ -187,53 +235,69 @@ class VectorPDEEnv:
 
     # ------------------------------------------------------------------
 
+    def _offsets(self, actions):
+        """The fleet's control offsets: a discrete action's row of the
+        table (looked up on the device), else the action itself."""
+        if self.action_type == "discrete":
+            return self._action_table.index_select(0, actions.reshape(-1).long())
+        return actions
+
+    @staticmethod
+    def _check_control(new_cv, cv, B):
+        if tuple(new_cv.shape) != tuple(cv.shape):
+            raise ValueError(
+                f"update_control_value produced shape {tuple(new_cv.shape)} "
+                f"from a {tuple(cv.shape)} control (env batch {B}). "
+                "The control value must keep its per-env shape; a common "
+                "cause is broadcasting the raw (B, k) action offset against "
+                "the (B,) control (use off[..., 0])."
+            )
+
+    @staticmethod
+    def _check_shape(y1, y):
+        if y1.shape != y.shape:
+            raise ValueError(
+                f"macro-step changed the state shape {tuple(y.shape)} -> "
+                f"{tuple(y1.shape)} (check update_control_parameter)"
+            )
+
     def _advance_batched(self, y, cv, actions, ep_cfg=None):
         """Whole-fleet macro-step through one batch-transparent equation.
 
         Returns ``(y1, new_cv, stats, obs)`` with ``ep_cfg`` (the
         ``fused_epilogue`` config), else ``(y1, new_cv)``.
         """
-        offset = actions
-        if self.action_type == "discrete":
-            offset = self._action_table.index_select(0, actions.reshape(-1).long())
-        new_cv = self.update_control_value(offset, cv)
-        if tuple(new_cv.shape) != tuple(cv.shape):
-            raise ValueError(
-                f"update_control_value produced shape {tuple(new_cv.shape)} "
-                f"from a {tuple(cv.shape)} control (env batch {y.shape[0]}). "
-                "The control value must keep its per-env shape; a common "
-                "cause is broadcasting the raw (B, k) action offset against "
-                "the (B,) control (use off[..., 0])."
+        new_cv = self.update_control_value(self._offsets(actions), cv)
+        self._check_control(new_cv, cv, y.shape[0])
+        if ep_cfg is None:
+            y1 = macro_step(self, y, cv, new_cv, 0.0)
+            self._check_shape(y1, y)
+            return y1, new_cv
+        eq, solver = _equation_and_solver(self, cv, new_cv)
+        own = getattr(solver, "evolve_with_epilogue", None)
+        if own is None:
+            raise TypeError(
+                f"{type(solver).__name__} does not support "
+                "fused_epilogue (no evolve_with_epilogue hook)"
             )
-        control_param = self.update_control_parameter(cv, new_cv)
-        eq = self.equation_type(
-            domain=self.domain,
-            **{
-                **self.static_equation_parameters,
-                self.control_equation_parameter_name: control_param,
-            },
-        )
-        solver = self.solver_type(
-            **prepare_solver_params(self.solver_type, self.solver_parameters, eq)
-        )
-        if ep_cfg is not None:
-            own = getattr(solver, "evolve_with_epilogue", None)
-            if own is None:
-                raise TypeError(
-                    f"{type(solver).__name__} does not support "
-                    "fused_epilogue (no evolve_with_epilogue hook)"
-                )
-            y1, stats, obs = own(eq.rhs, y, 0.0, self.dt_sub, self.n_substeps, ep_cfg)
-            out = (y1, new_cv, stats, obs)
-        else:
-            y1 = evolve(solver, eq.rhs, y, 0.0, self.dt_sub, self.n_substeps)
-            out = (y1, new_cv)
-        if y1.shape != y.shape:
-            raise ValueError(
-                f"macro-step changed the state shape {tuple(y.shape)} -> "
-                f"{tuple(y1.shape)} (check update_control_parameter)"
-            )
-        return out
+        y1, stats, obs = own(eq.rhs, y, 0.0, self.dt_sub, self.n_substeps, ep_cfg)
+        self._check_shape(y1, y)
+        return y1, new_cv, stats, obs
+
+    def _advance_per_env(self, y, cv, actions, t):
+        """The fleet's macro-step as :func:`torch.func.vmap` of one env's
+        (the JAX env's ``vmap(_advance_single)``): each env its own control
+        callables' call and its own start time ``t``.  Returns ``(y1,
+        new_cv)``."""
+
+        def one(y_i, cv_i, off_i, t_i):
+            new_cv = self.update_control_value(off_i, cv_i)
+            self._check_control(new_cv, cv_i, y.shape[0])
+            return macro_step(self, y_i, cv_i, new_cv, t_i), new_cv
+
+        y1, new_cv = torch.func.vmap(one)(y, cv, self._offsets(actions), t)
+        self._check_shape(y1, y)
+        return y1, new_cv
 
     def _auto_reset(self, terminated, y1, cv1, obs):
         """Branch-free auto-reset: draw a fleet-wide reset and select it for
@@ -252,14 +316,20 @@ class VectorPDEEnv:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
-    def reset(self, generator: torch.Generator):
-        """Reset all envs, drawing from ``generator`` (which also feeds every
-        later auto-reset).  Returns ``(EnvState, obs)``."""
+    def set_generator(self, generator: torch.Generator):
+        """Feed every later auto-reset from ``generator``, drawing nothing
+        now: the way to resume a run from a checkpoint, whose env state and
+        ``generator.get_state()`` take the place of :meth:`reset`."""
         if generator.device.type != self.device.type:
             raise ValueError(
                 f"generator is on {generator.device}, the fleet on {self.device}"
             )
         self._generator = generator
+
+    def reset(self, generator: torch.Generator):
+        """Reset all envs, drawing from ``generator`` (which also feeds every
+        later auto-reset).  Returns ``(EnvState, obs)``."""
+        self.set_generator(generator)
         B = self.num_envs
         # step() writes into the state's tensors: give them their own memory.
         y0 = self.reset_func(self.domain, generator, B).contiguous()
@@ -299,11 +369,22 @@ class VectorPDEEnv:
                 # The caller keeps stepping the fleet: scrub NaN fields.
                 y1 = torch.where(_per_env(diverged, y1), torch.zeros_like(y1), y1)
         else:
-            y1, cv1 = self._advance_batched(state.y, state.control_value, actions)
+            if self.vectorized_control:
+                y1, cv1 = self._advance_batched(state.y, state.control_value, actions)
+                reward = self.reward_function(y1)
+                if tuple(reward.shape) != (y1.shape[0],):
+                    raise ValueError(
+                        f"reward_function returned shape {tuple(reward.shape)} for "
+                        f"{y1.shape[0]} envs: with vectorized_control=True it maps the "
+                        f"fleet {tuple(y1.shape)} to one reward an env, (B,)"
+                    )
+            else:
+                y1, cv1 = self._advance_per_env(state.y, state.control_value, actions,
+                                                state.t)
+                reward = torch.func.vmap(self.reward_function)(y1)
             # A non-finite field terminates (and, under auto_reset, resets)
             # that env without stalling the lockstep fleet.
             diverged = ~torch.isfinite(y1).reshape(y1.shape[0], -1).all(dim=1)
-            reward = self.reward_function(y1)
             reward = torch.where(diverged, torch.zeros_like(reward), reward)
             y1 = torch.where(_per_env(diverged, y1), torch.zeros_like(y1), y1)
             obs = self.state_to_observation_func(y1)

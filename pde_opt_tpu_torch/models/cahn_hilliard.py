@@ -25,7 +25,8 @@ from ..ops.spectral import make_fft_pair, make_rfft_pair
 from ..utils.device import resolve_device
 from .base import BaseEquation
 
-__all__ = ["CahnHilliard2DPeriodic", "CahnHilliard3DPeriodic", "CahnHilliard2DSmoothedBoundary"]
+__all__ = ["CahnHilliard2DPeriodic", "CahnHilliard3DPeriodic", "CahnHilliard2DSmoothedBoundary",
+           "CahnHilliardSIFFT"]
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -292,3 +293,7 @@ class CahnHilliard2DSmoothedBoundary(BaseEquation, _SmoothedBoundary):
         Fy = self.psi_avgy * st.avg_c2f(Du, -1) * st.grad_c2f(inner, self.hy, -1)
         return ((st.div_f2c(Fx, self.hx, -2) + st.div_f2c(Fy, self.hy, -1)) / self.psi
                 + self.norm_grad_psi * self.flux(t))
+
+
+# The JAX package's (and its reference's) name for the 2D periodic equation.
+CahnHilliardSIFFT = CahnHilliard2DPeriodic

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from .fold import fold_vmap
 from .fused_spectral import _fd_lap_symbols, ac_sif_macro_reference, ch_sif_macro_reference
 from .kernels import count_launch, load_library
 
@@ -585,13 +586,22 @@ def _flatten_batch(state: torch.Tensor, kappa, H: int, W: int):
 
 class _CasMacro(torch.autograd.Function):
     """The JAX macro's ``_core``: ``x`` (B, H, W), ``kapf`` (B,) f32 ->
-    ``u1``, with the backward kernel as its VJP (``_core_bwd``)."""
+    ``u1``, with the backward kernel as its VJP (``_core_bwd``).  Under
+    :func:`torch.func.vmap` the vmapped axis folds into the env axis: one
+    launch for the whole fleet (:func:`~pde_opt_tpu_torch.ops.fold.fold_vmap`)."""
 
     @staticmethod
-    def forward(ctx, x, kapf, consts, kw):
-        ctx.consts, ctx.kw = consts, kw
-        ctx.save_for_backward(x, kapf)
+    def forward(x, kapf, consts, kw):
         return _run_fwd(x, kapf, consts, kw, None)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, kapf, ctx.consts, ctx.kw = inputs
+        ctx.save_for_backward(x, kapf)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(_CasMacro.apply, info, in_dims, 2, *args)
 
     @staticmethod
     @once_differentiable
@@ -604,15 +614,23 @@ class _CasMacro(torch.autograd.Function):
 class _CasMacroEp(torch.autograd.Function):
     """The JAX macro's ``_core_ep``: ``(u1, stats, obs)``.  ``obs`` is not
     differentiable; the stats cotangent folds into the field cotangent at
-    ``u1`` before the backward kernel runs (``_core_ep_bwd``)."""
+    ``u1`` before the backward kernel runs (``_core_ep_bwd``).  Under
+    :func:`torch.func.vmap` it folds as :class:`_CasMacro` does."""
 
     @staticmethod
-    def forward(ctx, x, kapf, consts, kw, epilogue):
-        u1, stats, obs = _run_fwd(x, kapf, consts, kw, epilogue)
-        ctx.mark_non_differentiable(obs)
-        ctx.consts, ctx.kw, ctx.center = consts, kw, epilogue.center
-        ctx.save_for_backward(x, kapf, u1)
-        return u1, stats, obs
+    def forward(x, kapf, consts, kw, epilogue):
+        return _run_fwd(x, kapf, consts, kw, epilogue)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, kapf, ctx.consts, ctx.kw, epilogue = inputs
+        ctx.center = epilogue.center
+        ctx.mark_non_differentiable(output[2])
+        ctx.save_for_backward(x, kapf, output[0])
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(_CasMacroEp.apply, info, in_dims, 2, *args)
 
     @staticmethod
     @once_differentiable
@@ -876,19 +894,26 @@ class _OracleMacro(torch.autograd.Function):
     ``run(x, c)`` is the forward (the kernel or its plain version) and
     returns ``out``, or ``(out, stats, obs)`` when ``fold`` is given;
     ``obs`` is not differentiable, and ``fold(out, g_out, g_stats)`` folds
-    the stats cotangent into the output cotangent before the oracle VJP."""
+    the stats cotangent into the output cotangent before the oracle VJP.
+    Under :func:`torch.func.vmap` the vmapped axis folds into the env axis:
+    ``run`` sees the whole fleet at once."""
 
     @staticmethod
-    def forward(ctx, x, c, run, oracle, fold):
-        ctx.oracle, ctx.fold = oracle, fold
-        res = run(x, c)
-        if fold is None:
+    def forward(x, c, run, oracle, fold):
+        return run(x, c)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, c, _, ctx.oracle, ctx.fold = inputs
+        if ctx.fold is None:
             ctx.save_for_backward(x, c)
-            return res
-        out, stats, obs = res
-        ctx.mark_non_differentiable(obs)
-        ctx.save_for_backward(x, c, out)
-        return out, stats, obs
+            return
+        ctx.mark_non_differentiable(output[2])
+        ctx.save_for_backward(x, c, output[0])
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(_OracleMacro.apply, info, in_dims, 2, *args)
 
     @staticmethod
     @once_differentiable

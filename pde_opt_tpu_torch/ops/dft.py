@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device, true_f32
+from .fold import fold_vmap
 
 __all__ = ["dense_solve_matrix", "make_dense_spectral_solve",
            "make_separable_spectral_solve"]
@@ -63,12 +64,36 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+class _ProductBF16(torch.autograd.Function):
+    """``bf16(x) @ m_t`` with f32 sums and an f32 result for ``x`` (rows,
+    N²); ``m_t`` holds bf16 values (bf16 on CUDA, bf16-exact f32 on the
+    CPU).  Its gradient passes the rounding through, as autograd does for
+    a cast.  Under :func:`torch.func.vmap` the vmapped axis folds into the
+    rows: one product for the whole fleet (``aten::mm.dtype`` has no
+    batching rule, and PyTorch's fallback would run one product a sample)."""
+
+    @staticmethod
+    def forward(x, m_t):
+        if x.device.type == "cuda":
+            return torch.mm(x.to(torch.bfloat16), m_t, out_dtype=torch.float32)
+        return _bf16(x) @ m_t
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (m_t,) = ctx.saved_tensors
+        return g @ m_t.t().to(g.dtype), None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(_ProductBF16.apply, info, in_dims, 1, *args)
+
+
 def _mm_bf16_f32(x: torch.Tensor, m_t: torch.Tensor) -> torch.Tensor:
-    """``bf16(x) @ m_t`` with f32 sums and an f32 result; ``m_t`` holds
-    bf16 values (bf16 on CUDA, bf16-exact f32 on the CPU)."""
-    if x.device.type == "cuda":
-        return torch.mm(x.to(torch.bfloat16), m_t, out_dtype=torch.float32)
-    return _bf16(x) @ m_t
+    return _ProductBF16.apply(x, m_t)
 
 
 def make_dense_spectral_solve(points, denom: np.ndarray, dtype: str = "bf16_sqrt",

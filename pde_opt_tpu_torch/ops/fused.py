@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from .cas_spectral import PolynomialMu, _check_cuda
+from .fold import fold_vmap
 from .kernels import count_launch, load_library
 
 __all__ = [
@@ -293,11 +294,20 @@ def ch3d_rhs_fd_cuda(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
 class _NoDerivative(torch.autograd.Function):
     """The fused rhs as a function autograd records but cannot
     differentiate: ``backward`` raises, as differentiating the JAX kernel
-    does."""
+    does.  Under :func:`torch.func.vmap` the vmapped axis folds into the
+    env axis: one launch for the whole fleet."""
 
     @staticmethod
-    def forward(ctx, x, kap, run):
+    def forward(x, kap, run):
         return run(x, kap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return fold_vmap(_NoDerivative.apply, info, in_dims, 2, *args)
 
     @staticmethod
     def backward(ctx, g):

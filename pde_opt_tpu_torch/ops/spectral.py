@@ -10,12 +10,29 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["spatial_axes", "make_fft_pair", "make_rfft_pair"]
+__all__ = ["fftn", "ifftn", "rfftn", "irfftn", "spatial_axes", "make_fft_pair",
+           "make_rfft_pair"]
 
 
 def spatial_axes(ndim: int) -> Tuple[int, ...]:
     """The trailing ``ndim`` axes: ``(-ndim, ..., -1)``."""
     return tuple(range(-ndim, 0))
+
+
+def fftn(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    return torch.fft.fftn(x, dim=spatial_axes(ndim))
+
+
+def ifftn(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    return torch.fft.ifftn(x, dim=spatial_axes(ndim))
+
+
+def rfftn(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    return torch.fft.rfftn(x, dim=spatial_axes(ndim))
+
+
+def irfftn(x: torch.Tensor, shape, ndim: int) -> torch.Tensor:
+    return torch.fft.irfftn(x, s=tuple(shape), dim=spatial_axes(ndim))
 
 
 def make_fft_pair(ndim: int):

@@ -25,9 +25,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from .device import resolve_device
+
 __all__ = [
     "tree_map",
     "tree_leaves",
+    "is_array_like",
     "is_inexact_array_like",
     "partition",
     "combine",
@@ -73,6 +76,11 @@ def tree_leaves(tree: Any) -> List[Any]:
     return out
 
 
+def is_array_like(x: Any) -> bool:
+    """True for tensors, numpy arrays and scalars, and python numbers."""
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, bool, int, float, complex))
+
+
 def is_inexact_array_like(x: Any) -> bool:
     """True for floating/complex tensors and arrays and python floats/complex.
 
@@ -114,7 +122,8 @@ def from_numpy(tree: Any, device=None) -> Any:
 
     Array leaves (numpy arrays and scalars, or any other object with
     ``__array__``, such as a JAX array) become tensors of the same dtype on
-    ``device``; tensors, a module's parameters included, move to ``device``;
+    ``device`` (default: the card, ``"cuda"``, as every entry point of the
+    port); tensors, a module's parameters included, move to ``device``;
     the JAX package's coefficient modules (the Legendre expansions,
     ``PeriodicCNN``, ``Mixer2d``) become the port's modules with the same
     numbers (:func:`pde_opt_tpu_torch.models.functions.function_from_numpy`);
@@ -122,9 +131,11 @@ def from_numpy(tree: Any, device=None) -> Any:
     """
     from ..models.functions import function_from_numpy
 
+    device = resolve_device("cuda" if device is None else device)
+
     def leaf(x):
         if isinstance(x, torch.Tensor):
-            return x.to(device) if device is not None else x
+            return x.to(device)
         if isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__"):
             return torch.as_tensor(np.array(x), device=device)
         if not isinstance(x, nn.Module):

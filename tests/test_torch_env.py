@@ -247,7 +247,8 @@ def _env_kwargs(env):
              "reset_func", "reset_control_value", "update_control_value",
              "update_control_parameter", "action_space_config",
              "static_equation_parameters", "control_equation_parameter_name",
-             "solver_parameters", "num_envs", "auto_reset", "fused_epilogue", "device")
+             "solver_parameters", "num_envs", "auto_reset", "vectorized_control",
+             "fused_epilogue", "device")
     return {n: getattr(env, n) for n in names}
 
 
@@ -263,8 +264,17 @@ def test_pooled_obs_and_unported_options():
     dstate, _ = denv.reset(gen)
     dstate, _, dr, *_ = denv.step(dstate, denv.sample_actions(gen))
     assert bool(torch.isfinite(dstate.y).all()) and bool(torch.isfinite(dr).all())
-    with pytest.raises(NotImplementedError, match="vmapped"):
-        tpreset(device="cpu", num_envs=4, grid_size=16, vectorized_control=False)
+    # Per-env stepping (vectorized_control=False) is ported: its fleet
+    # builds and steps, and the fused epilogue still needs the batched mode.
+    penv = tpreset(device="cpu", num_envs=4, grid_size=16, substeps=5,
+                   vectorized_control=False, spectral_solve="fused")
+    assert penv.fused_epilogue is None
+    pstate, _ = penv.reset(gen)
+    pstate, _, pr, *_ = penv.step(pstate, penv.sample_actions(gen))
+    assert bool(torch.isfinite(pstate.y).all()) and pr.shape == (4,)
+    with pytest.raises(ValueError, match="vectorized_control"):
+        tpreset(device="cpu", num_envs=4, grid_size=16, vectorized_control=False,
+                spectral_solve="fused", fused_epilogue=True)
     # A discrete space with no mapping: five actions, all a zero offset.
     denv = TEnv(**{**_env_kwargs(env), "action_space_config": {"type": "discrete"}})
     dstate, _ = denv.reset(gen)

@@ -210,7 +210,7 @@ def test_ptree_carries_jax_parameters():
                "lr": 0.1, "off": None}
     host = jax.tree_util.tree_map(np.asarray, {k: v for k, v in jparams.items()
                                                if k in ("kappa", "layers")})
-    tp = ptree.from_numpy({**jparams, **host})
+    tp = ptree.from_numpy({**jparams, **host}, device="cpu")
     assert tp["kappa"].dtype == torch.float32 and float(tp["kappa"]) == np.float32(0.004)
     assert tp["coeffs"].dtype == torch.float64
     np.testing.assert_array_equal(tp["coeffs"].numpy(), [0.3, 0.2])
@@ -300,7 +300,8 @@ def test_regularization_matches_jax():
     ]
     model = _model()
     for params, weights, lam, want in cases:
-        got = model.regularization(ptree.from_numpy(params), ptree.from_numpy(weights), lam)
+        got = model.regularization(ptree.from_numpy(params, device="cpu"),
+                                   ptree.from_numpy(weights, device="cpu"), lam)
         jwant = jm.regularization(params, weights, lam)
         np.testing.assert_allclose(float(got), want)
         np.testing.assert_allclose(float(got), float(jwant))

@@ -555,6 +555,7 @@ def _discrete_tenv(num_envs=6, n=N, device="cpu"):
         control_equation_parameter_name="kappa",
         solver_parameters={"A": 0.5},
         num_envs=num_envs,
+        vectorized_control=True,
         device=device,
     )
 
