@@ -47,7 +47,13 @@ fleet with ``spectral_solve="dense"`` (the dense spectral solve, 4096 x
 Per-env stepping (the JAX env's default mode) of the CH and AC fleets at
 4096 x 64^2 x 10 through K2, K9a, K8, the dense solve, K4 and K9b, against
 their batched twins; a time-dependent advection-diffusion fleet; the gym
-adapter's core; checkpoint and resume of the flagship fleet.
+adapter's core; checkpoint and resume of the flagship fleet.  The scale-out
+layer (``pde_opt_tpu_torch.parallel``) on a one-rank NCCL group: the
+sharded flagship (K1, K2) and GPE (K5) fleets against the unsharded ones,
+the halo functions and the distributed FFT pairs on a 4096^2 field and a
+256^3 volume, the sharded SIF macros at those sizes, ``ppo_train(mesh=...)``
+at ``run_ppo``'s shape and the multi-card dry run (K2, K3); its four-card
+run is ``scripts/torch_multichip.py``.
 Phases (each passes or raises; nothing is
 caught):
 
@@ -258,9 +264,19 @@ caught):
    checkpoint of the flagship fleet (K1) with its generator and a PPO net
    with its Adam state, restored into fresh objects and resumed bit for
    bit; ``max_to_keep``.
+16. Scale-out at world size 1 on a one-rank NCCL group (the constants
+   ``SO_*`` say how): (a) the sharded flagship fleet (K1) across an episode
+   end and the sharded GPE fleet (K5), (b) the sharded fleet without the
+   epilogue (K2), each against the unsharded fleet from one seed and one
+   action list, bit for bit, one launch a step; (c) the halo functions and
+   the distributed FFT pairs against ``torch.roll`` stencils and
+   ``torch.fft``; (d) the sharded 2D and 3D SIF macros against the
+   one-card FD-symbol update; (e) one ``ppo_train(mesh=...)`` update
+   against the unsharded update, and one under sync debug mode "error";
+   (f) ``dryrun_multichip(1)``'s ``MULTICHIP_SCALING`` line.
 
-Every rollout and update of phases 4-10, 12, 13, 14 and 15a (but 14b's
-value+grad) runs under
+Every rollout and update of phases 4-10, 12, 13, 14, 15a and 16a-b and one
+of 16e (but 14b's value+grad) runs under
 ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for the device
 fails the run.  Phase 11's loops and phase 12's smoothing flow read a value
 each step by design (LM's loss, the adaptive controller's error norm).  The last two lines are a
@@ -616,6 +632,32 @@ TOL_PE_OTHER, TOL_PE_REWARD = 1e-6, 1e-6
 PE_AD_ENVS, PE_AD_STEPS, PE_AD_CHECK, TOL_PE_AD = 1024, 3, 4, 1e-5
 PE_GYM_STEPS, PE_GYM_ENVS = 3, 64
 PE_RESUME_AT, PE_RESUME_STEPS = 10, 20
+# Scale-out (phase 16) at world size 1: a one-rank NCCL group in this process
+# (parallel.init_distributed, a file:// store), destroyed at the end.  (a)
+# The sharded flagship fleet (ShardedVectorPDEEnv on make_mesh(), K1) at
+# NUM_ENVS x GRID^2 x SUBSTEPS, SO_STEPS random-policy steps across the
+# episode end at SO_END, under sync debug mode "error", against the
+# unsharded fleet from one seed and one action list: fields, rewards, obs
+# and terminations bit for bit, one K1 launch a step and nothing else; the
+# GPE fleet (K5, GPE_ENVS) the same way for SO_GPE_STEPS steps.  (b)
+# SO_K2_STEPS steps without the epilogue (K2).  (c) halo_pad_rows, the halo
+# Laplacians and the distributed FFT pairs on a SO_GRID2D^2 field and a
+# SO_GRID3D^3 volume against torch.roll stencils and torch.fft, to
+# TOL_SO_LAP and TOL_SO_FFT of the largest value (f32).  (d) The sharded
+# SIF macros (2D at SO_GRID2D^2, 3D at SO_GRID3D^3, SO_SIF_SUBSTEPS
+# substeps, kappa SO_KAPPA) against the same FD-symbol update with
+# torch.fft on the card, to TOL_SO_SIF (f32, fields ~0.5).  (e) One
+# ppo_train(mesh=...) update at run_ppo's shape (phase 8's) against
+# ppo_train's unsharded update from one net and the same seeds: the same
+# rollout (reward_mean equal) and the parameters within TOL_RL_BF16 of the
+# unsharded step's norm (the global advantage normalisation sums in another
+# order than adv.std(), and the bf16 net rounds the difference); then one
+# sharded update under sync debug mode "error"; 64 K1 launches an update.
+# (f) dryrun_multichip(1): its MULTICHIP_SCALING line (K2 forward, K3
+# backward).
+SO_STEPS, SO_END, SO_GPE_STEPS, SO_K2_STEPS = 30, 0.2, 10, 10
+SO_GRID2D, SO_GRID3D, SO_SIF_SUBSTEPS, SO_KAPPA = 4096, 256, 10, 0.004
+TOL_SO_LAP, TOL_SO_FFT, TOL_SO_SIF = 1e-6, 1e-5, 1e-5
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # f32 on the CUDA cores, HBM bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -4612,6 +4654,256 @@ def _drive_phase15(torch, kernels, dev, card):
     return counts, ck_counts, rates
 
 
+def _so_run(torch, env, state, actions):
+    """``env`` stepped through ``actions`` from ``state`` under sync debug
+    mode "error": (state, rewards, obs, terminations, host seconds to a
+    trailing synchronize)."""
+    rewards, obs, terms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for a in actions:
+        state, o, r, te, _, _ = env.step(state, a)
+        rewards.append(r)
+        obs.append(o)
+        terms.append(te)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (state, torch.stack(rewards), torch.stack(obs), torch.stack(terms),
+            time.perf_counter() - t0)
+
+
+def _so_fleet(torch, kernels, mesh, make, name, kernel, steps, seed, card):
+    """Phase 16a-b: the fleet ``make()`` sharded on the one-rank mesh
+    against the unsharded one from one seed and one action list.  Returns
+    the sharded run's launch counts."""
+    from pde_opt_tpu_torch.parallel import ShardedVectorPDEEnv
+
+    whole, senv = make(), ShardedVectorPDEEnv(make(), mesh)
+    dev = whole.device
+    for e in (whole, senv):                      # warm the glue and the cached tables
+        st, _ = e.reset(torch.Generator(device=dev).manual_seed(seed + 2))
+        e.step(st, whole.sample_actions(torch.Generator(device=dev).manual_seed(seed + 3)))
+    ss, obs_s0 = senv.reset(torch.Generator(device=dev).manual_seed(seed))
+    sw, obs_w0 = whole.reset(torch.Generator(device=dev).manual_seed(seed))
+    agen = torch.Generator(device=dev).manual_seed(seed + 1)
+    actions = [whole.sample_actions(agen) for _ in range(steps)]
+    kernels.reset_launch_counts()
+    ss, rs, os_, ts, _ = _so_run(torch, senv, ss, actions)
+    counts = kernels.launch_counts()
+    sw, rw, ow, tw, _ = _so_run(torch, whole, sw, actions)
+    want = {n: 0 for n in counts}
+    want[kernel] = steps
+    _check(counts == want, f"sharded {name}: launches {counts}, expected {want}")
+    same = {"reset obs": torch.equal(obs_s0, obs_w0), "fields": torch.equal(ss.y, sw.y),
+            "rewards": torch.equal(rs, rw), "obs": torch.equal(os_, ow),
+            "terminations": torch.equal(ts, tw),
+            **{f: torch.equal(getattr(ss, f), getattr(sw, f))
+               for f in ("t", "control_value", "step_count", "done")}}
+    end_step = _end_step(torch, whole)
+    ended = end_step <= steps and bool(tw[end_step - 1].all())
+    _check(bool(torch.isfinite(rs).all()), f"sharded {name}: non-finite rewards")
+    # The rates: more runs of each fleet from its own state, in turns.
+    secs = {id(senv): [], id(whole): []}
+    for e, st in ((senv, ss), (whole, sw), (whole, sw), (senv, ss)):
+        secs[id(e)].append(_so_run(torch, e, st, actions)[-1])
+    rate_s, rate_w = (2 * whole.num_envs * steps / sum(secs[id(e)]) for e in (senv, whole))
+    line = (f"sharded {name} (world 1, NCCL): {steps} steps of {whole.num_envs} envs x "
+            f"{GRID}^2 x {SUBSTEPS} substeps against the unsharded fleet, bit for bit: {same}; "
+            f"episode end at step {end_step}{' crossed' if ended else ', after this run'}; launches "
+            f"{dict((k, v) for k, v in counts.items() if v)}; {rate_s:.1f} env-steps/s sharded vs "
+            f"{rate_w:.1f} (two runs each, in turns) [{card}]")
+    _check(all(same.values()) and (ended or end_step > steps), line)
+    print(line, flush=True)
+    return counts
+
+
+def _so_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _so_sif_oracle(torch, mu, shape, hs, dev, kappa, n):
+    """The FD-symbol semi-implicit CH update with ``torch.fft`` over a whole
+    field of ``shape`` on one card, its f64 symbol built once and cast to
+    f32 (the oracle of tests/test_halo.py's 3D case)."""
+    import numpy as np
+
+    lam = sum(((2 * np.cos(2 * np.pi * np.arange(s) / s) - 2) / h**2).reshape(
+        [s if j == i else 1 for j in range(len(shape))])
+        for i, (s, h) in enumerate(zip(shape, hs)))
+    lam = torch.from_numpy(lam).to(device=dev, dtype=torch.float32)
+    denom = 1.0 / (1.0 + A * DT * kappa * lam**2)
+
+    def update(u):
+        for _ in range(n):
+            incr = denom * (lam * torch.fft.fftn(mu(u)) - kappa * lam**2 * torch.fft.fftn(u))
+            u = u + DT * torch.fft.ifftn(incr).real
+        return u
+
+    return update
+
+
+def _so_spatial(torch, dev, card):
+    """Phase 16c-d: the halo functions, the distributed FFT pairs and the
+    sharded SIF macros at world 1 against the one-card ops."""
+    from pde_opt_tpu_torch.envs.presets import CH_MU
+    from pde_opt_tpu_torch.ops.fused_spectral import ch_sif_macro_reference
+    from pde_opt_tpu_torch.ops.stencils import lap_2nd_2d, lap_2nd_3d
+    from pde_opt_tpu_torch.parallel import halo
+
+    gen = torch.Generator(device=dev).manual_seed(162)
+    N, N3, n = SO_GRID2D, SO_GRID3D, SO_SIF_SUBSTEPS
+    u = torch.randn((N, N), generator=gen, device=dev)
+    _check(torch.equal(halo.halo_pad_rows(u, halo=2), torch.cat([u[-2:], u, u[:2]])),
+           "halo_pad_rows at world 1 is the periodic wrap")
+    f = halo.distributed_fft2(u)
+    errs = {"lap2d": _so_rel(halo.sharded_lap_2nd_2d(u, HX, HY), lap_2nd_2d(u, HX, HY)),
+            "fft2": _so_rel(f, torch.fft.fft2(u.to(torch.complex64))),
+            "ifft2": _so_rel(halo.distributed_ifft2(f).real, u)}
+    v = torch.randn((N3, N3, N3), generator=gen, device=dev)
+    f3 = halo.distributed_fft3(v)
+    errs.update({"lap3d": _so_rel(halo.sharded_lap_2nd_3d(v, HX, HY, HX), lap_2nd_3d(v, HX, HY, HX)),
+                 "fft3": _so_rel(f3, torch.fft.fftn(v.to(torch.complex64))),
+                 "ifft3": _so_rel(halo.distributed_ifft3(f3).real, v)})
+    del f, f3
+    line = (f"halo and distributed FFT at world 1 ({N}^2, {N3}^3, f32), relative to the largest "
+            "value: " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    _check(max(errs["lap2d"], errs["lap3d"]) <= TOL_SO_LAP
+           and max(errs[k] for k in ("fft2", "ifft2", "fft3", "ifft3")) <= TOL_SO_FFT,
+           f"{line} > ({TOL_SO_LAP}, {TOL_SO_FFT})")
+    print(line + f" [{card}]", flush=True)
+    us = 0.5 + 0.05 * torch.randn((N, N), generator=gen, device=dev)
+    macro = halo.make_sharded_sif_ch_macro(CH_MU, N, N, HX, HY, A, DT, n)
+    one = _so_sif_oracle(torch, CH_MU, (N, N), (HX, HY), dev, SO_KAPPA, n)
+    got = macro(us, SO_KAPPA)
+    sif2 = max(float((got - ch_sif_macro_reference(CH_MU, HX, HY, A, DT, n)(us, SO_KAPPA))
+                     .abs().max()), float((got - one(us)).abs().max()))
+    t2 = (_time_ms(torch, lambda: macro(us, SO_KAPPA), reps=3, warmup=1),
+          _time_ms(torch, lambda: one(us), reps=3, warmup=1))
+    vs = 0.5 + 0.05 * torch.randn((N3, N3, N3), generator=gen, device=dev)
+    macro3 = halo.make_sharded_sif_ch3d_macro(CH_MU, N3, N3, N3, HX, HX, HX, A, DT, n)
+    one3 = _so_sif_oracle(torch, CH_MU, (N3, N3, N3), (HX, HX, HX), dev, SO_KAPPA, n)
+    got3 = macro3(vs, SO_KAPPA)
+    sif3 = float((got3 - one3(vs)).abs().max())
+    t3 = (_time_ms(torch, lambda: macro3(vs, SO_KAPPA), reps=3, warmup=1),
+          _time_ms(torch, lambda: one3(vs), reps=3, warmup=1))
+    finite = bool(torch.isfinite(got).all()) and bool(torch.isfinite(got3).all())
+    line = (f"sharded SIF macros at world 1 ({n} substeps, f32) against the one-card FD-symbol "
+            f"update (ch_sif_macro_reference too at {N}^2): {N}^2 max abs err {sif2:.3e} "
+            f"({t2[0]:.4f} ms a call vs {t2[1]:.4f}, CUDA events), {N3}^3 {sif3:.3e} "
+            f"({t3[0]:.4f} ms vs {t3[1]:.4f}) [{card}]")
+    _check(finite and max(sif2, sif3) <= TOL_SO_SIF, f"{line} > {TOL_SO_SIF}")
+    print(line, flush=True)
+    return errs, {"sif2d": sif2, "sif3d": sif3, "sif2d_ms": t2, "sif3d_ms": t3}
+
+
+def _so_ppo(torch, kernels, dev, mesh, card):
+    """Phase 16e: one ppo_train(mesh=...) update at world 1 against the
+    unsharded update; one sharded update under sync debug mode "error".
+    Returns the ppo_train(mesh=...) update's launch counts."""
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+    from pde_opt_tpu_torch.parallel import ShardedVectorPDEEnv
+    from pde_opt_tpu_torch.rl import ActorCriticMLP, PPOConfig, Sampler, make_ppo_train_step, ppo_train
+
+    cfg = PPOConfig(rollout_steps=PPO_T, epochs=2, minibatches=4, lr=3e-4)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def env():
+        return make_cahn_hilliard_control_env(NUM_ENVS, GRID, SUBSTEPS, derivs="pallas",
+                                              spectral_solve="fused", obs_downsample=4, device=dev)
+
+    def net():
+        return ActorCriticMLP(1, (GRID // 4) ** 2, widths=(256,), features=64,
+                              compute_dtype=torch.bfloat16, generator=gen(70), device=dev)
+
+    def flat(m):
+        return torch.cat([p.detach().reshape(-1).float() for p in m.parameters()])
+
+    net_w, net_s = net(), net()
+    start = flat(net_w)
+    _, hist_w = ppo_train(env(), net_w, cfg, 1, generator=gen(71), env_generator=gen(72))
+    kernels.reset_launch_counts()
+    _, hist_s = ppo_train(env(), net_s, cfg, 1, generator=gen(71), env_generator=gen(72),
+                          mesh=mesh)
+    counts = kernels.launch_counts()
+    _only_k1(counts, PPO_T, "ppo_train(mesh=...)")
+    step = float((flat(net_w) - start).norm())
+    gap = float((flat(net_s) - flat(net_w)).norm())
+    line = (f"ppo_train(mesh=...) at world 1 against ppo_train, one update at run_ppo's shape: "
+            f"reward_mean {hist_s[0]['reward_mean']:.6e} vs {hist_w[0]['reward_mean']:.6e}, loss "
+            f"{hist_s[0]['loss']:.6e} vs {hist_w[0]['loss']:.6e}; parameters {gap:.3e} apart, "
+            f"{gap / step:.3e} of the update's norm {step:.3e}")
+    _check(hist_s[0]["reward_mean"] == hist_w[0]["reward_mean"] and gap <= TOL_RL_BF16 * step,
+           f"{line} > {TOL_RL_BF16}")
+    senv = ShardedVectorPDEEnv(env(), mesh)
+    train_step, optimizer = make_ppo_train_step(senv.local, cfg, group=senv.group)
+    opt = optimizer(net_s.parameters())
+    state, _ = senv.reset(gen(73))
+    sampler = Sampler(gen(74))
+
+    def update():
+        nonlocal state
+        state, _ = train_step(net_s, opt, state, sampler)
+
+    update()
+    ms = 1e3 * _timed(torch, 1, update)
+    print(f"{line}; a sharded update under sync debug mode 'error': {ms:.4f} ms [{card}]",
+          flush=True)
+    return counts
+
+
+def _drive_phase16(torch, kernels, dev, card):
+    """Phase 16: the scale-out layer at world size 1 on a one-rank NCCL
+    group.  Returns (the paths' summed launch counts, the MULTICHIP_SCALING
+    record)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env, make_gpe_control_env
+    from pde_opt_tpu_torch.parallel import init_distributed, make_mesh
+    from pde_opt_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    init_distributed(num_processes=1, process_id=0, init_method=f"file://{store}/store")
+    total = {n: 0 for n in KERNELS}
+    try:
+        mesh = make_mesh()
+        _check(dist.get_backend() == "nccl" and mesh.device_type == "cuda" and mesh.size() == 1,
+               f"phase 16: backend {dist.get_backend()}, mesh {mesh}")
+        runs = [
+            _so_fleet(torch, kernels, mesh, lambda: make_cahn_hilliard_control_env(
+                NUM_ENVS, GRID, SUBSTEPS, end_time=SO_END, spectral_solve="fused", device=dev),
+                "flagship fleet", "ch_cas_macro_ep", SO_STEPS, 160, card),
+            _so_fleet(torch, kernels, mesh, lambda: make_gpe_control_env(
+                GPE_ENVS, GRID, SUBSTEPS, device=dev),
+                "GPE fleet", "gpe_strang_macro_ep", SO_GPE_STEPS, 164, card),
+            _so_fleet(torch, kernels, mesh, lambda: make_cahn_hilliard_control_env(
+                NUM_ENVS, GRID, SUBSTEPS, spectral_solve="fused", fused_epilogue=False,
+                device=dev), "CH fleet without the epilogue", "ch_cas_macro", SO_K2_STEPS, 168,
+                card),
+        ]
+        _so_spatial(torch, dev, card)
+        runs.append(_so_ppo(torch, kernels, dev, mesh, card))
+        kernels.reset_launch_counts()
+        record = dryrun_multichip(1)
+        runs.append(kernels.launch_counts())
+        _check(runs[-1]["ch_cas_macro"] > 0 and runs[-1]["ch_cas_macro_bwd"] > 0,
+               f"dryrun_multichip(1): launches {runs[-1]}")
+        for counts in runs:
+            for k in total:
+                total[k] += counts[k]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s, launches "
+          f"{dict((k, v) for k, v in total.items() if v)} [{card}]", flush=True)
+    return total, record
+
+
 def main():
     import torch
 
@@ -5316,13 +5608,18 @@ def _main(shape_ref):
     print("phase 15: per-env vs batched env-steps/s: " + "; ".join(
         f"{k} {v[0]:.1f} vs {v[1]:.1f}" for k, v in pe_rates.items()) + f" [{card}]", flush=True)
 
+    # ---- 16. scale-out at world size 1 on a one-rank NCCL group: the sharded
+    # fleets, the halo and distributed FFT, ppo_train(mesh=...), the dry run --
+    so_counts, _ = _drive_phase16(torch, kernels, dev, card)
+
     # Launches: each path's own run (CH serving and training together).
     max_err["ch_cas_macro_bwd"] = bwd_err
     launches = {n: sum(c[n] for c in (counts, train_counts, ac_counts, gpe_counts, bv_counts,
                                       sbm_counts, m3_counts, pallas_counts, dft_ch_counts,
                                       dft_ac_counts, dft_train_counts, ppo_counts, dqn_counts,
                                       ddpg_counts, *big_counts, *tiled_counts, shape_counts,
-                                      *bvbig_counts, *k9big_counts, pe_counts, ck_counts))
+                                      *bvbig_counts, *k9big_counts, pe_counts, ck_counts,
+                                      so_counts))
                 for n in KERNELS}
     _check(all(v > 0 for v in launches.values()), f"a kernel was never launched: {launches}")
     bounds = _bounds()

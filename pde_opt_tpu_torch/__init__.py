@@ -33,7 +33,11 @@ imports torch and numpy, never jax.  The vector envs also step per env
 the edges are ported: the Gymnasium adapters ``PDEEnv`` and
 ``AdvectionDiffusionEnv`` (which import gymnasium when first touched),
 checkpointing (``utils.checkpoint``) and the sympy MMS twins
-(``models.symbolic``, ``utils.testing``; sympy is needed only there).
+(``models.symbolic``, ``utils.testing``; sympy is needed only there).  The
+scale-out layer (``parallel``: meshes, sharded fleets, halo exchange and
+the distributed FFT on ``torch.distributed``, one process a card) and
+``ppo_train(mesh=...)``; the package does not import ``parallel`` itself,
+as the JAX package does not.
 """
 
 from . import envs, models, ops, optim, rl, utils

@@ -330,9 +330,13 @@ class VectorPDEEnv:
         """Reset all envs, drawing from ``generator`` (which also feeds every
         later auto-reset).  Returns ``(EnvState, obs)``."""
         self.set_generator(generator)
-        B = self.num_envs
         # step() writes into the state's tensors: give them their own memory.
-        y0 = self.reset_func(self.domain, generator, B).contiguous()
+        return self._initial_state(self.reset_func(self.domain, generator,
+                                                   self.num_envs).contiguous())
+
+    def _initial_state(self, y0: torch.Tensor):
+        """``(EnvState, obs)`` of fresh episodes from the fields ``y0``."""
+        B = y0.shape[0]
         state = EnvState(
             y=y0,
             t=torch.zeros((B,), dtype=torch.float32, device=self.device),

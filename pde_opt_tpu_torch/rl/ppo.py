@@ -10,6 +10,17 @@ never waits for the device: the metrics come back as device tensors, and
 
 Standard PPO (Schulman et al., arXiv:1707.06347) with clipped value loss
 and advantage normalization.
+
+Data parallel over a device mesh (``ppo_train(mesh=...)``), in the torch
+idiom of what GSPMD gives the JAX learner: each rank steps its shard of the
+fleet (:class:`~pde_opt_tpu_torch.parallel.ShardedVectorPDEEnv`), the net
+starts from rank 0's parameters, the advantages are normalised by the
+global mean and population std, each rank takes its minibatches from its
+own rows, and the gradients are averaged over the ranks (one
+``all_reduce``) before the global-norm clip, so every rank takes the same
+step and the parameters stay identical.  The JAX learner's global
+permutation mixes envs of all shards in a minibatch; here a minibatch holds
+the rank's envs only, which spares an all-gather of the rollout.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..utils.metrics import named_scope, to_host
 from .nets import check_device
@@ -76,11 +88,38 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     return advs, advs + values
 
 
-def advantages(traj: Transition, last_value, config: PPOConfig):
+def advantages(traj: Transition, last_value, config: PPOConfig, group=None):
     """GAE over the rollout, then ``(normalized advantages, returns)``; the
-    advantages are normalised with the population std, as in JAX."""
+    advantages are normalised with the population std, as in JAX.  With a
+    process ``group`` the mean and std are the group's: one ``all_reduce``
+    of the count, the sum and the sum of squares (in f64)."""
     adv, ret = gae(traj.reward, traj.value, traj.done, last_value, config.gamma, config.lam)
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8), ret
+    if group is None:
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8), ret
+    a = adv.to(torch.float64)
+    # new_full fills on the device: a host scalar copied in would wait for it.
+    moments = torch.stack([a.new_full((), a.numel()), a.sum(), (a * a).sum()])
+    dist.all_reduce(moments, group=group)
+    mean = moments[1] / moments[0]
+    std = torch.sqrt(torch.clamp(moments[2] / moments[0] - mean * mean, min=0.0))
+    return (adv - mean.to(adv.dtype)) / (std.to(adv.dtype) + 1e-8), ret
+
+
+def _group_mean_(tensors, group) -> None:
+    """Replace each tensor by its mean over the process group, in place: one
+    ``all_reduce`` a dtype, identical on every rank."""
+    n = dist.get_world_size(group)
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        offset = 0
+        for t in ts:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 def _gaussian_sample_logp(noise, mean, log_std):
@@ -136,7 +175,8 @@ class ClippedAdam:
         self.adam.step()
 
 
-def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = None):
+def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = None,
+                        group=None):
     """Build ``train_step(net, opt, env_state, sampler) -> (env_state, metrics)``.
 
     ``env`` is a :class:`~pde_opt_tpu_torch.envs.vector_env.VectorPDEEnv`
@@ -151,6 +191,11 @@ def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = 
     Returns ``(train_step, optimizer)``; the metrics are device scalars:
     mean reward, losses, entropy, the fraction of clipped ratios and the
     mean value.
+
+    ``group`` is the process group of a data-parallel run, where ``env`` is
+    the rank's shard of the fleet (``ppo_train(mesh=...)``): the advantages
+    are normalised over the group, each minibatch's gradients are averaged
+    over it before the optimizer's step, and so are the metrics.
     """
     discrete = env.action_type == "discrete"
     if not env.auto_reset:
@@ -215,7 +260,7 @@ def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = 
         with named_scope("ppo/rollout"):
             env_state, traj, last_value = rollout(net, env_state, sampler)
         with named_scope("ppo/advantages"):
-            adv, ret = advantages(traj, last_value, config)
+            adv, ret = advantages(traj, last_value, config, group)
 
         # flatten (T, B, ...) -> (T*B, ...), time-major
         T, B = traj.reward.shape
@@ -253,6 +298,9 @@ def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = 
                     loss, aux = loss_fn(net, Transition(*(x[i] for x in batches)),
                                         adv_s[i], ret_s[i])
                     loss.backward()
+                    if group is not None:
+                        _group_mean_([p.grad for p in net.parameters()
+                                      if p.grad is not None], group)
                     opt.step()
                     stats.append(torch.stack([loss.detach(), *(a.detach() for a in aux)]))
         loss, pg, vl, ent, fc = torch.stack(stats).mean(dim=0)
@@ -262,6 +310,10 @@ def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = 
             "entropy": ent, "clip_frac": fc,
             "value_mean": traj.value.mean(),
         }
+        if group is not None:
+            values = torch.stack([v.to(torch.float32) for v in metrics.values()])
+            _group_mean_([values], group)
+            metrics = dict(zip(metrics, values))
         return env_state, metrics
 
     train_step.rollout = rollout
@@ -272,22 +324,45 @@ def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = 
 def ppo_train(env, net, config: PPOConfig, num_updates: int,
               generator: Optional[torch.Generator] = None,
               env_generator: Optional[torch.Generator] = None,
-              log_fn: Optional[Callable] = None, metrics_every: int = 1):
+              log_fn: Optional[Callable] = None, metrics_every: int = 1,
+              mesh=None, shard_axis: str = "env"):
     """Host loop: returns ``(net, metrics_history)``; trains ``net`` in place.
 
     ``generator`` feeds the learner's draws (default: seed 0 on the fleet's
     device), ``env_generator`` the env's resets (default: seed 1).  The
     metrics cross to the host in one transfer every ``metrics_every``
     updates (and after the last), so the updates in between stay enqueued.
+
+    Pass ``mesh`` (:func:`pde_opt_tpu_torch.parallel.make_mesh`) to train
+    data-parallel over its axis ``shard_axis``: every rank calls this with
+    the whole fleet's env, the same seeds and its own copy of the net.  The
+    env is sharded over the axis, the net starts from rank 0's parameters,
+    and each rank draws from its own stream of ``generator`` (see the
+    module; at world size 1 the generator itself).  Every rank returns the
+    same parameters and the global metrics.
     """
     if generator is None:
         generator = torch.Generator(device=env.device).manual_seed(0)
     if env_generator is None:
         env_generator = torch.Generator(device=env.device).manual_seed(1)
-    train_step, optimizer = make_ppo_train_step(env, config)
+    group = None
+    if mesh is not None:
+        from ..parallel.sharded_env import ShardedVectorPDEEnv
+
+        sharded = ShardedVectorPDEEnv(env, mesh, shard_axis)
+        group = sharded.group
+        src = dist.get_global_rank(group, 0)
+        with torch.no_grad():
+            for t in [*net.parameters(), *net.buffers()]:
+                dist.broadcast(t, src, group=group)
+        env_state, _ = sharded.reset(env_generator)
+        generator = sharded.stream(generator)
+        env = sharded.local
+    else:
+        env_state, _ = env.reset(env_generator)
+    train_step, optimizer = make_ppo_train_step(env, config, group=group)
     opt = optimizer(net.parameters())
     sampler = Sampler(generator)
-    env_state, _ = env.reset(env_generator)
     history = []
     for update in range(num_updates):
         env_state, metrics = train_step(net, opt, env_state, sampler)

@@ -26,11 +26,6 @@ EXCEPTIONS = {
     # (ROADMAP.md, "Not queued").
     "utils/modules.py": None,
     "utils/__init__.py": ("module",),
-    # Scale-out (ROADMAP.md queue 1 item 7), not ported yet.
-    "parallel/__init__.py": None,
-    "parallel/halo.py": None,
-    "parallel/mesh.py": None,
-    "parallel/sharded_env.py": None,
 }
 
 
@@ -83,3 +78,22 @@ def test_legacy_aliases():
     from pde_opt_tpu_torch.models.cahn_hilliard import CahnHilliard2DPeriodic, CahnHilliardSIFFT
 
     assert CahnHilliardSIFFT is CahnHilliard2DPeriodic
+
+
+SCALE_OUT_FILES = sorted((PORT_PKG / "parallel").glob("*.py")) + [ROOT / "scripts" / "torch_multichip.py"]
+
+
+@pytest.mark.parametrize("path", SCALE_OUT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_scale_out_imports_neither_jax_nor_the_jax_package(path):
+    """The scale-out modules and the four-card script import torch, never
+    jax or ``pde_opt_tpu`` (its spawned ranks import only the port)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "pde_opt_tpu"), f"{path.name} imports {name}"
