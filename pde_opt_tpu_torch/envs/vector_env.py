@@ -49,6 +49,7 @@ from .. import grid as domains
 from ..ops.integrate import evolve
 from ..utils.compat import check_equation_solver_compatibility, prepare_solver_params
 from ..utils.device import resolve_device
+from ..utils.metrics import named_scope
 
 __all__ = ["EnvState", "VectorPDEEnv", "env_state_from_numpy", "env_state_to_numpy"]
 
@@ -269,8 +270,10 @@ class VectorPDEEnv:
         """
         new_cv = self.update_control_value(self._offsets(actions), cv)
         self._check_control(new_cv, cv, y.shape[0])
+        B = y.shape[0]
         if ep_cfg is None:
-            y1 = macro_step(self, y, cv, new_cv, 0.0)
+            with named_scope("vector_env.stepper", B):
+                y1 = macro_step(self, y, cv, new_cv, 0.0)
             self._check_shape(y1, y)
             return y1, new_cv
         eq, solver = _equation_and_solver(self, cv, new_cv)
@@ -280,7 +283,8 @@ class VectorPDEEnv:
                 f"{type(solver).__name__} does not support "
                 "fused_epilogue (no evolve_with_epilogue hook)"
             )
-        y1, stats, obs = own(eq.rhs, y, 0.0, self.dt_sub, self.n_substeps, ep_cfg)
+        with named_scope("vector_env.stepper", B):
+            y1, stats, obs = own(eq.rhs, y, 0.0, self.dt_sub, self.n_substeps, ep_cfg)
         self._check_shape(y1, y)
         return y1, new_cv, stats, obs
 
@@ -295,7 +299,9 @@ class VectorPDEEnv:
             self._check_control(new_cv, cv_i, y.shape[0])
             return macro_step(self, y_i, cv_i, new_cv, t_i), new_cv
 
-        y1, new_cv = torch.func.vmap(one)(y, cv, self._offsets(actions), t)
+        offsets = self._offsets(actions)
+        with named_scope("vector_env.stepper", y.shape[0]):
+            y1, new_cv = torch.func.vmap(one)(y, cv, offsets, t)
         self._check_shape(y1, y)
         return y1, new_cv
 
@@ -306,11 +312,13 @@ class VectorPDEEnv:
         if self._generator is None:
             raise RuntimeError("call reset(generator) before step()")
         B = y1.shape[0]
-        reset_y = self.reset_func(self.domain, self._generator, B)
-        y_next = torch.where(_per_env(terminated, y1), reset_y.to(y1.dtype), y1)
-        cv_next = torch.where(_per_env(terminated, cv1), self._reset_cv.to(cv1.dtype), cv1)
-        obs_reset = self.state_to_observation_func(reset_y)
-        obs_next = torch.where(_per_env(terminated, obs), obs_reset, obs)
+        with named_scope("vector_env.auto_reset", B):
+            reset_y = self.reset_func(self.domain, self._generator, B)
+            y_next = torch.where(_per_env(terminated, y1), reset_y.to(y1.dtype), y1)
+            cv_next = torch.where(_per_env(terminated, cv1), self._reset_cv.to(cv1.dtype),
+                                  cv1)
+            obs_reset = self.state_to_observation_func(reset_y)
+            obs_next = torch.where(_per_env(terminated, obs), obs_reset, obs)
         return y_next, cv_next, obs_next
 
     # ------------------------------------------------------------------
@@ -354,71 +362,72 @@ class VectorPDEEnv:
         ``(state, obs, reward, terminated, truncated, info)``; ``info`` has ``diverged`` and, under auto-reset,
         ``final_observation``.
         """
-        actions = torch.as_tensor(actions, device=self.device)
-        ep = self.fused_epilogue
-        if ep is not None:
-            # The fused macro emitted per-env [sum, sumsq, n_finite] and the
-            # uint8 obs: reward and the divergence flag come from those
-            # scalars, with no extra pass over the field.
-            y1, cv1, stats, obs_k = self._advance_batched(
-                state.y, state.control_value, actions, ep_cfg=ep
-            )
-            n_px = ep.get("n_px") or (y1.shape[-2] * y1.shape[-1])
-            s1, s2, cnt = stats[..., 0], stats[..., 1], stats[..., 2]
-            diverged = cnt < (n_px - 0.5)
-            reward = ep["reward_from_stats"](s1, s2, cnt, n_px)
-            reward = torch.where(diverged, torch.zeros_like(reward), reward)
-            obs = ep.get("obs_transform", _add_channel)(obs_k)
-            if not self.auto_reset:
-                # The caller keeps stepping the fleet: scrub NaN fields.
-                y1 = torch.where(_per_env(diverged, y1), torch.zeros_like(y1), y1)
-        else:
-            if self.vectorized_control:
-                y1, cv1 = self._advance_batched(state.y, state.control_value, actions)
-                reward = self.reward_function(y1)
-                if tuple(reward.shape) != (y1.shape[0],):
-                    raise ValueError(
-                        f"reward_function returned shape {tuple(reward.shape)} for "
-                        f"{y1.shape[0]} envs: with vectorized_control=True it maps the "
-                        f"fleet {tuple(y1.shape)} to one reward an env, (B,)"
-                    )
+        with named_scope("vector_env.step", state.y.shape[0]):
+            actions = torch.as_tensor(actions, device=self.device)
+            ep = self.fused_epilogue
+            if ep is not None:
+                # The fused macro emitted per-env [sum, sumsq, n_finite] and the
+                # uint8 obs: reward and the divergence flag come from those
+                # scalars, with no extra pass over the field.
+                y1, cv1, stats, obs_k = self._advance_batched(
+                    state.y, state.control_value, actions, ep_cfg=ep
+                )
+                n_px = ep.get("n_px") or (y1.shape[-2] * y1.shape[-1])
+                s1, s2, cnt = stats[..., 0], stats[..., 1], stats[..., 2]
+                diverged = cnt < (n_px - 0.5)
+                reward = ep["reward_from_stats"](s1, s2, cnt, n_px)
+                reward = torch.where(diverged, torch.zeros_like(reward), reward)
+                obs = ep.get("obs_transform", _add_channel)(obs_k)
+                if not self.auto_reset:
+                    # The caller keeps stepping the fleet: scrub NaN fields.
+                    y1 = torch.where(_per_env(diverged, y1), torch.zeros_like(y1), y1)
             else:
-                y1, cv1 = self._advance_per_env(state.y, state.control_value, actions,
-                                                state.t)
-                reward = torch.func.vmap(self.reward_function)(y1)
-            # A non-finite field terminates (and, under auto_reset, resets)
-            # that env without stalling the lockstep fleet.
-            diverged = ~torch.isfinite(y1).reshape(y1.shape[0], -1).all(dim=1)
-            reward = torch.where(diverged, torch.zeros_like(reward), reward)
-            y1 = torch.where(_per_env(diverged, y1), torch.zeros_like(y1), y1)
-            obs = self.state_to_observation_func(y1)
-        t1 = state.t + self.step_dt
-        steps1 = state.step_count + 1
-        terminated = (t1 >= self.end_time - 1e-9) | diverged
-        info = {"diverged": diverged}
+                if self.vectorized_control:
+                    y1, cv1 = self._advance_batched(state.y, state.control_value, actions)
+                    reward = self.reward_function(y1)
+                    if tuple(reward.shape) != (y1.shape[0],):
+                        raise ValueError(
+                            f"reward_function returned shape {tuple(reward.shape)} for "
+                            f"{y1.shape[0]} envs: with vectorized_control=True it maps the "
+                            f"fleet {tuple(y1.shape)} to one reward an env, (B,)"
+                        )
+                else:
+                    y1, cv1 = self._advance_per_env(state.y, state.control_value, actions,
+                                                    state.t)
+                    reward = torch.func.vmap(self.reward_function)(y1)
+                # A non-finite field terminates (and, under auto_reset, resets)
+                # that env without stalling the lockstep fleet.
+                diverged = ~torch.isfinite(y1).reshape(y1.shape[0], -1).all(dim=1)
+                reward = torch.where(diverged, torch.zeros_like(reward), reward)
+                y1 = torch.where(_per_env(diverged, y1), torch.zeros_like(y1), y1)
+                obs = self.state_to_observation_func(y1)
+            t1 = state.t + self.step_dt
+            steps1 = state.step_count + 1
+            terminated = (t1 >= self.end_time - 1e-9) | diverged
+            info = {"diverged": diverged}
 
-        if self.auto_reset:
-            y_next, cv_next, obs_next = self._auto_reset(terminated, y1, cv1, obs)
-            t_next = torch.where(terminated, torch.zeros_like(t1), t1)
-            steps_next = torch.where(terminated, torch.zeros_like(steps1), steps1)
-            info = {"final_observation": obs, "diverged": diverged}
-            obs = obs_next
-            done = torch.zeros_like(terminated)
-        else:
-            y_next, cv_next, t_next, steps_next, done = y1, cv1, t1, steps1, terminated
+            if self.auto_reset:
+                y_next, cv_next, obs_next = self._auto_reset(terminated, y1, cv1, obs)
+                t_next = torch.where(terminated, torch.zeros_like(t1), t1)
+                steps_next = torch.where(terminated, torch.zeros_like(steps1), steps1)
+                info = {"final_observation": obs, "diverged": diverged}
+                obs = obs_next
+                done = torch.zeros_like(terminated)
+            else:
+                y_next, cv_next, t_next, steps_next, done = y1, cv1, t1, steps1, terminated
 
-        # In place, keeping each field's dtype (the JAX step's dtype pin).
-        # A step that autograd records gets new tensors instead: writing
-        # into the state would overwrite what the macro saved for its
-        # backward (the state it read).
-        nxt = (y_next, t_next, cv_next, steps_next, done)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in nxt):
-            state = EnvState(*(src.to(dst.dtype) for dst, src in zip(state, nxt)))
-        else:
-            for dst, src in zip(state, nxt):
-                dst.copy_(src)
-        truncated = torch.zeros_like(terminated)
-        return state, obs, reward, terminated, truncated, info
+            # In place, keeping each field's dtype (the JAX step's dtype pin).
+            # A step that autograd records gets new tensors instead: writing
+            # into the state would overwrite what the macro saved for its
+            # backward (the state it read).
+            nxt = (y_next, t_next, cv_next, steps_next, done)
+            if torch.is_grad_enabled() and any(t.requires_grad for t in nxt):
+                state = EnvState(*(src.to(dst.dtype) for dst, src in zip(state, nxt)))
+            else:
+                for dst, src in zip(state, nxt):
+                    dst.copy_(src)
+            truncated = torch.zeros_like(terminated)
+            return state, obs, reward, terminated, truncated, info
 
     def sample_actions(self, generator: torch.Generator):
         """Uniform random actions for the whole batch (integers in
@@ -439,15 +448,16 @@ class VectorPDEEnv:
         """
 
         def run(state: EnvState, generator: torch.Generator):
-            # The obs a step returns IS the next state's observation.
-            obs = self.state_to_observation_func(state.y)
-            rewards, terms = [], []
-            for _ in range(n_steps):
-                actions = policy_fn(obs, generator)
-                state, obs, reward, terminated, _, _ = self.step(state, actions)
-                rewards.append(reward)
-                terms.append(terminated)
-            return state, torch.stack(rewards), torch.stack(terms)
+            with named_scope("vector_env.rollout", n_steps * state.y.shape[0]):
+                # The obs a step returns IS the next state's observation.
+                obs = self.state_to_observation_func(state.y)
+                rewards, terms = [], []
+                for _ in range(n_steps):
+                    actions = policy_fn(obs, generator)
+                    state, obs, reward, terminated, _, _ = self.step(state, actions)
+                    rewards.append(reward)
+                    terms.append(terminated)
+                return state, torch.stack(rewards), torch.stack(terms)
 
         return run
 

@@ -257,9 +257,10 @@ def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = 
 
     def train_step(net, opt, env_state, sampler):
         check_device(net, env.device)
-        with named_scope("ppo/rollout"):
+        n_steps = config.rollout_steps * env_state.y.shape[0]
+        with named_scope("ppo/rollout", n_steps):
             env_state, traj, last_value = rollout(net, env_state, sampler)
-        with named_scope("ppo/advantages"):
+        with named_scope("ppo/advantages", n_steps):
             adv, ret = advantages(traj, last_value, config, group)
 
         # flatten (T, B, ...) -> (T*B, ...), time-major
@@ -277,7 +278,7 @@ def make_ppo_train_step(env, config: PPOConfig, optimizer: Optional[Callable] = 
 
         stats = []
         for _ in range(config.epochs):
-            with named_scope("ppo/epoch"):
+            with named_scope("ppo/epoch", M):
                 # ONE gather per epoch into (M, mb, ...) stacks.
                 if chunked:
                     perm = sampler.permutation(N // C)

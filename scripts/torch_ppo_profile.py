@@ -104,7 +104,7 @@ def main():
     # Device work: kernels, copies and fills; not the scopes' GPU-side ranges.
     kern = [e for e in prof.events() if e.device_type == cuda
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(("ppo/", "Optimizer."))]
+            and not e.name.startswith(("ppo/", "vector_env.", "Optimizer."))]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
