@@ -170,10 +170,11 @@ __device__ __forceinline__ void save_tile(float* dst, int W, int ty4, int tx4,
         make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
 }
 
-// Sum a, b, c over the block's threads.  Lane 0 of each warp writes its
-// warp's sums to red; after the barrier every thread reads the same totals
-// (summed in the same order).  The caller must put a barrier between this
-// call and the next write to red.
+// Sum a, b, c over the block's threads (kNumWarps warps).  Lane 0 of each
+// warp writes its warp's sums to red; after the barrier every thread reads
+// the same totals (summed in the same order).  The caller must put a
+// barrier between this call and the next write to red.
+template <int kNumWarps = kWarps>
 __device__ __forceinline__ void block_sum3(float& a, float& b, float& c,
                                            float (*red)[3], int tid) {
 #pragma unroll
@@ -190,7 +191,7 @@ __device__ __forceinline__ void block_sum3(float& a, float& b, float& c,
   __syncthreads();
   a = b = c = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
+  for (int w = 0; w < kNumWarps; ++w) {
     a += red[w][0];
     b += red[w][1];
     c += red[w][2];

@@ -44,8 +44,9 @@
 // This first tiled design is held back by device memory instead: the planes
 // go out to memory and back every transform (the slots of all resident
 // blocks outgrow the 50 MB L2), and every output tile re-reads its chunks.
-// Keeping an env's state on chip (a cluster of blocks sharing it through
-// distributed shared memory) is later work.
+// The CH forward with bf16 matrices up to 128 x 128 keeps an env's state on
+// chip instead (cas_onchip.cuh, ch_cas_macro_onchip_kernel); the kernels
+// here still serve every other grid, family and matrix type.
 
 #pragma once
 

@@ -49,10 +49,14 @@
 // (K3).  An env's field, spectrum and intermediates no longer fit one
 // block's registers and shared memory there (one f32 256^2 field is 256 KB),
 // so they live in device memory and each transform streams 64-wide chunks
-// through shared memory (cas_tiled.cuh).  The launch picks the kernel by
-// grid; the 64^2 kernels above are unchanged.
+// through shared memory (cas_tiled.cuh).  The forward with bf16 matrices on
+// square grids up to 128 x 128 runs ch_cas_macro_onchip_kernel instead, which
+// keeps an env's state on chip (cas_onchip.cuh; see `onchip`).  The launch
+// picks the kernel by grid and matrix type; the 64^2 kernels above are
+// unchanged.
 
 #include "cas_common.cuh"
+#include "cas_onchip.cuh"
 #include "cas_tiled.cuh"
 #include "cas_wgmma.cuh"
 
@@ -784,6 +788,108 @@ ch_cas_macro_bwd_tiled_kernel(const float* __restrict__ u_in, const float* __res
   }
 }
 
+// ---- K1/K2 on square grids above 64^2 up to 128^2, bf16 matrices: on chip -----
+//
+// Replaces the same TPU kernels as the tiled K1/K2 (`kernel_ep`, `kernel`;
+// pde_opt_tpu/ops/cas_spectral.py:630, :392) on the grids `onchip` takes,
+// which the tiled kernel served before.  Bound at 4096 x 128^2 x 10 (K1,
+// ds 1): 0.9399 ms, compute-bound (0.730 ms of products at 989 TFLOP/s bf16,
+// 0.210 ms of pointwise work at 67 TFLOP/s f32; portbench/workmodel.py).
+//
+// Design (cas_onchip.cuh): one block of 512 threads an SM, persistent,
+// walking the envs by grid stride.  The bf16 matrices are loaded into shared
+// memory once a block (C and C/N: the grid is square, so C_W is C_H and the
+// launch's cw16 and icw16 are not read); an env's u stays in registers (32
+// f32 a thread, in the fragment layout of the products' accumulator), u~ in
+// shared memory in the same layout, Z^T and T in shared memory as bf16;
+// device memory is touched once an env to read u_in and kappa, and once to
+// write u_out, the stats row and the obs.
+// Every product runs over its full depth, eight m64n64k16 back to back.  The
+// multipliers are recomputed where they are used (mult_from, the arithmetic
+// and order of the kernels above) from lam and lam2 rebuilt bit for bit from
+// the two f64 axis symbols in shared memory (oc_symbols): two f32 planes
+// would not fit beside the tiles, and reading them through L2 would cost
+// 128 KB an env-substep a block.  Budget (ptxas -v, sm_90a): 128 registers
+// (the cap of 512 threads an SM), 144 B of spills, 198,656 B of dynamic
+// shared memory (kOcSmemBytes) and 256 B static.  Measured at the bound's
+// shape: 2.8-2.9 ms, ~32 % of the bound (PERF.md §6).
+__global__ void __launch_bounds__(kOcThreads, 1)
+ch_cas_macro_onchip_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
+                           const __nv_bfloat16* __restrict__ g_c,
+                           const __nv_bfloat16* __restrict__ g_ic,
+                           const double* __restrict__ lam_h, const double* __restrict__ lam_w,
+                           float* __restrict__ u_out, int B, int N, int n_steps, float dt,
+                           float a_dt, MuPoly mu, Epilogue ep) {
+  extern __shared__ __align__(128) unsigned char smem_oc[];
+  const OcTiles sm = carve_oc_tiles(smem_oc);
+  __shared__ float red[kOcWarps][3];
+
+  const int tid = threadIdx.x;
+  const OcOwn o = make_oc_own(tid);
+  const StepConsts sc{dt, a_dt, 0.f};
+  load_mats_oc(sm, g_c, g_ic, lam_h, lam_w, N, tid);
+
+  for (int env = blockIdx.x; env < B; env += gridDim.x) {
+    const size_t off = static_cast<size_t>(env) * N * N;
+    const float k = kappa[env];
+    float u[8][4], f[8][4];
+    load_frag_oc(u_in + off, N, N, o, u);
+    // The previous env's last barrier has finished every read of the tiles.
+    store_operand_oc(sm.zt, u, o, N, N);
+    oc_transform(sm, sm.c, o, f);                                 // u~ = fwd(u)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi)
+        oc_pair(sm.ut, j, hi, tid) = make_float2(f[j][2 * hi], f[j][2 * hi + 1]);
+
+    for (int s = 0; s < n_steps; ++s) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[j][e] = mu_eval(mu, u[j][e]);
+      store_operand_oc(sm.zt, f, o, N, N);
+      oc_transform(sm, sm.c, o, f);                               // fwd(mu(u))
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          float l[2], l2[2];
+          oc_symbols(sm, o, j, hi, l, l2);
+          float2& ut = oc_pair(sm.ut, j, hi, tid);
+          const float2 a = ut;
+          const Mult m0 = mult_from(l[0], l2[0], k, sc), m1 = mult_from(l[1], l2[1], k, sc);
+          const float i0 = m0.cm * f[j][2 * hi] - m0.cu * a.x;
+          const float i1 = m1.cm * f[j][2 * hi + 1] - m1.cu * a.y;
+          ut = make_float2(a.x + i0, a.y + i1);
+          f[j][2 * hi] = i0;
+          f[j][2 * hi + 1] = i1;
+        }
+      store_operand_oc(sm.zt, f, o, N, N);
+      oc_transform(sm, sm.ic, o, f);                              // inv(incr)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[j][e] += f[j][e];
+    }
+
+    save_frag_oc(u_out + off, N, N, o, u);
+    if (ep.stats != nullptr) {
+      emit_field_epilogue_oc(u, oc_scratch(sm), red, ep, env, N, N, tid, o);
+    } else {
+      __syncthreads();   // every read of the tiles is done before the next env writes them
+    }
+  }
+}
+
+// Whether a forward launch runs the on-chip kernel: bf16 matrices on a square
+// grid above 64^2 (where ch_cas_macro_wg_kernel stops) up to 128^2 (a
+// multiple of 8, as every launch checks); 256^2, 96 x 136, every other grid
+// above 64^2 and the f32 FMA path stay on the tiled kernel.
+bool onchip(int H, int W, bool round_bf16) {
+  return round_bf16 && H == W && H > kLd && H <= kOcMaxGrid;
+}
+
 bool bad_shape(int B, int H, int W, int n_steps, int n_coeffs) {
   return (tiled(H, W) ? bad_tiled_grid(B, H, W, n_steps) : bad_grid(B, H, W, n_steps)) ||
          bad_poly(n_coeffs);
@@ -795,10 +901,10 @@ extern "C" {
 
 // The scratch a launch needs on the current device: `slots` blocks resident
 // at once of the kernel that the grid and round_bf16 pick, each with a slot
-// of `floats` f32.  The 64^2 forward needs none (0, 0); the 64^2 backward
-// (bwd != 0) a trajectory of max(n_steps, 1) planes of H x W a slot; the
-// tiled forward 3 planes, the tiled backward max(n_steps, 1) + 5.  Returns a
-// cudaError_t value.
+// of `floats` f32.  The 64^2 and the on-chip forward need none (0, 0); the
+// 64^2 backward (bwd != 0) a trajectory of max(n_steps, 1) planes of H x W a
+// slot; the tiled forward 3 planes, the tiled backward max(n_steps, 1) + 5.
+// Returns a cudaError_t value.
 int ch_cas_macro_scratch(int bwd, int round_bf16, int H, int W, int n_steps, int* slots,
                          long long* floats) {
   const long long hw = static_cast<long long>(H) * W, n = n_steps > 0 ? n_steps : 1;
@@ -811,6 +917,7 @@ int ch_cas_macro_scratch(int bwd, int round_bf16, int H, int W, int n_steps, int
                           : resident_blocks(ch_cas_macro_bwd_kernel, slots);
     *floats = n * hw;
   } else if (bwd == 0) {
+    if (onchip(H, W, round_bf16 != 0)) return 0;
     err = round_bf16 != 0
               ? tiled_scratch(ch_cas_macro_tiled_kernel<true>, true, 3, H, W, slots, floats)
               : tiled_scratch(ch_cas_macro_tiled_kernel<false>, false, 3, H, W, slots, floats);
@@ -823,33 +930,51 @@ int ch_cas_macro_scratch(int bwd, int round_bf16, int H, int W, int n_steps, int
   return static_cast<int>(err);
 }
 
+// Whether a forward launch of an H x W grid (with bf16 matrices when
+// round_bf16) runs the on-chip kernel (1) or another (0).
+int ch_cas_macro_onchip(int H, int W, int round_bf16) {
+  return onchip(H, W, round_bf16 != 0) ? 1 : 0;
+}
+
 // Launches the macro on `stream`: at 64^2 and below the tensor-core kernel
-// when round_bf16 (bf16 matrices), the FMA kernel otherwise; above, the
-// tiled kernel of that type, on min(B, n_slots) blocks with `scratch` as
-// ch_cas_macro_scratch sizes it (unused at 64^2).  ch16 .. icw16 are the
-// matrices as bf16 (read by the tiled tensor-core kernel alone; may be null
-// otherwise).  stats == nullptr runs
-// the plain macro (K2); otherwise stats and obs are written too (K1).
-// Returns a cudaError_t value, 0 on success.
+// when round_bf16 (bf16 matrices), the FMA kernel otherwise; above, where
+// ch_cas_macro_onchip says so, the on-chip kernel (one block an SM, no
+// scratch), else the tiled kernel of that type, on min(B, n_slots) blocks
+// with `scratch` as ch_cas_macro_scratch sizes it (unused by the others).
+// ch16 .. icw16 are the matrices as bf16 and lam_h (H), lam_w (W) the f64
+// axis symbols that lam and lam2 are built from (read above 64^2 with bf16
+// matrices alone; may be null otherwise).  stats == nullptr runs the plain
+// macro (K2); otherwise stats and obs are written too (K1).  Returns a
+// cudaError_t value, 0 on success.
 int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
                         const float* cw, const float* ich, const float* icw,
                         const void* ch16, const void* cw16, const void* ich16,
-                        const void* icw16, const float* lam, const float* lam2, float* out,
+                        const void* icw16, const float* lam, const float* lam2,
+                        const double* lam_h, const double* lam_w, float* out,
                         float* stats, unsigned char* obs, float* scratch, int n_slots,
                         int B, int H, int W, int n_steps, float dt, float a_dt,
                         const float* mu_coeffs, int n_coeffs, int round_bf16,
                         int ds, float obs_scale, float obs_offset, float center,
                         void* stream) {
+  const bool oc = onchip(H, W, round_bf16 != 0);
   if (bad_shape(B, H, W, n_steps, n_coeffs) || ds < 1 || H % ds || W % ds ||
-      (tiled(H, W) && (scratch == nullptr || n_slots < 1 ||
-                       (round_bf16 != 0 && bad_mats16(ch16, cw16, ich16, icw16)))))
+      (tiled(H, W) && round_bf16 != 0 && bad_mats16(ch16, cw16, ich16, icw16)) ||
+      (tiled(H, W) && !oc && (scratch == nullptr || n_slots < 1)) ||
+      (oc && (lam_h == nullptr || lam_w == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const MuPoly mu = make_mu(mu_coeffs, n_coeffs);
   const Epilogue ep{stats, obs, ds, obs_scale, obs_offset, center};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int resident = 0;
   cudaError_t err;
-  if (tiled(H, W) && round_bf16 != 0) {
+  if (oc) {
+    if ((err = resident_blocks(ch_cas_macro_onchip_kernel, &resident, kOcSmemBytes,
+                               kOcThreads)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int grid = B < resident ? B : resident;
+    ch_cas_macro_onchip_kernel<<<grid, kOcThreads, kOcSmemBytes, st>>>(
+        u, kappa, B16(ch16), B16(ich16), lam_h, lam_w, out, B, H, n_steps, dt, a_dt, mu, ep);
+  } else if (tiled(H, W) && round_bf16 != 0) {
     return static_cast<int>(launch_tiled(ch_cas_macro_tiled_kernel<true>, true, B, n_slots, st, u,
                                          kappa, B16(ch16), B16(cw16), B16(ich16), B16(icw16),
                                          lam, lam2, out, scratch, B, H, W, n_steps, dt, a_dt,

@@ -30,9 +30,11 @@ Each macro has two implementations of the same function:
 :func:`ch_cas_macro_bwd_plain` and :func:`ch_cas_macro_bwd_cuda` (kernel
 K3, in the same source).  Both take grids up to 256²: above 64² they run
 the tiled kernels (``csrc/cas_tiled.cuh``), whose per-block scratch the
-wrappers allocate.  The macros are ``torch.autograd.Function``s
-whose backward is the JAX package's custom VJP: re-run the forward, then
-sweep back through the same transforms, rounding where the forward rounds.
+wrappers allocate, except the forward with bf16 matrices on a square grid
+up to 128², which keeps each env on chip (``csrc/cas_onchip.cuh``).  The
+macros are ``torch.autograd.Function``s whose backward is the JAX package's
+custom VJP: re-run the forward, then sweep back through the same
+transforms, rounding where the forward rounds.
 There is no fallback from one implementation to the other.
 
 The Allen-Cahn macro (:func:`make_ac_cas_fused_macro`, kernel K4 in
@@ -139,6 +141,9 @@ class CasConstants(NamedTuple):
     With bf16 matrices, ``ch16`` .. ``icw16`` are the same four as bf16
     tensors (exact copies), which the tiled tensor-core CH kernels read;
     ``None`` with f32 matrices, where those kernels refuse the launch.
+    ``lam_h`` (H,) and ``lam_w`` (W,) are the f64 axis symbols that ``lam =
+    f32(lam_h + lam_w)`` and ``lam2 = f32((lam_h + lam_w)**2)`` are built
+    from; the on-chip CH forward rebuilds the two planes from them.
     """
 
     ch: torch.Tensor
@@ -151,6 +156,8 @@ class CasConstants(NamedTuple):
     cw16: Optional[torch.Tensor] = None
     ich16: Optional[torch.Tensor] = None
     icw16: Optional[torch.Tensor] = None
+    lam_h: Optional[torch.Tensor] = None
+    lam_w: Optional[torch.Tensor] = None
 
 
 @functools.lru_cache(maxsize=32)
@@ -171,7 +178,9 @@ def cas_constants(H: int, W: int, hx: float, hy: float,
             "ich": mat(_cas_mat(H) / H), "icw": mat(_cas_mat(W) / W)}
     if mats_dtype == torch.bfloat16:
         mats.update({f"{n}16": m.to(torch.bfloat16) for n, m in list(mats.items())})
-    return CasConstants(**mats, lam=f32(lam), lam2=f32(lam**2))
+    return CasConstants(**mats, lam=f32(lam), lam2=f32(lam**2),
+                        lam_h=torch.from_numpy(lam_h).to(device),
+                        lam_w=torch.from_numpy(lam_w).to(device))
 
 
 class Epilogue(NamedTuple):
@@ -311,13 +320,16 @@ def _bind_ch_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ch_cas_macro_launch.argtypes = [
         p, p, p, p, p, p, p, p, p, p,    # u, kappa, ch, cw, ich, icw, ch16 .. icw16
-        p, p, p, p, p, p, i,             # lam, lam2, out, stats, obs, scratch, n_slots
+        p, p, p, p,                      # lam, lam2, lam_h, lam_w
+        p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
         i, i, i, i, f, f,                # B, H, W, n_steps, dt, A*dt
         p, i, i,                         # mu coeffs, n_coeffs, round_bf16
         i, f, f, f,                      # ds, obs_scale, obs_offset, center
         p,                               # stream
     ]
     lib.ch_cas_macro_launch.restype = ctypes.c_int
+    lib.ch_cas_macro_onchip.argtypes = [i, i, i]
+    lib.ch_cas_macro_onchip.restype = ctypes.c_int
     lib.ch_cas_macro_scratch.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int),
                                          ctypes.POINTER(ctypes.c_longlong)]
     lib.ch_cas_macro_scratch.restype = ctypes.c_int
@@ -422,6 +434,21 @@ def _mat_ptrs(consts: CasConstants):
     return (*_mats_ptrs(consts), consts.lam.data_ptr(), consts.lam2.data_ptr())
 
 
+def _axis_ptrs(consts: CasConstants):
+    """The pointers of the f64 axis symbols ``lam_h, lam_w`` as the CH
+    forward launch takes them, after :func:`_mat_ptrs`."""
+    return consts.lam_h.data_ptr(), consts.lam_w.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _ch_onchip(H: int, W: int, round_bf16: bool) -> bool:
+    """Whether the CH forward of an (H, W) grid runs the on-chip kernel
+    (``ch_cas_macro_onchip_kernel``; the rule is the library's
+    ``ch_cas_macro_onchip``): bf16 matrices on a square grid above 64² up to
+    128²."""
+    return bool(_library().ch_cas_macro_onchip(int(H), int(W), int(bool(round_bf16))))
+
+
 def _c_coeffs(mu: PolynomialMu):
     return (ctypes.c_float * len(mu.coeffs))(*mu.coeffs), len(mu.coeffs)
 
@@ -468,12 +495,16 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     Launches ``csrc/ch_cas_macro.cu`` on the current stream (K1 with an
     epilogue, K2 without; with ``round_bf16`` on the tensor cores, else f32
     FMA) and counts the launch.  H and W up to :data:`MAX_GRID_TILED`:
-    above 64² the tiled kernel runs, with a scratch of three H x W planes
+    above 64² with bf16 matrices on a square grid up to 128² the on-chip
+    kernel runs (also counted as ``ch_cas_macro.onchip``, :func:`_ch_onchip`),
+    otherwise above 64² the tiled kernel, with a scratch of three H x W planes
     for each resident block, allocated here.  Raises on anything the kernel
     does not take.
     """
     B, H, W = _check_macro_args(u, kappa, consts, mu_fn)
     dev = u.device
+    _check_cuda("lam_h", consts.lam_h, (H,), torch.float64, dev)
+    _check_cuda("lam_w", consts.lam_w, (W,), torch.float64, dev)
     out = torch.empty_like(u)
     stats = obs = None
     if epilogue is not None:
@@ -487,8 +518,8 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
                                     H, W, n_steps)
     with torch.cuda.device(dev):
         rc = _library().ch_cas_macro_launch(
-            u.data_ptr(), kappa.data_ptr(), *_mat_ptrs(consts), out.data_ptr(),
-            stats.data_ptr() if stats is not None else None,
+            u.data_ptr(), kappa.data_ptr(), *_mat_ptrs(consts), *_axis_ptrs(consts),
+            out.data_ptr(), stats.data_ptr() if stats is not None else None,
             obs.data_ptr() if obs is not None else None,
             scratch.data_ptr() if scratch is not None else None, slots,
             B, H, W, int(n_steps), float(dt), float(A) * float(dt),
@@ -500,6 +531,8 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_if(rc, "ch_cas_macro launch")
+    if _ch_onchip(H, W, round_bf16):
+        count_launch("ch_cas_macro.onchip")
     if epilogue is None:
         count_launch("ch_cas_macro")
         return out

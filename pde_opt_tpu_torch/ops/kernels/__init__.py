@@ -48,6 +48,8 @@ _BUILD_LOGS: Dict[str, str] = {}
 _LOCK = threading.Lock()
 _LAUNCHES: Dict[str, int] = {
     "ch_cas_macro": 0, "ch_cas_macro_ep": 0, "ch_cas_macro_bwd": 0,
+    # Of the two above, the launches that ran the on-chip kernel (128^2).
+    "ch_cas_macro.onchip": 0,
     "ac_cas_macro": 0, "ac_cas_macro_ep": 0,
     "gpe_strang_macro": 0, "gpe_strang_macro_ep": 0,
     "bv_cc_macro": 0, "bv_cc_macro_ep": 0,

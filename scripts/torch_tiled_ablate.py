@@ -6,8 +6,9 @@ goes, on one CUDA card.
 
 Builds variants of ``csrc/ch_cas_macro.cu`` from a copy of ``csrc`` under
 ``build/tiled_ablate/`` (one ``nvcc`` each, in parallel) and times K2 with
-bf16 matrices at bench.py's run_ch128 shape (1024 envs x 128² x 10
-substeps) and run_ch256's (256 x 256² x 10) with CUDA events:
+bf16 matrices at 1024 envs x 136² x 10 substeps (bench.py's run_ch128 shape
+runs the on-chip kernel, which these variants leave alone) and run_ch256's
+(256 x 256² x 10) with CUDA events:
 
 - ``base``: the kernel as it is;
 - ``no_copy``: no chunk is copied into shared memory (the products read
@@ -54,7 +55,7 @@ VARIANTS = {
     "no_fence": ["-DNO_FENCE"], "barriers": [f"-D{g}" for g in GUARDS],
     "stages2": ["-DSTAGES=2"], "stages6": ["-DSTAGES=6"],
 }
-SHAPES = ((1024, 128), (256, 256))
+SHAPES = ((1024, 136), (256, 256))
 
 
 def _sources():

@@ -46,6 +46,9 @@ struct alignas(8) float2 {   // as CUDA's: an 8-byte access
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(16) double2 {
+  double x, y;
+};
 struct uchar2 {
   unsigned char x, y;
 };
@@ -115,6 +118,7 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float __double2float_rn(double a) { return static_cast<float>(a); }
 
 // ---- the runtime API ----------------------------------------------------------
 

@@ -385,3 +385,60 @@ def test_fused_env_on_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(rg.cpu().numpy(), rc.numpy(), rtol=1e-3)
         assert torch.equal(tg.cpu(), tc)
         arrs = env_state_to_numpy(sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,ds", [(4096, 1), (1024, 0)], ids=["K1-4096-ds1", "K2-1024"])
+def test_onchip_kernel_matches_plain_on_card(cuda_device, B, ds):
+    """The on-chip kernel at the 128² fleet's shape (K1, 4096 x 128² x 10,
+    epilogue ds 1) and at run_train_grad_128's forward (K2, 1024 x 128² x
+    10) against plain; the launch counts once under its K1/K2 key and once
+    under ``ch_cas_macro.onchip``."""
+    u, kap = _inputs(B, 128, seed=B + ds)
+    u, kap = torch.from_numpy(u).to(cuda_device), torch.from_numpy(kap).to(cuda_device)
+    consts = cas_constants(128, 128, HX, HY, torch.bfloat16, cuda_device)
+    ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
+    kw = dict(mu_fn=MU_T, dt=DT, A=A, n_steps=10, round_bf16=True, epilogue=ep)
+    name = "ch_cas_macro_ep" if ep else "ch_cas_macro"
+    before = kernels.launch_counts()
+    got = ch_cas_macro_cuda(u, kap, consts, **kw)
+    want = ch_cas_macro_plain(u, kap, consts, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after["ch_cas_macro.onchip"] == before["ch_cas_macro.onchip"] + 1
+    if ep is None:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_U["bf16"])
+    if ep is not None:
+        _assert_epilogue(got[1].cpu().numpy(), got[2].cpu().numpy(),
+                         want[1].cpu().numpy(), want[2].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_onchip_counter_counts_each_128_step(cuda_device):
+    """``ch_cas_macro.onchip`` counts one launch a step of the 128² fleet and
+    none at 64² or 256² (``ch_cas_macro_ep`` counts every step), nor a 128²
+    macro with f32 matrices (the tiled FMA kernel)."""
+    from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
+
+    for H, want in ((64, 0), (128, 1), (256, 0)):
+        env = make_cahn_hilliard_control_env(num_envs=8, grid_size=H, spectral_solve="fused",
+                                             device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(H)
+        state, _ = env.reset(gen)
+        before = kernels.launch_counts()
+        env.step(state, env.sample_actions(gen))
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert after["ch_cas_macro_ep"] == before["ch_cas_macro_ep"] + 1, H
+        assert after["ch_cas_macro.onchip"] == before["ch_cas_macro.onchip"] + want, H
+    u, kap = _inputs(8, 128, seed=1)
+    before = kernels.launch_counts()
+    ch_cas_macro_cuda(torch.from_numpy(u).to(cuda_device), torch.from_numpy(kap).to(cuda_device),
+                      cas_constants(128, 128, HX, HY, torch.float32, cuda_device), mu_fn=MU_T,
+                      dt=DT, A=A, n_steps=2, round_bf16=False)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["ch_cas_macro"] == before["ch_cas_macro"] + 1
+    assert after["ch_cas_macro.onchip"] == before["ch_cas_macro.onchip"]

@@ -25,10 +25,15 @@ Three envs on one block (the stub's device holds one block), so the block
 walks the envs by grid stride and K3's three envs share one trajectory slot;
 two substeps (K3 also none); (H, W) in {(16, 16), (24, 40), (64, 64)}.  The
 tiled K1/K2 above 64² (a cp.async ring, which the stub's stand-in copies at
-once) at 128², 96 x 136 and 256², bf16 and f32 matrices, epilogue off and at
-ds 1 and 4, two envs through one slot; the tiled K3 at 128² with 2, 1 and 0
-substeps and at 256² with one; a NaN env in each; one bf16 substep at 128²
-against the unrounded control.  The tiled K4 (R == 1 and a polynomial R,
+once) at 136 x 128 (bf16) or 128² (f32), 96 x 136 and 256², bf16 and f32
+matrices, epilogue off and at ds 1 and 4, two envs through one slot; the
+tiled K3 at 128² with 2, 1 and 0 substeps and at 256² with one; a NaN env in
+each; one bf16 substep at 136 x 128 against the unrounded control.  The
+on-chip K1/K2 (bf16 matrices on square grids above 64² up to 128²: 512
+threads, m64n64 products over K = 128) at 128², 120², 96² and 72², epilogue
+off and at ds 1 and 4, three envs through the one block, the field bit for
+bit; a NaN env; one bf16 substep at 128² against the unrounded control; and
+its shape rule and scratch query.  The tiled K4 (R == 1 and a polynomial R,
 epilogue off and at ds 1) and K5 (phase polynomials on and off, epilogue
 off and on, and from a state at 1.5 x unit norm) at 128² and 96 x 136, bf16
 and f32 matrices, two envs through one slot, with a NaN env and one bf16
@@ -97,6 +102,7 @@ from pde_opt_tpu_torch.ops.cas_spectral import (
     Epilogue,
     PolynomialMu,
     _bind_ac_library,
+    _axis_ptrs,
     _bind_ch_library,
     _c_coeffs,
     _mat_ptrs,
@@ -155,6 +161,14 @@ TOL_BWD = {True: (1e-5, 1e-2), False: (5e-6, 1e-4)}   # du, dkappa over their ma
 # K1-K3 above 64² (the tiled kernels); one bf16 substep's RMS bound.
 TILED_SHAPES = [(128, 128), (96, 136), (256, 256)]
 TOL_CH_SITE = 2e-5
+# The CH forward above 64²: (H, W, bf16) on the tiled kernel, which bf16
+# matrices take only off the on-chip kernel's square grids (136 x 128 in
+# place of 128²), and (H, W, ds) on the on-chip kernel (bf16, square, up to
+# 128²).
+CH_TILED_CASES = [(136, 128, True), (96, 136, True), (256, 256, True),
+                  (128, 128, False), (96, 136, False), (256, 256, False)]
+CH_ONCHIP_CASES = [(128, 128, 0), (128, 128, 1), (128, 128, 4), (96, 96, 1), (72, 72, 0),
+                   (120, 120, 4)]
 GPE_G, GPE_DT, GPE_BOX = 100.0, 2e-3, 16.0
 TOL_GPE = {True: 5e-3, False: 5e-6}
 TOL_GPE_SITE = 5e-5
@@ -318,8 +332,9 @@ def _ch_kernel(lib, u, kap, consts, ep, bf16, n_steps=N_STEPS):
     mu_c, n_mu = _c_coeffs(MU)
     scratch, slots = _scratch(lib, "ch_cas_macro_scratch", 0, int(bf16), H, W, n_steps)
     rc = lib.ch_cas_macro_launch(
-        u.data_ptr(), kap.data_ptr(), *_mat_ptrs(consts), out.data_ptr(), _ptr(stats),
-        _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps, CH_DT, CH_A * CH_DT, mu_c, n_mu, int(bf16),
+        u.data_ptr(), kap.data_ptr(), *_mat_ptrs(consts), *_axis_ptrs(consts), out.data_ptr(),
+        _ptr(stats), _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps, CH_DT, CH_A * CH_DT, mu_c,
+        n_mu, int(bf16),
         ep.ds if ep else 1, ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0,
         ep.center if ep else 0.0, None)
     assert rc == 0
@@ -516,12 +531,12 @@ def test_ch_bwd_bf16_kernel_matches_plain(libs, H, W, n_steps):
         assert torch.equal(got[0], want[0]) and not bool(got[1].any())
 
 
-@pytest.mark.parametrize("H,W", TILED_SHAPES)
-@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("H,W,bf16", CH_TILED_CASES)
 @pytest.mark.parametrize("ds", [0, 1, 4])
 def test_ch_tiled_kernel_matches_plain(libs, H, W, bf16, ds):
     """K2 (ds 0) and K1 above 64² on the tiled kernels (tensor cores with
     bf16 matrices, FMA with f32), two envs through the stub's one slot."""
+    assert not libs[2].ch_cas_macro_onchip(H, W, int(bf16))
     u, kap = _ch_inputs(H, W, seed=H + W + ds, n=2)
     consts = _ch_consts(H, W, bf16)
     ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
@@ -571,12 +586,16 @@ def test_ch_tiled_nan_env_stays_in_its_env(libs, kernel):
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < H * W
 
 
-def test_ch_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
-    """One substep at 128² with bf16 matrices: the RMS of kernel - plain
-    sits below chip_smoke.py's TOL_SITE["ch"], which the unrounded plain
-    version (the control) exceeds."""
-    u, kap = _ch_inputs(128, 128, seed=21, n=2)
-    consts = _ch_consts(128, 128, True)
+@pytest.mark.parametrize("kernel", ["tiled", "onchip"])
+def test_ch_tiled_bf16_kernel_rounds_where_plain_rounds(libs, kernel):
+    """One substep with bf16 matrices, at 136 x 128 on the tiled kernel and
+    at 128² on the on-chip one: the RMS of kernel - plain sits below
+    chip_smoke.py's TOL_SITE["ch"], which the unrounded plain version (the
+    control) exceeds."""
+    H, W = (136, 128) if kernel == "tiled" else (128, 128)
+    assert libs[2].ch_cas_macro_onchip(H, W, 1) == (kernel == "onchip")
+    u, kap = _ch_inputs(H, W, seed=21, n=2)
+    consts = _ch_consts(H, W, True)
     got = _ch_kernel(libs[2], u, kap, consts, None, True, n_steps=1)
     want = ch_cas_macro_plain(u, kap, consts, **_ch_kw(1, True))
     ctl = ch_cas_macro_plain(u, kap, consts, **_ch_kw(1, False))
@@ -585,6 +604,67 @@ def test_ch_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
         return float(d.double().pow(2).mean().sqrt())
 
     assert rms(got - want) <= TOL_CH_SITE < rms(ctl - want)
+
+
+@pytest.mark.parametrize("H,W,ds", CH_ONCHIP_CASES)
+def test_ch_onchip_kernel_matches_plain(libs, H, W, ds):
+    """K2 (ds 0) and K1 (ds 1, 4) on the on-chip kernel (bf16 matrices, one
+    env's state in registers and shared memory), three envs through the
+    stub's one block: the field bit for bit, as the stub sums each product
+    in k order as plain's f32 matmul does here."""
+    assert libs[2].ch_cas_macro_onchip(H, W, 1)
+    u, kap = _ch_inputs(H, W, seed=3 * H + W + ds)
+    consts = _ch_consts(H, W, True)
+    ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
+    got = _ch_kernel(libs[2], u, kap, consts, ep, True)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
+    if ep is None:
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=TOL_CH[True])
+    assert torch.equal(got[0], want[0])
+    if ep is not None:
+        _assert_ch_epilogue(got, want)
+
+
+def test_ch_onchip_nan_env_stays_in_its_env(libs):
+    """One NaN pixel in the first of three envs at 128² with the epilogue on
+    the on-chip kernel: the envs after it, which reuse its Z^T and T tiles,
+    still equal plain."""
+    u, kap = _ch_inputs(128, 128, seed=6)
+    u[0, 3, 7] = float("nan")
+    consts = _ch_consts(128, 128, True)
+    ep = Epilogue(255.0, 0.0, 0.5, 1)
+    got = _ch_kernel(libs[2], u, kap, consts, ep, True)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_CH[True])
+    assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < 128 * 128
+    _assert_ch_epilogue([t[1:] for t in got], [t[1:] for t in want])
+
+
+@pytest.mark.parametrize("bwd", [0, 1])
+def test_ch_onchip_rule_and_scratch(libs, bwd):
+    """The shape rule (``ch_cas_macro_onchip``): the forward with bf16
+    matrices on square grids above 64² up to 128² runs the on-chip kernel
+    and asks for no scratch; 64² and below, grids that are not square or are
+    above 128, and f32 matrices keep their kernels (the tiled forward 3
+    planes a slot).  The backward (K3)
+    keeps its scratch everywhere."""
+    lib = libs[2]
+    on = [(128, 128), (120, 120), (96, 96), (72, 72)]
+    off = [(64, 64), (16, 24), (136, 136), (96, 128), (128, 72), (64, 128), (96, 136),
+           (256, 256)]
+    for (H, W), bf16 in [(hw, b) for hw in on + off for b in (1, 0)]:
+        taken = bf16 == 1 and (H, W) in on
+        assert lib.ch_cas_macro_onchip(H, W, bf16) == int(taken), (H, W, bf16)
+        slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+        assert lib.ch_cas_macro_scratch(bwd, bf16, H, W, N_STEPS, ctypes.byref(slots),
+                                        ctypes.byref(floats)) == 0
+        tiled = H > 64 or W > 64
+        want = ((N_STEPS + 5 if tiled else N_STEPS) if bwd
+                else (0 if taken or not tiled else 3)) * H * W
+        assert floats.value == want, (H, W, bf16, bwd)
 
 
 @pytest.mark.parametrize("bf16", [True, False])
