@@ -553,6 +553,7 @@ def make_butler_volmer_control_env(
     auto_reset: bool = True,
     kappa: float = 5e-4,
     method: str = "fused",
+    obs_downsample: int = 1,
     fused_epilogue: bool | None = None,
     device="cuda",
 ) -> VectorPDEEnv:
@@ -565,7 +566,14 @@ def make_butler_volmer_control_env(
     substeps.  ``method="fused"`` runs the fused macro (on CUDA, kernel K6)
     with the env epilogue fused in by default; ``"rk4"`` steps
     :class:`~pde_opt_tpu_torch.ops.steppers.RK4` through the equation.
+    The observation is the full field: ``obs_downsample`` takes 1 only, as
+    the fused BV epilogue does.
     """
+    if obs_downsample != 1:
+        raise ValueError(
+            f"obs_downsample={obs_downsample}: the fused BV epilogue emits the full-size "
+            "observation only (obs_downsample=1)"
+        )
     device = resolve_device(device)
     solver_type = _bv_solver(method, FusedButlerVolmer)
     domain = gridmod.Domain((grid_size, grid_size), ((-0.5, 0.5), (-0.5, 0.5)),

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.metrics import named_scope
 from . import stencils as st
 from .cas_spectral import (
     CasConstants,
@@ -270,9 +271,10 @@ def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants,
     Launches ``csrc/bv_cc_macro.cu`` on the current stream and counts the
     launch (``bv_cc_macro_ep`` with an epilogue, ``bv_cc_macro``
     without).  H and W up to :data:`MAX_GRID_TILED`: above 64² the tiled
-    kernel runs, with a scratch of five H x W planes for each resident
-    block, allocated here (with bf16 matrices it reads ``consts``' bf16
-    copies).  Raises on anything the kernel does not take.
+    kernel runs (also counted as ``bv_cc_macro.tiled``), with a scratch of
+    five H x W planes for each resident block, allocated here (with bf16
+    matrices it reads ``consts``' bf16 copies).  Raises on anything the
+    kernel does not take.
     """
     coeffs = check_bv_coefficients(mu_fn, j0_fn)
     B, H, W = _check_grid(u)
@@ -306,6 +308,8 @@ def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants,
         )
     if rc != 0:
         raise RuntimeError(f"bv_cc_macro launch failed: {lib.bv_cc_error_string(rc).decode()}")
+    if scratch is not None:
+        count_launch("bv_cc_macro.tiled")
     if epilogue is None:
         count_launch("bv_cc_macro")
         return out
@@ -337,9 +341,10 @@ def make_bv_cc_fused_macro(
     ``clip(u*scale + offset)``.  CPU tensors run :func:`bv_cc_macro_plain`,
     CUDA tensors kernel K6, where ``mu_fn`` must be a :class:`LogRatioMu` and
     ``j0_fn`` a :class:`SqrtJ0`.  Gradients with respect to ``u`` and
-    ``crate`` come from the checkpointed :func:`bv_cc_reference`.  H and W
-    are multiples of 8; on CUDA tensors up to :data:`MAX_GRID_TILED` (above
-    64² kernel K6 runs its tiled form).  The JAX macro's
+    ``crate`` come from the checkpointed :func:`bv_cc_reference`.  Each call
+    is one span ``bv_cas.macro`` (``utils/metrics.py``), its work envs x
+    ``n_steps`` substeps.  H and W are multiples of 8; on CUDA tensors up to
+    :data:`MAX_GRID_TILED` (above 64² kernel K6 runs its tiled form).  The JAX macro's
     ``block_envs``/``interpret`` (TPU tiling) have no counterpart.
     """
     if H % 8 or W % 8:
@@ -366,10 +371,11 @@ def make_bv_cc_fused_macro(
         def run(u, c):
             return impl(u, c, consts, epilogue=ep, **kw)
 
+        with named_scope("bv_cas.macro", x.shape[0] * kw["n_steps"]):
+            out = _OracleMacro.apply(x, cf, run, oracle, fold)
         if ep is None:
-            u1 = _OracleMacro.apply(x, cf, run, oracle, None)
-            return u1.to(state.dtype).reshape(*batch, H, W)
-        u1, stats, obs = _OracleMacro.apply(x, cf, run, oracle, fold)
+            return out.to(state.dtype).reshape(*batch, H, W)
+        u1, stats, obs = out
         return (u1.to(state.dtype).reshape(*batch, H, W), stats.reshape(*batch, 3),
                 obs.reshape(*batch, H, W))
 

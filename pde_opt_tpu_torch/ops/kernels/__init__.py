@@ -53,6 +53,8 @@ _LAUNCHES: Dict[str, int] = {
     "ac_cas_macro": 0, "ac_cas_macro_ep": 0,
     "gpe_strang_macro": 0, "gpe_strang_macro_ep": 0,
     "bv_cc_macro": 0, "bv_cc_macro_ep": 0,
+    # Of the two above, the launches that ran the tiled kernel (above 64^2).
+    "bv_cc_macro.tiled": 0,
     "sbm_bv_macro": 0, "sbm_bv_macro_ep": 0,
     "ch_rhs_fd": 0, "ch3d_rhs_fd": 0,
     "ch_sif_macro": 0, "ac_sif_macro": 0,

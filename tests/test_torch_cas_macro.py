@@ -442,3 +442,23 @@ def test_onchip_counter_counts_each_128_step(cuda_device):
     after = kernels.launch_counts()
     assert after["ch_cas_macro"] == before["ch_cas_macro"] + 1
     assert after["ch_cas_macro.onchip"] == before["ch_cas_macro.onchip"]
+
+
+@pytest.mark.cuda
+def test_bv_tiled_counter_counts_each_128_step(cuda_device):
+    """``bv_cc_macro.tiled`` counts one launch a step of the BV fleet at 128²
+    (K6's tiled kernel) and none at 64² (``bv_cc_macro_ep`` counts every
+    step)."""
+    from pde_opt_tpu_torch.envs.presets import make_butler_volmer_control_env
+
+    for H, want in ((64, 0), (128, 1)):
+        env = make_butler_volmer_control_env(num_envs=8, grid_size=H, device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(H)
+        state, _ = env.reset(gen)
+        for _ in range(2):
+            before = kernels.launch_counts()
+            env.step(state, env.sample_actions(gen))
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            assert after["bv_cc_macro_ep"] == before["bv_cc_macro_ep"] + 1, H
+            assert after["bv_cc_macro.tiled"] == before["bv_cc_macro.tiled"] + want, H

@@ -161,3 +161,46 @@ def test_ring_drops_the_oldest_and_counts_them(monkeypatch):
     assert all(s[3] == 0 for s in spans[1:]) and spans[0][3] == -1
     metrics.clear_spans()
     assert metrics.spans() == {"spans": [], "dropped": 0}
+
+
+def _bv_rollout(**kw):
+    """``STEPS`` steps of a BV charging fleet of ``B`` envs of ``N``^2, two
+    RK4 substeps a step."""
+    from pde_opt_tpu_torch.envs.presets import make_butler_volmer_control_env
+
+    env = make_butler_volmer_control_env(num_envs=B, grid_size=N, substeps=2, device="cpu",
+                                         **kw)
+    state, _ = env.reset(torch.Generator().manual_seed(0))
+    run = env.make_rollout(lambda obs, g: env.sample_actions(g), STEPS)
+    return run(state, torch.Generator().manual_seed(1))
+
+
+@pytest.mark.parametrize("epilogue", [True, False], ids=["epilogue", "no_epilogue"])
+def test_bv_macro_span_once_a_step(epilogue):
+    """The BV macro's call is one span ``bv_cas.macro`` a fleet step, its
+    work envs x substeps, inside the step's stepper span (with the fused
+    epilogue and without)."""
+    metrics.record_spans(True)
+    _bv_rollout(fused_epilogue=epilogue)
+    spans = metrics.spans()["spans"]
+    macro = [s for s in spans if s[0] == "bv_cas.macro"]
+    assert len(macro) == STEPS
+    for name, start, end, parent, n in macro:
+        assert n == B * 2 and start <= end
+        assert spans[parent][0] == "vector_env.stepper"
+        assert spans[parent][1] <= start and end <= spans[parent][2]
+
+
+def test_bv_macro_span_off_without_a_profiler():
+    _bv_rollout()
+    assert metrics.spans() == {"spans": [], "dropped": 0}
+
+
+def test_bv_macro_span_is_a_profiler_range():
+    """Under a profiler session the span also opens a range of its name,
+    which the benchmark's ``bv_macro_roofline`` reads the macro's device time
+    by."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _bv_rollout()
+    names = [e.name for e in prof.events()]
+    assert names.count("bv_cas.macro") == STEPS
