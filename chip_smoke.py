@@ -104,7 +104,8 @@ caught):
 4. Reset the launch counts, then drive the CH serving path: a 120-step
    random-policy rollout of the fused-epilogue fleet (K1), which crosses
    the episode end and its auto-reset, and 10 steps of the same fleet
-   without the fused epilogue (K2).  Check the rewards, the launch counts,
+   without the fused epilogue (K2).  Check the rewards, the launch counts
+   (and one fleet-reset pass a fused step, none without the epilogue),
    the per-env mass drift and the epilogue reward against the env's own
    reward function; poison one env with NaN and check it is flagged and
    reset.
@@ -112,7 +113,8 @@ caught):
    the GPE fleet (K5: likewise; the per-env norm must stay 1), the BV
    fleet (K6) and the SBM fleet (K7; 40-step episodes, so every env resets
    twice), each with its launch counts reset just before and read just
-   after.  For BV and SBM one more zero-action step must charge each env
+   after (the fleet-reset pass once a fused BV step, never in the others).
+   For BV and SBM one more zero-action step must charge each env
    that did not reset at its own C-rate: d(sum psi c cell)/dt = Crate
    (psi = 1 for BV).  Value and gradient of sum(macro(u, crate)^2) with
    respect to crate, kernel forward and oracle backward on the card, must
@@ -149,7 +151,13 @@ caught):
    rollouts' env-steps/s, the GPE fleet's fused against its FFT path and
    the BV and SBM fleets' fused against their RK4 paths, K9a against K2 and
    K9b against K4 at the same shapes, the dft fleets against the K1 and K4
-   fleets, and the dft value+grad against the cas one.  Each kernel's
+   fleets, and the dft value+grad against the cas one.  The fleet-reset
+   pass at the three cells' fleets (CH 4096 x 64^2 and 4096 x 128^2, BV
+   2048 x 64^2) against the torch auto-reset and the step's in-place
+   copies, from the same card tensors and draw, with no env, every third
+   env and every env ended, an env gone NaN and a carried NaN pixel: the
+   state, the next observation and the untouched step observation bit for
+   bit; then timed alone against that twin fed the same draw.  Each kernel's
    bound (the least time the card could take: operations over the peak for
    their type, or bytes over the memory rate, whichever is larger) is
    computed from this run's shapes.
@@ -174,7 +182,7 @@ caught):
    must stay in its env, at phase 3's bounds; one bf16 substep at the
    rounding sites.  Then the three paths, each with its launch counts reset
    just before and read just after, under sync debug mode "error": the
-   128^2 fleet (30 steps, K1 only), the 256^2 macro (20 chained calls, K2
+   128^2 fleet (30 steps, K1 and the fleet-reset pass only), the 256^2 macro (20 chained calls, K2
    only, per-env mass held) and the NN-control value+grad (K2 and K3 once a
    call; with f32 matrices also against the CPU on a few envs).  Their
    rates, and the tiled kernels' times beside their plain versions' and
@@ -304,8 +312,12 @@ SOURCES = {"ch_cas_macro": "pde_opt_tpu_torch/csrc/ch_cas_macro.cu",
            "sbm_bv_macro": "pde_opt_tpu_torch/csrc/sbm_bv_macro.cu",
            "ch_rhs_fd": "pde_opt_tpu_torch/csrc/ch_rhs_fd.cu",
            "ch_sif_macro": "pde_opt_tpu_torch/csrc/ch_sif_macro.cu",
-           "ac_sif_macro": "pde_opt_tpu_torch/csrc/ac_sif_macro.cu"}
-# kernel (launch-count name) -> (library, the TPU kernel it replaces)
+           "ac_sif_macro": "pde_opt_tpu_torch/csrc/ac_sif_macro.cu",
+           "fleet_reset": "pde_opt_tpu_torch/csrc/fleet_reset.cu"}
+# The env fleet's auto-reset pass: its launch count's key.
+FLEET_RESET = "vector_env.fleet_reset"
+# kernel (launch-count name) -> (library, the TPU kernel it replaces; None
+# where XLA fused the work inside the JAX step and no TPU kernel was written)
 KERNELS = {
     "ch_cas_macro_ep": ("ch_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:630"),
     "ch_cas_macro": ("ch_cas_macro", "pde_opt_tpu/ops/cas_spectral.py:392"),
@@ -322,6 +334,7 @@ KERNELS = {
     "ch3d_rhs_fd": ("ch_rhs_fd", "pde_opt_tpu/ops/fused.py:264"),
     "ch_sif_macro": ("ch_sif_macro", "pde_opt_tpu/ops/fused_spectral.py:340"),
     "ac_sif_macro": ("ac_sif_macro", "pde_opt_tpu/ops/fused_spectral.py:546"),
+    FLEET_RESET: ("fleet_reset", None),
 }
 # Of the K1/K2 launches above, those that ran the on-chip kernel (bf16, up
 # to 128^2): counted again under this key.  Every key with a "." is such a
@@ -860,8 +873,20 @@ def _bounds():
         "ac_sif_macro": _bound_ops(n * _dft_ops(H, W) * AC_ENVS, "bf16",
                                    (29 * px + 11 * H * (W // 2 + 1)) * n * AC_ENVS,
                                    field(AC_ENVS) + AC_ENVS * 4 + sif_b + H * (W // 2 + 1) * 4),
+        # The fleet-reset pass at the CH fleet's shape, no env ended (99 of
+        # 100 steps): bytes only.
+        FLEET_RESET: _bound_ops(0, "f32", 0, _fleet_reset_bytes(NUM_ENVS, px, 0)),
     }
     return out
+
+
+def _fleet_reset_bytes(B, px, ended):
+    """The fleet-reset pass's bytes with ``ended`` of ``B`` envs ended, each
+    read or written once: a pixel's f32 field in (the stepped field, or the
+    draw where the env ended) and out, its uint8 observation out and, for
+    an env that goes on, in; an env's flag, the step's control, clock and
+    count in, and the state's four out."""
+    return B * px * 9 + (B - ended) * px + B * (1 + 12 + 12 + 1)
 
 
 def _bv_inputs(torch, dev, gen, B, H=GRID, W=GRID):
@@ -1515,7 +1540,8 @@ def _episode_ends(torch, terms, end_step):
     return early, int(terms.sum()), terms.shape[0] - 1 - last
 
 
-def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=False):
+def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=False,
+                 fleet_resets=False):
     """One fleet's serving path: with the launch counts reset just before, a
     STEPS-step random-policy rollout of ``env`` (fused epilogue) that crosses
     the episode end and its auto-reset, then FLEET_STEPS_NO_EP steps of
@@ -1524,8 +1550,9 @@ def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=
     epilogue reward against the env's own reward function, and a poisoned
     env.  With ``may_diverge`` an env may also end its episode early by
     diverging (the SBM fleet under a random policy overfills its particle,
-    in the JAX package too): the number is reported.  Returns (final state,
-    launch counts, env-steps/s)."""
+    in the JAX package too): the number is reported.  With ``fleet_resets``
+    the fused fleet auto-resets in the fleet-reset pass, one launch a step,
+    else none runs.  Returns (final state, launch counts, env-steps/s)."""
 
     def policy(obs, g):
         return env.sample_actions(g)
@@ -1556,6 +1583,8 @@ def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=
     print(f"{name} path: {STEPS}-step rollout of {B} envs x {N}^2 x {SUBSTEPS} substeps "
           f"(+{FLEET_STEPS_NO_EP} without the epilogue); episode end at step {end_step}; "
           f"launches {counts}", flush=True)
+    _check(counts[FLEET_RESET] == (STEPS if fleet_resets else 0),
+           f"{name}: {counts[FLEET_RESET]} fleet-reset launches in {STEPS} fused steps")
     _check(rewards.shape == (STEPS, B), "rewards shape")
     _check(bool(torch.isfinite(rewards).all()), "non-finite rewards")
     _check(bool(torch.isfinite(rew0).all()), "non-finite rewards without the epilogue")
@@ -1585,6 +1614,99 @@ def _drive_fleet(torch, kernels, env, env0, gen, name, reward_rtol, may_diverge=
     _check(obs.shape == (B, 1, N, N) and obs.dtype == torch.uint8, "obs")
     print(f"{name}: poisoned env 7 flagged diverged, reward 0, reset", flush=True)
     return state, counts, B * STEPS / t_roll
+
+
+def _check_fleet_reset(torch, kernels, fleets, card):
+    """The fleet-reset pass against its plain-torch twin on the card, at
+    each ``(name, env)`` fleet's shape.  From one set of card tensors (a
+    stepped field with an env gone NaN and a carried NaN pixel, random
+    observations, controls, clocks and counts) and one draw: the env's
+    ``_auto_reset`` (the draw and the pass) against ``_torch_auto_reset``
+    and the step's ``copy_`` into the state, with no env, every third env
+    and every env ended; the state, the next observation and the step's
+    observation, which must stay as it was, bit for bit from sentinel
+    states.  Then the pass alone against that twin fed the same draw, no
+    env and every env ended, timed in turns beside the pass's byte floor.
+    Returns (largest |field difference|, {(name, ended): (pass ms, plain
+    ms)})."""
+    from types import SimpleNamespace
+
+    from pde_opt_tpu_torch.envs.vector_env import EnvState, _normal_draw, _torch_auto_reset
+    from pde_opt_tpu_torch.ops.fleet_reset import fleet_reset
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def sentinel(state):
+        return EnvState(torch.full_like(state.y, -7.0), torch.full_like(state.t, -1.0),
+                        torch.full_like(state.control_value, -1.0),
+                        torch.full_like(state.step_count, -5),
+                        torch.ones_like(state.done))
+
+    err, times = 0.0, {}
+    for name, env in fleets:
+        dev = env.device
+        gen = torch.Generator(device=dev).manual_seed(26)
+        state, obs0 = env.reset(gen)
+        B, px = state.y.shape[0], state.y[0].numel()
+        y1 = state.y + 0.2 * torch.randn(state.y.shape, generator=gen, device=dev)
+        y1[0] = float("nan")                       # ends where any env ends
+        y1[1, 2, 3] = float("nan")                 # carried: env 1 never ends here
+        obs = torch.randint(0, 256, obs0.shape, generator=gen, device=dev, dtype=torch.uint8)
+        obs_in = obs.clone()
+        cv1, t1 = torch.rand((B,), generator=gen, device=dev), torch.rand((B,), generator=gen,
+                                                                           device=dev)
+        steps1 = torch.randint(1, 100, (B,), generator=gen, device=dev, dtype=torch.int32)
+        envs = torch.arange(B, device=dev)
+        cases = {"none": envs < 0, "some": envs % 3 == 0, "all": envs >= 0}
+        kernels.reset_launch_counts()
+        for i, (label, ended) in enumerate(cases.items()):
+            got, want = sentinel(state), sentinel(state)
+            env.set_generator(torch.Generator(device=dev).manual_seed(100 + i))
+            nxt, got_obs = env._auto_reset(got, ended, y1, cv1, t1, steps1, obs)
+            env.set_generator(torch.Generator(device=dev).manual_seed(100 + i))
+            twin, want_obs = _torch_auto_reset(env, want, ended, y1, cv1, t1, steps1, obs)
+            for dst, src in zip(want, twin):
+                dst.copy_(src)
+            same = {f: torch.equal(bits(a), bits(b))
+                    for f, a, b in zip(EnvState._fields, got, want)}
+            same.update(obs_next=torch.equal(got_obs, want_obs), obs=torch.equal(obs, obs_in))
+            _check(nxt is None and all(same.values()),
+                   f"fleet-reset pass vs torch, {name}, {label} ended: {same}")
+            err = max(err, torch.nan_to_num((got.y - want.y).abs(), nan=0.0).max().item())
+        counts = kernels.launch_counts()
+        _check(counts[FLEET_RESET] == len(cases), f"{name}: the pass did not run: {counts}")
+        print(f"check fleet-reset pass vs torch auto-reset + copy_, {name} ({B} envs x {px} px): "
+              f"no env, every third, every env ended, a NaN env and a carried NaN pixel: state, "
+              f"next obs and obs bit for bit", flush=True)
+
+        z = _normal_draw(env.domain, gen, B, torch.float32)
+        mean, noise, lo, hi = env.reset_func.affine
+        fixed = SimpleNamespace(reset_func=lambda d, g, n: torch.clamp(mean + noise * z, lo, hi),
+                                domain=env.domain, _generator=None, _reset_cv=env._reset_cv,
+                                state_to_observation_func=env.state_to_observation_func)
+        got, want = sentinel(state), sentinel(state)
+
+        def plain(ended):
+            nxt, _ = _torch_auto_reset(fixed, want, ended, y1, cv1, t1, steps1, obs)
+            for dst, src in zip(want, nxt):
+                dst.copy_(src)
+
+        def kernel(ended):
+            fleet_reset(got, ended, y1, z, obs, cv1, t1, steps1, env.reset_func.affine,
+                        env._reset_cv_value, env.fused_epilogue["obs_scale"])
+
+        draw = _time_ms(torch, lambda: _normal_draw(env.domain, gen, B, torch.float32))
+        for label in ("none", "all"):
+            ended, key = cases[label], f"{FLEET_RESET} {name}, {label} ended"
+            _time_pair(torch, times, key, lambda: plain(ended), lambda: kernel(ended),
+                       f"{B} envs x {px} px", card)
+            floor = _fleet_reset_bytes(B, px, B if label == "all" else 0) / PEAK_BYTES * 1e3
+            ms, plain_ms = times[(name, label)] = times.pop(key)
+            print(f"fleet-reset pass {name}, {label} ended: {ms:.4f} ms against its byte floor "
+                  f"{floor:.4f} ms ({floor / ms:.1%}); plain twin {plain_ms:.4f} ms; the draw "
+                  f"beside it {draw:.4f} ms [{card}]", flush=True)
+    return err, times
 
 
 def _fleet_rate(torch, env, gen, n):
@@ -2206,14 +2328,15 @@ def _timed(torch, n, fn):
 
 
 def _total(counts):
-    """Every launch once: a sub-count (``ONCHIP``, ``bv_cc_macro.tiled``)
-    counts again launches that its kernel's own keys count."""
+    """Every macro launch once: a sub-count (``ONCHIP``, ``bv_cc_macro.tiled``)
+    counts again launches that its kernel's own keys count, and the fleet's
+    auto-reset pass (``vector_env.fleet_reset``) is no macro."""
     return sum(v for k, v in counts.items() if "." not in k)
 
 
 def _only_k1(counts, n, what):
-    """K1 launched ``n`` times and no other kernel."""
-    others = {k: v for k, v in counts.items() if k not in ("ch_cas_macro_ep", ONCHIP) and v}
+    """K1 launched ``n`` times and no other macro."""
+    others = {k: v for k, v in counts.items() if "." not in k and k != "ch_cas_macro_ep" and v}
     _check(counts["ch_cas_macro_ep"] == n and not others,
            f"{what}: launches {counts}, expected {n} of K1 and nothing else")
 
@@ -2630,7 +2753,8 @@ def _drive_big(torch, kernels, dev, gen, card):
     t_fleet = time.perf_counter() - t0
     fleet_counts = kernels.launch_counts()
     _check(fleet_counts["ch_cas_macro_ep"] == FLEET128_STEPS == fleet_counts[ONCHIP]
-           and _total(fleet_counts) == FLEET128_STEPS, f"128^2 fleet launches {fleet_counts}")
+           == fleet_counts[FLEET_RESET] and _total(fleet_counts) == FLEET128_STEPS,
+           f"128^2 fleet launches {fleet_counts}")
     _check(rew.shape == (FLEET128_STEPS, FLEET128_ENVS) and bool(torch.isfinite(rew).all())
            and bool(torch.isfinite(state.y).all()), "128^2 fleet: non-finite rewards or field")
     fleet_rate = FLEET128_ENVS * FLEET128_STEPS / t_fleet
@@ -3868,7 +3992,8 @@ def _drive_bv_sbm_big(torch, kernels, dev, gen, card):
         env0 = make(num_envs=B, grid_size=G, substeps=SUBSTEPS, fused_epilogue=False, device=dev)
         _check(abs(float(env.domain.dx[0]) - 1.0 / G) < 1e-12, f"{name}: h is not 1/{G}")
         _, counts, rate = _drive_fleet(torch, kernels, env, env0, gen, name, 1e-4,
-                                       may_diverge=diverge)
+                                       may_diverge=diverge,
+                                       fleet_resets=kernel == "bv_cc_macro")
         _check(counts[f"{kernel}_ep"] == STEPS and counts[kernel] == FLEET_STEPS_NO_EP
                and _total(counts) == STEPS + FLEET_STEPS_NO_EP, f"{name} launches {counts}")
         print(f"{name}: {kernel} alone launched, once a step, no host sync: {counts}", flush=True)
@@ -4706,6 +4831,10 @@ def _so_fleet(torch, kernels, mesh, make, name, kernel, steps, seed, card):
     sw, rw, ow, tw, _ = _so_run(torch, whole, sw, actions)
     want = {n: 0 for n in counts}
     want[kernel] = steps
+    # The rank's step is VectorPDEEnv.step: a fleet with a declared reset and
+    # the fused epilogue auto-resets in one pass a step.
+    want[FLEET_RESET] = steps * (hasattr(whole.reset_func, "affine")
+                                 and whole.fused_epilogue is not None)
     _check(counts == want, f"sharded {name}: launches {counts}, expected {want}")
     same = {"reset obs": torch.equal(obs_s0, obs_w0), "fields": torch.equal(ss.y, sw.y),
             "rewards": torch.equal(rs, rw), "obs": torch.equal(os_, ow),
@@ -4943,6 +5072,7 @@ def _main(shape_ref):
         make_gpe_control_env,
         make_sbm_butler_volmer_control_env,
     )
+    from pde_opt_tpu_torch.envs.vector_env import EnvState
     from pde_opt_tpu_torch.ops import kernels
     from pde_opt_tpu_torch.ops.cas_spectral import (
         Epilogue,
@@ -4968,7 +5098,7 @@ def _main(shape_ref):
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load_libraries(*SOURCES)
-    print(f"build: {', '.join(SOURCES.values())} (K1-K9), in parallel, in "
+    print(f"build: {', '.join(SOURCES.values())} (K1-K9, the fleet-reset pass), in parallel, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for lib in SOURCES:
         for line in kernels.build_log(lib).splitlines():
@@ -5197,6 +5327,7 @@ def _main(shape_ref):
     _check(k1_launches == STEPS, f"K1 launches {k1_launches} != {STEPS}")
     _check(counts["ch_cas_macro_ep"] == STEPS, f"K1 launches {counts}")
     _check(counts["ch_cas_macro"] == K2_STEPS, f"K2 launches {counts}")
+    _check(counts[FLEET_RESET] == STEPS, f"fleet-reset launches {counts}: one a fused step")
     _check(bool(terms[end_step - 1].all()), "every env must end its episode at the end step")
     kept = ~term_a.any(dim=0)
     _check(int(kept.sum()) > 0, "no env ran to the episode end")
@@ -5268,7 +5399,8 @@ def _main(shape_ref):
     sbm_kw_macro = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=BV_DT, n_steps=SUBSTEPS)
     bv_env = make_butler_volmer_control_env(**bv_kw)
     bv_env0 = make_butler_volmer_control_env(fused_epilogue=False, **bv_kw)
-    bv_state, bv_counts, bv_rate = _drive_fleet(torch, kernels, bv_env, bv_env0, gen, "BV", 1e-4)
+    bv_state, bv_counts, bv_rate = _drive_fleet(torch, kernels, bv_env, bv_env0, gen, "BV", 1e-4,
+                                                fleet_resets=True)
     _check(bv_counts["bv_cc_macro_ep"] == STEPS
            and bv_counts["bv_cc_macro"] == FLEET_STEPS_NO_EP, f"BV launches {bv_counts}")
     _check_late(torch, bv_env, bv_state, "bv_cc_macro mats=bf16",
@@ -5539,17 +5671,31 @@ def _main(shape_ref):
           f"{rates['fused']:.1f} grad-env-substeps/s, {dft_rate / rates['fused']:.2f}x [{card}]",
           flush=True)
 
+    # The auto-reset with its state write-back, into a copy of the state.
+    into = EnvState(*(t.clone() for t in state))
     y1 = state.y.clone()
     cv1 = state.control_value.clone()
+    t1, steps1 = state.t + env.step_dt, state.step_count + 1
     obs1 = env.state_to_observation_func(y1)
     none = torch.zeros((NUM_ENVS,), dtype=torch.bool, device=dev)
-    reset_ms = _time_ms(torch, lambda: env._auto_reset(none, y1, cv1, obs1))
+    reset_ms = _time_ms(torch, lambda: env._auto_reset(into, none, y1, cv1, t1, steps1, obs1))
     step_ms = (t_a + t_b) / STEPS * 1e3
     rate = NUM_ENVS * STEPS / (t_a + t_b)
-    print(f"time auto-reset block (fleet-wide draw + selects): {reset_ms:.4f} ms per step, "
-          f"{reset_ms / step_ms:.3%} of a {step_ms:.4f} ms env step [{card}]", flush=True)
+    print(f"time auto-reset block (fleet-wide draw + the fleet-reset pass): {reset_ms:.4f} ms "
+          f"per step, {reset_ms / step_ms:.3%} of a {step_ms:.4f} ms env step [{card}]",
+          flush=True)
     print(f"rollout: {rate:.1f} env-steps/s ({STEPS} steps in {t_a + t_b:.4f} s, "
           f"{NUM_ENVS} envs x {GRID}^2 x {SUBSTEPS} substeps) [{card}]", flush=True)
+    # The fleet-reset pass at the three cells' fleets (CH 64^2 and 128^2, BV).
+    ch128 = make_cahn_hilliard_control_env(num_envs=NUM_ENVS, grid_size=FLEET128_GRID,
+                                           substeps=SUBSTEPS, spectral_solve="fused", device=dev)
+    fr_fleets = ((f"CH {NUM_ENVS}x{GRID}^2", env),
+                 (f"CH {NUM_ENVS}x{FLEET128_GRID}^2", ch128),
+                 (f"BV {BV_ENVS}x{GRID}^2", bv_env))
+    max_err[FLEET_RESET], fr_times = _check_fleet_reset(torch, kernels, fr_fleets, card)
+    timings[FLEET_RESET] = fr_times[(fr_fleets[0][0], "none")]
+    del ch128, fr_fleets
+    torch.cuda.empty_cache()
     print(f"AC rollout: {ac_rate:.1f} env-steps/s ({STEPS} steps, {AC_ENVS} envs x {GRID}^2 x "
           f"{SUBSTEPS} substeps, fused epilogue) [{card}]", flush=True)
     print(f"GPE rollout: {gpe_rate:.1f} env-steps/s ({STEPS} steps, {GPE_ENVS} envs x {GRID}^2 "

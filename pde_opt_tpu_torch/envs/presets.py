@@ -36,7 +36,7 @@ from ..ops.steppers import (
 )
 from ..utils.device import resolve_device
 from ..utils.rl import vortex_winding
-from .vector_env import VectorPDEEnv
+from .vector_env import VectorPDEEnv, affine_normal_reset
 
 __all__ = [
     "make_cahn_hilliard_control_env",
@@ -66,6 +66,12 @@ AC_R = PolynomialMu((1.0,))
 # kernels read.
 BV_MU = LogRatioMu(omega=3.0, clip=1e-4)
 BV_J0 = SqrtJ0(floor=1e-6)
+# The CH and BV presets' resets, (mean, noise, lo, hi): each env
+# clamp(mean + noise N(0, 1), lo, hi) (vector_env.affine_normal_reset).  The
+# CH fleet starts near the 0.5 operating point; each BV (and SBM) particle
+# lightly filled.
+CH_RESET = (0.5, 0.01, 0.0, 1.0)
+BV_RESET = (0.05, 0.005, 0.01, 0.99)
 
 
 def make_cahn_hilliard_control_env(
@@ -157,11 +163,6 @@ def make_cahn_hilliard_control_env(
             "obs_transform": lambda o: o[..., None, :, :],
         }
 
-    def reset_func(domain, generator, n):
-        noise = torch.randn((n, *domain.points), generator=generator,
-                            dtype=dtype, device=generator.device)
-        return torch.clamp(0.5 + 0.01 * noise, 0.0, 1.0)
-
     return VectorPDEEnv(
         equation_type=CahnHilliard2DPeriodic,
         domain=domain,
@@ -171,7 +172,7 @@ def make_cahn_hilliard_control_env(
         numeric_dt=step_dt / substeps,
         state_to_observation_func=observe,
         reward_function=lambda y: -y.var(dim=(-2, -1), correction=0),
-        reset_func=reset_func,
+        reset_func=affine_normal_reset(CH_RESET, dtype),
         # κ range inside the stable region of the SIF stepper at
         # numeric_dt = step_dt/substeps (κ below ~2e-3 at dt=1e-3 on a
         # dx=0.01 grid blows up).
@@ -519,13 +520,14 @@ def _bv_solver(method: str, fused):
     raise ValueError(f"unknown method: {method!r}")
 
 
-def _bv_reset_func(dtype):
-    """Each env a lightly filled particle: clip(0.05 + 0.005 N(0, 1), 0.01, 0.99)."""
+def _sbm_reset_func(dtype):
+    """BV's reset as a plain function, without ``affine``: the SBM fleet
+    observes the psi-masked field, which the fleet-reset pass does not
+    write, so its auto-reset stays on the torch path."""
+    bv_reset = affine_normal_reset(BV_RESET, dtype)
 
     def reset_func(domain_, generator, n):
-        noise = torch.randn((n, *domain_.points), generator=generator, dtype=dtype,
-                            device=generator.device)
-        return torch.clamp(0.05 + 0.005 * noise, 0.01, 0.99)
+        return bv_reset(domain_, generator, n)
 
     return reset_func
 
@@ -604,7 +606,7 @@ def make_butler_volmer_control_env(
             y * 255.0, 0, 255).to(torch.uint8)[..., None, :, :],
         reward_function=lambda y: (y.mean(dim=(-2, -1))
                                    - 10.0 * y.var(dim=(-2, -1), correction=0)),
-        reset_func=_bv_reset_func(dtype),
+        reset_func=affine_normal_reset(BV_RESET, dtype),
         static_equation_parameters={"kappa": kappa, "mu": BV_MU, "j0": BV_J0, "alpha": 0.5},
         num_envs=num_envs,
         auto_reset=auto_reset,
@@ -713,7 +715,7 @@ def make_sbm_butler_volmer_control_env(
         state_to_observation_func=lambda y: torch.clamp(
             y * psi * 255.0, 0, 255).to(torch.uint8)[..., None, :, :],
         reward_function=lambda y: psi_mean(y) - 10.0 * psi_var(y),
-        reset_func=_bv_reset_func(dtype),
+        reset_func=_sbm_reset_func(dtype),
         static_equation_parameters={
             "kappa": kappa,
             "f": lambda c: 3.0 * c * (1.0 - c),

@@ -32,7 +32,12 @@ Differences from the JAX env, each forced by eager PyTorch:
 * Auto-reset is branch-free: every step draws a fleet-wide reset field and
   selects it with ``torch.where`` for the envs that terminated.  The JAX
   ``lax.cond(terminated.any())`` would need a device-to-host sync per step
-  in eager PyTorch; per-env results are the same either way.
+  in eager PyTorch; per-env results are the same either way.  Where the
+  fleet's ``reset_func`` is an :func:`affine_normal_reset` and the fused
+  epilogue observes at full size, one kernel pass on the card
+  (:func:`~pde_opt_tpu_torch.ops.fleet_reset.fleet_reset`) does the
+  selects and writes the next state in place, bit for bit as the torch
+  selects do.
 * A run resumes its auto-reset stream from a checkpoint of
   ``generator.get_state()``: :meth:`VectorPDEEnv.set_generator` hands the
   env a generator without drawing a fleet (the JAX state carries its keys).
@@ -46,12 +51,14 @@ import numpy as np
 import torch
 
 from .. import grid as domains
+from ..ops.fleet_reset import fleet_reset, fleet_reset_refusal
 from ..ops.integrate import evolve
 from ..utils.compat import check_equation_solver_compatibility, prepare_solver_params
 from ..utils.device import resolve_device
 from ..utils.metrics import named_scope
 
-__all__ = ["EnvState", "VectorPDEEnv", "env_state_from_numpy", "env_state_to_numpy"]
+__all__ = ["EnvState", "VectorPDEEnv", "affine_normal_reset", "env_state_from_numpy",
+           "env_state_to_numpy"]
 
 
 def _equation_and_solver(env, old_cv, new_cv):
@@ -115,6 +122,44 @@ def _per_env(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _add_channel(obs: torch.Tensor) -> torch.Tensor:
     return obs[..., None, :, :]
+
+
+def _normal_draw(domain, generator, n, dtype):
+    """``n`` standard normal fields of the domain's shape from ``generator``."""
+    return torch.randn((n, *domain.points), generator=generator, dtype=dtype,
+                       device=generator.device)
+
+
+def affine_normal_reset(affine, dtype=torch.float32) -> Callable:
+    """A ``reset_func`` that sets each env to ``clamp(mean + noise z, lo,
+    hi)`` of one standard normal field ``z``, ``affine = (mean, noise, lo,
+    hi)``.  The function carries its tuple as ``reset_func.affine``: a fleet
+    with such a reset and the fused epilogue at full size auto-resets in one
+    pass on the card (:meth:`VectorPDEEnv._fleet_reset_refusal`), which
+    observes the reset field as that epilogue observes a stepped one."""
+    mean, noise, lo, hi = affine
+
+    def reset_func(domain, generator, n):
+        return torch.clamp(mean + noise * _normal_draw(domain, generator, n, dtype), lo, hi)
+
+    reset_func.affine = tuple(affine)
+    return reset_func
+
+
+def _torch_auto_reset(env, state, terminated, y1, cv1, t1, steps1, obs):
+    """The auto-reset in plain torch, for any fleet (the fleet-reset pass's
+    twin): draw a fleet-wide reset and select it, its observation, the reset
+    control and a zero clock and step count for the terminated envs.
+    Returns ``((y, t, control_value, step_count, done), obs)`` of the next
+    state; ``state`` is left to the caller to write."""
+    reset_y = env.reset_func(env.domain, env._generator, y1.shape[0])
+    y_next = torch.where(_per_env(terminated, y1), reset_y.to(y1.dtype), y1)
+    cv_next = torch.where(_per_env(terminated, cv1), env._reset_cv.to(cv1.dtype), cv1)
+    obs_reset = env.state_to_observation_func(reset_y)
+    obs_next = torch.where(_per_env(terminated, obs), obs_reset, obs)
+    t_next = torch.where(terminated, torch.zeros_like(t1), t1)
+    steps_next = torch.where(terminated, torch.zeros_like(steps1), steps1)
+    return (y_next, t_next, cv_next, steps_next, torch.zeros_like(terminated)), obs_next
 
 
 class VectorPDEEnv:
@@ -211,8 +256,10 @@ class VectorPDEEnv:
         self.device = resolve_device(device)
         # Built once: a host-to-device copy inside step() would make the
         # host wait for the device every step.
-        self._reset_cv = torch.as_tensor(reset_control_value, dtype=torch.float32,
-                                         device=self.device)
+        reset_cv = torch.as_tensor(reset_control_value, dtype=torch.float32)
+        self._reset_cv = reset_cv.to(self.device)
+        # The fleet-reset pass takes the control as one f32 value.
+        self._reset_cv_value = float(reset_cv) if reset_cv.ndim == 0 else None
         self._generator: Optional[torch.Generator] = None
 
         cfg = dict(action_space_config)
@@ -305,21 +352,39 @@ class VectorPDEEnv:
         self._check_shape(y1, y)
         return y1, new_cv
 
-    def _auto_reset(self, terminated, y1, cv1, obs):
+    def _fleet_reset_refusal(self, state, terminated, y1, cv1, t1, steps1, obs):
+        """Why the auto-reset of this step does not run as the fleet-reset
+        pass, or None where it does: the rule reads only the env's reset
+        function, its fused epilogue and the tensors it holds."""
+        ep = self.fused_epilogue
+        if getattr(self.reset_func, "affine", None) is None:
+            return "the reset is not an affine_normal_reset"
+        if ep is None:
+            return "no fused epilogue"
+        if ep.get("obs_downsample", 1) != 1 or ep.get("obs_offset", 0.0) != 0.0:
+            return "the observation is pooled or offset"
+        if self._reset_cv_value is None:
+            return "the reset control is not one value an env"
+        return fleet_reset_refusal(state, terminated, y1, cv1, t1, steps1, obs)
+
+    def _auto_reset(self, state, terminated, y1, cv1, t1, steps1, obs):
         """Branch-free auto-reset: draw a fleet-wide reset and select it for
-        the terminated envs.  Non-terminated envs keep ``y1``, ``cv1`` and
-        the step's own ``obs`` exactly."""
+        the terminated envs.  Non-terminated envs keep ``y1``, ``cv1``,
+        ``t1``, ``steps1`` and the step's own ``obs`` exactly.
+
+        Returns ``(nxt, obs_next)``: ``nxt`` the next state's tensors in
+        :class:`EnvState` order for :meth:`step` to write, or None where the
+        fleet-reset pass has written them into ``state``."""
         if self._generator is None:
             raise RuntimeError("call reset(generator) before step()")
         B = y1.shape[0]
         with named_scope("vector_env.auto_reset", B):
-            reset_y = self.reset_func(self.domain, self._generator, B)
-            y_next = torch.where(_per_env(terminated, y1), reset_y.to(y1.dtype), y1)
-            cv_next = torch.where(_per_env(terminated, cv1), self._reset_cv.to(cv1.dtype),
-                                  cv1)
-            obs_reset = self.state_to_observation_func(reset_y)
-            obs_next = torch.where(_per_env(terminated, obs), obs_reset, obs)
-        return y_next, cv_next, obs_next
+            if self._fleet_reset_refusal(state, terminated, y1, cv1, t1, steps1, obs) is None:
+                z = _normal_draw(self.domain, self._generator, B, y1.dtype)
+                return None, fleet_reset(state, terminated, y1, z, obs, cv1, t1, steps1,
+                                         self.reset_func.affine, self._reset_cv_value,
+                                         self.fused_epilogue["obs_scale"])
+            return _torch_auto_reset(self, state, terminated, y1, cv1, t1, steps1, obs)
 
     # ------------------------------------------------------------------
     # public API
@@ -407,25 +472,23 @@ class VectorPDEEnv:
             info = {"diverged": diverged}
 
             if self.auto_reset:
-                y_next, cv_next, obs_next = self._auto_reset(terminated, y1, cv1, obs)
-                t_next = torch.where(terminated, torch.zeros_like(t1), t1)
-                steps_next = torch.where(terminated, torch.zeros_like(steps1), steps1)
+                nxt, obs_next = self._auto_reset(state, terminated, y1, cv1, t1, steps1, obs)
                 info = {"final_observation": obs, "diverged": diverged}
                 obs = obs_next
-                done = torch.zeros_like(terminated)
             else:
-                y_next, cv_next, t_next, steps_next, done = y1, cv1, t1, steps1, terminated
+                nxt = (y1, t1, cv1, steps1, terminated)
 
-            # In place, keeping each field's dtype (the JAX step's dtype pin).
+            # In place, keeping each field's dtype (the JAX step's dtype pin),
+            # unless the fleet-reset pass wrote the state already (nxt None).
             # A step that autograd records gets new tensors instead: writing
             # into the state would overwrite what the macro saved for its
             # backward (the state it read).
-            nxt = (y_next, t_next, cv_next, steps_next, done)
-            if torch.is_grad_enabled() and any(t.requires_grad for t in nxt):
-                state = EnvState(*(src.to(dst.dtype) for dst, src in zip(state, nxt)))
-            else:
-                for dst, src in zip(state, nxt):
-                    dst.copy_(src)
+            if nxt is not None:
+                if torch.is_grad_enabled() and any(t.requires_grad for t in nxt):
+                    state = EnvState(*(src.to(dst.dtype) for dst, src in zip(state, nxt)))
+                else:
+                    for dst, src in zip(state, nxt):
+                        dst.copy_(src)
             truncated = torch.zeros_like(terminated)
             return state, obs, reward, terminated, truncated, info
 

@@ -58,6 +58,8 @@ _LAUNCHES: Dict[str, int] = {
     "sbm_bv_macro": 0, "sbm_bv_macro_ep": 0,
     "ch_rhs_fd": 0, "ch3d_rhs_fd": 0,
     "ch_sif_macro": 0, "ac_sif_macro": 0,
+    # The env fleet's auto-reset pass (csrc/fleet_reset.cu), one a fleet step.
+    "vector_env.fleet_reset": 0,
 }
 
 

@@ -49,6 +49,9 @@ struct alignas(16) float4 {
 struct alignas(16) double2 {
   double x, y;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 struct uchar2 {
   unsigned char x, y;
 };
