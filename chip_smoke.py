@@ -359,7 +359,7 @@ TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
 # The tiled K3 at the NN-control path's 4096 x 128^2 sums two 64-term
 # chunks a product on the tensor cores: there the plain backward with its
 # products on the TF32 tensor cores sits 1.6e-2 (dkappa) from plain against
-# 8.7e-3 for the f64 control (H100, scripts/torch_tiled_ab.py), so that check
+# 8.7e-3 for the f64 control (H100, one-off A/B in CHANGES.md), so that check
 # is held to twice the larger of the two controls' distances.
 TOL_BWD = {"f32": (5e-6, 1e-4), "bf16": (1e-5, 1e-2)}
 # AC fleet (the preset: L = 0.01 * grid, step_dt 0.01, A = 1, kappa in
@@ -1207,7 +1207,7 @@ def _bwd_errs(got, want):
 
 
 def _control_transforms(torch, tensor_cores):
-    """``_transforms`` of the cas macros with bf16 matrices, the rounding
+    """``transforms`` of the cas macros with bf16 matrices, the rounding
     sites kept, every product accumulated in f64 and rounded once to f32;
     with ``tensor_cores`` every product on the TF32 tensor cores instead,
     whose operands (bf16 values) TF32 holds exactly, so the products are
@@ -1232,14 +1232,14 @@ def _control_transforms(torch, tensor_cores):
 
 
 def _with_control_transforms(torch, module, tensor_cores, fn, *args, **kw):
-    """``fn(*args, **kw)`` with ``module``'s ``_transforms`` replaced by
+    """``fn(*args, **kw)`` with ``module``'s ``transforms`` replaced by
     :func:`_control_transforms` (TF32 on for the tensor-core control)."""
     from unittest import mock
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tensor_cores
     try:
-        with mock.patch.object(module, "_transforms", _control_transforms(torch, tensor_cores)):
+        with mock.patch.object(module, "transforms", _control_transforms(torch, tensor_cores)):
             return fn(*args, **kw)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -2882,7 +2882,7 @@ def _drive_big(torch, kernels, dev, gen, card):
             # K3 sums 2 x 64 terms a product on the tensor cores: its bf16
             # dkappa strays from plain's as far as a plain backward with
             # tensor-core products does, further than the f64 control
-            # (scripts/torch_tiled_ab.py), so both controls bound it here.
+            # (one-off A/B in CHANGES.md), so both controls bound it here.
             _check_bwd_bf16(torch, line, got, want,
                             _bwd_f64_accumulated(torch, u_nn, knn, g_nn, cnn, kwnn),
                             _bwd_f64_accumulated(torch, u_nn, knn, g_nn, cnn, kwnn, True))
@@ -3131,10 +3131,12 @@ def _check_tiled(torch, dev, gen):
               flush=True)
     # K3 at 256^2 with 50 substeps a call: a slot holds 55 planes (14 MB),
     # one for each resident block; the scratch allocates and the call runs.
-    from pde_opt_tpu_torch.ops.cas_spectral import _alloc_scratch, _library
+    from pde_opt_tpu_torch.ops import cas_spectral
+    from pde_opt_tpu_torch.ops.kernels import alloc_scratch, library
 
     kw = dict(mu_fn=CH_MU, dt=BIG256_DT, A=A, n_steps=50, round_bf16=True)
-    scratch, slots = _alloc_scratch(dev, B, _library, "ch_cas_macro_scratch", 1, 1, H, W, 50)
+    scratch, slots = alloc_scratch(library("ch_cas_macro", cas_spectral._bind_library),
+                                   "ch_cas_macro_scratch", dev, B, 1, 1, H, W, 50)
     nbytes = scratch.numel() * 4
     del scratch
     du, dk = ch_cas_macro_bwd_cuda(ub, kb, torch.ones_like(ub), consts, **kw)
@@ -3829,7 +3831,8 @@ def _check_bv_sbm_big(torch, dev, gen):
     rounding sites.  Returns the largest bf16 K6 and f32 K7 field errors."""
     from pde_opt_tpu_torch.envs.presets import BV_J0, BV_MU
     from pde_opt_tpu_torch.ops import bv_cas, sbm_bv
-    from pde_opt_tpu_torch.ops.cas_spectral import Epilogue, _scratch, cas_constants
+    from pde_opt_tpu_torch.ops.cas_spectral import Epilogue, cas_constants
+    from pde_opt_tpu_torch.ops.kernels import library, scratch_size
 
     B, bad = BVBIG_CHECK_ENVS, BIG_NAN_ENV
     keep = torch.arange(B, device=dev) != bad
@@ -3840,8 +3843,9 @@ def _check_bv_sbm_big(torch, dev, gen):
         n_px, big = H * W, (H, W) == (128, 128)
         for mats, mdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             consts = cas_constants(H, W, 1.0 / H, 1.0 / W, mdt, dev)
-            slots = _scratch(bv_cas._library, "bv_cc_macro_scratch", u.device.index,
-                             int(mats == "bf16"), H, W)[0]
+            slots = scratch_size(library("bv_cc_macro", bv_cas._bind_library),
+                                 "bv_cc_macro_scratch", u.device.index, int(mats == "bf16"), H,
+                                 W)[0]
             _check(B > slots, f"K6 {H}x{W}: {B} envs do not outnumber its {slots} slots")
             kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, kappa=BV_KAPPA, cell=1.0 / n_px, dt=BV_DT,
                       n_steps=SUBSTEPS, round_bf16=mats == "bf16")
@@ -3886,7 +3890,8 @@ def _check_bv_sbm_big(torch, dev, gen):
                                                       **{**one, "round_bf16": False}),
                              TOL_SITE["bv"])
         sconsts = sbm_bv.sbm_bv_constants(_sbm_psi(torch, H, W), BV_KAPPA, 1.0 / H, 1.0 / W, dev)
-        slots = _scratch(sbm_bv._library, "sbm_bv_macro_scratch", u.device.index, H, W)[0]
+        slots = scratch_size(library("sbm_bv_macro", sbm_bv._bind_library),
+                             "sbm_bv_macro_scratch", u.device.index, H, W)[0]
         _check(B > slots, f"K7 {H}x{W}: {B} envs do not outnumber its {slots} slots")
         kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=BV_DT, n_steps=SUBSTEPS)
         for ep in (None, sbm_bv.SbmEpilogue(255.0, CENTER)):

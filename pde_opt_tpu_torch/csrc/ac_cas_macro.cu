@@ -48,6 +48,7 @@
 #include "cas_common.cuh"
 #include "cas_tiled.cuh"
 #include "cas_wgmma.cuh"
+#include "kernel_error.cuh"
 
 namespace {
 
@@ -399,10 +400,6 @@ int ac_cas_macro_launch(const float* u, const float* kappa, const float* ch,
         u, kappa, ch, cw, ich, icw, lam, out, B, H, W, n_steps, dt, a_dt, mu, R, n_r == 0, ep);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* ac_cas_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -36,7 +36,7 @@
 //   64^2, capped at 128 registers (8 B of spills at N = 40), so two blocks
 //   share an SM.  The Laplacian reads the field copy as pairs, swizzled so
 //   that a warp's 8 rows do not share banks.  On an H100 at 4096 x 64^2 x
-//   10 (scripts/torch_k9_variants_ab.py) it takes 0.85 ms; uncapped (143
+//   10 it takes 0.85 ms; uncapped (143
 //   registers, one block an SM) 1.05 ms; reading single floats from an
 //   unswizzled copy (8-way bank conflicts) 1.33 ms.
 // - f32 tables: ac_sif_macro_kernel, f32 FMA on the CUDA cores
@@ -50,6 +50,7 @@
 // (sif_tiled.cuh, as K9a's tiled kernel).  The launch picks the kernel by
 // grid (cas_tiled.cuh's `tiled`); the 64^2 kernels are unchanged.
 
+#include "kernel_error.cuh"
 #include "sif_common.cuh"
 #include "sif_tiled.cuh"
 #include "sif_wgmma.cuh"
@@ -394,10 +395,6 @@ int ac_sif_macro_launch(const float* u, const float* kappa, const float* wr_w,
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
-}
-
-const char* ac_sif_macro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

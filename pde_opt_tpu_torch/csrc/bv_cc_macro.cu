@@ -50,6 +50,7 @@
 #include "cas_common.cuh"
 #include "cas_tiled.cuh"
 #include "cas_wgmma.cuh"
+#include "kernel_error.cuh"
 
 namespace {
 
@@ -395,10 +396,6 @@ int bv_cc_macro_launch(const float* u, const float* crate, const float* ch, cons
         u, crate, ch, cw, ich, icw, lam, out, B, H, W, n_steps, rk, kappa, cell, bv, ep);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* bv_cc_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -59,6 +59,7 @@
 #include "cas_onchip.cuh"
 #include "cas_tiled.cuh"
 #include "cas_wgmma.cuh"
+#include "kernel_error.cuh"
 
 namespace {
 
@@ -1046,10 +1047,6 @@ int ch_cas_macro_bwd_launch(const float* u, const float* kappa, const float* g,
         mu, dmu);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* ch_cas_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

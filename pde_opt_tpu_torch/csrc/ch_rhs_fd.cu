@@ -45,8 +45,7 @@
 //   envs x 64^2, 55 registers leave nine blocks (36 warps) an SM and one run
 //   an env; more rows in flight ran no faster, mu and D evaluated a row at
 //   a time (71 registers) ran slower, and the 3D march's shape run in 2D at
-//   less than half the speed (scripts/torch_k7_k8_ab.py, PERF.md section
-//   6).
+//   less than half the speed (an A/B on the card, CHANGES.md).
 // * 3D: a plane march.  One block walks along N1 over a run of R planes of
 //   one env (the N2 x N3 planes are whole, so the in-plane wrap is an index).
 //   Shared memory holds a ring of five u planes and two planes of (m, d)
@@ -57,7 +56,7 @@
 //     - issue the copy of u plane p + 3 with cp.async (async_copy.cuh) into
 //       the slot of plane p - 2, which no thread reads any more; it is
 //       consumed one step later, so the load overlaps this step's arithmetic
-//       (faster than synchronous copies: scripts/torch_k8_copy_ab.py);
+//       (faster than synchronous copies, CHANGES.md);
 //     - at each own pixel q: m, d of plane p + 1 from u planes p, p + 1,
 //       p + 2 (computed once: a plane's m and d are not computed again by
 //       the next step);
@@ -88,6 +87,7 @@
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
+#include "kernel_error.cuh"
 
 namespace {
 
@@ -624,10 +624,6 @@ int ch_rhs_fd_3d_launch(const float* u, const float* kappa, float* out, int B, i
                         static_cast<cudaStream_t>(stream)>>>(
       u, kappa, out, N1, N2, N3, R, static_cast<int>(runs), vec, mu, dd, iv);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* ch_rhs_fd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -33,7 +33,7 @@
 //   stays in the accumulator fragment where the inverse lands (16 pixels a
 //   thread).  Four barriers a substep; 106 KB of shared memory at 64^2.
 //   Those registers do not fit two blocks an SM: the kernel runs one block
-//   an SM at up to 255 registers (scripts/torch_k9_variants_ab.py).
+//   an SM at up to 255 registers.
 // - f32 tables: ch_sif_macro_kernel, f32 FMA on the CUDA cores
 //   (sif_common.cuh): the tables, the carried spectrum and two work buffers
 //   as f32 pairs in shared memory, a 4 x 4 tile of the field a thread.
@@ -46,6 +46,7 @@
 // chunks through shared memory (sif_tiled.cuh).  The launch picks the kernel
 // by grid (cas_tiled.cuh's `tiled`); the 64^2 kernels are unchanged.
 
+#include "kernel_error.cuh"
 #include "sif_common.cuh"
 #include "sif_tiled.cuh"
 #include "sif_wgmma.cuh"
@@ -127,7 +128,7 @@ ch_sif_macro_kernel(const float* __restrict__ u_in, const float* __restrict__ ka
 // transforms, N = W2 padded to a multiple of 8.  Not capped: at 128
 // registers (two blocks an SM) it spills 600 B at N = 40 and took 0.82 ms
 // against 0.65 at 4096 x 64^2 x 10 on an H100, and capped with cm and cu
-// recomputed every substep 1.62 ms (scripts/torch_k9_variants_ab.py).
+// recomputed every substep 1.62 ms.
 template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
 ch_sif_macro_wg_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
@@ -348,10 +349,6 @@ int ch_sif_macro_launch(const float* u, const float* kappa, const float* wr_w,
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
-}
-
-const char* ch_sif_macro_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -35,6 +35,8 @@
 
 #include <cstdint>
 
+#include "kernel_error.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -147,10 +149,6 @@ int fleet_reset_launch(const void* terminated, const float* y1, const float* z,
       static_cast<unsigned char*>(obs_next), cv, t, steps, static_cast<unsigned char*>(done),
       n, static_cast<int>(chunks), r);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* fleet_reset_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

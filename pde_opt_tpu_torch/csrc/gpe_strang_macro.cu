@@ -59,6 +59,7 @@
 #include "cas_common.cuh"
 #include "cas_tiled.cuh"
 #include "cas_wgmma.cuh"
+#include "kernel_error.cuh"
 
 namespace {
 
@@ -647,10 +648,6 @@ int gpe_strang_macro_launch(const float* y, const float* ctrl, const float* V,
         phase_poly != 0, ep);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* gpe_strang_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -49,8 +49,8 @@
 //   across the reduction.
 //
 // The tile and the register budget (kR, kC, kMinBlocks below):
-// scripts/torch_k7_k8_ab.py builds the candidates side by side and times
-// them on the card (PERF.md, section 6).  These are the fastest there:
+// the candidates were built side by side and timed on the card
+// (CHANGES.md).  These are the fastest there:
 // 2 x 2 tiles on 1024 threads, one block an
 // SM at 64 registers (24 B of spills), against 2 x 4 on 512 (108
 // registers, no spills), 1 x 4 on 1024 and 4 x 4 on 256 at one or two
@@ -70,6 +70,7 @@
 #include "bv_common.cuh"
 #include "cas_common.cuh"
 #include "cas_tiled.cuh"
+#include "kernel_error.cuh"
 
 namespace {
 
@@ -527,10 +528,6 @@ int sbm_bv_macro_launch(const float* u, const float* crate, const float* psi_ax,
       u, crate, psi_ax, psi_ay, kop, psic, psi, out, B, H, W, n_steps, rk, inv_hx, inv_hy,
       bv, ep);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* sbm_bv_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -39,22 +39,34 @@ from torch.utils.checkpoint import checkpoint
 
 from ..utils.metrics import named_scope
 from . import stencils as st
-from .cas_spectral import (
+from .cas_common import (
+    NO_EPILOGUE,
     CasConstants,
     Epilogue,
-    _alloc_scratch,
-    _check_cuda,
-    _check_grid,
-    _check_mats,
-    _ep_fold_stats_cotangent,
-    _epilogue_plain,
-    _flatten_batch,
-    _mats_ptrs,
-    _OracleMacro,
-    _transforms,
+    OracleMacro,
     cas_constants,
+    check_config,
+    check_mats,
+    check_state,
+    epilogue_plain,
+    flatten_batch,
+    fold_stats_cotangent,
+    macro_outputs,
+    mats_ptrs,
+    transforms,
 )
-from .kernels import count_launch, load_library
+from .kernels import (
+    SCRATCH_OUT,
+    alloc_scratch,
+    bind,
+    check,
+    check_cuda,
+    count_launch,
+    data_ptr,
+    device_stream,
+    library,
+    register_launches,
+)
 
 __all__ = [
     "LogRatioMu",
@@ -118,7 +130,7 @@ class SqrtJ0:
         return f"SqrtJ0(floor={self.floor})"
 
 
-def _rk4_macro(rhs, dt, n_steps, remat):
+def rk4_macro(rhs, dt, n_steps, remat):
     """``macro(u, crate)``: ``n_steps`` classical RK4 substeps of ``rhs(u,
     crate)``, each under :func:`torch.utils.checkpoint.checkpoint` with
     ``remat`` (reverse mode then keeps only the field per substep).  The
@@ -160,7 +172,7 @@ def bv_cc_reference(mu_fn, j0_fn, kappa, hx, hy, dt, n_steps, remat=True):
         em = torch.exp(0.5 * m)
         return j * (1.0 / (em * y) - em * y)
 
-    return _rk4_macro(rhs, dt, n_steps, remat)
+    return rk4_macro(rhs, dt, n_steps, remat)
 
 
 def bv_closure(m, j, crate, integral):
@@ -200,7 +212,7 @@ def bv_cc_macro_plain(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants
     inv(lam fwd(z))``, ``1/em`` once, ``I± = sum(j em^±1) cell``.  What CPU
     tensors run and what kernel K6 is held against on the card.
     """
-    fwd, inv = _transforms(consts, round_bf16)
+    fwd, inv = transforms(consts, round_bf16)
     lam = consts.lam
     c = crate.reshape(-1, 1, 1)
 
@@ -214,7 +226,7 @@ def bv_cc_macro_plain(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants
     u = rk4_fused(rhs, u, float(dt), n_steps)
     if epilogue is None:
         return u
-    return (u, *_epilogue_plain(u, epilogue))
+    return (u, *epilogue_plain(u, epilogue))
 
 
 def check_bv_coefficients(mu_fn, j0_fn):
@@ -234,32 +246,48 @@ def rk4_constants(dt: float):
     return 0.5 * float(dt), float(dt), float(dt) / 6.0
 
 
-def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_library(lib, name: str):
     """Declare K6's C interface on ``lib`` (``csrc/bv_cc_macro.cu`` built
     for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bv_cc_macro_launch.argtypes = [
-        p, p, p, p, p, p,                # u, crate, ch, cw, ich, icw
-        p, p, p, p, p,                   # ch16 .. icw16, lam
-        p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
-        i, i, i, i,                      # B, H, W, n_steps
-        f, f, f, f, f,                   # dt/2, dt, dt/6, kappa, cell
-        f, f, f, f,                      # mu omega, clip lo, clip hi, j0 floor
-        i, f, f, f,                      # round_bf16, obs_scale, obs_offset, center
-        p,                               # stream
-    ]
-    lib.bv_cc_macro_launch.restype = ctypes.c_int
-    lib.bv_cc_macro_scratch.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int),
-                                        ctypes.POINTER(ctypes.c_longlong)]
-    lib.bv_cc_macro_scratch.restype = ctypes.c_int
-    lib.bv_cc_error_string.argtypes = [ctypes.c_int]
-    lib.bv_cc_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(lib, {
+        "bv_cc_macro_launch": [
+            p, p, p, p, p, p,                # u, crate, ch, cw, ich, icw
+            p, p, p, p, p,                   # ch16 .. icw16, lam
+            p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
+            i, i, i, i,                      # B, H, W, n_steps
+            f, f, f, f, f,                   # dt/2, dt, dt/6, kappa, cell
+            f, f, f, f,                      # mu omega, clip lo, clip hi, j0 floor
+            i, f, f, f,                      # round_bf16, obs_scale, obs_offset, center
+            p,                               # stream
+        ],
+        "bv_cc_macro_scratch": [i, i, i, *SCRATCH_OUT],             # bf16, H, W
+    })
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    return _bind_library(load_library("bv_cc_macro"))
+register_launches("bv_cc_macro", "bv_cc_macro_ep",
+                  # Of the two above, the launches that ran the tiled kernel (above 64^2).
+                  "bv_cc_macro.tiled")
+
+
+def _bv_cc_macro_launch(lib, u, crate, consts: CasConstants, *, mu_fn, j0_fn, kappa, cell, dt,
+                        n_steps, round_bf16, epilogue=None, stream):
+    """K6 of ``lib`` on ``stream``, with its outputs and its scratch
+    allocated here: ``(u1, tiled)`` or, with ``epilogue``, ``((u1, stats,
+    obs), tiled)``, ``tiled`` whether the tiled kernel ran."""
+    B, H, W = u.shape
+    out, stats, obs = macro_outputs(u, epilogue)
+    scratch, slots = alloc_scratch(lib, "bv_cc_macro_scratch", u.device, B, int(round_bf16),
+                                   H, W)
+    ep = NO_EPILOGUE if epilogue is None else epilogue
+    check(lib, lib.bv_cc_macro_launch(
+        u.data_ptr(), crate.data_ptr(), *mats_ptrs(consts), consts.lam.data_ptr(),
+        out.data_ptr(), data_ptr(stats), data_ptr(obs), data_ptr(scratch), slots,
+        B, H, W, int(n_steps), *rk4_constants(dt), float(kappa), float(cell),
+        *check_bv_coefficients(mu_fn, j0_fn), int(bool(round_bf16)), ep.obs_scale,
+        ep.obs_offset, ep.center, stream,
+    ), "bv_cc_macro launch")
+    return (out if epilogue is None else (out, stats, obs)), scratch is not None
 
 
 def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants, *,
@@ -276,45 +304,22 @@ def bv_cc_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: CasConstants,
     matrices it reads ``consts``' bf16 copies).  Raises on anything the
     kernel does not take.
     """
-    coeffs = check_bv_coefficients(mu_fn, j0_fn)
-    B, H, W = _check_grid(u)
+    check_bv_coefficients(mu_fn, j0_fn)
+    B, H, W = check_state(u, crate, "crate")
     dev = u.device
-    _check_cuda("u", u, (B, H, W), torch.float32, dev)
-    _check_cuda("crate", crate, (B,), torch.float32, dev)
-    _check_cuda("lam", consts.lam, (H, W), torch.float32, dev)
-    _check_mats(consts, H, W, dev)
-    out = torch.empty_like(u)
-    stats = obs = None
-    if epilogue is not None:
-        if epilogue.ds != 1:
-            raise NotImplementedError("the BV epilogue supports obs_downsample=1 only")
-        stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
-        obs = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-    lib = _library()
-    scratch, slots = _alloc_scratch(dev, B, _library, "bv_cc_macro_scratch", round_bf16, H, W)
-    with torch.cuda.device(dev):
-        rc = lib.bv_cc_macro_launch(
-            u.data_ptr(), crate.data_ptr(), *_mats_ptrs(consts), consts.lam.data_ptr(),
-            out.data_ptr(),
-            stats.data_ptr() if stats is not None else None,
-            obs.data_ptr() if obs is not None else None,
-            scratch.data_ptr() if scratch is not None else None, slots,
-            B, H, W, int(n_steps), *rk4_constants(dt), float(kappa), float(cell), *coeffs,
-            int(bool(round_bf16)),
-            epilogue.obs_scale if epilogue else 0.0,
-            epilogue.obs_offset if epilogue else 0.0,
-            epilogue.center if epilogue else 0.0,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bv_cc_macro launch failed: {lib.bv_cc_error_string(rc).decode()}")
-    if scratch is not None:
+    check_cuda("lam", consts.lam, (H, W), torch.float32, dev)
+    check_mats(consts, H, W, dev)
+    if epilogue is not None and epilogue.ds != 1:
+        raise NotImplementedError("the BV epilogue supports obs_downsample=1 only")
+    with device_stream(dev) as stream:
+        res, tiled = _bv_cc_macro_launch(
+            library("bv_cc_macro", _bind_library), u, crate, consts, mu_fn=mu_fn,
+            j0_fn=j0_fn, kappa=kappa, cell=cell, dt=dt, n_steps=n_steps,
+            round_bf16=round_bf16, epilogue=epilogue, stream=stream)
+    if tiled:
         count_launch("bv_cc_macro.tiled")
-    if epilogue is None:
-        count_launch("bv_cc_macro")
-        return out
-    count_launch("bv_cc_macro_ep")
-    return out, stats, obs
+    count_launch("bv_cc_macro" if epilogue is None else "bv_cc_macro_ep")
+    return res
 
 
 def make_bv_cc_fused_macro(
@@ -347,10 +352,7 @@ def make_bv_cc_fused_macro(
     :data:`MAX_GRID_TILED` (above 64² kernel K6 runs its tiled form).  The JAX macro's
     ``block_envs``/``interpret`` (TPU tiling) have no counterpart.
     """
-    if H % 8 or W % 8:
-        raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")
-    if mats_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"mats_dtype must be bf16 or f32, got {mats_dtype}")
+    check_config(H, W, mats_dtype)
     ep = None
     if epilogue is not None:
         ep = Epilogue.from_dict(epilogue, H, W)
@@ -361,10 +363,10 @@ def make_bv_cc_fused_macro(
     oracle = bv_cc_reference(mu_fn, j0_fn, float(kappa), float(hx), float(hy), float(dt),
                              int(n_steps))
     fold = (None if ep is None
-            else functools.partial(_ep_fold_stats_cotangent, center=ep.center))
+            else functools.partial(fold_stats_cotangent, center=ep.center))
 
     def macro(state: torch.Tensor, crate):
-        batch, x, cf = _flatten_batch(state, crate, H, W)
+        batch, x, cf = flatten_batch(state, crate, H, W)
         consts = cas_constants(H, W, float(hx), float(hy), mats_dtype, state.device)
         impl = bv_cc_macro_plain if state.device.type == "cpu" else bv_cc_macro_cuda
 
@@ -372,7 +374,7 @@ def make_bv_cc_fused_macro(
             return impl(u, c, consts, epilogue=ep, **kw)
 
         with named_scope("bv_cas.macro", x.shape[0] * kw["n_steps"]):
-            out = _OracleMacro.apply(x, cf, run, oracle, fold)
+            out = OracleMacro.apply(x, cf, run, oracle, fold)
         if ep is None:
             return out.to(state.dtype).reshape(*batch, H, W)
         u1, stats, obs = out

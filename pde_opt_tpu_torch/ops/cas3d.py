@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .cas_common import cas_mat
 from .fused import kappa_vector
 
 __all__ = [
@@ -37,15 +38,10 @@ __all__ = [
     "cas_nd_constants",
     "cas_nd_transform",
     "fd_lap_symbol",
+    "flatten_nd",
     "make_ch3d_cas_macro",
     "ch3d_sif_macro_reference",
 ]
-
-
-def _cas_mat(N: int) -> np.ndarray:
-    x = np.arange(N)
-    ang = 2.0 * np.pi * np.outer(x, x) / N
-    return np.cos(ang) + np.sin(ang)
 
 
 def fd_lap_symbol(Ns: Sequence[int], dxs: Sequence[float]) -> np.ndarray:
@@ -86,8 +82,8 @@ def cas_nd_constants(Ns: Tuple[int, ...], dxs: Tuple[float, ...], mats_dtype: to
 
     lam = torch.from_numpy(fd_lap_symbol(Ns, dxs)).to(torch.float32)
     return CasNdConstants(
-        fwd=tuple(mat(_cas_mat(n)) for n in Ns),
-        inv=tuple(mat(_cas_mat(n) / n) for n in Ns),
+        fwd=tuple(mat(cas_mat(n)) for n in Ns),
+        inv=tuple(mat(cas_mat(n) / n) for n in Ns),
         lam=lam.to(device), lam2=(lam**2).to(device),
     )
 
@@ -113,7 +109,7 @@ def cas_nd_transform(z: torch.Tensor, mats: Sequence[torch.Tensor],
     return z
 
 
-def _flatten(state: torch.Tensor, kappa, Ns: Tuple[int, ...]):
+def flatten_nd(state: torch.Tensor, kappa, Ns: Tuple[int, ...]):
     """``(batch, x (B, *Ns) f32, kap (B,) f32)`` from a ``(*batch, *Ns)``
     state and a number, a scalar or ``(B,)`` tensor, or a batch-shaped κ."""
     nd = len(Ns)
@@ -149,7 +145,7 @@ def make_ch3d_cas_macro(
     A_dt, dt_f = float(A) * float(dt), float(dt)
 
     def macro(state: torch.Tensor, kappa) -> torch.Tensor:
-        batch, u, kap = _flatten(state, kappa, Ns)
+        batch, u, kap = flatten_nd(state, kappa, Ns)
         c = cas_nd_constants(Ns, dxs, mats_dtype, state.device)
         k = kap.reshape(-1, 1, 1, 1)
         denom = 1.0 / (1.0 + A_dt * (k * c.lam2))

@@ -39,8 +39,8 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from . import stencils as st
-from .cas3d import _flatten, cas_nd_constants, cas_nd_transform, fd_lap_symbol
-from .cas_spectral import _OracleMacro
+from .cas3d import cas_nd_constants, cas_nd_transform, fd_lap_symbol, flatten_nd
+from .cas_common import OracleMacro
 from .fused import make_ch3d_rhs_fd_fused, make_ch_rhs_fd_fused, refuse_learnable
 
 __all__ = [
@@ -98,11 +98,11 @@ def _make_macro(mu_fn, D_fn, Ns: Tuple[int, ...], dxs: Tuple[float, ...], A, dt,
         return u
 
     def macro(state: torch.Tensor, kappa) -> torch.Tensor:
-        batch, x, kap = _flatten(state, kappa, Ns)
+        batch, x, kap = flatten_nd(state, kappa, Ns)
         use_fused = rhs_impl == "pallas" or (rhs_impl == "auto" and state.device.type == "cuda")
         if use_fused:
             refuse_learnable(mu_fn, D_fn)
-            u1 = _OracleMacro.apply(x.contiguous(), kap.contiguous(),
+            u1 = OracleMacro.apply(x.contiguous(), kap.contiguous(),
                                     lambda u, k: run(u, k, True),
                                     lambda u, k: run(u, k, False), None)
         else:

@@ -14,12 +14,11 @@ bit for bit.  :func:`fleet_reset_refusal` says which tensors the kernel takes.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Sequence
 
 import torch
 
-from .kernels import count_launch, load_library
+from .kernels import bind, check, count_launch, device_stream, library, register_launches
 
 __all__ = ["FLEET_RESET", "fleet_reset", "fleet_reset_refusal"]
 
@@ -27,26 +26,20 @@ __all__ = ["FLEET_RESET", "fleet_reset", "fleet_reset_refusal"]
 FLEET_RESET = "vector_env.fleet_reset"
 
 
-def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_library(lib, name: str):
     """Declare the pass's C interface on ``lib`` (``csrc/fleet_reset.cu``
     built for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fleet_reset_launch.argtypes = [
+    return bind(lib, {"fleet_reset_launch": [
         p, p, p, p, p, p, p,             # terminated, y1, z, obs, cv1, t1, steps1
         p, p, p, p, p, p,                # y, obs_next, cv, t, steps, done
         i, ctypes.c_longlong,            # B, pixels an env
         f, f, f, f, f, f,                # mean, noise, lo, hi, reset cv, obs_scale
         p,                               # stream
-    ]
-    lib.fleet_reset_launch.restype = ctypes.c_int
-    lib.fleet_reset_error_string.argtypes = [ctypes.c_int]
-    lib.fleet_reset_error_string.restype = ctypes.c_char_p
-    return lib
+    ]})
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    return _bind_library(load_library("fleet_reset"))
+register_launches(FLEET_RESET)
 
 
 def fleet_reset_refusal(state: Sequence[torch.Tensor], terminated, y1, cv1, t1, steps1,
@@ -75,21 +68,18 @@ def fleet_reset_refusal(state: Sequence[torch.Tensor], terminated, y1, cv1, t1, 
     return None
 
 
-def _launch(lib, state, terminated, y1, z, obs, cv1, t1, steps1, affine, reset_cv: float,
-            obs_scale: float, stream) -> torch.Tensor:
+def _fleet_reset_launch(lib, state, terminated, y1, z, obs, cv1, t1, steps1, affine,
+                        reset_cv: float, obs_scale: float, stream) -> torch.Tensor:
     """One launch of ``lib``'s pass on ``stream``; returns the next
     observation (a new tensor shaped as ``obs``)."""
     y, t, cv, steps, done = state
     obs_next = torch.empty_like(obs)
     B = y1.shape[0]
-    rc = lib.fleet_reset_launch(
+    check(lib, lib.fleet_reset_launch(
         terminated.data_ptr(), y1.data_ptr(), z.data_ptr(), obs.data_ptr(), cv1.data_ptr(),
         t1.data_ptr(), steps1.data_ptr(), y.data_ptr(), obs_next.data_ptr(), cv.data_ptr(),
         t.data_ptr(), steps.data_ptr(), done.data_ptr(), B, y1.numel() // B, *affine,
-        reset_cv, obs_scale, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fleet_reset launch failed: {lib.fleet_reset_error_string(rc).decode()}")
+        reset_cv, obs_scale, stream), "fleet_reset launch")
     return obs_next
 
 
@@ -108,9 +98,9 @@ def fleet_reset(state: Sequence[torch.Tensor], terminated, y1, z, obs, cv1, t1, 
     observation; ``obs`` is left as it was.  Counts one launch under
     :data:`FLEET_RESET`.
     """
-    dev = y1.device
-    with torch.cuda.device(dev):
-        obs_next = _launch(_library(), state, terminated, y1, z, obs, cv1, t1, steps1, affine,
-                           reset_cv, obs_scale, torch.cuda.current_stream(dev).cuda_stream)
+    with device_stream(y1.device) as stream:
+        obs_next = _fleet_reset_launch(library("fleet_reset", _bind_library), state, terminated,
+                                       y1, z, obs, cv1, t1, steps1, affine, reset_cv, obs_scale,
+                                       stream)
     count_launch(FLEET_RESET)
     return obs_next

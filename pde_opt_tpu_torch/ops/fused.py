@@ -40,9 +40,17 @@ from typing import Callable, Tuple
 import torch
 from torch import nn
 
-from .cas_spectral import PolynomialMu, _check_cuda
+from .cas_common import PolynomialMu
 from .fold import fold_vmap
-from .kernels import count_launch, load_library
+from .kernels import (
+    bind,
+    check,
+    check_cuda,
+    count_launch,
+    device_stream,
+    library,
+    register_launches,
+)
 
 __all__ = [
     "kernel_form",
@@ -97,7 +105,7 @@ def kernel_form(fn: Callable, device: torch.device) -> Tuple[int, torch.Tensor]:
     params = params.detach()
     if not 1 <= params.numel() <= MAX_COEFFS:
         raise ValueError(f"K8 takes 1 to {MAX_COEFFS} coefficients, got {params.numel()}")
-    _check_cuda("coefficients", params, (params.numel(),), torch.float32, device)
+    check_cuda("coefficients", params, (params.numel(),), torch.float32, device)
     return form, params
 
 
@@ -158,53 +166,58 @@ def ch3d_rhs_fd_plain(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
     return out
 
 
-def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_library(lib, name: str):
     """Declare K8's C interface on ``lib`` (``csrc/ch_rhs_fd.cu`` built for
     the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ch_rhs_fd_2d_resident.argtypes = [i, ctypes.POINTER(ctypes.c_int)]        # W
-    lib.ch_rhs_fd_2d_resident.restype = ctypes.c_int
-    lib.ch_rhs_fd_2d_launch.argtypes = [
-        p, p, p, i, i, i,                # u, kappa, out, B, H, W
-        p, i, i, p, i, i,                # mu coeffs, n, form; D coeffs, n, form
-        f, f, f, f,                      # 1/hx, 1/hy, 1/hx^2, 1/hy^2
-        i,                               # resident warps (ch_rhs_fd_2d_resident)
-        p,                               # stream
-    ]
-    lib.ch_rhs_fd_2d_launch.restype = ctypes.c_int
-    lib.ch_rhs_fd_3d_resident.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]   # N2, N3
-    lib.ch_rhs_fd_3d_resident.restype = ctypes.c_int
-    lib.ch_rhs_fd_3d_launch.argtypes = [
-        p, p, p, i, i, i, i,             # u, kappa, out, B, N1, N2, N3
-        p, i, i, p, i, i,                # mu coeffs, n, form; D coeffs, n, form
-        p, p,                            # host float[3]: 1/h, 1/h^2
-        i,                               # resident blocks (ch_rhs_fd_3d_resident)
-        p,                               # stream
-    ]
-    lib.ch_rhs_fd_3d_launch.restype = ctypes.c_int
-    lib.ch_rhs_fd_error_string.argtypes = [ctypes.c_int]
-    lib.ch_rhs_fd_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(lib, {
+        "ch_rhs_fd_2d_resident": [i, ctypes.POINTER(ctypes.c_int)],      # W
+        "ch_rhs_fd_2d_launch": [
+            p, p, p, i, i, i,                # u, kappa, out, B, H, W
+            p, i, i, p, i, i,                # mu coeffs, n, form; D coeffs, n, form
+            f, f, f, f,                      # 1/hx, 1/hy, 1/hx^2, 1/hy^2
+            i,                               # resident warps (ch_rhs_fd_2d_resident)
+            p,                               # stream
+        ],
+        "ch_rhs_fd_3d_resident": [i, i, ctypes.POINTER(ctypes.c_int)],   # N2, N3
+        "ch_rhs_fd_3d_launch": [
+            p, p, p, i, i, i, i,             # u, kappa, out, B, N1, N2, N3
+            p, i, i, p, i, i,                # mu coeffs, n, form; D coeffs, n, form
+            p, p,                            # host float[3]: 1/h, 1/h^2
+            i,                               # resident blocks (ch_rhs_fd_3d_resident)
+            p,                               # stream
+        ],
+    })
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    return _bind_library(load_library("ch_rhs_fd"))
+register_launches("ch_rhs_fd", "ch3d_rhs_fd")
 
 
-def _launch_args(u, kappa, mu_fn, D_fn, shape):
-    """Check what the kernel takes; return ``(out, coefficient args)``."""
-    dev = u.device
-    _check_cuda("u", u, shape, torch.float32, dev)
-    _check_cuda("kappa", kappa, shape[:1], torch.float32, dev)
-    (mf, mc), (df, dc) = kernel_form(mu_fn, dev), kernel_form(D_fn, dev)
-    coeffs = (mc.data_ptr(), mc.numel(), mf, dc.data_ptr(), dc.numel(), df)
-    return torch.empty_like(u), coeffs
+def _ch_rhs_fd_2d_launch(lib, u, kappa, out, *, mu, D, hx, hy, resident, stream):
+    """K8 (2D) of ``lib`` on ``stream``: the rhs of ``u`` into ``out``.
+    ``mu`` and ``D`` are ``(form, coefficients)`` as :func:`kernel_form`
+    gives them; ``resident`` as ``ch_rhs_fd_2d_resident`` gives it."""
+    (mf, mc), (df, dc) = mu, D
+    B, H, W = u.shape
+    check(lib, lib.ch_rhs_fd_2d_launch(
+        u.data_ptr(), kappa.data_ptr(), out.data_ptr(), B, H, W, mc.data_ptr(), mc.numel(), mf,
+        dc.data_ptr(), dc.numel(), df, 1.0 / hx, 1.0 / hy, 1.0 / (hx * hx), 1.0 / (hy * hy),
+        resident, stream,
+    ), "ch_rhs_fd (2D) launch")
+    return out
 
 
-def _raise_if(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: {_library().ch_rhs_fd_error_string(rc).decode()}")
+def _ch_rhs_fd_3d_launch(lib, u, kappa, out, *, mu, D, h1, h2, h3, resident, stream):
+    """K8 (3D) of ``lib`` on ``stream``: the rhs of ``u`` into ``out``;
+    ``mu``, ``D`` and ``resident`` as for :func:`_ch_rhs_fd_2d_launch`."""
+    (mf, mc), (df, dc) = mu, D
+    inv = [1.0 / h1, 1.0 / h2, 1.0 / h3]
+    check(lib, lib.ch_rhs_fd_3d_launch(
+        u.data_ptr(), kappa.data_ptr(), out.data_ptr(), *u.shape, mc.data_ptr(), mc.numel(), mf,
+        dc.data_ptr(), dc.numel(), df, (ctypes.c_float * 3)(*inv),
+        (ctypes.c_float * 3)(*(v * v for v in inv)), resident, stream,
+    ), "ch_rhs_fd (3D) launch")
+    return out
 
 
 def _smem_3d(n2: int, n3: int) -> int:
@@ -216,25 +229,25 @@ def _smem_3d(n2: int, n3: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_2d(device_index: int, w: int) -> int:
-    """K8 (2D) warps resident at once on one device for rows of width ``w``,
-    asked once per device and width: a launch then only divides."""
+def _resident(query: str, device_index: int, *args: int) -> int:
+    """K8's ``query`` on one device (``ch_rhs_fd_2d_resident``: warps
+    resident at once for rows of width W; ``ch_rhs_fd_3d_resident``: blocks
+    with N2 x N3 planes), asked once per device and shape: a launch then
+    only divides."""
+    lib = library("ch_rhs_fd", _bind_library)
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = _library().ch_rhs_fd_2d_resident(w, ctypes.byref(n))
-    _raise_if(rc, "ch_rhs_fd_2d_resident")
+        check(lib, getattr(lib, query)(*args, ctypes.byref(n)), query)
     return n.value
 
 
-@functools.lru_cache(maxsize=None)
-def _resident_3d(device_index: int, n2: int, n3: int) -> int:
-    """K8 (3D) blocks with N2 x N3 planes resident at once on one device,
-    asked once per device and plane size: a launch then only divides."""
-    n = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        rc = _library().ch_rhs_fd_3d_resident(n2, n3, ctypes.byref(n))
-    _raise_if(rc, "ch_rhs_fd_3d_resident")
-    return n.value
+def _check_rhs_args(u, kappa, mu_fn, D_fn):
+    """Check what K8 takes; return ``mu`` and ``D`` as :func:`kernel_form`
+    gives them."""
+    dev = u.device
+    check_cuda("u", u, u.shape, torch.float32, dev)
+    check_cuda("kappa", kappa, u.shape[:1], torch.float32, dev)
+    return kernel_form(mu_fn, dev), kernel_form(D_fn, dev)
 
 
 def ch_rhs_fd_cuda(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
@@ -249,15 +262,12 @@ def ch_rhs_fd_cuda(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
     B, H, W = u.shape
     if W > MAX_WIDTH_2D:
         raise ValueError(f"K8 (2D) puts a row on one warp, W <= {MAX_WIDTH_2D}; got {(H, W)}")
-    out, coeffs = _launch_args(u, kappa, mu_fn, D_fn, (B, H, W))
-    resident = _resident_2d(u.device.index, W)
-    with torch.cuda.device(u.device):
-        rc = _library().ch_rhs_fd_2d_launch(
-            u.data_ptr(), kappa.data_ptr(), out.data_ptr(), B, H, W, *coeffs,
-            1.0 / hx, 1.0 / hy, 1.0 / (hx * hx), 1.0 / (hy * hy), resident,
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    _raise_if(rc, "ch_rhs_fd (2D) launch")
+    mu, D = _check_rhs_args(u, kappa, mu_fn, D_fn)
+    resident = _resident("ch_rhs_fd_2d_resident", u.device.index, W)
+    with device_stream(u.device) as stream:
+        out = _ch_rhs_fd_2d_launch(library("ch_rhs_fd", _bind_library), u, kappa,
+                                   torch.empty_like(u), mu=mu, D=D, hx=hx, hy=hy,
+                                   resident=resident, stream=stream)
     count_launch("ch_rhs_fd")
     return out
 
@@ -276,17 +286,12 @@ def ch3d_rhs_fd_cuda(u: torch.Tensor, kappa: torch.Tensor, *, mu_fn: Callable,
     if _smem_3d(N2, N3) > _MAX_SMEM:
         raise ValueError(f"K8 (3D) holds 9 N2 x N3 f32 planes in shared memory; "
                          f"{(N2, N3)} is too large")
-    out, coeffs = _launch_args(u, kappa, mu_fn, D_fn, (B, N1, N2, N3))
-    inv = [1.0 / h1, 1.0 / h2, 1.0 / h3]
-    inv_c = (ctypes.c_float * 3)(*inv)
-    inv2_c = (ctypes.c_float * 3)(*(v * v for v in inv))
-    resident = _resident_3d(u.device.index, N2, N3)
-    with torch.cuda.device(u.device):
-        rc = _library().ch_rhs_fd_3d_launch(
-            u.data_ptr(), kappa.data_ptr(), out.data_ptr(), B, N1, N2, N3, *coeffs,
-            inv_c, inv2_c, resident, torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    _raise_if(rc, "ch_rhs_fd (3D) launch")
+    mu, D = _check_rhs_args(u, kappa, mu_fn, D_fn)
+    resident = _resident("ch_rhs_fd_3d_resident", u.device.index, N2, N3)
+    with device_stream(u.device) as stream:
+        out = _ch_rhs_fd_3d_launch(library("ch_rhs_fd", _bind_library), u, kappa,
+                                   torch.empty_like(u), mu=mu, D=D, h1=h1, h2=h2, h3=h3,
+                                   resident=resident, stream=stream)
     count_launch("ch3d_rhs_fd")
     return out
 

@@ -49,11 +49,29 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-# cas_spectral imports this module's oracles while it initialises (and the
-# package imports cas_spectral first), so it is bound here as a module and
-# its names are read at call time.
-from . import cas_spectral as _cas
-from .kernels import count_launch, load_library
+from .cas_common import (
+    OracleMacro,
+    c_coeffs,
+    ch_multipliers,
+    check_config,
+    check_polynomials,
+    check_state,
+    fd_lap_symbols,
+    flatten_batch,
+    r_is_identity,
+)
+from .kernels import (
+    SCRATCH_OUT,
+    alloc_scratch,
+    bind,
+    check,
+    check_cuda,
+    count_launch,
+    data_ptr,
+    device_stream,
+    library,
+    register_launches,
+)
 
 __all__ = [
     "SifConstants",
@@ -68,13 +86,6 @@ __all__ = [
     "ac_sif_macro_reference",
     "tiled_tables",
 ]
-
-
-def _fd_lap_symbols(H: int, W: int, hx: float, hy: float):
-    """FD Laplacian eigenvalues per axis (roll-stencil spectrum)."""
-    lam_h = (2.0 * np.cos(2.0 * np.pi * np.arange(H) / H) - 2.0) / (hx * hx)
-    lam_w = (2.0 * np.cos(2.0 * np.pi * np.arange(W) / W) - 2.0) / (hy * hy)
-    return lam_h, lam_w
 
 
 def _dft_mats(N: int):
@@ -135,7 +146,7 @@ def sif_constants(H: int, W: int, hx: float, hy: float, mats_dtype: torch.dtype,
 
     (Wr_w, Wi_w), (Vr_w, Vi_w) = _dft_mats(W)
     (Wr_h, Wi_h), (Vr_h, Vi_h) = _dft_mats(H)
-    lam_h, lam_w = _fd_lap_symbols(H, W, hx, hy)
+    lam_h, lam_w = fd_lap_symbols(H, W, hx, hy)
     if half_spectrum:
         W2 = W // 2 + 1
         c_k = np.full(W2, 2.0)                        # kw in (0, W/2) pairs with W - kw
@@ -189,7 +200,7 @@ def ch_sif_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstant
     What CPU tensors run and what the kernel is held against on the card.
     """
     fwd, inv = _dft_transforms(consts, round_bf16)
-    _, cm, cu = _cas._coeffs(kappa, consts.lam, consts.lam2, A, dt)
+    _, cm, cu = ch_multipliers(kappa, consts.lam, consts.lam2, A, dt)
     hr, hi = fwd(u)
     for _ in range(n_steps):
         mr, mi = fwd(mu_fn(u))
@@ -226,7 +237,7 @@ def ac_sif_macro_plain(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstant
 
 # ---- the Hopper kernels K9a and K9b ------------------------------------------
 
-def _bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+def _bind_library(lib, name: str):
     """Declare the C interface of ``name`` (``ch_sif_macro`` or
     ``ac_sif_macro``) on ``lib``: ``csrc/<name>.cu`` built for the card, or
     for the CPU by the tests' stub build."""
@@ -234,32 +245,15 @@ def _bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     common = [p, p, *[p] * len(SifConstants._fields), p,   # u, kappa, tables, out
               ctypes.POINTER(p), p, i,                     # tiled tables, scratch, n_slots
               i, i, i, i, i, f, f]                         # B, H, W, W2, n_steps, dt, A*dt
-    launch = getattr(lib, f"{name}_launch")
     if name == "ch_sif_macro":
-        launch.argtypes = common + [p, i, i, p]            # mu, n_mu, round_bf16, stream
+        tail = [p, i, i, p]                                # mu, n_mu, round_bf16, stream
     else:
-        launch.argtypes = common + [f, f, p, i, p, i, i, p]  # 1/hx², 1/hy², mu, R, rnd, stream
-    launch.restype = ctypes.c_int
-    scratch = getattr(lib, f"{name}_scratch")
-    scratch.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int),
-                        ctypes.POINTER(ctypes.c_longlong)]
-    scratch.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-    return lib
+        tail = [f, f, p, i, p, i, i, p]                    # 1/hx², 1/hy², mu, R, rnd, stream
+    return bind(lib, {f"{name}_launch": common + tail,
+                      f"{name}_scratch": [i, i, i, i, *SCRATCH_OUT]})   # bf16, H, W, W2
 
 
-@functools.lru_cache(maxsize=None)
-def _library(name: str):
-    return _bind_library(load_library(name), name)
-
-
-def _ch_library():
-    return _library("ch_sif_macro")
-
-
-def _ac_library():
-    return _library("ac_sif_macro")
+register_launches("ch_sif_macro", "ac_sif_macro")
 
 
 @functools.lru_cache(maxsize=32)
@@ -300,50 +294,62 @@ def tiled_tables(consts: SifConstants, round_bf16: bool):
     return (*mats, lam_t, lam2_t)
 
 
-def _launch(name: str, u, kappa, consts: SifConstants, mu_fn, dt, A, n_steps, round_bf16,
-            before=(), after=()):
-    """Check what K9a/K9b take, launch ``name`` on the current stream, raise
-    on a nonzero return code, count the launch; returns ``u1``.  Above 64²
-    the tiled kernel runs, with :func:`tiled_tables` and a scratch of one
-    slot for each resident block, allocated here.  ``before`` and ``after``
-    are the kernel's own arguments around mu's coefficients."""
-    if not isinstance(mu_fn, _cas.PolynomialMu):
-        raise ValueError(
-            "the CUDA macro evaluates mu from polynomial coefficients: pass a "
-            f"PolynomialMu, got {mu_fn!r}"
-        )
-    B, H, W = _cas._check_grid(u)
+def _sif_scratch(lib, name: str, u, consts: SifConstants, round_bf16):
+    """``(scratch, slots, tables)`` of a K9a (``name`` ``ch_sif_macro``) or
+    K9b (``ac_sif_macro``) launch: above 64², where the tiled kernel runs, a
+    scratch of one slot for each resident block and the pointers of
+    :func:`tiled_tables`; below, none and null pointers."""
+    B, H, W = u.shape
+    scratch, slots = alloc_scratch(lib, f"{name}_scratch", u.device, B, int(round_bf16), H, W,
+                                   consts.wr_w.shape[-1])
+    tables = (None,) * 6 if scratch is None else tiled_tables(consts, bool(round_bf16))
+    return scratch, slots, (ctypes.c_void_p * 6)(*(data_ptr(t) for t in tables))
+
+
+def _ch_sif_macro_launch(lib, u, kappa, consts: SifConstants, *, mu_fn, dt, A, n_steps,
+                         round_bf16, stream):
+    """K9a of ``lib`` on ``stream``, with its output and its scratch
+    allocated here: ``u1``."""
+    B, H, W = u.shape
+    out = torch.empty_like(u)
+    scratch, slots, tables = _sif_scratch(lib, "ch_sif_macro", u, consts, round_bf16)
+    coeffs, n_coeffs = c_coeffs(mu_fn)
+    check(lib, lib.ch_sif_macro_launch(
+        u.data_ptr(), kappa.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
+        tables, data_ptr(scratch), slots, B, H, W, consts.wr_w.shape[-1], int(n_steps),
+        float(dt), float(A) * float(dt), coeffs, n_coeffs, int(bool(round_bf16)), stream,
+    ), "ch_sif_macro launch")
+    return out
+
+
+def _ac_sif_macro_launch(lib, u, kappa, consts: SifConstants, *, mu_fn, R_fn, r_identity,
+                         hx, hy, dt, A, n_steps, round_bf16, stream):
+    """K9b of ``lib`` on ``stream``, with its output and its scratch
+    allocated here: ``u1``."""
+    B, H, W = u.shape
+    out = torch.empty_like(u)
+    scratch, slots, tables = _sif_scratch(lib, "ac_sif_macro", u, consts, round_bf16)
+    mu_c, n_mu = c_coeffs(mu_fn)
+    r_c, n_r = (None, 0) if r_identity else c_coeffs(R_fn)
+    check(lib, lib.ac_sif_macro_launch(
+        u.data_ptr(), kappa.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
+        tables, data_ptr(scratch), slots, B, H, W, consts.wr_w.shape[-1], int(n_steps),
+        float(dt), float(A) * float(dt), 1.0 / (hx * hx), 1.0 / (hy * hy), mu_c, n_mu, r_c, n_r,
+        int(bool(round_bf16)), stream,
+    ), "ac_sif_macro launch")
+    return out
+
+
+def _check_sif_args(u, kappa, consts: SifConstants, mu_fn, R_fn=None, r_identity=True):
+    """Raise on what K9a/K9b do not take."""
+    check_polynomials(mu_fn, R_fn, r_identity)
+    B, H, W = check_state(u, kappa, "kappa")
     dev = u.device
     W2 = consts.wr_w.shape[-1]
-    _cas._check_cuda("u", u, (B, H, W), torch.float32, dev)
-    _cas._check_cuda("kappa", kappa, (B,), torch.float32, dev)
     shapes = {"wr_w": (W, W2), "wi_w": (W, W2), "vr_w": (W2, W), "vi_w": (W2, W),
               "lam": (H, W2), "lam2": (H, W2)}
     for field in SifConstants._fields:
-        _cas._check_cuda(field, getattr(consts, field), shapes.get(field, (H, H)),
-                         torch.float32, dev)
-    out = torch.empty_like(u)
-    coeffs, n_coeffs = _cas._c_coeffs(mu_fn)
-    library = _ch_library if name == "ch_sif_macro" else _ac_library
-    scratch, slots = _cas._alloc_scratch(dev, B, library, f"{name}_scratch", round_bf16, H, W,
-                                         W2)
-    tables = (None,) * 6 if scratch is None else tiled_tables(consts, bool(round_bf16))
-    table_ptrs = (ctypes.c_void_p * 6)(*(None if t is None else t.data_ptr() for t in tables))
-    lib = library()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, f"{name}_launch")(
-            u.data_ptr(), kappa.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
-            table_ptrs, None if scratch is None else scratch.data_ptr(), slots,
-            B, H, W, W2, int(n_steps), float(dt), float(A) * float(dt), *before,
-            coeffs, n_coeffs, *after, int(bool(round_bf16)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {getattr(lib, f'{name}_error_string')(rc).decode()}"
-        )
-    count_launch(name)
-    return out
+        check_cuda(field, getattr(consts, field), shapes.get(field, (H, H)), torch.float32, dev)
 
 
 def ch_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants, *,
@@ -351,11 +357,18 @@ def ch_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants
                       round_bf16: bool) -> torch.Tensor:
     """Kernel K9a (``csrc/ch_sif_macro.cu``): same contract as
     :func:`ch_sif_macro_plain`, H and W up to
-    :data:`~pde_opt_tpu_torch.ops.cas_spectral.MAX_GRID_TILED` (tiled above
+    :data:`~pde_opt_tpu_torch.ops.cas_common.MAX_GRID_TILED` (tiled above
     64²).  ``mu`` must be a
     :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`; raises on
-    anything the kernel does not take."""
-    return _launch("ch_sif_macro", u, kappa, consts, mu_fn, dt, A, n_steps, round_bf16)
+    anything the kernel does not take.  Launches on the current stream and
+    counts the launch."""
+    _check_sif_args(u, kappa, consts, mu_fn)
+    with device_stream(u.device) as stream:
+        out = _ch_sif_macro_launch(library("ch_sif_macro", _bind_library), u, kappa, consts,
+                                   mu_fn=mu_fn, dt=dt, A=A, n_steps=n_steps,
+                                   round_bf16=round_bf16, stream=stream)
+    count_launch("ch_sif_macro")
+    return out
 
 
 def ac_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants, *,
@@ -364,26 +377,23 @@ def ac_sif_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: SifConstants
                       round_bf16: bool) -> torch.Tensor:
     """Kernel K9b (``csrc/ac_sif_macro.cu``): same contract as
     :func:`ac_sif_macro_plain`, H and W up to
-    :data:`~pde_opt_tpu_torch.ops.cas_spectral.MAX_GRID_TILED` (tiled above
+    :data:`~pde_opt_tpu_torch.ops.cas_common.MAX_GRID_TILED` (tiled above
     64²).  ``mu`` must be a
     :class:`~pde_opt_tpu_torch.ops.cas_spectral.PolynomialMu`, and so must
     ``R`` unless ``r_identity``; raises on anything the kernel does not
-    take."""
-    if not r_identity and not isinstance(R_fn, _cas.PolynomialMu):
-        raise ValueError(
-            "the CUDA AC macro evaluates a non-identity R from polynomial "
-            f"coefficients: pass a PolynomialMu, got {R_fn!r}"
-        )
-    r_c, n_r = (None, 0) if r_identity else _cas._c_coeffs(R_fn)
-    return _launch("ac_sif_macro", u, kappa, consts, mu_fn, dt, A, n_steps, round_bf16,
-                   before=(1.0 / (hx * hx), 1.0 / (hy * hy)), after=(r_c, n_r))
+    take.  Launches on the current stream and counts the launch."""
+    _check_sif_args(u, kappa, consts, mu_fn, R_fn, r_identity)
+    with device_stream(u.device) as stream:
+        out = _ac_sif_macro_launch(library("ac_sif_macro", _bind_library), u, kappa, consts,
+                                   mu_fn=mu_fn, R_fn=R_fn, r_identity=r_identity, hx=hx,
+                                   hy=hy, dt=dt, A=A, n_steps=n_steps, round_bf16=round_bf16,
+                                   stream=stream)
+    count_launch("ac_sif_macro")
+    return out
 
 
 def _check_config(H, W, mats_dtype, half_spectrum):
-    if H % 8 or W % 8:
-        raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")
-    if mats_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"mats_dtype must be bf16 or f32, got {mats_dtype}")
+    check_config(H, W, mats_dtype)
     return W % 2 == 0 if half_spectrum is None else bool(half_spectrum)
 
 
@@ -392,14 +402,14 @@ def _oracle_macro(H, W, hx, hy, mats_dtype, half, plain, cuda, oracle, kw):
     on CUDA tensors, the oracle's VJP as the gradient."""
 
     def macro(state: torch.Tensor, kappa):
-        batch, x, kapf = _cas._flatten_batch(state, kappa, H, W)
+        batch, x, kapf = flatten_batch(state, kappa, H, W)
         consts = sif_constants(H, W, float(hx), float(hy), mats_dtype, half, state.device)
         impl = plain if state.device.type == "cpu" else cuda
 
         def run(u, k):
             return impl(u, k, consts, **kw)
 
-        u1 = _cas._OracleMacro.apply(x, kapf, run, oracle, None)
+        u1 = OracleMacro.apply(x, kapf, run, oracle, None)
         return u1.to(state.dtype).reshape(*batch, H, W)
 
     return macro
@@ -465,7 +475,7 @@ def make_ac_sif_fused_macro(
     """
     half = _check_config(H, W, mats_dtype, half_spectrum)
     R = torch.ones_like if R_fn is None else R_fn
-    kw = dict(mu_fn=mu_fn, R_fn=R, r_identity=_cas.r_is_identity(R_fn), hx=float(hx),
+    kw = dict(mu_fn=mu_fn, R_fn=R, r_identity=r_is_identity(R_fn), hx=float(hx),
               hy=float(hy), dt=dt, A=A, n_steps=n_steps,
               round_bf16=mats_dtype == torch.bfloat16)
     oracle = ac_sif_macro_reference(mu_fn, R, hx, hy, A, dt, n_steps, remat=True)
@@ -478,7 +488,7 @@ def make_ac_sif_fused_macro(
 def _oracle_setup(u: torch.Tensor, kappa, hx: float, hy: float):
     """``(lam (H, W), kap (*batch, 1, 1))`` in the field's dtype and device."""
     H, W = u.shape[-2:]
-    lam_h, lam_w = _fd_lap_symbols(H, W, hx, hy)
+    lam_h, lam_w = fd_lap_symbols(H, W, hx, hy)
     lam = torch.from_numpy(lam_h[:, None] + lam_w[None, :]).to(u.device, u.dtype)
     kap = torch.as_tensor(kappa, device=u.device)
     if kap.ndim <= 1:

@@ -37,17 +37,28 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .cas_spectral import (
-    _alloc_scratch,
-    _cas_mat,
-    _check_cuda,
-    _check_grid,
-    _check_mats,
-    _mats_ptrs,
-    _OracleMacro,
-    _transforms,
+from .cas_common import (
+    OracleMacro,
+    cas_mats,
+    check_config,
+    check_grid,
+    check_mats,
+    macro_outputs,
+    mats_ptrs,
+    transforms,
 )
-from .kernels import count_launch, load_library
+from .kernels import (
+    SCRATCH_OUT,
+    alloc_scratch,
+    bind,
+    check,
+    check_cuda,
+    count_launch,
+    data_ptr,
+    device_stream,
+    library,
+    register_launches,
+)
 
 __all__ = [
     "GpeConstants",
@@ -137,19 +148,12 @@ def gpe_constants(H: int, W: int, dx: float, dt: float, mats_dtype: torch.dtype,
                   device: torch.device) -> GpeConstants:
     """Build (once per configuration and device) the macro's constants."""
 
-    def mat(m):
-        return torch.from_numpy(m).to(mats_dtype).to(device, torch.float32).contiguous()
-
     def f32(a):
         return torch.from_numpy(a).to(device, torch.float32).contiguous()
 
     phi = _phi(H, W, dx)
-    mats = {"ch": mat(_cas_mat(H)), "cw": mat(_cas_mat(W)),
-            "ich": mat(_cas_mat(H) / H), "icw": mat(_cas_mat(W) / W)}
-    if mats_dtype == torch.bfloat16:
-        mats.update({f"{n}16": m.to(torch.bfloat16) for n, m in list(mats.items())})
     return GpeConstants(
-        **mats,
+        **cas_mats(H, W, mats_dtype, device),
         cos_full=f32(np.cos(phi * dt)), sin_full=f32(np.sin(phi * dt)),
         cos_half=f32(np.cos(phi * 0.5 * dt)), sin_half=f32(np.sin(phi * 0.5 * dt)),
     )
@@ -174,7 +178,7 @@ def gpe_strang_macro_plain(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
     obs (B, H, W) uint8)``.  What CPU tensors run and what kernel K5 is held
     against on the card; it rounds to bf16 where the JAX kernel does.
     """
-    fwd, inv = _transforms(consts, round_bf16)
+    fwd, inv = transforms(consts, round_bf16)
     g, dt, dx2 = float(g), float(dt), float(dx) * float(dx)
     pr, pi = y[..., 0], y[..., 1]
     vc = V + ctrl
@@ -218,32 +222,46 @@ def gpe_strang_macro_plain(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
     return out, stats, obs
 
 
-def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_library(lib, name: str):
     """Declare K5's C interface on ``lib`` (``csrc/gpe_strang_macro.cu``
     built for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gpe_strang_macro_launch.argtypes = [
-        p, p, p,                         # y, ctrl, V
-        p, p, p, p, p, p, p, p,          # ch, cw, ich, icw, ch16 .. icw16
-        p, p, p, p,                      # cos/sin full, cos/sin half
-        p, p, p, p, f,                   # out, stats, obs, weight, obs_scale
-        p, i,                            # scratch, n_slots
-        i, i, i, i, f, f, f,             # B, H, W, n_steps, g, dt, dx^2
-        i, i,                            # phase_poly, round_bf16
-        p,                               # stream
-    ]
-    lib.gpe_strang_macro_launch.restype = ctypes.c_int
-    lib.gpe_strang_macro_scratch.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int),
-                                             ctypes.POINTER(ctypes.c_longlong)]
-    lib.gpe_strang_macro_scratch.restype = ctypes.c_int
-    lib.gpe_strang_error_string.argtypes = [ctypes.c_int]
-    lib.gpe_strang_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(lib, {
+        "gpe_strang_macro_launch": [
+            p, p, p,                         # y, ctrl, V
+            p, p, p, p, p, p, p, p,          # ch, cw, ich, icw, ch16 .. icw16
+            p, p, p, p,                      # cos/sin full, cos/sin half
+            p, p, p, p, f,                   # out, stats, obs, weight, obs_scale
+            p, i,                            # scratch, n_slots
+            i, i, i, i, f, f, f,             # B, H, W, n_steps, g, dt, dx^2
+            i, i,                            # phase_poly, round_bf16
+            p,                               # stream
+        ],
+        "gpe_strang_macro_scratch": [i, i, i, *SCRATCH_OUT],        # bf16, H, W
+    })
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    return _bind_library(load_library("gpe_strang_macro"))
+register_launches("gpe_strang_macro", "gpe_strang_macro_ep")
+
+
+def _gpe_strang_macro_launch(lib, y, ctrl, V, consts: GpeConstants, *, g, dt, dx, n_steps,
+                             round_bf16, phase_poly, epilogue=None, stream):
+    """K5 of ``lib`` on ``stream``, with its outputs and its scratch
+    allocated here: ``y1`` or, with ``epilogue``, ``(y1, stats, obs)``."""
+    B, H, W, _ = y.shape
+    out, stats, obs = macro_outputs(y, epilogue)
+    scratch, slots = alloc_scratch(lib, "gpe_strang_macro_scratch", y.device, B,
+                                   int(round_bf16), H, W)
+    check(lib, lib.gpe_strang_macro_launch(
+        y.data_ptr(), ctrl.data_ptr(), V.data_ptr(), *mats_ptrs(consts),
+        consts.cos_full.data_ptr(), consts.sin_full.data_ptr(),
+        consts.cos_half.data_ptr(), consts.sin_half.data_ptr(), out.data_ptr(),
+        data_ptr(stats), data_ptr(obs), data_ptr(None if epilogue is None else epilogue.weight),
+        0.0 if epilogue is None else float(epilogue.obs_scale), data_ptr(scratch), slots,
+        B, H, W, int(n_steps), float(g), float(dt), float(dx) * float(dx),
+        int(bool(phase_poly)), int(bool(round_bf16)), stream,
+    ), "gpe_strang_macro launch")
+    return out if epilogue is None else (out, stats, obs)
 
 
 def gpe_strang_macro_cuda(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
@@ -259,46 +277,23 @@ def gpe_strang_macro_cuda(y: torch.Tensor, ctrl: torch.Tensor, V: torch.Tensor,
     each resident block, allocated here.  Raises on anything the kernel
     does not take.
     """
-    B, H, W = _check_grid(y, ndim=4)
+    B, H, W = check_grid(y, ndim=4)
     dev = y.device
-    _check_cuda("y", y, (B, H, W, 2), torch.float32, dev)
-    _check_cuda("ctrl", ctrl, (B, H, W), torch.float32, dev)
-    _check_cuda("V", V, (H, W), torch.float32, dev)
-    _check_mats(consts, H, W, dev)
+    check_cuda("y", y, (B, H, W, 2), torch.float32, dev)
+    check_cuda("ctrl", ctrl, (B, H, W), torch.float32, dev)
+    check_cuda("V", V, (H, W), torch.float32, dev)
+    check_mats(consts, H, W, dev)
     for name in ("cos_full", "sin_full", "cos_half", "sin_half"):
-        _check_cuda(name, getattr(consts, name), (H, W), torch.float32, dev)
-    out = torch.empty_like(y)
-    stats = obs = None
+        check_cuda(name, getattr(consts, name), (H, W), torch.float32, dev)
     if epilogue is not None:
-        _check_cuda("weight", epilogue.weight, (H, W), torch.float32, dev)
-        stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
-        obs = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-    lib = _library()
-    scratch, slots = _alloc_scratch(dev, B, _library, "gpe_strang_macro_scratch",
-                                    round_bf16, H, W)
-    with torch.cuda.device(dev):
-        rc = lib.gpe_strang_macro_launch(
-            y.data_ptr(), ctrl.data_ptr(), V.data_ptr(), *_mats_ptrs(consts),
-            consts.cos_full.data_ptr(), consts.sin_full.data_ptr(),
-            consts.cos_half.data_ptr(), consts.sin_half.data_ptr(), out.data_ptr(),
-            stats.data_ptr() if stats is not None else None,
-            obs.data_ptr() if obs is not None else None,
-            epilogue.weight.data_ptr() if epilogue is not None else None,
-            float(epilogue.obs_scale) if epilogue is not None else 0.0,
-            scratch.data_ptr() if scratch is not None else None, slots,
-            B, H, W, int(n_steps), float(g), float(dt), float(dx) * float(dx),
-            int(bool(phase_poly)), int(bool(round_bf16)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"gpe_strang_macro launch failed: {lib.gpe_strang_error_string(rc).decode()}"
-        )
-    if epilogue is None:
-        count_launch("gpe_strang_macro")
-        return out
-    count_launch("gpe_strang_macro_ep")
-    return out, stats, obs
+        check_cuda("weight", epilogue.weight, (H, W), torch.float32, dev)
+    with device_stream(dev) as stream:
+        res = _gpe_strang_macro_launch(
+            library("gpe_strang_macro", _bind_library), y, ctrl, V, consts, g=g, dt=dt, dx=dx,
+            n_steps=n_steps, round_bf16=round_bf16, phase_poly=phase_poly, epilogue=epilogue,
+            stream=stream)
+    count_launch("gpe_strang_macro" if epilogue is None else "gpe_strang_macro_ep")
+    return res
 
 
 def _fold_rho_stats(y1, gy, gstats, weight):
@@ -356,10 +351,7 @@ def make_gpe_strang_cas_macro(
     from the checkpointed FFT oracle.  The JAX macro's ``block_envs`` and
     ``interpret`` (TPU tiling) have no counterpart.
     """
-    if H % 8 or W % 8:
-        raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")
-    if mats_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"mats_dtype must be bf16 or f32, got {mats_dtype}")
+    check_config(H, W, mats_dtype)
     kw = dict(g=float(g), dt=float(dt), dx=float(dx), n_steps=int(n_steps),
               round_bf16=mats_dtype == torch.bfloat16, phase_poly=bool(phase_poly))
     obs_scale = weight = None
@@ -390,10 +382,10 @@ def make_gpe_strang_cas_macro(
             return impl(yy, cc, V, consts, epilogue=ep, **kw)
 
         if ep is None:
-            y1 = _OracleMacro.apply(x, c, run, oracle, None)
+            y1 = OracleMacro.apply(x, c, run, oracle, None)
             return y1.to(y.dtype).reshape(*batch, H, W, 2)
         fold = functools.partial(_fold_rho_stats, weight=ep.weight)
-        y1, stats, obs = _OracleMacro.apply(x, c, run, oracle, fold)
+        y1, stats, obs = OracleMacro.apply(x, c, run, oracle, fold)
         return (y1.to(y.dtype).reshape(*batch, H, W, 2), stats.reshape(*batch, 3),
                 obs.reshape(*batch, H, W))
 

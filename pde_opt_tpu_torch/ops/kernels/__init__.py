@@ -1,4 +1,4 @@
-"""Build, load and count the port's hand-written CUDA kernels.
+"""Build, load, bind, launch and count the port's hand-written CUDA kernels.
 
 Each kernel source in ``pde_opt_tpu_torch/csrc/`` exposes a plain C
 interface; the ``*.cuh`` headers there hold device code they share.
@@ -9,21 +9,33 @@ the headers and the flags, so an edited source is rebuilt.  Nothing is downloade
 only sources of this package are compiled.  Importing this module compiles
 nothing, so CPU-only machines can import every module of the port.
 
-Every wrapper that launches a kernel adds one to its count with
-:func:`count_launch`, and nowhere else, so a run can show that its main
-path went through the kernels (:func:`launch_counts`).
+The rules every kernel's call follows live here.  A kernel's module declares
+its library's C entries with :func:`bind` (its ``_bind_library(lib, name)``)
+and spells each launching entry ``<entry>`` once, as ``_<entry>(lib, ...,
+stream)``: that function allocates the outputs and the scratch
+(:func:`alloc_scratch`), lists the arguments in order and raises on a
+nonzero return code (:func:`check`), for the card's library
+(:func:`library`) and the tests' CPU stub build alike.  The ``*_cuda``
+wrapper checks its tensors (:func:`check_cuda`), calls it inside
+:class:`device_stream` and counts the launch with :func:`count_launch`, and
+nowhere else, so a run can show that its main path went through the kernels
+(:func:`launch_counts`).  Each module declares its counters with
+:func:`register_launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
 
 __all__ = [
     "NVCC_FLAGS",
@@ -31,6 +43,16 @@ __all__ = [
     "load_libraries",
     "library_path",
     "build_log",
+    "bind",
+    "library",
+    "check",
+    "SCRATCH_OUT",
+    "scratch_size",
+    "alloc_scratch",
+    "check_cuda",
+    "data_ptr",
+    "device_stream",
+    "register_launches",
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
@@ -46,21 +68,8 @@ NVCC_FLAGS = (
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOGS: Dict[str, str] = {}
 _LOCK = threading.Lock()
-_LAUNCHES: Dict[str, int] = {
-    "ch_cas_macro": 0, "ch_cas_macro_ep": 0, "ch_cas_macro_bwd": 0,
-    # Of the two above, the launches that ran the on-chip kernel (128^2).
-    "ch_cas_macro.onchip": 0,
-    "ac_cas_macro": 0, "ac_cas_macro_ep": 0,
-    "gpe_strang_macro": 0, "gpe_strang_macro_ep": 0,
-    "bv_cc_macro": 0, "bv_cc_macro_ep": 0,
-    # Of the two above, the launches that ran the tiled kernel (above 64^2).
-    "bv_cc_macro.tiled": 0,
-    "sbm_bv_macro": 0, "sbm_bv_macro_ep": 0,
-    "ch_rhs_fd": 0, "ch3d_rhs_fd": 0,
-    "ch_sif_macro": 0, "ac_sif_macro": 0,
-    # The env fleet's auto-reset pass (csrc/fleet_reset.cu), one a fleet step.
-    "vector_env.fleet_reset": 0,
-}
+# Launches per counter; each module registers its own (register_launches).
+_LAUNCHES: Dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -136,6 +145,112 @@ def build_log(name: str) -> str:
     printed when this process built ``csrc/<name>.cu``; empty if it loaded
     a library built before."""
     return _BUILD_LOGS.get(name, "")
+
+
+def bind(lib: ctypes.CDLL, entries: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """Declare on ``lib`` each of ``entries`` (C function -> argument
+    types; every one returns an ``int``) and ``kernel_error_string``, which
+    every kernel library exports (``csrc/kernel_error.cuh``).  ``lib`` is a
+    library built for the card, or for the CPU by the tests' stub build."""
+    for entry, argtypes in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str, bind_library: Callable[[ctypes.CDLL, str], ctypes.CDLL]) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded (:func:`load_library`) and its C
+    interface declared by ``bind_library(lib, name)``, once a process."""
+    return bind_library(load_library(name), name)
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise ``RuntimeError`` naming ``what`` and CUDA's message where a C
+    entry of ``lib`` returned the nonzero code ``rc``."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: {lib.kernel_error_string(rc).decode()}")
+
+
+# The two out-pointers a scratch query ends with: slots, floats a slot.
+SCRATCH_OUT = (ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong))
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_size(lib: ctypes.CDLL, query: str, device_index: Optional[int],
+                 *args: int) -> Tuple[int, int]:
+    """``(slots, floats)``: the scratch a launch needs on one device (None:
+    the CPU of a stub build), one slot of ``floats`` f32 for each block
+    resident at once, as ``lib``'s ``query`` gives it for ``args``; ``(0,
+    0)`` where the kernel takes none.  Asked once per library, device and
+    arguments."""
+    n, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(-1 if device_index is None else device_index):
+        rc = getattr(lib, query)(*args, ctypes.byref(n), ctypes.byref(floats))
+    check(lib, rc, query)
+    return n.value, floats.value
+
+
+def alloc_scratch(lib: ctypes.CDLL, query: str, device: torch.device, B: int,
+                  *args: int) -> Tuple[Optional[torch.Tensor], int]:
+    """``(scratch, slots)`` for a launch of ``B`` envs: ``min(B, slots)``
+    slots as :func:`scratch_size` sizes them, allocated with ``torch.empty``
+    (``(None, 0)`` where the kernel takes none).  Raises ``RuntimeError``
+    naming the size where the device cannot hold it (K3 at 256² keeps n + 5
+    planes of 256 KB a slot: 14 MB at 50 substeps)."""
+    slots, floats = scratch_size(lib, query, device.index, *args)
+    if floats == 0:
+        return None, 0
+    slots = min(B, slots)
+    try:
+        return torch.empty((slots * floats,), dtype=torch.float32, device=device), slots
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"{query}{tuple(args)}: {slots} scratch slots of {floats * 4 / 2**20:.1f} MiB do "
+            f"not fit on {device}; run fewer substeps a call") from e
+
+
+def check_cuda(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
+               device: torch.device) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous, 16-byte aligned
+    CUDA tensor of ``shape`` and ``dtype`` on ``device``."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA macro needs CUDA tensors; {name} is on {t.device}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(
+            f"{name} must be {dtype} of shape {tuple(shape)}, got "
+            f"{t.dtype} {tuple(t.shape)}"
+        )
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """``t``'s address as a C entry takes it; null for None."""
+    return None if t is None else t.data_ptr()
+
+
+class device_stream(torch.cuda.device):
+    """``with device_stream(device) as stream:`` makes ``device`` current,
+    as :class:`torch.cuda.device` does, and gives the handle of its current
+    stream, on which a kernel's ``_<entry>`` launches."""
+
+    def __enter__(self):
+        super().__enter__()
+        return torch.cuda.current_stream(self.idx).cuda_stream
+
+
+def register_launches(*names: str) -> None:
+    """Declare the launch counters ``names`` (each module its own, at
+    import); :func:`count_launch` raises on any other name."""
+    for name in names:
+        _LAUNCHES.setdefault(name, 0)
 
 
 def count_launch(name: str) -> None:

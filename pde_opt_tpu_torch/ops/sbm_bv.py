@@ -35,21 +35,20 @@ import numpy as np
 import torch
 
 from . import stencils as st
-from .bv_cas import (
-    _rk4_macro,
-    bv_closure,
-    check_bv_coefficients,
-    rk4_constants,
-    rk4_fused,
+from .bv_cas import bv_closure, check_bv_coefficients, rk4_constants, rk4_fused, rk4_macro
+from .cas_common import OracleMacro, check_config, check_state, flatten_batch, macro_outputs
+from .kernels import (
+    SCRATCH_OUT,
+    alloc_scratch,
+    bind,
+    check,
+    check_cuda,
+    count_launch,
+    data_ptr,
+    device_stream,
+    library,
+    register_launches,
 )
-from .cas_spectral import (
-    _alloc_scratch,
-    _check_cuda,
-    _check_grid,
-    _flatten_batch,
-    _OracleMacro,
-)
-from .kernels import count_launch, load_library
 
 __all__ = [
     "SbmConstants",
@@ -81,7 +80,7 @@ def sbm_bv_reference(mu_fn, j0_fn, kappa, psi, hx, hy, dt, n_steps, remat=True):
         y = (-crate + torch.sqrt(crate**2 + 4.0 * ip * im)) / (2.0 * ip)
         return j * (1.0 / (em * y) - em * y)
 
-    return _rk4_macro(rhs, dt, n_steps, remat)
+    return rk4_macro(rhs, dt, n_steps, remat)
 
 
 class SbmConstants(NamedTuple):
@@ -177,31 +176,43 @@ def sbm_bv_macro_plain(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstant
     return u, stats, torch.clamp(x, 0.0, 255.0).to(torch.uint8)
 
 
-def _bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_library(lib, name: str):
     """Declare K7's C interface on ``lib`` (``csrc/sbm_bv_macro.cu`` built
     for the card, or for the CPU by the tests' stub build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sbm_bv_macro_launch.argtypes = [
-        p, p, p, p, p, p, p,             # u, crate, psi_ax, psi_ay, kop, psic, psi
-        p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
-        i, i, i, i,                      # B, H, W, n_steps
-        f, f, f, f, f,                   # dt/2, dt, dt/6, 1/hx, 1/hy
-        f, f, f, f,                      # mu omega, clip lo, clip hi, j0 floor
-        f, f,                            # obs_scale, center
-        p,                               # stream
-    ]
-    lib.sbm_bv_macro_launch.restype = ctypes.c_int
-    lib.sbm_bv_macro_scratch.argtypes = [i, i, ctypes.POINTER(ctypes.c_int),
-                                         ctypes.POINTER(ctypes.c_longlong)]
-    lib.sbm_bv_macro_scratch.restype = ctypes.c_int
-    lib.sbm_bv_error_string.argtypes = [ctypes.c_int]
-    lib.sbm_bv_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(lib, {
+        "sbm_bv_macro_launch": [
+            p, p, p, p, p, p, p,             # u, crate, psi_ax, psi_ay, kop, psic, psi
+            p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
+            i, i, i, i,                      # B, H, W, n_steps
+            f, f, f, f, f,                   # dt/2, dt, dt/6, 1/hx, 1/hy
+            f, f, f, f,                      # mu omega, clip lo, clip hi, j0 floor
+            f, f,                            # obs_scale, center
+            p,                               # stream
+        ],
+        "sbm_bv_macro_scratch": [i, i, *SCRATCH_OUT],               # H, W
+    })
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    return _bind_library(load_library("sbm_bv_macro"))
+register_launches("sbm_bv_macro", "sbm_bv_macro_ep")
+
+
+def _sbm_bv_macro_launch(lib, u, crate, consts: SbmConstants, *, mu_fn, j0_fn, dt, n_steps,
+                         epilogue=None, stream):
+    """K7 of ``lib`` on ``stream``, with its outputs and its scratch
+    allocated here: ``u1`` or, with ``epilogue``, ``(u1, stats, obs)``."""
+    B, H, W = u.shape
+    out, stats, obs = macro_outputs(u, epilogue)
+    scratch, slots = alloc_scratch(lib, "sbm_bv_macro_scratch", u.device, B, H, W)
+    ep = SbmEpilogue(0.0, 0.0) if epilogue is None else epilogue
+    check(lib, lib.sbm_bv_macro_launch(
+        u.data_ptr(), crate.data_ptr(), consts.psi_ax.data_ptr(), consts.psi_ay.data_ptr(),
+        consts.kop.data_ptr(), consts.psic.data_ptr(), consts.psi.data_ptr(), out.data_ptr(),
+        data_ptr(stats), data_ptr(obs), data_ptr(scratch), slots, B, H, W, int(n_steps),
+        *rk4_constants(dt), consts.inv_hx, consts.inv_hy, *check_bv_coefficients(mu_fn, j0_fn),
+        ep.obs_scale, ep.center, stream,
+    ), "sbm_bv_macro launch")
+    return out if epilogue is None else (out, stats, obs)
 
 
 def sbm_bv_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstants, *,
@@ -215,41 +226,17 @@ def sbm_bv_macro_cuda(u: torch.Tensor, crate: torch.Tensor, consts: SbmConstants
     kernel runs, with a scratch of four H x W planes for each resident
     block, allocated here.  Raises on anything the kernel does not take.
     """
-    coeffs = check_bv_coefficients(mu_fn, j0_fn)
-    B, H, W = _check_grid(u)
+    check_bv_coefficients(mu_fn, j0_fn)
+    B, H, W = check_state(u, crate, "crate")
     dev = u.device
-    _check_cuda("u", u, (B, H, W), torch.float32, dev)
-    _check_cuda("crate", crate, (B,), torch.float32, dev)
     for name in ("psi_ax", "psi_ay", "kop", "psic", "psi"):
-        _check_cuda(name, getattr(consts, name), (H, W), torch.float32, dev)
-    out = torch.empty_like(u)
-    stats = obs = None
-    if epilogue is not None:
-        stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
-        obs = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-    lib = _library()
-    scratch, slots = _alloc_scratch(dev, B, _library, "sbm_bv_macro_scratch", H, W)
-    with torch.cuda.device(dev):
-        rc = lib.sbm_bv_macro_launch(
-            u.data_ptr(), crate.data_ptr(), consts.psi_ax.data_ptr(),
-            consts.psi_ay.data_ptr(), consts.kop.data_ptr(), consts.psic.data_ptr(),
-            consts.psi.data_ptr(), out.data_ptr(),
-            stats.data_ptr() if stats is not None else None,
-            obs.data_ptr() if obs is not None else None,
-            scratch.data_ptr() if scratch is not None else None, slots,
-            B, H, W, int(n_steps), *rk4_constants(dt), consts.inv_hx, consts.inv_hy, *coeffs,
-            epilogue.obs_scale if epilogue else 0.0,
-            epilogue.center if epilogue else 0.0,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"sbm_bv_macro launch failed: {lib.sbm_bv_error_string(rc).decode()}")
-    if epilogue is None:
-        count_launch("sbm_bv_macro")
-        return out
-    count_launch("sbm_bv_macro_ep")
-    return out, stats, obs
+        check_cuda(name, getattr(consts, name), (H, W), torch.float32, dev)
+    with device_stream(dev) as stream:
+        res = _sbm_bv_macro_launch(library("sbm_bv_macro", _bind_library), u, crate, consts,
+                                   mu_fn=mu_fn, j0_fn=j0_fn, dt=dt, n_steps=n_steps,
+                                   epilogue=epilogue, stream=stream)
+    count_launch("sbm_bv_macro" if epilogue is None else "sbm_bv_macro_ep")
+    return res
 
 
 def _fold_psi_stats(u1, gu, gstats, weight, center):
@@ -293,8 +280,7 @@ def make_sbm_bv_fused_macro(
     counterpart.
     """
     H, W = tuple(psi.shape)
-    if H % 8 or W % 8:
-        raise ValueError(f"H, W must be multiples of 8, got {(H, W)}")
+    check_config(H, W)
     ep = None
     if epilogue is not None:
         ep = SbmEpilogue(float(epilogue.get("obs_scale", 255.0)),
@@ -302,7 +288,7 @@ def make_sbm_bv_fused_macro(
     kw = dict(mu_fn=mu_fn, j0_fn=j0_fn, dt=float(dt), n_steps=int(n_steps))
 
     def macro(state: torch.Tensor, crate):
-        batch, x, cf = _flatten_batch(state, crate, H, W)
+        batch, x, cf = flatten_batch(state, crate, H, W)
         consts = sbm_bv_constants(psi, kappa, hx, hy, state.device)
         impl = sbm_bv_macro_plain if state.device.type == "cpu" else sbm_bv_macro_cuda
         oracle = sbm_bv_reference(mu_fn, j0_fn, float(kappa), consts.psi, float(hx),
@@ -312,10 +298,10 @@ def make_sbm_bv_fused_macro(
             return impl(u, c, consts, epilogue=ep, **kw)
 
         if ep is None:
-            u1 = _OracleMacro.apply(x, cf, run, oracle, None)
+            u1 = OracleMacro.apply(x, cf, run, oracle, None)
             return u1.to(state.dtype).reshape(*batch, H, W)
         fold = functools.partial(_fold_psi_stats, weight=consts.psic, center=ep.center)
-        u1, stats, obs = _OracleMacro.apply(x, cf, run, oracle, fold)
+        u1, stats, obs = OracleMacro.apply(x, cf, run, oracle, fold)
         return (u1.to(state.dtype).reshape(*batch, H, W), stats.reshape(*batch, 3),
                 obs.reshape(*batch, H, W))
 

@@ -118,8 +118,8 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    library = cs._library
-    alloc = cs._alloc_scratch
+    alloc = cs.alloc_scratch
+    stream = torch.cuda.current_stream(dev).cuda_stream
     try:
         for B, N in SHAPES:
             consts = cs.cas_constants(N, N, 0.01, 0.01, torch.bfloat16, dev)
@@ -127,23 +127,20 @@ def main():
             kap = torch.full((B,), 4e-3, device=dev)
             kw = dict(mu_fn=CH_MU, dt=1e-3, A=1.0, n_steps=10, round_bf16=True)
             for name in VARIANTS:
-                lib = cs._bind_ch_library(ctypes.CDLL(str(OUT / f"lib_{name}.so")))
-                cs._library = lambda lib=lib: lib
-                cs._scratch.cache_clear()
+                lib = cs._bind_library(ctypes.CDLL(str(OUT / f"lib_{name}.so")), "ch_cas_macro")
                 for cap in (None, sms):
-                    def capped(dev_, B_, library_, query, *args, cap=cap):
-                        scratch, slots = alloc(dev_, B_, library_, query, *args)
+                    def capped(*args, cap=cap):
+                        scratch, slots = alloc(*args)
                         return scratch, slots if cap is None else min(slots, cap)
 
-                    cs._alloc_scratch = capped
-                    ms = time_ms(lambda: cs.ch_cas_macro_cuda(u, kap, consts, **kw))
+                    cs.alloc_scratch = capped
+                    ms = time_ms(lambda: cs._ch_cas_macro_launch(lib, u, kap, consts,
+                                                                 stream=stream, **kw))
                     slots = "resident" if cap is None else f"<= {cap}"
                     print(f"{name}: K2 {B}x{N}^2x10 bf16, slots {slots}: {ms:.4f} ms", flush=True)
-                    cs._alloc_scratch = alloc
+                    cs.alloc_scratch = alloc
     finally:
-        cs._library, cs._alloc_scratch = library, alloc
-        cs._scratch.cache_clear()
-
+        cs.alloc_scratch = alloc
 
 if __name__ == "__main__":
     main()

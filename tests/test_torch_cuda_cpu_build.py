@@ -19,7 +19,10 @@ tensors; only the card's
 reading of the descriptors, the real ``wgmma`` and ``cp.async`` are left to
 the ``cuda`` tests.  The test rewrites, in the sources and the headers, the
 two constructs C++ has no grammar for: the ``<<<...>>>`` launch and
-``extern __shared__``.
+``extern __shared__``.  Each library is bound by its module's own
+``_bind_library`` and each kernel runs through its module's own launch
+function (``_<entry>``, as the CUDA wrapper calls it), so the argument
+order, the pointers and the scratch sizing held here are the card's.
 
 Three envs on one block (the stub's device holds one block), so the block
 walks the envs by grid stride and K3's three envs share one trajectory slot;
@@ -94,19 +97,17 @@ from pde_opt_tpu_torch.models.functions import (
 )
 from pde_opt_tpu_torch.ops.bv_cas import (
     _bind_library as _bind_bv,
+    _bv_cc_macro_launch,
     bv_cc_macro_plain,
-    check_bv_coefficients,
-    rk4_constants,
 )
+from pde_opt_tpu_torch.ops.cas_common import c_coeffs
 from pde_opt_tpu_torch.ops.cas_spectral import (
     Epilogue,
     PolynomialMu,
-    _bind_ac_library,
-    _axis_ptrs,
-    _bind_ch_library,
-    _c_coeffs,
-    _mat_ptrs,
-    _mats_ptrs,
+    _ac_cas_macro_launch,
+    _bind_library as _bind_cas,
+    _ch_cas_macro_bwd_launch,
+    _ch_cas_macro_launch,
     ac_cas_macro_plain,
     cas_constants,
     ch_cas_macro_bwd_plain,
@@ -118,27 +119,33 @@ from pde_opt_tpu_torch.ops.fused import (
     FORM_LEGENDRE_SCALED,
     FORM_POLY,
     _bind_library as _bind_rhs,
+    _ch_rhs_fd_2d_launch,
+    _ch_rhs_fd_3d_launch,
     ch3d_rhs_fd_plain,
     ch_rhs_fd_plain,
 )
 from pde_opt_tpu_torch.ops.fused_spectral import (
+    _ac_sif_macro_launch,
     _bind_library as _bind_sif,
+    _ch_sif_macro_launch,
     ac_sif_macro_plain,
     ch_sif_macro_plain,
     sif_constants,
-    tiled_tables,
-)
-from pde_opt_tpu_torch.ops.sbm_bv import (
-    SbmEpilogue,
-    _bind_library as _bind_sbm,
-    sbm_bv_constants,
-    sbm_bv_macro_plain,
 )
 from pde_opt_tpu_torch.ops.gpe_cas import (
     GpeEpilogue,
     _bind_library as _bind_gpe,
+    _gpe_strang_macro_launch,
     gpe_constants,
     gpe_strang_macro_plain,
+)
+from pde_opt_tpu_torch.ops.kernels import scratch_size
+from pde_opt_tpu_torch.ops.sbm_bv import (
+    SbmEpilogue,
+    _bind_library as _bind_sbm,
+    _sbm_bv_macro_launch,
+    sbm_bv_constants,
+    sbm_bv_macro_plain,
 )
 
 torch.set_num_threads(1)
@@ -189,22 +196,18 @@ def _cpu_source(src: str) -> str:
                   r"\1* \2 = reinterpret_cast<\1*>(stub_dynamic_smem());", src)
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """Build ``ac_cas_macro.cu``, ``bv_cc_macro.cu``, ``ch_cas_macro.cu``,
-    ``gpe_strang_macro.cu``, ``ch_rhs_fd.cu``, ``ch_sif_macro.cu``,
-    ``ac_sif_macro.cu`` and ``sbm_bv_macro.cu`` for the CPU, in parallel;
-    return their bound libraries (K4, K6, K1-K3, K5, K8, K9a, K9b, K7)."""
+def build_for_cpu(build: Path, names):
+    """``csrc/<name>.cu`` for each of ``names`` compiled with g++ against the
+    stub headers into ``build``, in parallel: ``{name: library}``, each
+    loaded and not yet bound.  Skips the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the CPU")
-    build = tmp_path_factory.mktemp("cuda_cpu_build")
     for header in CSRC.glob("*.cuh"):
         if not (STUB / header.name).exists():      # the stub's stand-ins come first
             (build / header.name).write_text(_cpu_source(header.read_text()))
     procs = {}
-    for name in ("ac_cas_macro", "bv_cc_macro", "ch_cas_macro", "gpe_strang_macro", "ch_rhs_fd",
-                 "ch_sif_macro", "ac_sif_macro", "sbm_bv_macro"):
+    for name in names:
         src = build / f"{name}.cpp"
         src.write_text(_cpu_source((CSRC / f"{name}.cu").read_text()))
         procs[name] = subprocess.Popen(
@@ -215,27 +218,42 @@ def libs(tmp_path_factory):
     for name, proc in procs.items():
         _, err = proc.communicate()
         assert proc.returncode == 0, f"g++ failed on {name}:\n{err}"
-    rhs = _bind_rhs(ctypes.CDLL(str(build / "libch_rhs_fd.so")))
-    rhs.stub_set_resident_blocks.argtypes = [ctypes.c_int]
-    return (_bind_ac_library(ctypes.CDLL(str(build / "libac_cas_macro.so"))),
-            _bind_bv(ctypes.CDLL(str(build / "libbv_cc_macro.so"))),
-            _bind_ch_library(ctypes.CDLL(str(build / "libch_cas_macro.so"))),
-            _bind_gpe(ctypes.CDLL(str(build / "libgpe_strang_macro.so"))), rhs,
-            *(_bind_sif(ctypes.CDLL(str(build / f"lib{n}.so")), n)
-              for n in ("ch_sif_macro", "ac_sif_macro")),
-            _bind_sbm(ctypes.CDLL(str(build / "libsbm_bv_macro.so"))))
+    return {name: ctypes.CDLL(str(build / f"lib{name}.so")) for name in names}
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+# The libraries the fixture builds, in the order it returns them (K4, K6,
+# K1-K3, K5, K8, K9a, K9b, K7), each with its module's binding.
+BINDS = {"ac_cas_macro": _bind_cas, "bv_cc_macro": _bind_bv, "ch_cas_macro": _bind_cas,
+         "gpe_strang_macro": _bind_gpe, "ch_rhs_fd": _bind_rhs, "ch_sif_macro": _bind_sif,
+         "ac_sif_macro": _bind_sif, "sbm_bv_macro": _bind_sbm}
 
 
-def _outputs(u, ep):
-    Bn, H, W = u.shape
-    if ep is None:
-        return torch.empty_like(u), None, None
-    return (torch.empty_like(u), torch.empty((Bn, 3), dtype=torch.float32),
-            torch.empty((Bn, H // ep.ds, W // ep.ds), dtype=torch.uint8))
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """The kernels of :data:`BINDS` built for the CPU, each bound by its
+    module's own ``_bind_library``."""
+    built = build_for_cpu(tmp_path_factory.mktemp("cuda_cpu_build"), BINDS)
+    built["ch_rhs_fd"].stub_set_resident_blocks.argtypes = [ctypes.c_int]
+    return tuple(bind(built[name], name) for name, bind in BINDS.items())
+
+
+def _one_slot(lib, query, *args):
+    """The stub's SM holds one block: a kernel that takes a scratch gets
+    one slot from the shared query, which every env reuses."""
+    slots, floats = scratch_size(lib, query, None, *args)
+    assert floats == 0 or slots == 1
+
+
+def _rms(d):
+    return float(d.double().pow(2).mean().sqrt())
+
+
+def _assert_nan_env_kept(got, want, whole=False):
+    """NaN where plain has it: in the first env (all of it with ``whole``)
+    and in no env after it."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    first = torch.isnan(got[0])
+    assert bool(first.all() if whole else first.any()) and not bool(torch.isnan(got[1:]).any())
 
 
 def _ac_inputs(H, W, seed, n=B):
@@ -244,37 +262,19 @@ def _ac_inputs(H, W, seed, n=B):
     return u, torch.from_numpy(np.linspace(1e-4, 1e-3, n).astype(np.float32))
 
 
-def _scratch(lib, query, *args):
-    """``(scratch, slots)`` as the library's scratch ``query`` sizes them
-    (``(None, 0)`` where the kernel takes none): the stub's SM holds one
-    block, so one slot that every env reuses."""
-    slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
-    assert getattr(lib, query)(*args, ctypes.byref(slots), ctypes.byref(floats)) == 0
-    if floats.value == 0:
-        return None, 0
-    assert slots.value == 1
-    return torch.empty(slots.value * floats.value), slots.value
+def _ac_kw(R, bf16, n_steps):
+    return dict(mu_fn=MU, R_fn=R, r_identity=r_is_identity(R), dt=AC_DT, A=AC_A,
+                n_steps=n_steps, round_bf16=bf16)
 
 
 def _ac_kernel(lib, u, kap, consts, R, ep, bf16, n_steps=N_STEPS):
-    Bn, H, W = u.shape
-    out, stats, obs = _outputs(u, ep)
-    mu_c, n_mu = _c_coeffs(MU)
-    r_c, n_r = (None, 0) if r_is_identity(R) else _c_coeffs(R)
-    scratch, slots = _scratch(lib, "ac_cas_macro_scratch", int(bf16), H, W)
-    rc = lib.ac_cas_macro_launch(
-        u.data_ptr(), kap.data_ptr(), *_mats_ptrs(consts), consts.lam.data_ptr(),
-        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps, AC_DT,
-        AC_A * AC_DT, mu_c, n_mu, r_c, n_r, int(bf16), ep.ds if ep else 1,
-        ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0, ep.center if ep else 0.0,
-        None)
-    assert rc == 0
-    return out if ep is None else (out, stats, obs)
+    _one_slot(lib, "ac_cas_macro_scratch", int(bf16), *u.shape[1:])
+    return _ac_cas_macro_launch(lib, u, kap, consts, epilogue=ep, stream=None,
+                                **_ac_kw(R, bf16, n_steps))
 
 
 def _ac_plain(u, kap, consts, R, ep, bf16, n_steps=N_STEPS):
-    return ac_cas_macro_plain(u, kap, consts, mu_fn=MU, R_fn=R, r_identity=r_is_identity(R),
-                              dt=AC_DT, A=AC_A, n_steps=n_steps, round_bf16=bf16, epilogue=ep)
+    return ac_cas_macro_plain(u, kap, consts, epilogue=ep, **_ac_kw(R, bf16, n_steps))
 
 
 def _bv_inputs(H, W, seed, n=B):
@@ -288,25 +288,23 @@ def _bv_consts(H, W, bf16):
                          torch.device("cpu"))
 
 
+def _bv_kw(H, W, bf16, n_steps):
+    return dict(mu_fn=BV_MU, j0_fn=BV_J0, kappa=BV_KAPPA, cell=1 / (H * W), dt=BV_DT,
+                n_steps=n_steps, round_bf16=bf16)
+
+
 def _bv_kernel(lib, u, cr, consts, ep, bf16, n_steps=N_STEPS):
-    Bn, H, W = u.shape
-    out, stats, obs = _outputs(u, ep)
-    scratch, slots = _scratch(lib, "bv_cc_macro_scratch", int(bf16), H, W)
-    rc = lib.bv_cc_macro_launch(
-        u.data_ptr(), cr.data_ptr(), *_mats_ptrs(consts), consts.lam.data_ptr(),
-        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps,
-        *rk4_constants(BV_DT), BV_KAPPA, 1 / (H * W), *check_bv_coefficients(BV_MU, BV_J0),
-        int(bf16), ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0,
-        ep.center if ep else 0.0, None)
-    assert rc == 0
-    return out if ep is None else (out, stats, obs)
+    """K6 from the stub build; it says it ran the tiled kernel above 64²."""
+    H, W = u.shape[-2:]
+    _one_slot(lib, "bv_cc_macro_scratch", int(bf16), H, W)
+    got, tiled = _bv_cc_macro_launch(lib, u, cr, consts, epilogue=ep, stream=None,
+                                     **_bv_kw(H, W, bf16, n_steps))
+    assert tiled == (H > 64 or W > 64)
+    return got
 
 
 def _bv_plain(u, cr, consts, ep, bf16, n_steps=N_STEPS):
-    H, W = u.shape[-2:]
-    return bv_cc_macro_plain(u, cr, consts, mu_fn=BV_MU, j0_fn=BV_J0, kappa=BV_KAPPA,
-                             cell=1 / (H * W), dt=BV_DT, n_steps=n_steps, round_bf16=bf16,
-                             epilogue=ep)
+    return bv_cc_macro_plain(u, cr, consts, epilogue=ep, **_bv_kw(*u.shape[-2:], bf16, n_steps))
 
 
 def _ch_inputs(H, W, seed, n=B):
@@ -327,36 +325,19 @@ def _ch_kw(n_steps, bf16):
 
 
 def _ch_kernel(lib, u, kap, consts, ep, bf16, n_steps=N_STEPS):
-    Bn, H, W = u.shape
-    out, stats, obs = _outputs(u, ep)
-    mu_c, n_mu = _c_coeffs(MU)
-    scratch, slots = _scratch(lib, "ch_cas_macro_scratch", 0, int(bf16), H, W, n_steps)
-    rc = lib.ch_cas_macro_launch(
-        u.data_ptr(), kap.data_ptr(), *_mat_ptrs(consts), *_axis_ptrs(consts), out.data_ptr(),
-        _ptr(stats), _ptr(obs), _ptr(scratch), slots, Bn, H, W, n_steps, CH_DT, CH_A * CH_DT, mu_c,
-        n_mu, int(bf16),
-        ep.ds if ep else 1, ep.obs_scale if ep else 0.0, ep.obs_offset if ep else 0.0,
-        ep.center if ep else 0.0, None)
-    assert rc == 0
-    return out if ep is None else (out, stats, obs)
+    _one_slot(lib, "ch_cas_macro_scratch", 0, int(bf16), *u.shape[1:], n_steps)
+    return _ch_cas_macro_launch(lib, u, kap, consts, epilogue=ep, stream=None,
+                                **_ch_kw(n_steps, bf16))
 
 
 def _ch_bwd(lib, u, kap, consts, bf16, n_steps):
     """K3 and the plain backward on the cotangent of ``sum(u1**2)``:
     ``((du, dkappa), (plain du, plain dkappa))``."""
-    Bn, H, W = u.shape
     kw = _ch_kw(n_steps, bf16)
     g = 2.0 * ch_cas_macro_plain(u, kap, consts, **kw)
-    scratch, slots = _scratch(lib, "ch_cas_macro_scratch", 1, int(bf16), H, W, n_steps)
-    du, dk = torch.empty_like(u), torch.empty(Bn)
-    mu_c, n_mu = _c_coeffs(MU)
-    dmu_c, n_dmu = _c_coeffs(MU.derivative())
-    rc = lib.ch_cas_macro_bwd_launch(
-        u.data_ptr(), kap.data_ptr(), g.data_ptr(), *_mat_ptrs(consts), du.data_ptr(),
-        dk.data_ptr(), scratch.data_ptr(), slots, Bn, H, W, n_steps, CH_DT,
-        CH_A * CH_DT, -(CH_A * CH_DT * CH_DT), mu_c, n_mu, dmu_c, n_dmu, int(bf16), None)
-    assert rc == 0
-    return (du, dk), ch_cas_macro_bwd_plain(u, kap, g, consts, **kw)
+    _one_slot(lib, "ch_cas_macro_scratch", 1, int(bf16), *u.shape[1:], n_steps)
+    return (_ch_cas_macro_bwd_launch(lib, u, kap, g, consts, stream=None, **kw),
+            ch_cas_macro_bwd_plain(u, kap, g, consts, **kw))
 
 
 def _assert_bwd(got, want, bf16):
@@ -400,23 +381,6 @@ def _gpe_inputs(H, W, seed, n=B):
             torch.from_numpy(spot), dx)
 
 
-def _gpe_kernel(lib, y, ctrl, V, consts, ep, dx, n_steps, bf16, poly):
-    Bn, H, W, _ = y.shape
-    out = torch.empty_like(y)
-    stats = obs = None
-    if ep is not None:
-        stats, obs = torch.empty((Bn, 3)), torch.empty((Bn, H, W), dtype=torch.uint8)
-    scratch, slots = _scratch(lib, "gpe_strang_macro_scratch", int(bf16), H, W)
-    rc = lib.gpe_strang_macro_launch(
-        y.data_ptr(), ctrl.data_ptr(), V.data_ptr(), *_mats_ptrs(consts),
-        consts.cos_full.data_ptr(), consts.sin_full.data_ptr(), consts.cos_half.data_ptr(),
-        consts.sin_half.data_ptr(), out.data_ptr(), _ptr(stats), _ptr(obs),
-        _ptr(ep.weight if ep else None), ep.obs_scale if ep else 0.0, _ptr(scratch), slots,
-        Bn, H, W, n_steps, GPE_G, GPE_DT, dx * dx, int(poly), int(bf16), None)
-    assert rc == 0
-    return out if ep is None else (out, stats, obs)
-
-
 def _gpe_case(lib, H, W, bf16, poly, ep, seed, n_steps=N_STEPS, nan=False, n=B, amp=1.0):
     """K5 and its plain version on the same inputs (the state at ``amp``
     times unit norm): ``(got, want, spot)``."""
@@ -426,12 +390,11 @@ def _gpe_case(lib, H, W, bf16, poly, ep, seed, n_steps=N_STEPS, nan=False, n=B, 
         y[0, 3, 7, 0] = float("nan")
     consts = gpe_constants(H, W, dx, GPE_DT, torch.bfloat16 if bf16 else torch.float32,
                            torch.device("cpu"))
-    epi = GpeEpilogue(2550.0, spot) if ep else None
-    got = _gpe_kernel(lib, y, ctrl, V, consts, epi, dx, n_steps, bf16, poly)
-    want = gpe_strang_macro_plain(y, ctrl, V, consts, g=GPE_G, dt=GPE_DT, dx=dx,
-                                  n_steps=n_steps, round_bf16=bf16, phase_poly=poly,
-                                  epilogue=epi)
-    return got, want, spot
+    kw = dict(g=GPE_G, dt=GPE_DT, dx=dx, n_steps=n_steps, round_bf16=bf16, phase_poly=poly,
+              epilogue=GpeEpilogue(2550.0, spot) if ep else None)
+    _one_slot(lib, "gpe_strang_macro_scratch", int(bf16), H, W)
+    got = _gpe_strang_macro_launch(lib, y, ctrl, V, consts, stream=None, **kw)
+    return got, gpe_strang_macro_plain(y, ctrl, V, consts, **kw), spot
 
 
 def _rhs3d_pair(kind):
@@ -453,19 +416,16 @@ def _rhs3d_case(lib, shape, h, kind, resident, seed):
     u = torch.from_numpy((0.5 + 0.05 * rng.standard_normal(shape)).astype(np.float32))
     u[0] = u[0] * 3.0 - 1.0
     kap = torch.from_numpy(np.linspace(2e-3, 5e-3, shape[0]).astype(np.float32))
-    mu, D, (mf, mc), (df, dc) = _rhs3d_pair(kind)
-    inv = [1.0 / x for x in h]
+    mu, D, mu_form, D_form = _rhs3d_pair(kind)
     out = torch.full_like(u, float("nan"))
     lib.stub_set_resident_blocks(resident)
     n = ctypes.c_int(0)
     assert lib.ch_rhs_fd_3d_resident(shape[2], shape[3], ctypes.byref(n)) == 0
     assert n.value == resident                    # one stub SM
-    rc = lib.ch_rhs_fd_3d_launch(
-        u.data_ptr(), kap.data_ptr(), out.data_ptr(), *shape, mc.data_ptr(), mc.numel(), mf,
-        dc.data_ptr(), dc.numel(), df, (ctypes.c_float * 3)(*inv),
-        (ctypes.c_float * 3)(*(v * v for v in inv)), n.value, None)
-    assert rc == 0
-    return out, ch3d_rhs_fd_plain(u, kap, mu_fn=mu, D_fn=D, h1=h[0], h2=h[1], h3=h[2])
+    spacing = dict(h1=h[0], h2=h[1], h3=h[2])
+    _ch_rhs_fd_3d_launch(lib, u, kap, out, mu=mu_form, D=D_form, resident=n.value, stream=None,
+                         **spacing)
+    return out, ch3d_rhs_fd_plain(u, kap, mu_fn=mu, D_fn=D, **spacing)
 
 
 @pytest.mark.parametrize("H,W", SHAPES)
@@ -572,16 +532,14 @@ def test_ch_tiled_nan_env_stays_in_its_env(libs, kernel):
     consts = _ch_consts(H, W, bf16)
     if kernel == "bwd_bf16":
         got, want = _ch_bwd(libs[2], u, kap, consts, True, N_STEPS)
-        assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-        assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+        _assert_nan_env_kept(got[0], want[0])
         assert bool(torch.isnan(got[1][0])) and not bool(torch.isnan(got[1][1:]).any())
         _assert_bwd([t[1:] for t in got], [t[1:] for t in want], True)
         return
     ep = Epilogue(255.0, 0.0, 0.5, 1)
     got = _ch_kernel(libs[2], u, kap, consts, ep, bf16)
     want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, bf16))
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0])
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_CH[bf16])
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < H * W
 
@@ -600,10 +558,7 @@ def test_ch_tiled_bf16_kernel_rounds_where_plain_rounds(libs, kernel):
     want = ch_cas_macro_plain(u, kap, consts, **_ch_kw(1, True))
     ctl = ch_cas_macro_plain(u, kap, consts, **_ch_kw(1, False))
 
-    def rms(d):
-        return float(d.double().pow(2).mean().sqrt())
-
-    assert rms(got - want) <= TOL_CH_SITE < rms(ctl - want)
+    assert _rms(got - want) <= TOL_CH_SITE < _rms(ctl - want)
 
 
 @pytest.mark.parametrize("H,W,ds", CH_ONCHIP_CASES)
@@ -636,8 +591,7 @@ def test_ch_onchip_nan_env_stays_in_its_env(libs):
     ep = Epilogue(255.0, 0.0, 0.5, 1)
     got = _ch_kernel(libs[2], u, kap, consts, ep, True)
     want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0])
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_CH[True])
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < 128 * 128
     _assert_ch_epilogue([t[1:] for t in got], [t[1:] for t in want])
@@ -658,13 +612,11 @@ def test_ch_onchip_rule_and_scratch(libs, bwd):
     for (H, W), bf16 in [(hw, b) for hw in on + off for b in (1, 0)]:
         taken = bf16 == 1 and (H, W) in on
         assert lib.ch_cas_macro_onchip(H, W, bf16) == int(taken), (H, W, bf16)
-        slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
-        assert lib.ch_cas_macro_scratch(bwd, bf16, H, W, N_STEPS, ctypes.byref(slots),
-                                        ctypes.byref(floats)) == 0
+        _, floats = scratch_size(lib, "ch_cas_macro_scratch", None, bwd, bf16, H, W, N_STEPS)
         tiled = H > 64 or W > 64
         want = ((N_STEPS + 5 if tiled else N_STEPS) if bwd
                 else (0 if taken or not tiled else 3)) * H * W
-        assert floats.value == want, (H, W, bf16, bwd)
+        assert floats == want, (H, W, bf16, bwd)
 
 
 @pytest.mark.parametrize("bf16", [True, False])
@@ -713,8 +665,7 @@ def test_ac_tiled_nan_env_stays_in_its_env(libs, bf16, general):
     ep = Epilogue(127.5, 127.5, 0.0, 1)
     got, want, *_ = _ac_tiled_case(libs[0], 96, 136, bf16, R_POLY if general else AC_R, ep,
                                    seed=9, nan=True)
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0])
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_AC[bf16])
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < 96 * 136
 
@@ -729,10 +680,7 @@ def test_ac_tiled_bf16_kernel_rounds_where_plain_rounds(libs, general):
                                                n_steps=1)
     ctl = _ac_plain(u, kap, consts, R, None, False, 1)
 
-    def rms(d):
-        return float(d.double().pow(2).mean().sqrt())
-
-    assert rms(got - want) <= TOL_AC_SITE[general] < rms(ctl - want)
+    assert _rms(got - want) <= TOL_AC_SITE[general] < _rms(ctl - want)
 
 
 @pytest.mark.parametrize("H,W", TILED_SHAPES[:2])
@@ -777,8 +725,7 @@ def test_gpe_tiled_nan_env_stays_in_its_env(libs, bf16, poly):
     renorm makes the whole env NaN, as plain's; the second env, which
     reuses its slot, still equals plain."""
     got, want, _ = _gpe_case(libs[3], 96, 136, bf16, poly, True, seed=5, nan=True, n=2)
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0])
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_GPE[bf16])
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < 96 * 136
 
@@ -792,10 +739,7 @@ def test_gpe_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
         y, ctrl, V, gpe_constants(128, 128, dx, GPE_DT, torch.bfloat16, torch.device("cpu")),
         g=GPE_G, dt=GPE_DT, dx=dx, n_steps=1, round_bf16=False, phase_poly=True)
 
-    def rms(d):
-        return float(d.double().pow(2).mean().sqrt())
-
-    assert rms(got - want) <= TOL_GPE_SITE < rms(control - want)
+    assert _rms(got - want) <= TOL_GPE_SITE < _rms(control - want)
 
 
 @pytest.mark.parametrize("H,W", SHAPES)
@@ -830,10 +774,7 @@ def test_gpe_bf16_kernel_rounds_where_plain_rounds(libs, H, W):
         y, ctrl, V, gpe_constants(H, W, dx, GPE_DT, torch.bfloat16, torch.device("cpu")),
         g=GPE_G, dt=GPE_DT, dx=dx, n_steps=1, round_bf16=False, phase_poly=True)
 
-    def rms(d):
-        return float(d.double().pow(2).mean().sqrt())
-
-    assert rms(got - want) <= TOL_GPE_SITE < rms(control - want)
+    assert _rms(got - want) <= TOL_GPE_SITE < _rms(control - want)
 
 
 @pytest.mark.parametrize("kind", ["legendre", "poly"])
@@ -903,8 +844,7 @@ def test_nan_env_stays_in_its_env(libs, kernel):
         u, kap = _ch_inputs(H, W, seed=5)
         u[0, 3, 7] = float("nan")
         got, want = _ch_bwd(libs[2], u, kap, _ch_consts(H, W, True), True, N_STEPS)
-        assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-        assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+        _assert_nan_env_kept(got[0], want[0])
         assert bool(torch.isnan(got[1][0])) and not bool(torch.isnan(got[1][1:]).any())
         _assert_bwd([t[1:] for t in got], [t[1:] for t in want], True)
         return
@@ -932,8 +872,7 @@ def test_nan_env_stays_in_its_env(libs, kernel):
         got = _bv_kernel(libs[1], u, cr, consts, ep, True)
         want = _bv_plain(u, cr, consts, ep, True)
         tol = TOL_BV[True]
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).any()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0])
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=tol)
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) < H * W
 
@@ -978,8 +917,7 @@ def test_bv_tiled_nan_env_stays_in_its_env(libs, bf16):
     closure spreads it over that env alone; the second env, which reuses
     its slot, still equals plain."""
     got, want, *_ = _bv_tiled_case(libs[1], 96, 136, bf16, True, seed=9, nan=True)
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).all()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0], whole=True)
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_BV[bf16])
     assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) == 0.0
 
@@ -992,10 +930,7 @@ def test_bv_tiled_bf16_kernel_rounds_where_plain_rounds(libs):
                                               n_steps=1)
     ctl = _bv_plain(u, cr, consts, None, False, 1)
 
-    def rms(d):
-        return float(d.double().pow(2).mean().sqrt())
-
-    assert rms(got - want) <= TOL_BV_SITE < rms(ctl - want)
+    assert _rms(got - want) <= TOL_BV_SITE < _rms(ctl - want)
 
 
 # ---- K9a and K9b, the packed-DFT macros ----------------------------------------
@@ -1011,29 +946,22 @@ def _sif_case(libs, kind, H, W, half, bf16, R=None, n_steps=N_STEPS, seed=0, nan
         u[0, 3, 7] = float("nan")
     consts = sif_constants(H, W, SIF_HX, SIF_HY, torch.bfloat16 if bf16 else torch.float32,
                            half, torch.device("cpu"))
-    dt, A = (CH_DT, CH_A) if kind == "ch" else (AC_DT, AC_A)
+    launch, plain, kw = _sif_kind(kind, R, n_steps)
     lib = libs[5] if kind == "ch" else libs[6]
-    W2 = consts.wr_w.shape[-1]
-    scratch, slots = _scratch(lib, f"{kind}_sif_macro_scratch", int(bf16), H, W, W2)
-    tables = (None,) * 6 if scratch is None else tiled_tables(consts, bf16)
-    out = torch.empty_like(u)
-    mu_c, n_mu = _c_coeffs(MU)
-    common = (u.data_ptr(), kap.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(),
-              (ctypes.c_void_p * 6)(*(_ptr(t) for t in tables)), _ptr(scratch), slots,
-              u.shape[0], H, W, W2, n_steps, dt, A * dt)
-    kw = dict(mu_fn=MU, dt=dt, A=A, n_steps=n_steps)
-    if kind == "ch":
-        rc = lib.ch_sif_macro_launch(*common, mu_c, n_mu, int(bf16), None)
-        plain = ch_sif_macro_plain
-    else:
-        r_c, n_r = (None, 0) if R is None else _c_coeffs(R)
-        rc = lib.ac_sif_macro_launch(*common, 1 / SIF_HX**2, 1 / SIF_HY**2, mu_c, n_mu, r_c,
-                                     n_r, int(bf16), None)
-        plain = ac_sif_macro_plain
-        kw.update(R_fn=R, r_identity=R is None, hx=SIF_HX, hy=SIF_HY)
-    assert rc == 0
-    return (out, plain(u, kap, consts, round_bf16=bf16, **kw),
+    _one_slot(lib, f"{kind}_sif_macro_scratch", int(bf16), H, W, consts.wr_w.shape[-1])
+    return (launch(lib, u, kap, consts, round_bf16=bf16, stream=None, **kw),
+            plain(u, kap, consts, round_bf16=bf16, **kw),
             plain(u, kap, consts, round_bf16=False, **kw))
+
+
+def _sif_kind(kind, R, n_steps):
+    """K9a's or K9b's ``(launch, plain version, their keywords)``."""
+    if kind == "ch":
+        return (_ch_sif_macro_launch, ch_sif_macro_plain,
+                dict(mu_fn=MU, dt=CH_DT, A=CH_A, n_steps=n_steps))
+    return (_ac_sif_macro_launch, ac_sif_macro_plain,
+            dict(mu_fn=MU, dt=AC_DT, A=AC_A, n_steps=n_steps, R_fn=R, r_identity=R is None,
+                 hx=SIF_HX, hy=SIF_HY))
 
 
 SIF_HX, SIF_HY = 0.01, 0.02
@@ -1066,10 +994,7 @@ def test_sif_bf16_kernel_rounds_where_plain_rounds(libs, kind, R):
     rounding site) above it."""
     got, want, control = _sif_case(libs, kind, 64, 64, True, True, R, n_steps=1, seed=7)
 
-    def rms(d):
-        return float(d.double().pow(2).mean().sqrt())
-
-    assert rms(got - want) <= TOL_SIF_SITE[kind] < rms(control - want)
+    assert _rms(got - want) <= TOL_SIF_SITE[kind] < _rms(control - want)
 
 
 @pytest.mark.parametrize("H,W,half", [(24, 40, True), (16, 16, False)], ids=["24x40", "16-full"])
@@ -1086,8 +1011,7 @@ def test_sif_nan_env_stays_in_its_env(libs, kind, R):
     """One NaN pixel in the first env on the tensor-core kernel at 24 x 40:
     the block goes on to the other two envs, which must still equal plain."""
     got, want, _ = _sif_case(libs, kind, 24, 40, True, True, R, seed=5, nan=True)
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    assert bool(torch.isnan(got[0]).any()) and not bool(torch.isnan(got[1:]).any())
+    _assert_nan_env_kept(got, want)
     torch.testing.assert_close(got[1:], want[1:], rtol=0, atol=TOL_SIF[kind, True])
 
 
@@ -1113,10 +1037,7 @@ def test_sif_tiled_bf16_kernel_rounds_where_plain_rounds(libs, kind, R):
     above it."""
     got, want, control = _sif_case(libs, kind, 128, 128, True, True, R, n_steps=1, seed=17, n=1)
 
-    def rms(d):
-        return float(d.double().pow(2).mean().sqrt())
-
-    assert rms(got - want) <= TOL_SIF_TILED_SITE[kind] < rms(control - want)
+    assert _rms(got - want) <= TOL_SIF_TILED_SITE[kind] < _rms(control - want)
 
 
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
@@ -1125,8 +1046,7 @@ def test_sif_tiled_nan_env_stays_in_its_env(libs, kind, R, bf16):
     """One NaN pixel in the first env at 96 x 136 on the tiled kernel: the
     other two envs, which reuse its scratch slot, still equal plain."""
     got, want, _ = _sif_case(libs, kind, 96, 136, True, bf16, R, seed=5, nan=True)
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    assert bool(torch.isnan(got[0]).any()) and not bool(torch.isnan(got[1:]).any())
+    _assert_nan_env_kept(got, want)
     torch.testing.assert_close(got[1:], want[1:], rtol=0, atol=TOL_SIF[kind, bf16])
 
 
@@ -1138,22 +1058,35 @@ def test_sif_launch_refuses_264(libs, kind):
     lib = libs[5] if kind == "ch" else libs[6]
     H = W = 264
     W2 = W // 2 + 1
-    slots, floats = ctypes.c_int(0), ctypes.c_longlong(0)
-    assert getattr(lib, f"{kind}_sif_macro_scratch")(1, H, W, W2, ctypes.byref(slots),
-                                                     ctypes.byref(floats)) == 0
+    _, floats = scratch_size(lib, f"{kind}_sif_macro_scratch", None, 1, H, W, W2)
     u = torch.zeros((1, H, W))
     out = torch.full_like(u, 7.0)
-    scratch = torch.zeros(max(floats.value, 1))
+    scratch = torch.zeros(max(floats, 1))
     tables = (ctypes.c_void_p * 6)(*([scratch.data_ptr()] * 6))
     common = (u.data_ptr(), u.data_ptr(), *([u.data_ptr()] * 10), out.data_ptr(), tables,
               scratch.data_ptr(), 1, 1, H, W, W2, 1, 1e-3, 1e-3)
-    mu_c, n_mu = _c_coeffs(MU)
+    mu_c, n_mu = c_coeffs(MU)
     if kind == "ch":
         rc = lib.ch_sif_macro_launch(*common, mu_c, n_mu, 1, None)
     else:
         rc = lib.ac_sif_macro_launch(*common, 1.0, 1.0, mu_c, n_mu, None, 0, 1, None)
     assert rc != 0
     assert bool((out == 7.0).all())
+
+
+@pytest.mark.parametrize("kind", ["ch", "ac"])
+def test_launch_error_raises_naming_the_kernel(libs, kind):
+    """The program's own K9a/K9b launch on a 264² state (past the tiled
+    kernels' 256, which the CUDA wrapper refuses before it gets here): the
+    C entry's nonzero return code comes back through the shared envelope as
+    a RuntimeError naming the kernel and CUDA's message."""
+    H = W = 264
+    u, kap = (_ch_inputs if kind == "ch" else _ac_inputs)(H, W, seed=1, n=1)
+    consts = sif_constants(H, W, SIF_HX, SIF_HY, torch.bfloat16, True, torch.device("cpu"))
+    launch, _, kw = _sif_kind(kind, None, 1)
+    with pytest.raises(RuntimeError, match=f"^{kind}_sif_macro launch failed: invalid argument$"):
+        launch(libs[5] if kind == "ch" else libs[6], u, kap, consts, round_bf16=True,
+               stream=None, **kw)
 
 
 # ---- K7, the SBM Butler-Volmer macro -------------------------------------------
@@ -1174,22 +1107,11 @@ def _sbm_case(lib, H, W, ep, seed, nan=False, n_steps=N_STEPS, n=B):
     if nan:
         u[0, 3, 7] = float("nan")
     consts = sbm_bv_constants(_sbm_psi(H, W), SBM_KAPPA, 1 / H, 1 / W, torch.device("cpu"))
-    epi = SbmEpilogue(255.0, 0.5) if ep else None
-    out, stats, obs = torch.empty_like(u), None, None
-    if ep:
-        stats, obs = torch.empty((n, 3)), torch.empty((n, H, W), dtype=torch.uint8)
-    scratch, slots = _scratch(lib, "sbm_bv_macro_scratch", H, W)
-    rc = lib.sbm_bv_macro_launch(
-        u.data_ptr(), cr.data_ptr(), *(getattr(consts, k).data_ptr() for k in
-                                       ("psi_ax", "psi_ay", "kop", "psic", "psi")),
-        out.data_ptr(), _ptr(stats), _ptr(obs), _ptr(scratch), slots, n, H, W, n_steps,
-        *rk4_constants(SBM_DT),
-        consts.inv_hx, consts.inv_hy, *check_bv_coefficients(BV_MU, BV_J0),
-        epi.obs_scale if epi else 0.0, epi.center if epi else 0.0, None)
-    assert rc == 0
-    want = sbm_bv_macro_plain(u, cr, consts, mu_fn=BV_MU, j0_fn=BV_J0, dt=SBM_DT,
-                              n_steps=n_steps, epilogue=epi)
-    return (out if not ep else (out, stats, obs)), want
+    kw = dict(mu_fn=BV_MU, j0_fn=BV_J0, dt=SBM_DT, n_steps=n_steps,
+              epilogue=SbmEpilogue(255.0, 0.5) if ep else None)
+    _one_slot(lib, "sbm_bv_macro_scratch", H, W)
+    return (_sbm_bv_macro_launch(lib, u, cr, consts, stream=None, **kw),
+            sbm_bv_macro_plain(u, cr, consts, **kw))
 
 
 def _assert_sbm_epilogue(got, want):
@@ -1221,8 +1143,7 @@ def test_sbm_nan_env_stays_in_its_env(libs, ep):
     got, want = _sbm_case(libs[7], 24, 40, ep, seed=5, nan=True)
     if not ep:
         got, want = (got,), (want,)
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).all()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0], whole=True)
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_SBM)
     if ep:
         assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) == 0.0
@@ -1246,8 +1167,7 @@ def test_sbm_tiled_nan_env_stays_in_its_env(libs, ep):
     got, want = _sbm_case(libs[7], 96, 136, ep, seed=5, nan=True, n=2)
     if not ep:
         got, want = (got,), (want,)
-    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
-    assert bool(torch.isnan(got[0][0]).all()) and not bool(torch.isnan(got[0][1:]).any())
+    _assert_nan_env_kept(got[0], want[0], whole=True)
     torch.testing.assert_close(got[0][1:], want[0][1:], rtol=0, atol=TOL_SBM)
     if ep:
         assert torch.equal(got[1][:, 2], want[1][:, 2]) and float(got[1][0, 2]) == 0.0
@@ -1275,17 +1195,14 @@ def _rhs2d_case(lib, shape, h, kind, resident, seed, offset=0):
     u = buf[offset:].view(shape)
     u[0] = u[0] * 3.0 - 1.0
     kap = torch.from_numpy(np.linspace(2e-3, 5e-3, shape[0]).astype(np.float32))
-    mu, D, (mf, mc), (df, dc) = _rhs3d_pair(kind)
+    mu, D, mu_form, D_form = _rhs3d_pair(kind)
     out = torch.full((n + offset,), float("nan"))[offset:].view(shape)
     lib.stub_set_resident_blocks(resident)
     w = ctypes.c_int(0)
     assert lib.ch_rhs_fd_2d_resident(shape[2], ctypes.byref(w)) == 0
     assert w.value == 4 * resident                   # one stub SM, four warps a block
-    rc = lib.ch_rhs_fd_2d_launch(
-        u.data_ptr(), kap.data_ptr(), out.data_ptr(), *shape, mc.data_ptr(), mc.numel(), mf,
-        dc.data_ptr(), dc.numel(), df, 1 / h[0], 1 / h[1], 1 / h[0] ** 2, 1 / h[1] ** 2,
-        w.value, None)
-    assert rc == 0
+    _ch_rhs_fd_2d_launch(lib, u, kap, out, mu=mu_form, D=D_form, hx=h[0], hy=h[1],
+                         resident=w.value, stream=None)
     return out, ch_rhs_fd_plain(u, kap, mu_fn=mu, D_fn=D, hx=h[0], hy=h[1])
 
 

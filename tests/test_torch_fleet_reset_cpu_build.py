@@ -16,9 +16,6 @@ and the step's observation left unchanged.  The state starts from
 sentinel values, so an entry the pass leaves unwritten shows.
 """
 
-import ctypes
-import shutil
-import subprocess
 from types import SimpleNamespace
 
 import pytest
@@ -36,8 +33,8 @@ from pde_opt_tpu_torch.envs.vector_env import (
     _torch_auto_reset,
     affine_normal_reset,
 )
-from pde_opt_tpu_torch.ops.fleet_reset import _bind_library, _launch
-from test_torch_cuda_cpu_build import CSRC, STUB, _cpu_source
+from pde_opt_tpu_torch.ops.fleet_reset import _bind_library, _fleet_reset_launch
+from test_torch_cuda_cpu_build import build_for_cpu
 
 torch.set_num_threads(1)
 
@@ -50,19 +47,10 @@ PRESETS = {"ch": (CH_RESET, make_cahn_hilliard_control_env, {"spectral_solve": "
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    """``fleet_reset.cu`` built for the CPU and bound."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel for the CPU")
-    build = tmp_path_factory.mktemp("fleet_reset_cpu_build")
-    src = build / "fleet_reset.cpp"
-    src.write_text(_cpu_source((CSRC / "fleet_reset.cu").read_text()))
-    out = build / "libfleet_reset.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-         f"-I{STUB}", "-o", str(out), str(src)], capture_output=True, text=True)
-    assert proc.returncode == 0, f"g++ failed on fleet_reset:\n{proc.stderr}"
-    return _bind_library(ctypes.CDLL(str(out)))
+    """``fleet_reset.cu`` built for the CPU and bound by its module's own
+    ``_bind_library``."""
+    built = build_for_cpu(tmp_path_factory.mktemp("fleet_reset_cpu_build"), ["fleet_reset"])
+    return _bind_library(built["fleet_reset"], "fleet_reset")
 
 
 @pytest.fixture(scope="module")
@@ -126,8 +114,9 @@ def _check(lib, preset, H, W, ended, seed, nan=False, offset=0):
 
     got = _sentinel_state(H, W, offset)
     z = _normal_draw(env.domain, torch.Generator().manual_seed(seed + 1), B, torch.float32)
-    got_obs = _launch(lib, got, terminated, y1, z, obs, cv1, t1, steps1, affine,
-                      float(torch.tensor(reset_cv, dtype=torch.float32)), obs_scale, None)
+    got_obs = _fleet_reset_launch(lib, got, terminated, y1, z, obs, cv1, t1, steps1, affine,
+                                  float(torch.tensor(reset_cv, dtype=torch.float32)), obs_scale,
+                                  None)
 
     for f in EnvState._fields:
         assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
