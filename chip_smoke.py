@@ -341,6 +341,9 @@ KERNELS = {
 # sub-count (``bv_cc_macro.tiled``: K6's launches above 64^2), so the sums of
 # all keys leave them out.
 ONCHIP = "ch_cas_macro.onchip"
+# Of those, the launches that built each env's multipliers once into the
+# kernel's folded table (CasConstants.fold): every one at the presets' spacing.
+ONCHIP_FOLD = "ch_cas_macro.onchip_fold"
 # Training path: bench.py's train_grad config and the optimize run.
 TG_ENVS, TG_CALLS, OPT_STEPS, OPT_TS = 1024, 3, 5, (0.0, 0.01, 0.02)
 # K3 vs its plain backward, each error relative to its maximum (du, dkappa),
@@ -2570,8 +2573,9 @@ def _drive_dqn_ddpg(torch, kernels, dev, card):
 
 def _big_bounds():
     """The bounds of the tiled kernels at this phase's path shapes, counted
-    as _bounds() counts them at 64^2: K1 (the 128^2 fleet), K2 (the 256^2
-    macro, and the NN-control value+grad's forward at 4096 x 128^2) and K3
+    as _bounds() counts them at 64^2: K1 (the 128^2 fleet, and the 128^2
+    cell's 4096 envs), K2 (the 256^2 macro, and the NN-control value+grad's
+    forward at 4096 x 128^2) and K3
     (the value+grad's backward).  The tiled K3 runs 7n - 1 transforms an
     env, not the 1 + 7n of the 64^2 one: its forward re-run stops before the
     last substep, whose output the sweep never reads."""
@@ -2588,6 +2592,7 @@ def _big_bounds():
         "ch_cas_macro_ep 128^2": ch(FLEET128_ENVS, f, 1 + 2 * n, 21, 2, 4 + f * f + 12),
         "ch_cas_macro 256^2": ch(BIG256_ENVS, b, 1 + 2 * n, 21, 2, 4),
         "ch_cas_macro 128^2 nn": ch(NN_ENVS, g, 1 + 2 * n, 21, 2, 4),
+        "ch_cas_macro_ep 128^2 cell": ch(NN_ENVS, g, 1 + 2 * n, 21, 2, 4 + g * g + 12),
         "ch_cas_macro_bwd 128^2 nn": ch(NN_ENVS, g, 7 * n - 1, 50, 3, 8),
     }
 
@@ -2753,7 +2758,8 @@ def _drive_big(torch, kernels, dev, gen, card):
     t_fleet = time.perf_counter() - t0
     fleet_counts = kernels.launch_counts()
     _check(fleet_counts["ch_cas_macro_ep"] == FLEET128_STEPS == fleet_counts[ONCHIP]
-           == fleet_counts[FLEET_RESET] and _total(fleet_counts) == FLEET128_STEPS,
+           == fleet_counts[ONCHIP_FOLD] == fleet_counts[FLEET_RESET]
+           and _total(fleet_counts) == FLEET128_STEPS,
            f"128^2 fleet launches {fleet_counts}")
     _check(rew.shape == (FLEET128_STEPS, FLEET128_ENVS) and bool(torch.isfinite(rew).all())
            and bool(torch.isfinite(state.y).all()), "128^2 fleet: non-finite rewards or field")
@@ -2779,6 +2785,7 @@ def _drive_big(torch, kernels, dev, gen, card):
     t_256 = time.perf_counter() - t0
     m256_counts = kernels.launch_counts()
     _check(m256_counts["ch_cas_macro"] == BIG256_CALLS and m256_counts[ONCHIP] == 0
+           and m256_counts[ONCHIP_FOLD] == 0
            and _total(m256_counts) == BIG256_CALLS, f"256^2 macro launches {m256_counts}")
     _check(bool(torch.isfinite(out).all()), "256^2 macro: non-finite field")
     drift = (out.mean((-2, -1)) - u.mean((-2, -1))).abs().max().item()
@@ -2810,7 +2817,7 @@ def _drive_big(torch, kernels, dev, gen, card):
     torch.cuda.synchronize()
     t_nn = time.perf_counter() - t0
     nn_counts = kernels.launch_counts()
-    _check(nn_counts["ch_cas_macro"] == NN_CALLS == nn_counts[ONCHIP]
+    _check(nn_counts["ch_cas_macro"] == NN_CALLS == nn_counts[ONCHIP] == nn_counts[ONCHIP_FOLD]
            and nn_counts["ch_cas_macro_bwd"] == NN_CALLS
            and _total(nn_counts) == 2 * NN_CALLS, f"NN value+grad launches {nn_counts}")
     _check(all(bool(torch.isfinite(v)) and all(bool(torch.isfinite(g).all()) for g in gs)
@@ -2897,7 +2904,26 @@ def _drive_big(torch, kernels, dev, gen, card):
                   f"bit for bit", flush=True)
         else:
             _check_fwd_bf16(torch, line, got, want)
-    return (fleet_counts, m256_counts, nn_counts), fleet_rate
+
+    # -- K1 at the 128^2 cell's fleet (4096 envs): the folded table against
+    # the per-substep rebuild of the multipliers (constants whose fold check
+    # is forced false), bit for bit, each timed (table, rebuild, table).
+    _check(cnn.fold, "128^2 constants: the planes do not fold")
+    k_nn = 2e-3 + 8e-3 * torch.rand((NN_ENVS,), generator=gen, device=dev)
+    k1 = {c.fold: (lambda c=c: ch_cas_macro_cuda(u_nn, k_nn, c, epilogue=ep, **kwnn))
+          for c in (cnn, cnn._replace(fold=False))}
+    t1, r1, t2 = (_time_ms(torch, k1[f], reps=5, warmup=1) for f in (True, False, True))
+    k1_ms = (t1 + t2) / 2
+    got, want = k1[True](), k1[False]()
+    torch.cuda.synchronize()
+    what = f"{NN_ENVS}x{G}^2x{SUBSTEPS}"
+    _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+           f"K1 at {what}: the folded table differs from the rebuild")
+    b_ms = bounds["ch_cas_macro_ep 128^2 cell"][0]
+    print(f"time ch_cas_macro_ep at {what} bf16: folded table {t1:.4f} / {t2:.4f} ms, rebuild "
+          f"{r1:.4f} ms ({r1 / k1_ms:.3f}x), bound {b_ms:.4f} ms ({b_ms / k1_ms:.1%} of the "
+          f"table's time); field, stats and obs equal bit for bit [{card}]", flush=True)
+    return (fleet_counts, m256_counts, nn_counts), fleet_rate, k1_ms
 
 
 def _tiled_bounds():
@@ -5723,7 +5749,7 @@ def _main(shape_ref):
     # ---- 9. the CH macros above 64^2: the tiled K1-K3 -----------------------
     big_err = _check_big(torch, dev, gen)
     print(f"tiled kernels' largest bf16 field errors: {big_err}", flush=True)
-    big_counts, ch128_rate = _drive_big(torch, kernels, dev, gen, card)
+    big_counts, ch128_rate, k1_128_ms = _drive_big(torch, kernels, dev, gen, card)
 
     # ---- 10. the AC and GPE macros above 64^2, K3 at 256^2: the tiled K4, K5, K3
     tiled_err = _check_tiled(torch, dev, gen)
@@ -5789,12 +5815,15 @@ def _main(shape_ref):
     # library_ms is null for every kernel: no single PyTorch call computes a
     # whole macro (transforms, closure and epilogue over all substeps; K9's
     # carried spectrum or roll Laplacian), nor the flux rhs of K8 (mu, D, two
-    # stencils and a face flux).
+    # stencils and a face flux).  K1 also gives its time at the 128^2 cell's
+    # fleet (4096 x 128^2 x 10, the on-chip kernel with its folded table).
+    at_128 = {"ch_cas_macro_ep": {"ms_4096x128": k1_128_ms}}
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[lib], "replaces": replaces,
          "launches": launches[name], "max_abs_err": max_err[name],
          "ms": timings[name][0], "plain_ms": timings[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+         **at_128.get(name, {})}
         for name, (lib, replaces) in KERNELS.items()
     ]}
     print(json.dumps(kernels_line))

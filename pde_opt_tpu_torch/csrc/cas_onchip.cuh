@@ -14,13 +14,16 @@
 // each product (the operand complete; before product 1 also the previous
 // product 2 done with T).
 //
-// Shared memory (kOcSmemBytes, 194 KB): the matrices C and C/N, Z^T and T,
-// four 128 x 128 bf16 tiles K-major in the unswizzled core-matrix layout
+// Shared memory (kOcSmemBytes, 226.5 KB): the matrices C and C/N, Z^T and
+// T, four 128 x 128 bf16 tiles K-major in the unswizzled core-matrix layout
 // (`oc_idx`: LBO 128 B along K, SBO 2048 B to the next 8 rows); one f32
 // field of the caller's (`OcTiles::ut`, 64 KB, each thread's 32 values as
-// float2 pairs at stride kOcThreads, `oc_pair`); and the f64 axis symbols
-// lam_h, lam_w of the FD Laplacian (zero past the grid).  The grid is
-// square, so C_H = C_W = C: one tile is product 1's A and product 2's B.
+// float2 pairs at stride kOcThreads, `oc_pair`); and a region of 34.5 KB
+// that holds either a folded table of per-pixel float2 pairs
+// (`OcTiles::fold`, `oc_fold_idx`) and the f64 axis symbols of the FD
+// Laplacian at the folded indices, or (OcMult::kRebuild) the symbols lam_h,
+// lam_w of every index (zero past the grid).  The grid is square, so C_H =
+// C_W = C: one tile is product 1's A and product 2's B.
 // The matrices are loaded once a block, transposed and zero-padded as
 // load_mats_wg does, from the bf16 copies; nothing of an env's per-pixel
 // state goes to device memory between transforms.  A second field in
@@ -55,9 +58,21 @@ constexpr int kOcMaxGrid = 128;                  // largest H, W; every grid pad
 constexpr int kOcTile = kOcMaxGrid * kOcMaxGrid; // elements of one operand tile
 constexpr int kOcHalf = 64 * kOcMaxGrid;         // 64 rows: one warpgroup's M or N half
 constexpr uint32_t kOcSbo = 16 * kCoreBytes;     // next 8 rows: past 16 core matrices
+constexpr int kOcFold = kOcMaxGrid / 2 + 1;      // folded indices of an axis, 0 .. N / 2
+// The folded table's stride: 66 = 2 mod 8 float2, so that a half-warp's
+// 4 rows x 4 columns two apart (oc_fold_idx) fall in 16 distinct 8-byte banks.
+constexpr int kOcFoldLd = kOcFold + 1;
+constexpr int kOcFoldBytes = kOcFold * kOcFoldLd * static_cast<int>(sizeof(float2));
+constexpr int kOcTableBytes = kOcFoldBytes + 2 * kOcFold * static_cast<int>(sizeof(double));
+constexpr int kOcSymBytes = 2 * kOcMaxGrid * static_cast<int>(sizeof(double));
 constexpr int kOcSmemBytes = 4 * kOcTile * static_cast<int>(sizeof(__nv_bfloat16)) +
                              kOcTile * static_cast<int>(sizeof(float)) +
-                             2 * kOcMaxGrid * static_cast<int>(sizeof(double));
+                             (kOcTableBytes > kOcSymBytes ? kOcTableBytes : kOcSymBytes);
+
+// Where a kernel on these tiles finds a pixel's multipliers: rebuilt every
+// time from the symbols (kRebuild), or read from the folded table (kTable),
+// at constant offsets on a 128 x 128 grid (kTable128, OcFoldAt).
+enum class OcMult { kRebuild, kTable, kTable128 };
 
 // Element (r, k) of a 128 x 128 K-major tile: core matrix (r / 8, k / 8) at
 // 128-byte block r / 8 * 16 + k / 8, row r % 8 at 16 bytes, k % 8 within it.
@@ -68,20 +83,37 @@ __device__ __forceinline__ int oc_idx(int r, int k) {
 struct OcTiles {
   __nv_bfloat16 *c, *ic, *zt, *t;
   float2* ut;
-  double *lam_h, *lam_w;
+  float2* fold;           // the folded table (not with kRebuild)
+  double *lam_h, *lam_w;  // the symbols: kOcFold each after the table, or
+                          // kOcMaxGrid each in its place (kRebuild)
 };
 
-__device__ __forceinline__ OcTiles carve_oc_tiles(unsigned char* base) {
+__device__ __forceinline__ OcTiles carve_oc_tiles(unsigned char* base, bool table) {
   OcTiles s;
   s.c = reinterpret_cast<__nv_bfloat16*>(base);
   s.ic = s.c + kOcTile;
   s.zt = s.ic + kOcTile;
   s.t = s.zt + kOcTile;
   s.ut = reinterpret_cast<float2*>(s.t + kOcTile);
-  s.lam_h = reinterpret_cast<double*>(s.ut + kOcTile / 2);
-  s.lam_w = s.lam_h + kOcMaxGrid;
+  s.fold = s.ut + kOcTile / 2;
+  s.lam_h = reinterpret_cast<double*>(table ? s.fold + kOcFold * kOcFoldLd : s.fold);
+  s.lam_w = s.lam_h + (table ? kOcFold : kOcMaxGrid);
   return s;
 }
+
+// The folded index of row or column i of an N x N grid, i < kOcMaxGrid:
+// min(i, N - i), and 0 past the grid (N <= i), where the symbol is 0 as it
+// is at index 0.  The FD symbols satisfy lam[i] = lam[N - i] in f64 up to an
+// ulp; cas_constants checks that the f32 planes built from them agree with
+// their folded entries bit for bit (CasConstants.fold) before a launch
+// relies on it.
+__device__ __forceinline__ int oc_fold(int i, int N) {
+  const int f = i < N - i ? i : N - i;
+  return f > 0 ? f : 0;
+}
+
+// Entry (fi, fj) of the folded table, column-major at stride kOcFoldLd.
+__device__ __forceinline__ int oc_fold_idx(int fi, int fj) { return fj * kOcFoldLd + fi; }
 
 // This thread's pair (j, hi) of a field kept in shared memory (OcTiles::ut):
 // pixels (row(2 hi), col(j, 0)) and its right neighbour.  Consecutive
@@ -126,13 +158,39 @@ __device__ __forceinline__ OcOwn make_oc_own(int tid) {
   return o;
 }
 
+// Where this thread finds the folded-table entry of its pixel (row(2 hi),
+// col(j, e)): at base[hi] + step * (8 j + e) on a 128 x 128 grid
+// (kTable128), where every row of a thread lies in one half of the grid
+// and so does every column, the fold there being i or 128 - i (so the
+// entries of a hi lie on from that of col(0, 0), mirrored in the upper
+// half); else each column is folded as it is read (oc_fold).
+template <OcMult kMult>
+struct OcFoldAt {
+  int base[2];  // entry (oc_fold(row(2 hi)), oc_fold(col(0, 0))), column 0 with kTable
+  int step;     // kTable128: +-kOcFoldLd, the next column's offset
+
+  __device__ __forceinline__ float2 at(const float2* fold, const OcOwn& o, int N, int j, int e,
+                                       int hi) const {
+    if constexpr (kMult == OcMult::kTable128) return fold[base[hi] + step * (8 * j + e)];
+    else return fold[base[hi] + kOcFoldLd * oc_fold(o.col(j, e), N)];
+  }
+};
+
+template <OcMult kMult>
+__device__ __forceinline__ OcFoldAt<kMult> make_oc_fold_at(const OcOwn& o, int N) {
+  OcFoldAt<kMult> a;
+  const int c0 = o.col(0, 0);
+  const int fc0 = kMult == OcMult::kTable128 ? oc_fold(c0, N) : 0;
+  for (int hi = 0; hi < 2; ++hi) a.base[hi] = oc_fold_idx(oc_fold(o.row(2 * hi), N), fc0);
+  a.step = c0 < N - c0 ? kOcFoldLd : -kOcFoldLd;
+  return a;
+}
+
 // The (N, N) bf16 matrices C and C/N, transposed and zero-padded to
-// 128 x 128, and the axis symbols (N each), zero-padded to 128.
+// 128 x 128.
 __device__ __forceinline__ void load_mats_oc(const OcTiles& s,
                                              const __nv_bfloat16* __restrict__ g_c,
-                                             const __nv_bfloat16* __restrict__ g_ic,
-                                             const double* __restrict__ lam_h,
-                                             const double* __restrict__ lam_w, int N,
+                                             const __nv_bfloat16* __restrict__ g_ic, int N,
                                              int tid) {
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   for (int idx = tid; idx < kOcTile; idx += kOcThreads) {
@@ -142,7 +200,15 @@ __device__ __forceinline__ void load_mats_oc(const OcTiles& s,
     s.c[t] = in ? g_c[b * N + a] : zero;
     s.ic[t] = in ? g_ic[b * N + a] : zero;
   }
-  for (int i = tid; i < kOcMaxGrid; i += kOcThreads) {
+}
+
+// The axis symbols of indices 0 .. n - 1 (n = kOcFold beside the table,
+// kOcMaxGrid without it), zero past the grid.
+__device__ __forceinline__ void load_symbols_oc(const OcTiles& s,
+                                                const double* __restrict__ lam_h,
+                                                const double* __restrict__ lam_w, int n, int N,
+                                                int tid) {
+  for (int i = tid; i < n; i += kOcThreads) {
     s.lam_h[i] = i < N ? lam_h[i] : 0.0;
     s.lam_w[i] = i < N ? lam_w[i] : 0.0;
   }
@@ -193,19 +259,23 @@ __device__ __forceinline__ void store_operand_oc(__nv_bfloat16* zt, const float 
     }
 }
 
-// lam and lam2 at pixel (row(2 hi), col(j, 0)) and its right neighbour,
-// rebuilt from the f64 axis symbols as cas_constants builds the planes:
-// lam = f32(lam_h + lam_w) and lam2 = f32((lam_h + lam_w)^2), the sum and
+// lam and lam2 of a pixel with axis symbols lh, lw, as cas_constants builds
+// the planes: lam = f32(lh + lw) and lam2 = f32((lh + lw)^2), the sum and
 // its square in f64.  So they equal the planes' entries bit for bit.
+__device__ __forceinline__ void oc_lam(double lh, double lw, float& l, float& l2) {
+  const double d = lh + lw;
+  l = __double2float_rn(d);
+  l2 = __double2float_rn(d * d);
+}
+
+// lam and lam2 at pixel (row(2 hi), col(j, 0)) and its right neighbour,
+// from the symbols in shared memory (load_symbols_oc).
 __device__ __forceinline__ void oc_symbols(const OcTiles& s, const OcOwn& o, int j, int hi,
                                            float l[2], float l2[2]) {
   const double lh = s.lam_h[o.row(2 * hi)];
   const double2 lw = *reinterpret_cast<const double2*>(s.lam_w + o.col(j, 0));
-  const double d0 = lh + lw.x, d1 = lh + lw.y;
-  l[0] = __double2float_rn(d0);
-  l[1] = __double2float_rn(d1);
-  l2[0] = __double2float_rn(d0 * d0);
-  l2[1] = __double2float_rn(d1 * d1);
+  oc_lam(lh, lw.x, l[0], l2[0]);
+  oc_lam(lh, lw.y, l[1], l2[1]);
 }
 
 // d = A B over K = 128 for this warpgroup's 64 x 64 block: A the 64 rows of

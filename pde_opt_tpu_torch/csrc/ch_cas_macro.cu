@@ -790,6 +790,24 @@ ch_cas_macro_bwd_tiled_kernel(const float* __restrict__ u_in, const float* __res
 }
 
 // ---- K1/K2 on square grids above 64^2 up to 128^2, bf16 matrices: on chip -----
+
+// This env's multipliers into the folded table: (cm, cu) of entry (fi, fj),
+// fi, fj <= N / 2, from the axis symbols lam_h[fi], lam_w[fj] (shared
+// memory, beside the table) by oc_lam and mult_from, the arithmetic and
+// order of the rebuild.  Consecutive threads write consecutive entries of a
+// column.
+__device__ __forceinline__ void build_fold_oc(const OcTiles& s, int N, float k,
+                                              const StepConsts& sc, int tid) {
+  const int nf = N / 2 + 1;
+  for (int e = tid; e < nf * nf; e += kOcThreads) {
+    const int fi = e % nf, fj = e / nf;
+    float l, l2;
+    oc_lam(s.lam_h[fi], s.lam_w[fj], l, l2);
+    const Mult m = mult_from(l, l2, k, sc);
+    s.fold[oc_fold_idx(fi, fj)] = make_float2(m.cm, m.cu);
+  }
+}
+
 //
 // Replaces the same TPU kernels as the tiled K1/K2 (`kernel_ep`, `kernel`;
 // pde_opt_tpu/ops/cas_spectral.py:630, :392) on the grids `onchip` takes,
@@ -806,14 +824,22 @@ ch_cas_macro_bwd_tiled_kernel(const float* __restrict__ u_in, const float* __res
 // device memory is touched once an env to read u_in and kappa, and once to
 // write u_out, the stats row and the obs.
 // Every product runs over its full depth, eight m64n64k16 back to back.  The
-// multipliers are recomputed where they are used (mult_from, the arithmetic
-// and order of the kernels above) from lam and lam2 rebuilt bit for bit from
-// the two f64 axis symbols in shared memory (oc_symbols): two f32 planes
-// would not fit beside the tiles, and reading them through L2 would cost
-// 128 KB an env-substep a block.  Budget (ptxas -v, sm_90a): 128 registers
-// (the cap of 512 threads an SM), 144 B of spills, 198,656 B of dynamic
-// shared memory (kOcSmemBytes) and 256 B static.  Measured at the bound's
-// shape: 2.8-2.9 ms, ~32 % of the bound (PERF.md §6).
+// multipliers cm and cu depend on a pixel's symbols and the env's kappa
+// alone.  Where the launch's `fold` holds (the f32 lam and lam2 planes equal
+// their folded entries, CasConstants.fold) each env starts by computing
+// them once into a folded table in shared memory (build_fold_oc: entry
+// (fi, fj) for fi, fj <= N / 2, from the f64 axis symbols beside it,
+// mult_from's arithmetic), and every substep reads pixel (r, c)'s pair at
+// (oc_fold(r), oc_fold(c)) (OcFoldAt; at 128^2 at constant offsets a
+// thread): one 8-byte load a pixel in place of the f64 rebuild and the IEEE
+// division, the same f32 values.  Two f32 planes would not fit beside the
+// tiles; the folded table and its symbols (35,360 B) do.  Otherwise
+// (kRebuild) the multipliers are recomputed where they are used
+// (mult_from) from lam and lam2 rebuilt bit for bit from the two f64 axis
+// symbols in shared memory (oc_symbols).  Budget (ptxas -v, sm_90a): 128
+// registers (the cap of 512 threads an SM); shared memory 231,968 B dynamic
+// (kOcSmemBytes) and 256 B static, of the 232,448 B a block may hold.
+template <OcMult kMult>
 __global__ void __launch_bounds__(kOcThreads, 1)
 ch_cas_macro_onchip_kernel(const float* __restrict__ u_in, const float* __restrict__ kappa,
                            const __nv_bfloat16* __restrict__ g_c,
@@ -822,20 +848,26 @@ ch_cas_macro_onchip_kernel(const float* __restrict__ u_in, const float* __restri
                            float* __restrict__ u_out, int B, int N, int n_steps, float dt,
                            float a_dt, MuPoly mu, Epilogue ep) {
   extern __shared__ __align__(128) unsigned char smem_oc[];
-  const OcTiles sm = carve_oc_tiles(smem_oc);
+  constexpr bool kTab = kMult != OcMult::kRebuild;
+  const OcTiles sm = carve_oc_tiles(smem_oc, kTab);
   __shared__ float red[kOcWarps][3];
 
   const int tid = threadIdx.x;
   const OcOwn o = make_oc_own(tid);
+  const OcFoldAt<kMult> at = make_oc_fold_at<kMult>(o, N);
   const StepConsts sc{dt, a_dt, 0.f};
-  load_mats_oc(sm, g_c, g_ic, lam_h, lam_w, N, tid);
+  load_mats_oc(sm, g_c, g_ic, N, tid);
+  load_symbols_oc(sm, lam_h, lam_w, kTab ? kOcFold : kOcMaxGrid, N, tid);
+  if (kTab) __syncthreads();   // the symbols, before the first env's table
 
   for (int env = blockIdx.x; env < B; env += gridDim.x) {
     const size_t off = static_cast<size_t>(env) * N * N;
     const float k = kappa[env];
     float u[8][4], f[8][4];
     load_frag_oc(u_in + off, N, N, o, u);
-    // The previous env's last barrier has finished every read of the tiles.
+    // The previous env's last barrier has finished every read of the tiles
+    // and of the table; the first transform's barrier completes the table.
+    if (kTab) build_fold_oc(sm, N, k, sc, tid);
     store_operand_oc(sm.zt, u, o, N, N);
     oc_transform(sm, sm.c, o, f);                                 // u~ = fwd(u)
 #pragma unroll
@@ -855,13 +887,20 @@ ch_cas_macro_onchip_kernel(const float* __restrict__ u_in, const float* __restri
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int hi = 0; hi < 2; ++hi) {
-          float l[2], l2[2];
-          oc_symbols(sm, o, j, hi, l, l2);
           float2& ut = oc_pair(sm.ut, j, hi, tid);
           const float2 a = ut;
-          const Mult m0 = mult_from(l[0], l2[0], k, sc), m1 = mult_from(l[1], l2[1], k, sc);
-          const float i0 = m0.cm * f[j][2 * hi] - m0.cu * a.x;
-          const float i1 = m1.cm * f[j][2 * hi + 1] - m1.cu * a.y;
+          float cm0, cu0, cm1, cu1;
+          if (kTab) {
+            const float2 m0 = at.at(sm.fold, o, N, j, 0, hi), m1 = at.at(sm.fold, o, N, j, 1, hi);
+            cm0 = m0.x, cu0 = m0.y, cm1 = m1.x, cu1 = m1.y;
+          } else {
+            float l[2], l2[2];
+            oc_symbols(sm, o, j, hi, l, l2);
+            const Mult m0 = mult_from(l[0], l2[0], k, sc), m1 = mult_from(l[1], l2[1], k, sc);
+            cm0 = m0.cm, cu0 = m0.cu, cm1 = m1.cm, cu1 = m1.cu;
+          }
+          const float i0 = cm0 * f[j][2 * hi] - cu0 * a.x;
+          const float i1 = cm1 * f[j][2 * hi + 1] - cu1 * a.y;
           ut = make_float2(a.x + i0, a.y + i1);
           f[j][2 * hi] = i0;
           f[j][2 * hi + 1] = i1;
@@ -881,6 +920,20 @@ ch_cas_macro_onchip_kernel(const float* __restrict__ u_in, const float* __restri
       __syncthreads();   // every read of the tiles is done before the next env writes them
     }
   }
+}
+
+template <OcMult kMult>
+cudaError_t launch_onchip(cudaStream_t st, const float* u, const float* kappa,
+                          const __nv_bfloat16* c16, const __nv_bfloat16* ic16,
+                          const double* lam_h, const double* lam_w, float* out, int B, int N,
+                          int n_steps, float dt, float a_dt, MuPoly mu, Epilogue ep) {
+  const auto kernel = ch_cas_macro_onchip_kernel<kMult>;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(kernel, &resident, kOcSmemBytes, kOcThreads);
+  if (err != cudaSuccess) return err;
+  kernel<<<B < resident ? B : resident, kOcThreads, kOcSmemBytes, st>>>(
+      u, kappa, c16, ic16, lam_h, lam_w, out, B, N, n_steps, dt, a_dt, mu, ep);
+  return cudaGetLastError();
 }
 
 // Whether a forward launch runs the on-chip kernel: bf16 matrices on a square
@@ -943,15 +996,17 @@ int ch_cas_macro_onchip(int H, int W, int round_bf16) {
 // scratch), else the tiled kernel of that type, on min(B, n_slots) blocks
 // with `scratch` as ch_cas_macro_scratch sizes it (unused by the others).
 // ch16 .. icw16 are the matrices as bf16 and lam_h (H), lam_w (W) the f64
-// axis symbols that lam and lam2 are built from (read above 64^2 with bf16
-// matrices alone; may be null otherwise).  stats == nullptr runs the plain
-// macro (K2); otherwise stats and obs are written too (K1).  Returns a
-// cudaError_t value, 0 on success.
+// axis symbols that lam and lam2 are built from (read by the on-chip kernel
+// alone; may be null otherwise); fold != 0 says that lam and lam2 equal
+// their folded entries (CasConstants.fold), so that the on-chip kernel may
+// build each env's multipliers once into its folded table.  stats ==
+// nullptr runs the plain macro (K2); otherwise stats and obs are written too
+// (K1).  Returns a cudaError_t value, 0 on success.
 int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
                         const float* cw, const float* ich, const float* icw,
                         const void* ch16, const void* cw16, const void* ich16,
                         const void* icw16, const float* lam, const float* lam2,
-                        const double* lam_h, const double* lam_w, float* out,
+                        const double* lam_h, const double* lam_w, int fold, float* out,
                         float* stats, unsigned char* obs, float* scratch, int n_slots,
                         int B, int H, int W, int n_steps, float dt, float a_dt,
                         const float* mu_coeffs, int n_coeffs, int round_bf16,
@@ -969,12 +1024,12 @@ int ch_cas_macro_launch(const float* u, const float* kappa, const float* ch,
   int resident = 0;
   cudaError_t err;
   if (oc) {
-    if ((err = resident_blocks(ch_cas_macro_onchip_kernel, &resident, kOcSmemBytes,
-                               kOcThreads)) != cudaSuccess)
-      return static_cast<int>(err);
-    const int grid = B < resident ? B : resident;
-    ch_cas_macro_onchip_kernel<<<grid, kOcThreads, kOcSmemBytes, st>>>(
-        u, kappa, B16(ch16), B16(ich16), lam_h, lam_w, out, B, H, n_steps, dt, a_dt, mu, ep);
+    const auto c16 = B16(ch16), ic16 = B16(ich16);
+    const auto launch = fold == 0          ? launch_onchip<OcMult::kRebuild>
+                        : H == kOcMaxGrid ? launch_onchip<OcMult::kTable128>
+                                          : launch_onchip<OcMult::kTable>;
+    return static_cast<int>(
+        launch(st, u, kappa, c16, ic16, lam_h, lam_w, out, B, H, n_steps, dt, a_dt, mu, ep));
   } else if (tiled(H, W) && round_bf16 != 0) {
     return static_cast<int>(launch_tiled(ch_cas_macro_tiled_kernel<true>, true, B, n_slots, st, u,
                                          kappa, B16(ch16), B16(cw16), B16(ich16), B16(icw16),

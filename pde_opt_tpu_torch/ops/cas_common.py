@@ -32,6 +32,7 @@ __all__ = [
     "cas_mat",
     "cas_mats",
     "fd_lap_symbols",
+    "planes_fold",
     "CasConstants",
     "cas_constants",
     "ch_multipliers",
@@ -144,6 +145,9 @@ class CasConstants(NamedTuple):
     ``lam_h`` (H,) and ``lam_w`` (W,) are the f64 axis symbols that ``lam =
     f32(lam_h + lam_w)`` and ``lam2 = f32((lam_h + lam_w)**2)`` are built
     from; the on-chip CH forward rebuilds the two planes from them.
+    ``fold`` says that both planes equal their folded entries bit for bit
+    (:func:`planes_fold`), so that the on-chip CH forward may compute each
+    env's multipliers once, at the folded pixels alone.
     """
 
     ch: torch.Tensor
@@ -158,6 +162,16 @@ class CasConstants(NamedTuple):
     icw16: Optional[torch.Tensor] = None
     lam_h: Optional[torch.Tensor] = None
     lam_w: Optional[torch.Tensor] = None
+    fold: bool = False
+
+
+def planes_fold(*planes: np.ndarray) -> bool:
+    """Whether every (H, W) plane equals its folded entries bit for bit:
+    ``p[i, j] == p[min(i, H - i), min(j, W - j)]`` for all ``i``, ``j``."""
+    H, W = planes[0].shape
+    fi = np.minimum(np.arange(H), H - np.arange(H))
+    fj = np.minimum(np.arange(W), W - np.arange(W))
+    return all(np.array_equal(p, p[np.ix_(fi, fj)]) for p in planes)
 
 
 @functools.lru_cache(maxsize=32)
@@ -166,13 +180,13 @@ def cas_constants(H: int, W: int, hx: float, hy: float,
     """Build (once per configuration and device) the macro's constants."""
     lam_h, lam_w = fd_lap_symbols(H, W, hx, hy)
     lam = lam_h[:, None] + lam_w[None, :]                          # (H, W) f64
+    lam32, lam2_32 = lam.astype(np.float32), (lam**2).astype(np.float32)
 
-    def f32(a):
-        return torch.from_numpy(a).to(device, torch.float32).contiguous()
+    def dev(a):
+        return torch.from_numpy(a).to(device).contiguous()
 
-    return CasConstants(**cas_mats(H, W, mats_dtype, device), lam=f32(lam), lam2=f32(lam**2),
-                        lam_h=torch.from_numpy(lam_h).to(device),
-                        lam_w=torch.from_numpy(lam_w).to(device))
+    return CasConstants(**cas_mats(H, W, mats_dtype, device), lam=dev(lam32), lam2=dev(lam2_32),
+                        lam_h=dev(lam_h), lam_w=dev(lam_w), fold=planes_fold(lam32, lam2_32))
 
 
 def ch_multipliers(kappa, lam, lam2, A, dt):

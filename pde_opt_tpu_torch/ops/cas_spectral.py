@@ -187,7 +187,7 @@ def _bind_library(lib, name: str):
         return bind(lib, {
             "ch_cas_macro_launch": [
                 p, p, p, p, p, p, p, p, p, p,    # u, kappa, ch, cw, ich, icw, ch16 .. icw16
-                p, p, p, p,                      # lam, lam2, lam_h, lam_w
+                p, p, p, p, i,                   # lam, lam2, lam_h, lam_w, fold
                 p, p, p, p, i,                   # out, stats, obs, scratch, n_slots
                 i, i, i, i, f, f,                # B, H, W, n_steps, dt, A*dt
                 p, i, i,                         # mu coeffs, n_coeffs, round_bf16
@@ -220,8 +220,11 @@ def _bind_library(lib, name: str):
 
 
 register_launches("ch_cas_macro", "ch_cas_macro_ep", "ch_cas_macro_bwd",
-                  # Of the two above, the launches that ran the on-chip kernel (128^2).
-                  "ch_cas_macro.onchip", "ac_cas_macro", "ac_cas_macro_ep")
+                  # Of the two above, the launches that ran the on-chip kernel (128^2),
+                  # and of those the ones that built each env's multipliers once
+                  # (CasConstants.fold).
+                  "ch_cas_macro.onchip", "ch_cas_macro.onchip_fold", "ac_cas_macro",
+                  "ac_cas_macro_ep")
 
 
 def _ch_cas_macro_launch(lib, u, kappa, consts: CasConstants, *, mu_fn, dt, A, n_steps,
@@ -237,9 +240,10 @@ def _ch_cas_macro_launch(lib, u, kappa, consts: CasConstants, *, mu_fn, dt, A, n
     check(lib, lib.ch_cas_macro_launch(
         u.data_ptr(), kappa.data_ptr(), *mats_ptrs(consts), consts.lam.data_ptr(),
         consts.lam2.data_ptr(), consts.lam_h.data_ptr(), consts.lam_w.data_ptr(),
-        out.data_ptr(), data_ptr(stats), data_ptr(obs), data_ptr(scratch), slots,
-        B, H, W, int(n_steps), float(dt), float(A) * float(dt), coeffs, n_coeffs,
-        int(bool(round_bf16)), ep.ds, ep.obs_scale, ep.obs_offset, ep.center, stream,
+        int(bool(consts.fold)), out.data_ptr(), data_ptr(stats), data_ptr(obs),
+        data_ptr(scratch), slots, B, H, W, int(n_steps), float(dt), float(A) * float(dt),
+        coeffs, n_coeffs, int(bool(round_bf16)), ep.ds, ep.obs_scale, ep.obs_offset, ep.center,
+        stream,
     ), "ch_cas_macro launch")
     return out if epilogue is None else (out, stats, obs)
 
@@ -316,7 +320,9 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
     epilogue, K2 without; with ``round_bf16`` on the tensor cores, else f32
     FMA) and counts the launch.  H and W up to :data:`MAX_GRID_TILED`:
     above 64² with bf16 matrices on a square grid up to 128² the on-chip
-    kernel runs (also counted as ``ch_cas_macro.onchip``, :func:`_ch_onchip`),
+    kernel runs (also counted as ``ch_cas_macro.onchip``, :func:`_ch_onchip`;
+    where ``consts.fold`` holds, it computes each env's multipliers once into
+    a folded table, counted as ``ch_cas_macro.onchip_fold`` too),
     otherwise above 64² the tiled kernel, with a scratch of three H x W planes
     for each resident block, allocated here.  Raises on anything the kernel
     does not take.
@@ -332,6 +338,8 @@ def ch_cas_macro_cuda(u: torch.Tensor, kappa: torch.Tensor, consts: CasConstants
                                    round_bf16=round_bf16, epilogue=epilogue, stream=stream)
     if _ch_onchip(H, W, round_bf16):
         count_launch("ch_cas_macro.onchip")
+        if consts.fold:
+            count_launch("ch_cas_macro.onchip_fold")
     count_launch("ch_cas_macro" if epilogue is None else "ch_cas_macro_ep")
     return res
 

@@ -416,10 +416,39 @@ def test_onchip_kernel_matches_plain_on_card(cuda_device, B, ds):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,ds", [(4096, 1), (1024, 0)], ids=["K1-4096-ds1", "K2-1024"])
+def test_onchip_table_matches_rebuild_on_card(cuda_device, B, ds):
+    """The on-chip kernel with each env's multipliers in the folded table
+    (the constants' planes fold) and with the per-substep rebuild (forced by
+    ``fold=False``) at the 128² fleet's K1 and at run_train_grad_128's K2:
+    the field, stats and obs equal bit for bit; only the table's launch counts
+    under ``ch_cas_macro.onchip_fold``."""
+    u, kap = _inputs(B, 128, seed=3 * B + ds)
+    u, kap = torch.from_numpy(u).to(cuda_device), torch.from_numpy(kap).to(cuda_device)
+    consts = cas_constants(128, 128, HX, HY, torch.bfloat16, cuda_device)
+    assert consts.fold
+    ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
+    kw = dict(mu_fn=MU_T, dt=DT, A=A, n_steps=10, round_bf16=True, epilogue=ep)
+    runs = []
+    for c in (consts, consts._replace(fold=False)):
+        before = kernels.launch_counts()
+        out = ch_cas_macro_cuda(u, kap, c, **kw)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert after["ch_cas_macro.onchip"] == before["ch_cas_macro.onchip"] + 1
+        assert (after["ch_cas_macro.onchip_fold"]
+                == before["ch_cas_macro.onchip_fold"] + int(c.fold))
+        runs.append((out,) if ep is None else out)
+    table, rebuild = runs
+    assert all(torch.equal(a, b) for a, b in zip(table, rebuild))
+
+
+@pytest.mark.cuda
 def test_onchip_counter_counts_each_128_step(cuda_device):
-    """``ch_cas_macro.onchip`` counts one launch a step of the 128² fleet and
-    none at 64² or 256² (``ch_cas_macro_ep`` counts every step), nor a 128²
-    macro with f32 matrices (the tiled FMA kernel)."""
+    """``ch_cas_macro.onchip`` and ``ch_cas_macro.onchip_fold`` count one
+    launch a step of the 128² fleet and none at 64² or 256²
+    (``ch_cas_macro_ep`` counts every step), nor a 128² macro with f32
+    matrices (the tiled FMA kernel)."""
     from pde_opt_tpu_torch.envs.presets import make_cahn_hilliard_control_env
 
     for H, want in ((64, 0), (128, 1), (256, 0)):
@@ -433,6 +462,8 @@ def test_onchip_counter_counts_each_128_step(cuda_device):
         after = kernels.launch_counts()
         assert after["ch_cas_macro_ep"] == before["ch_cas_macro_ep"] + 1, H
         assert after["ch_cas_macro.onchip"] == before["ch_cas_macro.onchip"] + want, H
+        assert (after["ch_cas_macro.onchip_fold"]
+                == before["ch_cas_macro.onchip_fold"] + want), H
     u, kap = _inputs(8, 128, seed=1)
     before = kernels.launch_counts()
     ch_cas_macro_cuda(torch.from_numpy(u).to(cuda_device), torch.from_numpy(kap).to(cuda_device),
@@ -442,6 +473,7 @@ def test_onchip_counter_counts_each_128_step(cuda_device):
     after = kernels.launch_counts()
     assert after["ch_cas_macro"] == before["ch_cas_macro"] + 1
     assert after["ch_cas_macro.onchip"] == before["ch_cas_macro.onchip"]
+    assert after["ch_cas_macro.onchip_fold"] == before["ch_cas_macro.onchip_fold"]
 
 
 @pytest.mark.cuda

@@ -100,7 +100,7 @@ from pde_opt_tpu_torch.ops.bv_cas import (
     _bv_cc_macro_launch,
     bv_cc_macro_plain,
 )
-from pde_opt_tpu_torch.ops.cas_common import c_coeffs
+from pde_opt_tpu_torch.ops.cas_common import c_coeffs, planes_fold
 from pde_opt_tpu_torch.ops.cas_spectral import (
     Epilogue,
     PolynomialMu,
@@ -565,11 +565,13 @@ def test_ch_tiled_bf16_kernel_rounds_where_plain_rounds(libs, kernel):
 def test_ch_onchip_kernel_matches_plain(libs, H, W, ds):
     """K2 (ds 0) and K1 (ds 1, 4) on the on-chip kernel (bf16 matrices, one
     env's state in registers and shared memory), three envs through the
-    stub's one block: the field bit for bit, as the stub sums each product
-    in k order as plain's f32 matmul does here."""
+    stub's one block, each env's multipliers from the folded table (the
+    constants' planes fold): the field bit for bit, as the stub sums each
+    product in k order as plain's f32 matmul does here."""
     assert libs[2].ch_cas_macro_onchip(H, W, 1)
     u, kap = _ch_inputs(H, W, seed=3 * H + W + ds)
     consts = _ch_consts(H, W, True)
+    assert consts.fold
     ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
     got = _ch_kernel(libs[2], u, kap, consts, ep, True)
     want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
@@ -581,13 +583,91 @@ def test_ch_onchip_kernel_matches_plain(libs, H, W, ds):
         _assert_ch_epilogue(got, want)
 
 
-def test_ch_onchip_nan_env_stays_in_its_env(libs):
+@pytest.mark.parametrize("H,W,ds", CH_ONCHIP_CASES)
+def test_ch_onchip_table_matches_rebuild(libs, H, W, ds):
+    """The on-chip kernel with the folded table and with the per-substep
+    rebuild (forced by constants whose fold check says no): the same field,
+    stats and obs bit for bit, and both the field of plain."""
+    u, kap = _ch_inputs(H, W, seed=5 * H + ds)
+    consts = _ch_consts(H, W, True)
+    ep = Epilogue(255.0, 0.0, 0.5, ds) if ds else None
+    table = _ch_kernel(libs[2], u, kap, consts, ep, True)
+    rebuild = _ch_kernel(libs[2], u, kap, consts._replace(fold=False), ep, True)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
+    if ep is None:
+        table, rebuild, want = (table,), (rebuild,), (want,)
+    assert all(torch.equal(a, b) for a, b in zip(table, rebuild))
+    assert torch.equal(rebuild[0], want[0])
+
+
+@pytest.mark.parametrize("N", [128, 88])
+def test_ch_onchip_table_matches_plain_where_hx_differs_from_hy(libs, N):
+    """hx != hy whose planes still fold: the table (not symmetric under i <->
+    j) matches plain bit for bit, K1 at ds 1."""
+    consts = cas_constants(N, N, 0.01, 0.02, torch.bfloat16, torch.device("cpu"))
+    assert consts.fold
+    u, kap = _ch_inputs(N, N, seed=7 * N)
+    ep = Epilogue(255.0, 0.0, 0.5, 1)
+    got = _ch_kernel(libs[2], u, kap, consts, ep, True)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
+    assert torch.equal(got[0], want[0])
+    _assert_ch_epilogue(got, want)
+
+
+@pytest.mark.parametrize("N", range(72, 129, 8))
+def test_ch_presets_planes_fold(N):
+    """The fold check holds at the presets' spacing (h = 0.01) on every grid
+    the on-chip kernel takes, although the mirrored f64 symbols differ by an
+    ulp at some indices."""
+    consts = _ch_consts(N, N, True)
+    assert consts.fold and planes_fold(consts.lam.numpy(), consts.lam2.numpy())
+    lam_h = consts.lam_h.numpy()
+    assert not np.array_equal(lam_h[1:], lam_h[1:][::-1])
+
+
+@pytest.mark.parametrize("plane", ["lam", "lam2"])
+@pytest.mark.parametrize("where", ["mirrored row", "mirrored column", "both"])
+def test_planes_fold_refuses_one_changed_entry(plane, where):
+    """An entry that is not its own folded entry, moved by one f32 ulp in
+    either plane, makes the check say no; restored, the check says yes, and
+    the same move at (N / 2, N / 2), which no other pixel folds to, keeps
+    it."""
+    consts = _ch_consts(128, 128, True)
+    planes = {"lam": consts.lam.numpy().copy(), "lam2": consts.lam2.numpy().copy()}
+    i, j = {"mirrored row": (100, 5), "mirrored column": (5, 100), "both": (99, 77)}[where]
+    p = planes[plane]
+    p[i, j] = np.nextafter(p[i, j], np.float32(np.inf))
+    assert not planes_fold(planes["lam"], planes["lam2"])
+    p[i, j] = consts.lam.numpy()[i, j] if plane == "lam" else consts.lam2.numpy()[i, j]
+    assert planes_fold(planes["lam"], planes["lam2"])
+    p[64, 64] = np.nextafter(p[64, 64], np.float32(np.inf))
+    assert planes_fold(planes["lam"], planes["lam2"])
+
+
+@pytest.mark.parametrize("N", [72, 96, 120])
+def test_ch_onchip_rebuild_where_planes_do_not_fold(libs, N):
+    """Spacings hx != hy whose f32 planes do not fold at 72², 96², 120²
+    (an entry an ulp off its folded one): the check says no, and the launch
+    takes the rebuild and matches plain bit for bit."""
+    consts = cas_constants(N, N, 0.01, 0.02, torch.bfloat16, torch.device("cpu"))
+    assert not consts.fold
+    u, kap = _ch_inputs(N, N, seed=N)
+    ep = Epilogue(255.0, 0.0, 0.5, 1)
+    got = _ch_kernel(libs[2], u, kap, consts, ep, True)
+    want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))
+    assert torch.equal(got[0], want[0])
+    _assert_ch_epilogue(got, want)
+
+
+@pytest.mark.parametrize("fold", [True, False], ids=["table", "rebuild"])
+def test_ch_onchip_nan_env_stays_in_its_env(libs, fold):
     """One NaN pixel in the first of three envs at 128² with the epilogue on
-    the on-chip kernel: the envs after it, which reuse its Z^T and T tiles,
-    still equal plain."""
+    the on-chip kernel, with the folded table and with the rebuild: the envs
+    after it, which reuse its Z^T and T tiles and its table, still equal
+    plain."""
     u, kap = _ch_inputs(128, 128, seed=6)
     u[0, 3, 7] = float("nan")
-    consts = _ch_consts(128, 128, True)
+    consts = _ch_consts(128, 128, True)._replace(fold=fold)
     ep = Epilogue(255.0, 0.0, 0.5, 1)
     got = _ch_kernel(libs[2], u, kap, consts, ep, True)
     want = ch_cas_macro_plain(u, kap, consts, epilogue=ep, **_ch_kw(N_STEPS, True))

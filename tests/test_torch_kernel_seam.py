@@ -83,8 +83,9 @@ def test_ops_imports_have_no_cycle(name):
 LAUNCH_COUNTERS = [
     "ac_cas_macro", "ac_cas_macro_ep", "ac_sif_macro", "bv_cc_macro", "bv_cc_macro.tiled",
     "bv_cc_macro_ep", "ch3d_rhs_fd", "ch_cas_macro", "ch_cas_macro.onchip",
-    "ch_cas_macro_bwd", "ch_cas_macro_ep", "ch_rhs_fd", "ch_sif_macro", "gpe_strang_macro",
-    "gpe_strang_macro_ep", "sbm_bv_macro", "sbm_bv_macro_ep", "vector_env.fleet_reset",
+    "ch_cas_macro.onchip_fold", "ch_cas_macro_bwd", "ch_cas_macro_ep", "ch_rhs_fd",
+    "ch_sif_macro", "gpe_strang_macro", "gpe_strang_macro_ep", "sbm_bv_macro", "sbm_bv_macro_ep",
+    "vector_env.fleet_reset",
 ]
 
 
